@@ -1,0 +1,166 @@
+"""Configs of the port as plain dataclasses.
+
+Values are copied from ``snap_tpu/configs/defaults.py`` and
+``bench.py:build_config``; field names are the JAX config's keys, so a test
+can hold the two side by side (tests/test_torch_localizer.py).
+
+- ``bench_full()``: the flagship serving path — R50 street-view + aerial
+  mapper, 20 views of 180x240, 0.2 m voxels (a 120x160x60 grid), top-k 4
+  streamed lift, exhaustive pose backend with 64 rotations and dense
+  refinement, bf16 compute.
+- ``smoke_exhaustive()``: ``snap_tpu/configs/smoke_localization.py`` with
+  ``pose_backend=exhaustive`` (tiny ResNet, dim 32, 3 views, top-k 2,
+  16 rotations), f32 compute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+  width: int = 1
+  depth: Union[int, Tuple[int, ...]] = 50
+  limit_num_blocks: Optional[int] = 4
+  skip_root_block: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageEncoderConfig:
+  encoder: ResNetConfig = ResNetConfig()
+  output_dim: int = 128
+  num_pyr_levels: Optional[int] = None
+  encoder_name: str = 'resnet'
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+  layers: Optional[Tuple[int, ...]] = None
+  activation: str = 'relu'
+  apply_input_activation: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class StreetViewEncoderConfig:
+  image_encoder: ImageEncoderConfig = ImageEncoderConfig()
+  feature_dim: int = 128
+  fusion: MLPConfig = MLPConfig(layers=(256, 128))
+  proj_mlp: MLPConfig = MLPConfig(apply_input_activation=True)
+  do_weighted_fusion: bool = True
+  num_scale_bins: int = 32
+  top_k_view_selection: int = 4
+  depth_min_max: Tuple[float, float] = (1.0, 32.0)
+  fusion_add_minmax: bool = False
+  fusion_use_variance: bool = True
+  max_view_distance: Optional[float] = None
+  pooling_impl: str = 'stream'
+
+
+@dataclasses.dataclass(frozen=True)
+class VerticalPoolingConfig:
+  pooling: str = 'max'
+
+
+@dataclasses.dataclass(frozen=True)
+class BEVMapperConfig:
+  streetview_encoder: Optional[StreetViewEncoderConfig] = (
+      StreetViewEncoderConfig())
+  aerial_encoder: Optional[ImageEncoderConfig] = ImageEncoderConfig(
+      encoder=ResNetConfig(skip_root_block=True))
+  scene_z_offset: float = 4.0
+  scene_z_height: float = 12.0
+  pooling: VerticalPoolingConfig = VerticalPoolingConfig()
+  modality_fusion: VerticalPoolingConfig = VerticalPoolingConfig()
+  matching_dim: Optional[int] = 32
+  normalize_matching_features: bool = True
+  add_confidence: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class BEVLocalizerConfig:
+  bev_mapper: BEVMapperConfig = BEVMapperConfig()
+  add_confidence_query: bool = False
+  add_confidence_map: bool = False
+  add_temperature: bool = True
+  init_temperature: float = 2.0
+  query_frustum_depth: float = 16.0
+  filter_points_in_fov: bool = False
+  do_grid_refinement: bool = False
+  pose_backend: str = 'ransac'
+  num_rotations: int = 64
+  dense_refinement_stages: Tuple[Tuple[float, float], ...] = ((5.0, 0.25),)
+  subcell_refinement: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+  """Synthetic-scene settings (``defaults.streetview_singlescene``)."""
+
+  num_views: int = 10
+  image_size: Tuple[int, int] = (180, 240)
+  voxel_size: float = 0.2
+  add_images: bool = True
+  add_rasters: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+  model: BEVLocalizerConfig
+  data: DataConfig
+  dtype_str: str = 'bfloat16'
+  batch_size: int = 1
+
+
+def bench_full(batch_size: int = 1) -> Config:
+  """``bench.py:build_config``: the exhaustive-backend serving path."""
+  model = BEVLocalizerConfig(
+      pose_backend='exhaustive',
+      num_rotations=64,
+      filter_points_in_fov=False,
+      do_grid_refinement=True,
+  )
+  data = DataConfig(num_views=20, image_size=(180, 240), voxel_size=0.2)
+  return Config(model=model, data=data, dtype_str='bfloat16',
+                batch_size=batch_size)
+
+
+def _tiny_resnet(skip_root_block: bool = False) -> ResNetConfig:
+  return ResNetConfig(depth=(1, 1), limit_num_blocks=2,
+                      skip_root_block=skip_root_block)
+
+
+def smoke_exhaustive(batch_size: int = 2) -> Config:
+  """``configs/smoke_localization.py`` with ``pose_backend=exhaustive``."""
+  dim = 32
+  streetview = StreetViewEncoderConfig(
+      image_encoder=ImageEncoderConfig(encoder=_tiny_resnet(),
+                                       output_dim=dim),
+      feature_dim=dim,
+      fusion=MLPConfig(layers=(dim * 2, dim)),
+      num_scale_bins=8,
+      top_k_view_selection=2,
+  )
+  aerial = ImageEncoderConfig(encoder=_tiny_resnet(skip_root_block=True),
+                              output_dim=dim)
+  mapper = BEVMapperConfig(streetview_encoder=streetview,
+                           aerial_encoder=aerial, matching_dim=16)
+  model = BEVLocalizerConfig(
+      bev_mapper=mapper,
+      pose_backend='exhaustive',
+      num_rotations=16,
+      filter_points_in_fov=False,
+  )
+  data = DataConfig(num_views=3, image_size=(36, 48), voxel_size=1.0)
+  return Config(model=model, data=data, dtype_str='float32',
+                batch_size=batch_size)
+
+
+CONFIGS = {'bench_full': bench_full, 'smoke_exhaustive': smoke_exhaustive}
+
+
+def get_config(name: str, **kwargs) -> Config:
+  if name not in CONFIGS:
+    raise ValueError(f'Unknown config {name!r}; choose from {sorted(CONFIGS)}')
+  return CONFIGS[name](**kwargs)

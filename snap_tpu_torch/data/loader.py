@@ -1,0 +1,89 @@
+"""Synthetic map/query batches as torch tensors with typed geometry.
+
+The port's counterpart of the host path of ``snap_tpu/data/loader.py``: a
+``SyntheticSceneGenerator`` configured as the JAX loader configures it,
+examples stacked with numpy, and pose/intrinsics dicts wrapped into
+``Transform3D`` / ``FisheyeCamera`` on the requested device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence, Union
+
+import numpy as np
+import torch
+
+from snap_tpu_torch import configs
+from snap_tpu_torch.data import synthetic
+from snap_tpu_torch.data import types
+from snap_tpu_torch.utils import geometry
+from snap_tpu_torch.utils import grids
+
+DataDict = Dict[str, Any]
+Device = Union[str, torch.device]
+
+
+def make_generator(data_config: configs.DataConfig,
+                   seed: int) -> synthetic.SyntheticSceneGenerator:
+  """The scene generator with the JAX loader's settings for ``data_config``."""
+  return synthetic.SyntheticSceneGenerator(
+      scene_config=types.SceneConfig(num_views=data_config.num_views),
+      rasters_config=types.RastersConfig(resolution=data_config.voxel_size),
+      lidar_config=types.LidarConfig(),
+      pairing_config=types.PairingConfig(),
+      image_hw=tuple(data_config.image_size),
+      voxel_size=data_config.voxel_size,
+      seed=seed,
+  )
+
+
+def map_grid(data_config: configs.DataConfig) -> grids.Grid3D:
+  return grids.Grid3D.from_extent_meters(types.SceneConfig().grid_size,
+                                         data_config.voxel_size)
+
+
+def stack_examples(examples: Sequence[DataDict]) -> DataDict:
+  """Stack a list of nested example dicts leaf by leaf (numpy)."""
+  first = examples[0]
+  if isinstance(first, dict):
+    return {k: stack_examples([e[k] for e in examples]) for k in first}
+  if isinstance(first, str):
+    return np.asarray(examples)
+  return np.stack(examples)
+
+
+def make_pair_examples(generator: synthetic.SyntheticSceneGenerator,
+                       indices: Sequence[int],
+                       data_config: configs.DataConfig) -> DataDict:
+  """Stacked numpy ``pair_scene_view`` examples (map scene + query view)."""
+  return stack_examples([
+      generator.make_example(
+          i, types.DataMode.PAIR_SCENE_VIEW,
+          add_images=data_config.add_images,
+          add_rasters=data_config.add_rasters)
+      for i in indices])
+
+
+def _scene_to_torch(scene: DataDict, device: Device) -> DataDict:
+  out: DataDict = {
+      'images': torch.as_tensor(scene['images'], device=device),
+      'camera': geometry.FisheyeCamera.from_dict(scene['camera'], device),
+      'T_view2scene': geometry.Transform3D(
+          R=torch.as_tensor(scene['T_view2scene']['R'], device=device),
+          t=torch.as_tensor(scene['T_view2scene']['t'], device=device)),
+  }
+  if 'rasters' in scene:
+    out['rasters'] = {'rgb': torch.as_tensor(scene['rasters']['rgb'],
+                                             device=device)}
+  return out
+
+
+def pair_batch_to_torch(batch: DataDict, device: Device) -> DataDict:
+  """Stacked numpy pair examples -> tensors and typed geometry on ``device``."""
+  return {
+      'map': _scene_to_torch(batch['map'], device),
+      'query': _scene_to_torch(batch['query'], device),
+      'T_query2map': geometry.Transform3D(
+          R=torch.as_tensor(batch['T_query2map']['R'], device=device),
+          t=torch.as_tensor(batch['T_query2map']['t'], device=device)),
+  }

@@ -1,0 +1,141 @@
+"""Estimate the 3-DoF pose of a query view against a neural map.
+
+Port of ``snap_tpu/models/bev_localizer.py`` with the exhaustive backend:
+the map and the query (on a gravity-aligned frustum grid) go through the
+same BEV mapper, the dense (rotation x translation) pose volume is voted by
+FFT correlation, and the argmax is refined over a fan of fine angles.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from snap_tpu_torch import configs
+from snap_tpu_torch.models import bev_mapper
+from snap_tpu_torch.models import pose_exhaustive_voting as pev
+from snap_tpu_torch.utils import geometry
+from snap_tpu_torch.utils import grids
+
+Tensor = torch.Tensor
+
+
+def build_query_frustum_grid(
+    cell_size: float,
+    depth: float,
+    filter_points_in_fov: bool = False,
+    hfov_deg: Optional[float] = None,
+) -> Tuple[grids.Grid2D, np.ndarray, np.ndarray]:
+  """Gravity-aligned grid bounding the query camera frustum (numpy)."""
+  width = 3 * depth // 2  # Coarse approximation of the 72 deg HFoV.
+  grid = grids.Grid2D.from_extent_meters((width, depth), cell_size)
+  grid_p_view = np.array([width / 2, 0.0])
+  idx = np.moveaxis(np.mgrid[:grid.extent[0], :grid.extent[1]], 0, -1)
+  q_xy_p = (idx + 0.5) * cell_size - grid_p_view
+  if filter_points_in_fov:
+    angle = np.arctan2(q_xy_p[..., 0], q_xy_p[..., 1])
+    q_xy_p = q_xy_p[np.abs(angle) < np.deg2rad(hfov_deg / 2)][:, None]
+  return grid, grid_p_view, q_xy_p.astype(np.float32)
+
+
+def dense_top1_correct(best_idx: Tensor, gt_idx: Tensor,
+                       num_rotations: int) -> Tensor:
+  """Coarse argmax within one cell and one (wrapping) rotation bin of GT."""
+  d_rot = torch.abs(best_idx[..., 0] - gt_idx[..., 0])
+  d_rot = torch.minimum(d_rot, num_rotations - d_rot)
+  d_ab = torch.abs(best_idx[..., 1:] - gt_idx[..., 1:])
+  return (d_rot <= 1) & (d_ab <= 1).all(-1)
+
+
+class BEVLocalizer(nn.Module):
+  """Pose estimation between an overlapping (map, query) scene pair."""
+
+  def __init__(self, config: configs.BEVLocalizerConfig,
+               grid_map: grids.Grid2D, streetview_hfov_deg: float = 72.0,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    if config.pose_backend != 'exhaustive':
+      raise NotImplementedError(
+          f'pose_backend={config.pose_backend!r}: the port has the '
+          "'exhaustive' backend; RANSAC is ROADMAP item A9.")
+    if config.filter_points_in_fov:
+      raise ValueError('The exhaustive backend needs the dense query grid '
+                       '(filter_points_in_fov=False).')
+    if config.add_confidence_query or config.add_confidence_map:
+      raise NotImplementedError('Confidence heads are not ported yet.')
+    self.config = config
+    self.grid_map = grid_map
+    self.grid_query, self.qgrid_p_q, self.q_xy_p = build_query_frustum_grid(
+        grid_map.cell_size, config.query_frustum_depth,
+        config.filter_points_in_fov, streetview_hfov_deg)
+    self.bev_mapper = bev_mapper.BEVMapper(config.bev_mapper, grid_map, dtype)
+    if config.add_temperature:
+      self.temperature = nn.Parameter(
+          torch.tensor(config.init_temperature, dtype=torch.float32))
+
+  def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
+    query = data['query']
+    batch = query['images'].shape[0]
+    q_xy_p = torch.as_tensor(self.q_xy_p, device=query['images'].device)
+    pred: Dict[str, Any] = {}
+    pred['map'] = self.bev_mapper(data['map'])
+    pred['query'] = self.bev_mapper(
+        dict(query, xy_bev=q_xy_p[None].expand(batch, *q_xy_p.shape)))
+    m_t_q_gt = data.get('T_query2map')
+    if isinstance(m_t_q_gt, geometry.Transform3D):
+      m_t_q_gt = geometry.Transform2D.from_Transform3D(m_t_q_gt)
+    pred.update(self._poses_exhaustive(
+        pred['query']['bev_matching'], pred['map']['bev_matching'], m_t_q_gt))
+    return pred
+
+  def _poses_exhaustive(self, plane_q, plane_map, m_t_q_gt) -> Dict[str, Any]:
+    """Dense translation x rotation voting, argmax, fine refinement."""
+    out: Dict[str, Any] = {}
+    num_rot = self.config.num_rotations
+    hq, wq = self.grid_query.extent
+    b = plane_map.features.shape[0]
+    plane_q = type(plane_q)(
+        features=plane_q.features.reshape(b, hq, wq, -1),
+        valid=plane_q.valid.reshape(b, hq, wq))
+    volume, volume_raw = pev.exhaustive_pose_voting(
+        plane_q, plane_map, num_rot, self.grid_query)
+    if self.config.add_temperature:
+      scale = torch.exp(self.temperature)
+      volume_raw = volume_raw * scale
+      volume = torch.where(torch.isfinite(volume), volume_raw, -torch.inf)
+    out['scores_pose_volume'] = volume
+    flat = volume.reshape(b, -1)
+    best = torch.argmax(flat, dim=-1)
+    best_idx = torch.stack(torch.unravel_index(best, volume.shape[1:]), -1)
+    best_score = flat.gather(1, best[:, None])[:, 0]
+    out['best_volume_index'] = best_idx
+
+    if self.config.do_grid_refinement:
+      m_t_q_best, fine_scores = pev.dense_refinement(
+          plane_q, plane_map, best_idx, self.grid_query, num_rot,
+          self.qgrid_p_q, stages=self.config.dense_refinement_stages,
+          subcell=self.config.subcell_refinement)
+      if self.config.add_temperature:
+        fine_scores = fine_scores * torch.exp(self.temperature)
+      out['scores_grid_refine'] = fine_scores
+      best_score = fine_scores.reshape(b, -1).amax(-1)
+    else:
+      m_t_q_best = pev.exhaustive_index_to_tfm(
+          best_idx, self.grid_query, num_rot, self.qgrid_p_q)
+    out['map_t_query'] = m_t_q_best
+
+    if m_t_q_gt is not None:
+      gt_idx = pev.exhaustive_tfm_to_index(
+          m_t_q_gt, self.grid_query, num_rot, self.qgrid_p_q)
+      # Read the GT from the *unmasked* volume.
+      gt_score = torch.stack([pev.read_pose_volume(volume_raw[i], gt_idx[i])
+                              for i in range(b)])
+      out['scores_poses'] = torch.stack([gt_score, best_score], -1)
+      out['top1_coarse_correct'] = dense_top1_correct(
+          best_idx, gt_idx, num_rot)
+    else:
+      out['scores_poses'] = best_score[:, None]
+    return out

@@ -1,0 +1,157 @@
+"""Multi-modal Bird's-Eye-View neural map builder.
+
+Port of ``snap_tpu/models/bev_mapper.py`` for serving: street-view volumes
+are pooled vertically into a plane, the aerial raster is encoded directly,
+the modalities are fused by a masked max over a pseudo-z axis, and a linear
+matching head gives L2-normalized features. Eval only: no z jitter and no
+modality dropout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import torch
+from torch import nn
+
+from snap_tpu_torch import configs
+from snap_tpu_torch.models import image_encoder
+from snap_tpu_torch.models import layers
+from snap_tpu_torch.models import streetview_encoder
+from snap_tpu_torch.models import types
+from snap_tpu_torch.utils import grids
+
+Tensor = torch.Tensor
+
+
+def median(x: Tensor, dim: int = -1) -> Tensor:
+  """``jnp.median``: the mean of the two middle values for an even count
+  (``torch.median`` returns the lower one)."""
+  s = torch.sort(x, dim=dim).values
+  n = x.shape[dim]
+  lo = s.narrow(dim, (n - 1) // 2, 1).squeeze(dim)
+  hi = s.narrow(dim, n // 2, 1).squeeze(dim)
+  return lo * 0.5 + hi * 0.5
+
+
+class VerticalPooling(nn.Module):
+  """Masked max / sum / mean over the column axis (-2) of a volume."""
+
+  def __init__(self, config: configs.VerticalPoolingConfig):
+    super().__init__()
+    if config.pooling not in ('max', 'sum', 'mean'):
+      raise NotImplementedError(
+          f'VerticalPooling {config.pooling!r}: the port has max/sum/mean.')
+    self.mode = config.pooling
+
+  def forward(self, volume: types.FeatureVolume) -> types.FeaturePlane:
+    features, valid = volume.features, volume.valid
+    has_data = valid.any(-1)
+    if self.mode == 'sum':
+      plane = (features * valid[..., None]).sum(-2)
+    elif self.mode == 'mean':
+      plane = layers.masked_mean(features, valid[..., None], axis=-2)
+    else:
+      # Empty columns count as fully valid; their output is zeroed below.
+      guard = torch.where(has_data[..., None], valid, True)[..., None]
+      plane = torch.where(guard, features, -torch.inf).amax(-2)
+    plane = torch.where(has_data[..., None], plane, 0)
+    return types.FeaturePlane(features=plane, valid=has_data)
+
+
+class BEVMapper(nn.Module):
+  """Encode a scene (street views + optional aerial raster) into a plane."""
+
+  def __init__(self, config: configs.BEVMapperConfig, grid: grids.Grid2D,
+               dtype: torch.dtype):
+    super().__init__()
+    if config.add_confidence:
+      raise NotImplementedError('Map confidence heads are not ported yet.')
+    self.config = config
+    self.grid = grid
+    self.dtype = dtype
+    dims = []
+    self.streetview_encoder = None
+    self.aerial_encoder = None
+    if config.streetview_encoder is not None:
+      self.streetview_encoder = streetview_encoder.StreetViewEncoder(
+          config.streetview_encoder, dtype)
+      self.vertical_pooling = VerticalPooling(config.pooling)
+      dims.append(config.streetview_encoder.fusion.layers[-1])
+    if config.aerial_encoder is not None:
+      self.aerial_encoder = image_encoder.ImageEncoder(
+          config.aerial_encoder, dtype)
+      dims.append(config.aerial_encoder.output_dim)
+    if not dims:
+      raise ValueError('Need to create at least one input encoder.')
+    if len(set(dims)) > 1:
+      raise ValueError(f'Encoders have different output dimensions: {dims}')
+    self.modality_fusion = VerticalPooling(config.modality_fusion)
+    self.matching_proj = None
+    if config.matching_dim is not None:
+      self.matching_proj = layers.Dense(dims[0], config.matching_dim, dtype)
+
+  def build_xyz_query(self, data: Dict[str, Any]) -> Tensor:
+    """BEV grid xy x a z-column anchored below the median camera height."""
+    t = data['T_view2scene'].t
+    batch, device = t.shape[0], t.device
+    cell = self.grid.cell_size
+    xy = data.get('xy_bev')
+    if xy is None:
+      xy = self.grid.index_to_xyz(self.grid.grid_index(device).float())
+    if xy.ndim != 4:
+      xy = xy[None].expand(batch, *xy.shape)
+    z_floor = median(t[..., -1], -1) - self.config.scene_z_offset
+    num_z = math.ceil(self.config.scene_z_height / cell - 1e-9)
+    z_levels = (torch.arange(num_z, device=device, dtype=torch.float32)
+                + 0.5) * cell
+    z = z_floor[:, None] + z_levels[None]  # [B, Z]
+    shape = (batch, *xy.shape[1:3], num_z)
+    return torch.cat([
+        xy[:, :, :, None, :].expand(*shape, 2),
+        z[:, None, None, :, None].expand(*shape, 1),
+    ], -1)
+
+  def encode_streetview(self, data: Dict[str, Any]) -> Dict[str, Any]:
+    data = dict(data)
+    data['xyz_query'] = self.build_xyz_query(data)
+    pred = self.streetview_encoder(data)
+    pred['feature_plane'] = self.vertical_pooling(pred['feature_volume'])
+    return pred
+
+  def encode_aerial(self, aerial_rgb: Tensor) -> Dict[str, Any]:
+    features = self.aerial_encoder(aerial_rgb).features[-1]
+    valid = torch.ones(features.shape[:-1], dtype=torch.bool,
+                       device=features.device)
+    return {'feature_plane': types.FeaturePlane(features=features, valid=valid)}
+
+  def fuse_neural_maps(self, planes: List[types.FeaturePlane]
+                       ) -> types.FeaturePlane:
+    if len(planes) == 1:
+      return planes[0]
+    stacked = types.FeatureVolume(
+        features=torch.stack([p.features for p in planes], -2),
+        valid=torch.stack([p.valid for p in planes], -1))
+    return self.modality_fusion(stacked)
+
+  def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
+    pred: Dict[str, Any] = {}
+    planes = []
+    if self.streetview_encoder is not None:
+      pred['streetview'] = self.encode_streetview(data)
+      planes.append(pred['streetview']['feature_plane'])
+    if self.aerial_encoder is not None and 'rasters' in data:
+      # There is no aerial raster for query scenes.
+      pred['aerial'] = self.encode_aerial(data['rasters']['rgb'])
+      planes.append(pred['aerial']['feature_plane'])
+    if not planes:
+      raise ValueError('No map encoder given.')
+    pred['bev_features'] = plane = self.fuse_neural_maps(planes)
+    if self.matching_proj is not None:
+      f = self.matching_proj(plane.features)
+      if self.config.normalize_matching_features:
+        f = layers.normalize(f)
+      f = torch.where(plane.valid[..., None], f, 0)
+      pred['bev_matching'] = types.FeaturePlane(features=f, valid=plane.valid)
+    return pred

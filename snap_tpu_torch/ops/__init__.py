@@ -1,0 +1,1 @@
+"""Port of the matching ``snap_tpu`` subpackage."""

@@ -1,0 +1,186 @@
+"""Build, bind and launch the port's CUDA kernels (``snap_tpu_torch/csrc``).
+
+The sources are compiled by one plain ``nvcc`` call into a shared library
+with a C interface and loaded with ``ctypes``; nothing here includes
+PyTorch's headers. The library lands in ``build/kernels/`` at the repo root
+(listed in ``.gitignore``), named by a hash of the sources, on first use.
+
+Each launcher checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current CUDA stream, raises on
+a non-zero ``cudaError_t``, and adds one to its count in ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+BUILD_TIMEOUT_S = 180
+
+# Launches per kernel since the last reset_launch_counts().
+LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+  for name in LAUNCHES:
+    LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+  found = shutil.which('nvcc')
+  if found:
+    return found
+  cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+  candidate = pathlib.Path(cuda_home) / 'bin' / 'nvcc'
+  if candidate.exists():
+    return str(candidate)
+  raise RuntimeError('nvcc not found: put the CUDA toolkit on PATH or set '
+                     'CUDA_HOME to build snap_tpu_torch/csrc.')
+
+
+def library_path() -> pathlib.Path:
+  sources = sorted(CSRC.glob('*.cu'))
+  digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  for src in sources:
+    digest.update(src.name.encode())
+    digest.update(src.read_bytes())
+  return BUILD_DIR / f'libsnap_kernels-{digest.hexdigest()[:16]}.so'
+
+
+def build() -> pathlib.Path:
+  """Compile every ``csrc/*.cu`` into one .so unless it is already built."""
+  target = library_path()
+  if target.exists():
+    return target
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  sources = [str(s) for s in sorted(CSRC.glob('*.cu'))]
+  # Build under a temporary name and rename: concurrent builders never see
+  # a half-written library.
+  fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+  os.close(fd)
+  cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources]
+  try:
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+      raise RuntimeError(
+          f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{proc.stderr}')
+    os.replace(tmp, target)
+  finally:
+    if os.path.exists(tmp):
+      os.unlink(tmp)
+  return target
+
+
+def load_library() -> ctypes.CDLL:
+  """Build (if needed) and load the kernel library; bind argument types."""
+  global _lib
+  if _lib is not None:
+    return _lib
+  lib = ctypes.CDLL(str(build()))
+  vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  lib.lift_topk_fwd.argtypes = (
+      [vp] * 7 + [i32] * 10 + [f32] * 3 + [vp])
+  lib.lift_topk_fwd.restype = i32
+  lib.patch_sample_2d.argtypes = [vp] * 4 + [i32] * 8 + [vp]
+  lib.patch_sample_2d.restype = i32
+  _lib = lib
+  return lib
+
+
+def _check(t: Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...],
+           device: torch.device) -> None:
+  if t.device != device:
+    raise ValueError(f'{name} is on {t.device}, expected {device}')
+  if t.dtype != dtype:
+    raise ValueError(f'{name} has dtype {t.dtype}, expected {dtype}')
+  if tuple(t.shape) != tuple(shape):
+    raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
+  if not t.is_contiguous():
+    raise ValueError(f'{name} must be contiguous')
+
+
+def _raise_on_error(code: int, kernel: str) -> None:
+  if code != 0:
+    raise RuntimeError(f'{kernel} launch failed: cudaError_t {code}')
+
+
+def lift_topk_fwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
+                  select: Tensor, depth: Tensor, *, h: int, w: int, dim: int,
+                  depth_min_max: Tuple[float, float]) -> Tuple[Tensor, Tensor]:
+  """K1 on the card: ``stats [B, N, 2*dim + 1]`` (stack dtype), ``valid``."""
+  if stack.device.type != 'cuda':
+    raise ValueError(f'lift_topk_fwd needs CUDA tensors, got {stack.device}')
+  if stack.dtype not in _DTYPE_CODES:
+    raise ValueError(f'lift_topk_fwd: unsupported dtype {stack.dtype}')
+  b, r, wp, c = stack.shape
+  n, k = view_idx.shape[1:]
+  if r % (h + 1) or wp != w + 1 or not 0 < dim < c:
+    raise ValueError(f'stack {tuple(stack.shape)} vs h={h} w={w} dim={dim}')
+  if (c * stack.element_size()) % 16 or stack.data_ptr() % 16:
+    raise ValueError('lift_topk_fwd needs 16-byte aligned stack rows')
+  if (c * stack.element_size()) // 16 > 4 * 32:
+    raise ValueError(f'lift_topk_fwd supports at most {4 * 32 * 16} B rows')
+  dev = stack.device
+  _check(stack, 'stack', stack.dtype, (b, r, wp, c), dev)
+  _check(view_idx, 'view_idx', torch.int32, (b, n, k), dev)
+  _check(p2d, 'p2d', torch.float32, (b, n, k, 2), dev)
+  _check(select, 'select', torch.bool, (b, n, k), dev)
+  _check(depth, 'depth', torch.float32, (b, n, k), dev)
+  stats = torch.empty((b, n, 2 * dim + 1), dtype=stack.dtype, device=dev)
+  valid = torch.empty((b, n), dtype=torch.bool, device=dev)
+  lo, hi = depth_min_max
+  lib = load_library()
+  code = lib.lift_topk_fwd(
+      stack.data_ptr(), view_idx.data_ptr(), p2d.data_ptr(),
+      select.data_ptr(), depth.data_ptr(), stats.data_ptr(), valid.data_ptr(),
+      _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h, w,
+      float(lo), float(hi), math.log(hi / lo),
+      torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'lift_topk_fwd')
+  LAUNCHES['lift_topk_fwd'] += 1
+  return stats, valid
+
+
+def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
+                    has_valid: bool) -> Tuple[Tensor, Tensor]:
+  """K2 on the card: ``values [B, P, dim]`` (plane dtype), ``valid [B, P]``."""
+  if padded.device.type != 'cuda':
+    raise ValueError(f'patch_sample_2d needs CUDA tensors, got {padded.device}')
+  if padded.dtype not in _DTYPE_CODES:
+    raise ValueError(f'patch_sample_2d: unsupported dtype {padded.dtype}')
+  b, hp, wp, c = padded.shape
+  p = points.shape[1]
+  if c != dim + int(has_valid):
+    raise ValueError(f'plane has {c} channels, expected {dim} + {has_valid}')
+  dev = padded.device
+  _check(padded, 'padded', padded.dtype, (b, hp, wp, c), dev)
+  _check(points, 'points', torch.float32, (b, p, 2), dev)
+  values = torch.empty((b, p, dim), dtype=padded.dtype, device=dev)
+  valid = torch.empty((b, p), dtype=torch.bool, device=dev)
+  lib = load_library()
+  code = lib.patch_sample_2d(
+      padded.data_ptr(), points.data_ptr(), values.data_ptr(),
+      valid.data_ptr(), _DTYPE_CODES[padded.dtype], b, p, hp - 1, wp - 1, c,
+      dim, int(has_valid), torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'patch_sample_2d')
+  LAUNCHES['patch_sample_2d'] += 1
+  return values, valid
