@@ -11,6 +11,13 @@ can hold the two side by side (tests/test_torch_localizer.py).
 - ``smoke_exhaustive()``: ``snap_tpu/configs/smoke_localization.py`` with
   ``pose_backend=exhaustive`` (tiny ResNet, dim 32, 3 views, top-k 2,
   16 rotations), f32 compute.
+- ``train_full1chip_exhaustive()``: ``snap_tpu/configs/
+  train_localization.py`` with ``scale=full1chip,pose_backend=exhaustive``
+  — ``bench_full``'s model at the same widths, trained at batch 2 with z
+  jitter on the query, modality dropout, Adam and a warmup + cosine
+  schedule; no grid refinement.
+- ``smoke_train_exhaustive()``: ``smoke_exhaustive`` with the training
+  settings of ``smoke_localization.py`` (constant lr 1e-3, clipping at 1).
 """
 
 from __future__ import annotations
@@ -76,6 +83,10 @@ class BEVMapperConfig:
   matching_dim: Optional[int] = 32
   normalize_matching_features: bool = True
   add_confidence: bool = False
+  # Training only: U(lo, hi) jitter of the query's z column floor, and
+  # dropping each map modality with p = 0.5 (never all of an example's).
+  scene_z_offset_range: Optional[Tuple[float, float]] = (-2.0, 2.0)
+  apply_modality_dropout: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,11 +117,40 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LrConfig:
+  """``lr_configs`` of ``defaults.base()``: a product of named factors."""
+
+  factors: str = 'constant'
+  base_learning_rate: float = 1e-3
+  warmup_steps: int = 0
+  start_decay_step: int = 0
+  steps_per_cycle: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+  """``optimizer_configs`` of ``defaults.base()``."""
+
+  optimizer: str = 'adam'
+  weight_decay: float = 0.0
+  freeze_params_reg_exp: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+  lr_configs: LrConfig = LrConfig()
+  optimizer_configs: OptimizerConfig = OptimizerConfig()
+  max_grad_norm: Optional[float] = None
+  num_training_steps: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
   model: BEVLocalizerConfig
   data: DataConfig
   dtype_str: str = 'bfloat16'
   batch_size: int = 1
+  train: TrainConfig = TrainConfig()
 
 
 def bench_full(batch_size: int = 1) -> Config:
@@ -157,7 +197,40 @@ def smoke_exhaustive(batch_size: int = 2) -> Config:
                 batch_size=batch_size)
 
 
-CONFIGS = {'bench_full': bench_full, 'smoke_exhaustive': smoke_exhaustive}
+def train_full1chip_exhaustive(batch_size: int = 2) -> Config:
+  """``train_localization.py:scale=full1chip,pose_backend=exhaustive``.
+
+  The JAX config also sets ``point_tile=288_000``: a memory device of the
+  XLA program (rematerialized point tiles), numerically neutral, that the
+  port's lift backward does without.
+  """
+  serve = bench_full(batch_size)
+  lr = LrConfig(factors='constant * linear_warmup * cosine_decay',
+                base_learning_rate=2e-4, warmup_steps=1_000,
+                start_decay_step=4_000, steps_per_cycle=16_000)
+  train = TrainConfig(lr_configs=lr, max_grad_norm=1.0,
+                      num_training_steps=20_000)
+  return dataclasses.replace(
+      serve,
+      model=dataclasses.replace(serve.model, do_grid_refinement=False),
+      train=train)
+
+
+def smoke_train_exhaustive(batch_size: int = 2) -> Config:
+  """``smoke_exhaustive`` with ``smoke_localization.py``'s training setup."""
+  lr = LrConfig(factors='constant', base_learning_rate=1e-3)
+  return dataclasses.replace(
+      smoke_exhaustive(batch_size),
+      train=TrainConfig(lr_configs=lr, max_grad_norm=1.0,
+                        num_training_steps=8))
+
+
+CONFIGS = {
+    'bench_full': bench_full,
+    'smoke_exhaustive': smoke_exhaustive,
+    'train_full1chip_exhaustive': train_full1chip_exhaustive,
+    'smoke_train_exhaustive': smoke_train_exhaustive,
+}
 
 
 def get_config(name: str, **kwargs) -> Config:

@@ -9,6 +9,10 @@ it with dots and renaming the leaf:
 - dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
 - GroupNorm ``scale`` / ``bias`` ``[1, 1, 1, C]`` -> ``[C]``;
 - dense ``bias`` and the scalar ``temperature`` as they are.
+
+``flax_from_torch`` is the inverse map (tensors named as the module's
+parameters -> '/'-joined flax paths in flax layout), so that gradients can
+be held leaf by leaf against ``jax.grad``'s tree.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from snap_tpu_torch.models import resnet
 
 
 def flatten_params(tree: Mapping[str, Any], prefix: str = '') -> Dict[str, Any]:
@@ -70,6 +76,28 @@ def params_from_flax(params: Mapping[str, Any],
           f'params_from_flax: unconsumed {unconsumed}, missing {missing}, '
           f'shape mismatches {mismatched}')
   return state
+
+
+def flax_from_torch(named: Mapping[str, torch.Tensor], module: nn.Module
+                    ) -> Dict[str, np.ndarray]:
+  """Tensors named like ``module``'s parameters (its weights, or their
+  gradients) -> ``{'a/b/kernel': array}`` in flax layout (f32 numpy)."""
+  modules = dict(module.named_modules())
+  flat = {}
+  for name, tensor in named.items():
+    value = tensor.detach().float().cpu().numpy()
+    owner, _, leaf = name.rpartition('.')
+    if leaf == 'weight' and value.ndim == 4:
+      leaf, value = 'kernel', value.transpose(2, 3, 1, 0)
+    elif leaf == 'weight' and value.ndim == 2:
+      leaf, value = 'kernel', value.T
+    elif leaf in ('scale', 'bias') and isinstance(modules[owner],
+                                                  resnet.GroupNorm):
+      value = value.reshape(1, 1, 1, -1)
+    elif leaf == 'weight':
+      raise ValueError(f'{name}: unexpected weight shape {value.shape}')
+    flat['/'.join(owner.split('.') + [leaf]) if owner else leaf] = value
+  return flat
 
 
 def init_params(module: nn.Module, seed: int,

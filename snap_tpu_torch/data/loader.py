@@ -64,6 +64,18 @@ def make_pair_examples(generator: synthetic.SyntheticSceneGenerator,
       for i in indices])
 
 
+def make_train_examples(generator: synthetic.SyntheticSceneGenerator,
+                        step: int, batch_size: int,
+                        data_config: configs.DataConfig) -> DataDict:
+  """Training batch ``step``: examples ``step * batch_size + k`` (fresh ones
+  every step, as the JAX loader indexes them), with ``batch_mask`` = 1."""
+  start = step * batch_size
+  batch = make_pair_examples(generator, range(start, start + batch_size),
+                             data_config)
+  batch['batch_mask'] = np.ones(batch_size, np.float32)
+  return batch
+
+
 def _scene_to_torch(scene: DataDict, device: Device) -> DataDict:
   out: DataDict = {
       'images': torch.as_tensor(scene['images'], device=device),
@@ -80,10 +92,13 @@ def _scene_to_torch(scene: DataDict, device: Device) -> DataDict:
 
 def pair_batch_to_torch(batch: DataDict, device: Device) -> DataDict:
   """Stacked numpy pair examples -> tensors and typed geometry on ``device``."""
-  return {
+  out = {
       'map': _scene_to_torch(batch['map'], device),
       'query': _scene_to_torch(batch['query'], device),
       'T_query2map': geometry.Transform3D(
           R=torch.as_tensor(batch['T_query2map']['R'], device=device),
           t=torch.as_tensor(batch['T_query2map']['t'], device=device)),
   }
+  if 'batch_mask' in batch:
+    out['batch_mask'] = torch.as_tensor(batch['batch_mask'], device=device)
+  return out

@@ -4,6 +4,8 @@ Port of ``snap_tpu/models/bev_localizer.py`` with the exhaustive backend:
 the map and the query (on a gravity-aligned frustum grid) go through the
 same BEV mapper, the dense (rotation x translation) pose volume is voted by
 FFT correlation, and the argmax is refined over a fan of fine angles.
+``loss_metrics_function`` gives the training loss (InfoNCE of the GT pose's
+score against every cell of the volume) and the recall metrics.
 """
 
 from __future__ import annotations
@@ -76,14 +78,26 @@ class BEVLocalizer(nn.Module):
       self.temperature = nn.Parameter(
           torch.tensor(config.init_temperature, dtype=torch.float32))
 
-  def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
+  def forward(self, data: Dict[str, Any], train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              draws: Optional[bev_mapper.TrainDraws] = None
+              ) -> Dict[str, Any]:
+    """Localize the query in the map. With ``train``, the mapper's z jitter
+    and modality dropout apply, from ``draws`` or else drawn on
+    ``generator`` (a CPU ``torch.Generator``)."""
     query = data['query']
     batch = query['images'].shape[0]
-    q_xy_p = torch.as_tensor(self.q_xy_p, device=query['images'].device)
-    pred: Dict[str, Any] = {}
-    pred['map'] = self.bev_mapper(data['map'])
+    device = query['images'].device
+    q_xy_p = torch.as_tensor(self.q_xy_p, device=device)
+    if train and draws is None:
+      if generator is None:
+        raise ValueError('train=True needs a generator or draws')
+      draws = self.bev_mapper.sample_draws(batch, generator, device)
+    pred: Dict[str, Any] = {'draws': draws}
+    pred['map'] = self.bev_mapper(data['map'], train=train, draws=draws)
     pred['query'] = self.bev_mapper(
-        dict(query, xy_bev=q_xy_p[None].expand(batch, *q_xy_p.shape)))
+        dict(query, xy_bev=q_xy_p[None].expand(batch, *q_xy_p.shape)),
+        train=train, is_query=True, draws=draws)
     m_t_q_gt = data.get('T_query2map')
     if isinstance(m_t_q_gt, geometry.Transform3D):
       m_t_q_gt = geometry.Transform2D.from_Transform3D(m_t_q_gt)
@@ -103,6 +117,8 @@ class BEVLocalizer(nn.Module):
     volume, volume_raw = pev.exhaustive_pose_voting(
         plane_q, plane_map, num_rot, self.grid_query)
     if self.config.add_temperature:
+      # Scale the raw (finite) volume and re-apply the mask: -inf times the
+      # learned scale would poison the temperature's gradient (0 * inf).
       scale = torch.exp(self.temperature)
       volume_raw = volume_raw * scale
       volume = torch.where(torch.isfinite(volume), volume_raw, -torch.inf)
@@ -139,3 +155,34 @@ class BEVLocalizer(nn.Module):
     else:
       out['scores_poses'] = best_score[:, None]
     return out
+
+  def loss_metrics_function(self, pred: Dict[str, Any], data: Dict[str, Any]
+                            ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """Per-example losses and metrics (``BEVLocalizerModel``'s, dense path).
+
+    The loss is InfoNCE: ``logsumexp`` over the masked pose volume minus the
+    GT pose's score read from the unmasked one. Metrics: position and
+    rotation error of ``map_t_query``, coarse top-1, the recalls at 0.5, 1,
+    2 and 5 m / deg, and the temperature parameter.
+    """
+    volume = pred['scores_pose_volume']
+    m_t_q_gt = data['T_query2map']
+    if isinstance(m_t_q_gt, geometry.Transform3D):
+      m_t_q_gt = geometry.Transform2D.from_Transform3D(m_t_q_gt)
+    flat = torch.where(torch.isfinite(volume), volume, -torch.inf)
+    flat = flat.reshape(volume.shape[0], -1)
+    nll = torch.logsumexp(flat, -1) - pred['scores_poses'][..., 0]
+    losses = {'localization/nll': nll, 'total': nll}
+    dr, dt = (pred['map_t_query'].inv @ m_t_q_gt).magnitude()
+    metrics = {
+        'loc/err_max_position': dt,
+        'loc/err_max_rotation': dr,
+        'loc/recall_top1': pred['top1_coarse_correct'],
+    }
+    for t in [0.5, 1, 2, 5]:
+      metrics[f'loc/recall_max_{t}m'] = dt < t
+      metrics[f'loc/recall_max_{t}deg'] = dr < t
+    if self.config.add_temperature:
+      metrics['loc/temperature'] = self.temperature.detach().expand(
+          nll.shape)
+    return losses, metrics

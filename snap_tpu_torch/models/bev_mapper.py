@@ -1,16 +1,18 @@
 """Multi-modal Bird's-Eye-View neural map builder.
 
-Port of ``snap_tpu/models/bev_mapper.py`` for serving: street-view volumes
-are pooled vertically into a plane, the aerial raster is encoded directly,
-the modalities are fused by a masked max over a pseudo-z axis, and a linear
-matching head gives L2-normalized features. Eval only: no z jitter and no
-modality dropout.
+Port of ``snap_tpu/models/bev_mapper.py``: street-view volumes are pooled
+vertically into a plane, the aerial raster is encoded directly, the
+modalities are fused by a masked max over a pseudo-z axis, and a linear
+matching head gives L2-normalized features. In training the query's z
+column floor is jittered and map modalities are dropped at random; the
+draws come from an explicit CPU ``torch.Generator`` (``sample_draws``), so
+a run on the card and one on the CPU draw the same numbers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -33,6 +35,13 @@ def median(x: Tensor, dim: int = -1) -> Tensor:
   lo = s.narrow(dim, (n - 1) // 2, 1).squeeze(dim)
   hi = s.narrow(dim, n // 2, 1).squeeze(dim)
   return lo * 0.5 + hi * 0.5
+
+
+class TrainDraws(NamedTuple):
+  """The random draws of one training forward."""
+
+  z_jitter: Optional[Tensor]  # [B] f32 offset of the query's z floor
+  modality_keep: Optional[Tensor]  # [M, B] bool, per map modality
 
 
 class VerticalPooling(nn.Module):
@@ -87,12 +96,33 @@ class BEVMapper(nn.Module):
       raise ValueError('Need to create at least one input encoder.')
     if len(set(dims)) > 1:
       raise ValueError(f'Encoders have different output dimensions: {dims}')
+    self.num_map_modalities = len(dims)
     self.modality_fusion = VerticalPooling(config.modality_fusion)
     self.matching_proj = None
     if config.matching_dim is not None:
       self.matching_proj = layers.Dense(dims[0], config.matching_dim, dtype)
 
-  def build_xyz_query(self, data: Dict[str, Any]) -> Tensor:
+  def sample_draws(self, batch: int, generator: torch.Generator,
+                   device: torch.device) -> TrainDraws:
+    """Draw one training forward's randomness on the CPU ``generator``.
+
+    The query's z floor moves by U(lo, hi) per example; each (map modality,
+    example) is kept with p = 0.5, and an example that would lose every
+    modality keeps them all (``snap_tpu/models/bev_mapper.py:267-276``).
+    """
+    z_jitter = keep = None
+    if self.config.scene_z_offset_range is not None:
+      lo, hi = self.config.scene_z_offset_range
+      z_jitter = lo + (hi - lo) * torch.rand(batch, generator=generator)
+      z_jitter = z_jitter.to(device)
+    if self.config.apply_modality_dropout and self.num_map_modalities > 1:
+      keep = torch.rand((self.num_map_modalities, batch),
+                        generator=generator) < 0.5
+      keep = (keep | ~keep.any(0)).to(device)
+    return TrainDraws(z_jitter=z_jitter, modality_keep=keep)
+
+  def build_xyz_query(self, data: Dict[str, Any],
+                      z_jitter: Optional[Tensor] = None) -> Tensor:
     """BEV grid xy x a z-column anchored below the median camera height."""
     t = data['T_view2scene'].t
     batch, device = t.shape[0], t.device
@@ -103,6 +133,8 @@ class BEVMapper(nn.Module):
     if xy.ndim != 4:
       xy = xy[None].expand(batch, *xy.shape)
     z_floor = median(t[..., -1], -1) - self.config.scene_z_offset
+    if z_jitter is not None:
+      z_floor = z_floor + z_jitter
     num_z = math.ceil(self.config.scene_z_height / cell - 1e-9)
     z_levels = (torch.arange(num_z, device=device, dtype=torch.float32)
                 + 0.5) * cell
@@ -113,9 +145,10 @@ class BEVMapper(nn.Module):
         z[:, None, None, :, None].expand(*shape, 1),
     ], -1)
 
-  def encode_streetview(self, data: Dict[str, Any]) -> Dict[str, Any]:
+  def encode_streetview(self, data: Dict[str, Any],
+                        z_jitter: Optional[Tensor] = None) -> Dict[str, Any]:
     data = dict(data)
-    data['xyz_query'] = self.build_xyz_query(data)
+    data['xyz_query'] = self.build_xyz_query(data, z_jitter)
     pred = self.streetview_encoder(data)
     pred['feature_plane'] = self.vertical_pooling(pred['feature_volume'])
     return pred
@@ -126,20 +159,38 @@ class BEVMapper(nn.Module):
                        device=features.device)
     return {'feature_plane': types.FeaturePlane(features=features, valid=valid)}
 
-  def fuse_neural_maps(self, planes: List[types.FeaturePlane]
-                       ) -> types.FeaturePlane:
+  def fuse_neural_maps(self, planes: List[types.FeaturePlane],
+                       keep: Optional[Tensor] = None) -> types.FeaturePlane:
+    """Masked max over the modalities; ``keep [M, B]`` drops some."""
     if len(planes) == 1:
       return planes[0]
+    if keep is not None:
+      planes = [types.FeaturePlane(features=p.features,
+                                   valid=p.valid & k[:, None, None])
+                for p, k in zip(planes, keep)]
     stacked = types.FeatureVolume(
         features=torch.stack([p.features for p in planes], -2),
         valid=torch.stack([p.valid for p in planes], -1))
     return self.modality_fusion(stacked)
 
-  def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
+  def forward(self, data: Dict[str, Any], train: bool = False,
+              is_query: bool = False,
+              draws: Optional[TrainDraws] = None) -> Dict[str, Any]:
+    """Encode one scene. With ``train``, the query's z jitter and the map's
+    modality dropout apply, from ``draws`` (``sample_draws``)."""
     pred: Dict[str, Any] = {}
     planes = []
+    z_jitter = keep = None
+    if train:
+      if draws is None:
+        raise ValueError('train=True needs the draws (sample_draws)')
+      device = data['T_view2scene'].t.device
+      draws = TrainDraws(*(None if t is None else t.to(device)
+                           for t in draws))
+      z_jitter = draws.z_jitter if is_query else None
+      keep = None if is_query else draws.modality_keep
     if self.streetview_encoder is not None:
-      pred['streetview'] = self.encode_streetview(data)
+      pred['streetview'] = self.encode_streetview(data, z_jitter)
       planes.append(pred['streetview']['feature_plane'])
     if self.aerial_encoder is not None and 'rasters' in data:
       # There is no aerial raster for query scenes.
@@ -147,7 +198,7 @@ class BEVMapper(nn.Module):
       planes.append(pred['aerial']['feature_plane'])
     if not planes:
       raise ValueError('No map encoder given.')
-    pred['bev_features'] = plane = self.fuse_neural_maps(planes)
+    pred['bev_features'] = plane = self.fuse_neural_maps(planes, keep)
     if self.matching_proj is not None:
       f = self.matching_proj(plane.features)
       if self.config.normalize_matching_features:

@@ -6,8 +6,9 @@ PyTorch's headers. The library lands in ``build/kernels/`` at the repo root
 (listed in ``.gitignore``), named by a hash of the sources, on first use.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current CUDA stream, raises on
-a non-zero ``cudaError_t``, and adds one to its count in ``LAUNCHES``.
+outputs with ``torch.empty`` (``torch.zeros`` for the backward kernels'
+f32 accumulation buffers), launches on the current CUDA stream, raises on a
+non-zero ``cudaError_t``, and adds one to its count in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 BUILD_TIMEOUT_S = 180
 
-# Launches per kernel since the last reset_launch_counts().
-LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0}
+# Launches per kernel since the last reset_launch_counts(); each kernel's
+# source is csrc/<name>.cu and its C entry point carries the same name.
+LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0, 'lift_topk_bwd': 0,
+            'patch_sample_2d_bwd': 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -96,14 +99,26 @@ def load_library() -> ctypes.CDLL:
   if _lib is not None:
     return _lib
   lib = ctypes.CDLL(str(build()))
-  vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-  lib.lift_topk_fwd.argtypes = (
-      [vp] * 7 + [i32] * 10 + [f32] * 3 + [vp])
-  lib.lift_topk_fwd.restype = i32
+  vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+  lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [vp]
   lib.patch_sample_2d.argtypes = [vp] * 4 + [i32] * 8 + [vp]
-  lib.patch_sample_2d.restype = i32
+  lib.lift_topk_bwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [i64, vp]
+  lib.patch_sample_2d_bwd.argtypes = [vp] * 3 + [i32] * 7 + [i64, vp]
+  for name in LAUNCHES:
+    getattr(lib, name).restype = i32
   _lib = lib
   return lib
+
+
+def spread_stride(total: int) -> int:
+  """A stride coprime to ``total`` near 0.618 ``total``: warp w of a
+  backward kernel takes item (w * stride) mod total, a permutation that
+  spreads the warps in flight over the whole output."""
+  stride = max(1, int(total * 0.6180339887)) | 1
+  while math.gcd(stride, total) != 1:
+    stride += 2
+  return stride
 
 
 def _check(t: Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...],
@@ -184,3 +199,68 @@ def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
   _raise_on_error(code, 'patch_sample_2d')
   LAUNCHES['patch_sample_2d'] += 1
   return values, valid
+
+
+def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
+                  select: Tensor, depth: Tensor, g_stats: Tensor, *, h: int,
+                  w: int, dim: int, depth_min_max: Tuple[float, float]
+                  ) -> Tensor:
+  """K3 on the card: ``d stack`` (stack dtype) from ``g_stats`` = d stats."""
+  if stack.device.type != 'cuda':
+    raise ValueError(f'lift_topk_bwd needs CUDA tensors, got {stack.device}')
+  if stack.dtype not in _DTYPE_CODES:
+    raise ValueError(f'lift_topk_bwd: unsupported dtype {stack.dtype}')
+  b, r, wp, c = stack.shape
+  n, k = view_idx.shape[1:]
+  if r % (h + 1) or wp != w + 1 or not 0 < dim < c:
+    raise ValueError(f'stack {tuple(stack.shape)} vs h={h} w={w} dim={dim}')
+  if c > 8 * 32:
+    raise ValueError(f'lift_topk_bwd supports at most 256 channels, got {c}')
+  if k > 32:
+    raise ValueError(f'lift_topk_bwd supports at most 32 ranks, got {k}')
+  dev = stack.device
+  _check(stack, 'stack', stack.dtype, (b, r, wp, c), dev)
+  _check(view_idx, 'view_idx', torch.int32, (b, n, k), dev)
+  _check(p2d, 'p2d', torch.float32, (b, n, k, 2), dev)
+  _check(select, 'select', torch.bool, (b, n, k), dev)
+  _check(depth, 'depth', torch.float32, (b, n, k), dev)
+  _check(g_stats, 'g_stats', stack.dtype, (b, n, 2 * dim + 1), dev)
+  grad = torch.zeros((b, r, wp, c), dtype=torch.float32, device=dev)
+  lo, hi = depth_min_max
+  lib = load_library()
+  code = lib.lift_topk_bwd(
+      stack.data_ptr(), view_idx.data_ptr(), p2d.data_ptr(),
+      select.data_ptr(), depth.data_ptr(), g_stats.data_ptr(),
+      grad.data_ptr(), _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h,
+      w, float(lo), float(hi), math.log(hi / lo), spread_stride(b * n),
+      torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'lift_topk_bwd')
+  LAUNCHES['lift_topk_bwd'] += 1
+  return grad.to(stack.dtype)
+
+
+def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
+                        plane_shape: Tuple[int, int, int, int]) -> Tensor:
+  """K4 on the card: ``d padded`` ``plane_shape`` in ``g_values``' dtype,
+  zero on the validity channel, from ``g_values`` = d values."""
+  if g_values.device.type != 'cuda':
+    raise ValueError(
+        f'patch_sample_2d_bwd needs CUDA tensors, got {g_values.device}')
+  if g_values.dtype not in _DTYPE_CODES:
+    raise ValueError(f'patch_sample_2d_bwd: unsupported dtype {g_values.dtype}')
+  b, hp, wp, c = plane_shape
+  p, dim = g_values.shape[1:]
+  if not 0 < dim <= c:
+    raise ValueError(f'plane has {c} channels, values {dim}')
+  dev = g_values.device
+  _check(g_values, 'g_values', g_values.dtype, (b, p, dim), dev)
+  _check(points, 'points', torch.float32, (b, p, 2), dev)
+  grad = torch.zeros((b, hp, wp, c), dtype=torch.float32, device=dev)
+  lib = load_library()
+  code = lib.patch_sample_2d_bwd(
+      g_values.data_ptr(), points.data_ptr(), grad.data_ptr(),
+      _DTYPE_CODES[g_values.dtype], b, p, hp - 1, wp - 1, c, dim,
+      spread_stride(b * p), torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'patch_sample_2d_bwd')
+  LAUNCHES['patch_sample_2d_bwd'] += 1
+  return grad.to(g_values.dtype)

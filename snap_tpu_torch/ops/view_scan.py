@@ -1,23 +1,26 @@
-"""Streamed top-k lifting and the 2x2 patch sampler.
+"""Streamed top-k lifting and the 2x2 patch sampler, forward and backward.
 
-Port of the serving half of ``snap_tpu/ops/view_scan.py``:
+Port of the stream path of ``snap_tpu/ops/view_scan.py``:
 
 - ``pool_views_stream``: project, select the top-k views and pick the
   per-rank (view, pixel, visibility, depth) in plain torch, then pool with
-  **K1** (``lift_topk``: 2x2 bilinear patch reads of the row-padded image
-  stack, depth-hat score, online softmax over the k ranks);
+  ``lift_topk``: **K1** forward (2x2 bilinear patch reads of the row-padded
+  image stack, depth-hat score, online softmax over the k ranks) and
+  **K3** backward (the softmax's gradient scattered onto the stack);
 - ``interpolate_patch_2d``: bilinear 2-D sampling with ``interpolate_nd``'s
-  boundary rules around **K2** (``patch_sample_2d``).
+  boundary rules around ``patch_sample_2d``: **K2** forward, **K4**
+  backward (the tap-weighted scatter onto the plane).
 
-Each kernel wrapper dispatches on the device of its input: a CPU tensor
-takes the plain PyTorch version beside it (``*_plain``), a CUDA tensor
-launches the kernel (``ops/kernels.py``), any other device raises.
+Both wrappers are ``torch.autograd.Function``s. Each dispatches on the
+device of its input: a CPU tensor takes the plain PyTorch version beside it
+(``*_plain``, ``*_bwd_plain``), a CUDA tensor launches the kernel
+(``ops/kernels.py``), any other device raises.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,50 +76,172 @@ def _depth_hat_weights(depth: Tensor, num_bins: int,
   return torch.clamp(1 - torch.abs(x[..., None] - bins), min=0)
 
 
-def lift_topk_plain(stack: Tensor, view_idx: Tensor, p2d: Tensor,
-                    select: Tensor, depth: Tensor, *, h: int, w: int, dim: int,
-                    depth_min_max: Tuple[float, float]
-                    ) -> Tuple[Tensor, Tensor]:
-  """Plain version of K1; ``stats`` in the stack's dtype, f32 inside."""
-  b, n, k = view_idx.shape
+class _Rank(NamedTuple):
+  """One rank of every point: its taps, combined channels and score."""
+
+  row0: Tensor  # [B, N] int32 tap-patch origin in the stack
+  col0: Tensor  # [B, N] int32
+  weights: Tensor  # [B, N, 2, 2] f32 bilinear tap weights
+  f: Tensor  # [B, N, C] f32 combined channels (features, then score bins)
+  hat: Tensor  # [B, N, S] f32 depth-hat weights
+  score: Tensor  # [B, N] f32, NEG_INF where the rank is not selected
+
+
+def _bilinear_taps(p2d: Tensor, size: Tensor):
+  """Clamped tap origin ``[..., 2]`` int32 and weights ``[..., 2, 2]``."""
+  pts = torch.minimum(torch.clamp(p2d - 0.5, min=0), size - 1)
+  lower = torch.floor(pts)
+  frac = pts - lower
+  w_i = torch.stack([1 - frac[..., 0], frac[..., 0]], -1)
+  w_j = torch.stack([1 - frac[..., 1], frac[..., 1]], -1)
+  return lower.int(), w_i[..., :, None] * w_j[..., None, :]
+
+
+def _lift_ranks(stack: Tensor, view_idx: Tensor, p2d: Tensor, select: Tensor,
+                depth: Tensor, *, h: int, w: int, dim: int,
+                depth_min_max: Tuple[float, float]) -> List[_Rank]:
+  """Gather, combine and score each rank of each point (f32 inside)."""
   size = torch.tensor([h, w], dtype=torch.float32, device=stack.device)
-  m = torch.full((b, n), NEG_INF, device=stack.device)
-  l = torch.zeros((b, n), device=stack.device)
-  s1 = torch.zeros((b, n, dim), device=stack.device)
-  s2 = torch.zeros((b, n, dim), device=stack.device)
-  count = torch.zeros((b, n), dtype=torch.int32, device=stack.device)
-  for r in range(k):
-    pts = torch.minimum(torch.clamp(p2d[:, :, r] - 0.5, min=0), size - 1)
-    lower = torch.floor(pts)
-    frac = pts - lower
-    lower = lower.int()
-    patches = gather_bilinear_patches(
-        stack, view_idx[:, :, r] * (h + 1) + lower[..., 0], lower[..., 1])
-    w_i = torch.stack([1 - frac[..., 0], frac[..., 0]], -1)
-    w_j = torch.stack([1 - frac[..., 1], frac[..., 1]], -1)
-    weights = w_i[..., :, None] * w_j[..., None, :]  # [B, N, 2, 2]
+  ranks = []
+  for r in range(view_idx.shape[-1]):
+    lower, weights = _bilinear_taps(p2d[:, :, r], size)
+    row0 = view_idx[:, :, r] * (h + 1) + lower[..., 0]
+    patches = gather_bilinear_patches(stack, row0, lower[..., 1])
     f = (weights[..., None] * patches.float()).sum((2, 3))
-    f, scales = f[..., :dim], f[..., dim:]
-    score = (scales * _depth_hat_weights(
-        depth[:, :, r], scales.shape[-1], depth_min_max)).sum(-1)
-    sel = select[:, :, r]
-    score = torch.where(sel, score, NEG_INF)
-    new_m = torch.maximum(m, score)
+    hat = _depth_hat_weights(depth[:, :, r], f.shape[-1] - dim, depth_min_max)
+    score = torch.where(select[:, :, r], (f[..., dim:] * hat).sum(-1),
+                        NEG_INF)
+    ranks.append(_Rank(row0, lower[..., 1], weights, f, hat, score))
+  return ranks
+
+
+def _online_pool(ranks: List[_Rank], select: Tensor, dim: int):
+  """The reference's online softmax over the ranks: (m, l, S1, S2, valid)."""
+  b, n = select.shape[:2]
+  m = torch.full((b, n), NEG_INF, device=select.device)
+  l = torch.zeros((b, n), device=select.device)
+  s1 = torch.zeros((b, n, dim), device=select.device)
+  s2 = torch.zeros((b, n, dim), device=select.device)
+  for r, rank in enumerate(ranks):
+    f = rank.f[..., :dim]
+    new_m = torch.maximum(m, rank.score)
     safe_m = torch.where(new_m <= NEG_INF, 0.0, new_m)
     rescale = torch.exp(torch.where(m <= NEG_INF, NEG_INF, m) - safe_m)
-    wv = torch.exp(score - safe_m) * sel
+    wv = torch.exp(rank.score - safe_m) * select[:, :, r]
     l = l * rescale + wv
     s1 = s1 * rescale[..., None] + wv[..., None] * f
     s2 = s2 * rescale[..., None] + wv[..., None] * f * f
     m = new_m
-    count = count + sel
-  valid = count > 0
+  return m, l, s1, s2, select.any(-1)
+
+
+def lift_topk_plain(stack: Tensor, view_idx: Tensor, p2d: Tensor,
+                    select: Tensor, depth: Tensor, *, h: int, w: int, dim: int,
+                    depth_min_max: Tuple[float, float]
+                    ) -> Tuple[Tensor, Tensor]:
+  """Plain version of K1; ``stats`` in the stack's dtype, f32 inside.
+
+  Differentiable in plain torch; ``torch.maximum`` (not ``clamp``) on the
+  variance passes half the gradient at a tie, as ``jnp.maximum`` does.
+  """
+  ranks = _lift_ranks(stack, view_idx, p2d, select, depth, h=h, w=w, dim=dim,
+                      depth_min_max=depth_min_max)
+  m, l, s1, s2, valid = _online_pool(ranks, select, dim)
   l_safe = torch.clamp(l, min=1e-20)[..., None]
   mean = s1 / l_safe
-  var = torch.clamp(s2 / l_safe - mean * mean, min=0)
+  var_raw = s2 / l_safe - mean * mean
+  var = torch.maximum(var_raw, torch.zeros_like(var_raw))
   stats = torch.cat([mean, var, torch.where(valid, m, 0.0)[..., None]], -1)
   stats = torch.where(valid[..., None], stats, 0.0)
   return stats.to(stack.dtype), valid
+
+
+def _max_chain_shares(scores: List[Tensor], g_m: Tensor) -> List[Tensor]:
+  """d m / d score_k for m = max(..max(max(NEG_INF, s_0), s_1).., s_K-1),
+  times ``g_m``: all of it to the strict running maximum, and half to each
+  side of an exact tie (``jnp.maximum``'s gradient)."""
+  before, m = [], torch.full_like(g_m, NEG_INF)
+  for score in scores:
+    before.append(m)
+    m = torch.maximum(m, score)
+  shares, coef = [None] * len(scores), g_m
+  for k in reversed(range(len(scores))):
+    gt, eq = scores[k] > before[k], scores[k] == before[k]
+    shares[k] = torch.where(gt, coef, torch.where(eq, coef * 0.5, 0.0))
+    coef = torch.where(gt, 0.0, torch.where(eq, coef * 0.5, coef))
+  return shares
+
+
+def lift_topk_bwd_plain(stack: Tensor, view_idx: Tensor, p2d: Tensor,
+                        select: Tensor, depth: Tensor, g_stats: Tensor, *,
+                        h: int, w: int, dim: int,
+                        depth_min_max: Tuple[float, float]) -> Tensor:
+  """Plain version of K3: ``d stack`` in the stack's dtype from ``g_stats``.
+
+  The formulas of ``csrc/lift_topk_bwd.cu``, written out with
+  ``index_add_`` into an f32 buffer: the forward is recomputed, the
+  gradient goes through (mean, E2 = sum p f^2) of the softmax weights p,
+  the variance's tie passes half, the score max passes ``g_m`` down its
+  chain of maxima, and each selected rank adds ``w_tap * [d f, d c]`` at
+  its four taps. Coordinates, selection and depth get no gradient.
+  """
+  ranks = _lift_ranks(stack, view_idx, p2d, select, depth, h=h, w=w, dim=dim,
+                      depth_min_max=depth_min_max)
+  m, l, s1, s2, valid = _online_pool(ranks, select, dim)
+  l_safe = torch.clamp(l, min=1e-20)[..., None]
+  mean = s1 / l_safe
+  var_raw = s2 / l_safe - mean * mean
+  tau = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5, 0.0))
+  g = torch.where(valid[..., None], g_stats.float(), 0.0)
+  g_e2 = g[..., dim:2 * dim] * tau
+  g_mu = g[..., :dim] - 2 * mean * g_e2
+  p = [torch.where(select[:, :, r] & valid,
+                   torch.exp(rank.score - m) / l_safe[..., 0], 0.0)
+       for r, rank in enumerate(ranks)]
+  u = [(g_mu * rank.f[..., :dim] + g_e2 * rank.f[..., :dim]**2).sum(-1)
+       for rank in ranks]
+  sum_pu = sum(p_r * u_r for p_r, u_r in zip(p, u))
+  shares = _max_chain_shares([rank.score for rank in ranks], g[..., 2 * dim])
+
+  b, rows, cols, c = stack.shape
+  grad = torch.zeros((b * rows * cols, c), device=stack.device)
+  offset = (torch.arange(b, device=stack.device) * rows * cols)[:, None]
+  for r, rank in enumerate(ranks):
+    d_f = p[r][..., None] * (g_mu + 2 * g_e2 * rank.f[..., :dim])
+    d_z = p[r] * (u[r] - sum_pu) + shares[r] * select[:, :, r]
+    d = torch.cat([d_f, d_z[..., None] * rank.hat], -1)  # [B, N, C]
+    for a in (0, 1):
+      for e in (0, 1):
+        ids = offset + (rank.row0 + a) * cols + rank.col0 + e
+        grad.index_add_(0, ids.reshape(-1).long(),
+                        (rank.weights[..., a, e, None] * d).reshape(-1, c))
+  return grad.reshape(stack.shape).to(stack.dtype)
+
+
+class _LiftTopk(torch.autograd.Function):
+  """K1 forward, K3 backward (their plain versions for CPU tensors)."""
+
+  @staticmethod
+  def forward(ctx, stack, view_idx, p2d, select, depth, kwargs):
+    args = (stack, view_idx, p2d, select, depth)
+    if _dispatch(stack, 'lift_topk'):
+      stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
+    else:
+      stats, valid = lift_topk_plain(*args, **kwargs)
+    ctx.save_for_backward(*args)
+    ctx.kwargs = kwargs
+    ctx.mark_non_differentiable(valid)
+    return stats, valid
+
+  @staticmethod
+  def backward(ctx, g_stats, g_valid):
+    del g_valid
+    args = (*ctx.saved_tensors, g_stats.contiguous())
+    if _dispatch(g_stats, 'lift_topk_bwd'):
+      d_stack = kernels.lift_topk_bwd(*args, **ctx.kwargs)
+    else:
+      d_stack = lift_topk_bwd_plain(*args, **ctx.kwargs)
+    return d_stack, None, None, None, None, None
 
 
 def lift_topk(stack: Tensor, view_idx: Tensor, p2d: Tensor, select: Tensor,
@@ -134,13 +259,11 @@ def lift_topk(stack: Tensor, view_idx: Tensor, p2d: Tensor, select: Tensor,
 
   Returns:
     ``stats [B, N, 2*dim + 1]`` = (mean, variance, max score), zero where
-    invalid, in the stack's dtype, and ``valid [B, N]``.
+    invalid, in the stack's dtype, and ``valid [B, N]``. Differentiable in
+    ``stack`` (all C channels) through K3.
   """
-  args = (stack, view_idx, p2d, select, depth)
   kwargs = dict(h=h, w=w, dim=dim, depth_min_max=depth_min_max)
-  if _dispatch(stack, 'lift_topk'):
-    return kernels.lift_topk_fwd(*args, **kwargs)
-  return lift_topk_plain(*args, **kwargs)
+  return _LiftTopk.apply(stack, view_idx, p2d, select, depth, kwargs)
 
 
 def pool_views_stream(
@@ -216,6 +339,62 @@ def patch_sample_2d_plain(padded: Tensor, points: Tensor, *, dim: int,
   return values.to(padded.dtype), ok
 
 
+def patch_sample_2d_bwd_plain(g_values: Tensor, points: Tensor, *,
+                              plane_shape: Tuple[int, int, int, int]
+                              ) -> Tensor:
+  """Plain version of K4: ``d padded`` from ``g_values`` = d values.
+
+  ``w_tap * g`` is added with ``index_add_`` at the four clamped taps of
+  every point (K2's f32 coordinates), into an f32 buffer cast to
+  ``g_values``' dtype; the validity channel gets nothing.
+  """
+  b, hp, wp, c = plane_shape
+  dim = g_values.shape[-1]
+  size = torch.tensor([hp - 1, wp - 1], dtype=torch.float32,
+                      device=points.device)
+  lower, weights = _bilinear_taps(points, size)
+  lower = torch.minimum(lower, (size - 1).int())
+  grad = torch.zeros((b * hp * wp, dim), device=points.device)
+  offset = (torch.arange(b, device=points.device) * hp * wp)[:, None]
+  g = g_values.float()
+  for a in (0, 1):
+    for e in (0, 1):
+      ids = offset + (lower[..., 0] + a) * wp + lower[..., 1] + e
+      grad.index_add_(0, ids.reshape(-1).long(),
+                      (weights[..., a, e, None] * g).reshape(-1, dim))
+  grad = torch.nn.functional.pad(grad, (0, c - dim))
+  return grad.reshape(plane_shape).to(g_values.dtype)
+
+
+class _PatchSample2d(torch.autograd.Function):
+  """K2 forward, K4 backward (their plain versions for CPU tensors)."""
+
+  @staticmethod
+  def forward(ctx, padded, points, dim, has_valid):
+    if _dispatch(padded, 'patch_sample_2d'):
+      values, valid = kernels.patch_sample_2d(padded, points, dim=dim,
+                                              has_valid=has_valid)
+    else:
+      values, valid = patch_sample_2d_plain(padded, points, dim=dim,
+                                            has_valid=has_valid)
+    ctx.save_for_backward(points)
+    ctx.plane_shape = tuple(padded.shape)
+    ctx.mark_non_differentiable(valid)
+    return values, valid
+
+  @staticmethod
+  def backward(ctx, g_values, g_valid):
+    del g_valid
+    (points,) = ctx.saved_tensors
+    args = (g_values.contiguous(), points)
+    if _dispatch(g_values, 'patch_sample_2d_bwd'):
+      d_padded = kernels.patch_sample_2d_bwd(*args,
+                                             plane_shape=ctx.plane_shape)
+    else:
+      d_padded = patch_sample_2d_bwd_plain(*args, plane_shape=ctx.plane_shape)
+    return d_padded, None, None, None
+
+
 def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
                     has_valid: bool) -> Tuple[Tensor, Tensor]:
   """K2: bilinear samples of an edge-padded plane with validity.
@@ -228,12 +407,10 @@ def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
 
   Returns:
     ``values [B, P, dim]`` in the plane's dtype and ``valid [B, P]``: in
-    bounds, and every consulted corner valid.
+    bounds, and every consulted corner valid. Differentiable in the
+    feature channels of ``padded`` through K4.
   """
-  if _dispatch(padded, 'patch_sample_2d'):
-    return kernels.patch_sample_2d(padded, points, dim=dim,
-                                   has_valid=has_valid)
-  return patch_sample_2d_plain(padded, points, dim=dim, has_valid=has_valid)
+  return _PatchSample2d.apply(padded, points, dim, has_valid)
 
 
 def interpolate_patch_2d(array: Tensor, valid: Optional[Tensor],

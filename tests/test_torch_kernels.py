@@ -1,10 +1,13 @@
-"""The CUDA kernels K1 (lift_topk_fwd) and K2 (patch_sample_2d).
+"""The CUDA kernels K1/K3 (lift_topk_fwd/bwd) and K2/K4 (patch_sample_2d
+and its backward).
 
 Tests that need a card take the ``cuda`` fixture and skip where there is
 none (a CUDA kernel has no CPU mode); on a card, run them with
 ``python -m pytest tests/test_torch_kernels.py -q``. The CPU tests check
 the build recipe and the wrappers' refusals.
 """
+
+import math
 
 import pytest
 import torch
@@ -19,6 +22,15 @@ torch.set_num_threads(2)
 # by one rounding (2^-8 relative), f32 ones by summation order.
 TOLERANCES = {torch.float32: dict(atol=1e-5, rtol=1e-5),
               torch.bfloat16: dict(atol=1e-3, rtol=2.0**-7)}
+# The backward kernels: each output is a sum of tap-weighted contributions
+# added with atomics (the plain version's index_add_ on the card too) in
+# orders that change from run to run. The test points spill one pixel past
+# each image edge, so a view's corner pixels collect a few hundred
+# contributions of magnitude up to ~10 whose f32 sums differ by up to
+# ~1e-3 between two orders (a first run measured 7e-4): f32 outputs get
+# 2e-3 absolute.
+BWD_TOLERANCES = {torch.float32: dict(atol=2e-3, rtol=1e-5),
+                  torch.bfloat16: dict(atol=1e-3, rtol=2.0**-7)}
 
 
 @pytest.fixture
@@ -89,7 +101,8 @@ def test_smoke_localizer_on_card_matches_cpu(cuda):
   """The whole slice in f32: card (kernels) against CPU (plain versions)."""
   kernels.reset_launch_counts()
   on_card = evaluate.evaluate('smoke_exhaustive', 2, 'cuda', batch_size=2)
-  assert all(kernels.LAUNCHES.values())
+  assert kernels.LAUNCHES['lift_topk_fwd'] and kernels.LAUNCHES[
+      'patch_sample_2d']
   on_cpu = evaluate.evaluate('smoke_exhaustive', 2, 'cpu', batch_size=2)
   card, cpu = on_card['last_pred'], on_cpu['last_pred']
   assert torch.equal(card['best_volume_index'].cpu(), cpu['best_volume_index'])
@@ -102,11 +115,19 @@ def test_cuda_launchers_refuse_cpu_tensors():
   args, kwargs = _lift_inputs('cpu', torch.float32, 40, 32)
   with pytest.raises(ValueError, match='needs CUDA'):
     kernels.lift_topk_fwd(*args, **kwargs)
+  g_stats = torch.zeros(args[1].shape[:2] + (2 * 32 + 1,))
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.lift_topk_bwd(*args, g_stats, **kwargs)
   args, kwargs = _plane_inputs('cpu', torch.float32)
   with pytest.raises(ValueError, match='needs CUDA'):
     kernels.patch_sample_2d(*args, **kwargs)
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.patch_sample_2d_bwd(torch.zeros(2, 5000, 17), args[1],
+                                plane_shape=tuple(args[0].shape))
   before = dict(kernels.LAUNCHES)
-  view_scan.patch_sample_2d(*args, **kwargs)
+  padded = args[0].clone().requires_grad_()
+  values, _ = view_scan.patch_sample_2d(padded, args[1], **kwargs)
+  values.sum().backward()
   assert kernels.LAUNCHES == before
 
 
@@ -118,5 +139,91 @@ def test_build_recipe():
   assert path.parent == kernels.BUILD_DIR
   assert path.parts[-3] == 'build' and path.suffix == '.so'
   sources = sorted(p.name for p in kernels.CSRC.glob('*.cu'))
-  assert sources == ['lift_topk_fwd.cu', 'patch_sample_2d.cu']
+  assert sources == ['lift_topk_bwd.cu', 'lift_topk_fwd.cu',
+                     'patch_sample_2d.cu', 'patch_sample_2d_bwd.cu']
+  assert sorted(f'{name}.cu' for name in kernels.LAUNCHES) == sources
   assert kernels.library_path() == path  # stable: keyed by the sources
+
+
+@pytest.mark.parametrize('total', [1, 2, 7, 1_152_000, 614_400, 2 * 614_400])
+def test_spread_stride_is_a_permutation(total):
+  stride = kernels.spread_stride(total)
+  assert math.gcd(stride, total) == 1
+  if total < 10_000:
+    assert sorted((w * stride) % total for w in range(total)) == list(
+        range(total))
+
+
+def _raw_lift_bwd_inputs(device, dtype, channels, dim, k=4, seed=0):
+  """K3 inputs with single-view points and unselected ranks."""
+  args, kwargs = _lift_inputs(device, dtype, channels, dim, seed)
+  stack, view_idx, p2d, select, depth = args
+  b, n = view_idx.shape[:2]
+  g = torch.Generator(device='cpu').manual_seed(seed + 1)
+  view_idx = torch.randint(0, 5, (b, n, k), generator=g, dtype=torch.int32)
+  p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor([9.0, 11.0]) - 1
+  select = torch.rand((b, n, k), generator=g) < 0.6
+  select[:, :200] = False
+  select[:, 200:400] = False
+  select[:, 200:400, k - 1] = True
+  depth = torch.rand((b, n, k), generator=g) * 40
+  g_stats = torch.randn((b, n, 2 * dim + 1), generator=g).to(dtype)
+  args = [stack] + [t.to(device) for t in (view_idx, p2d, select, depth)]
+  return args, g_stats.to(device), kwargs
+
+
+@pytest.mark.parametrize('dtype,channels,dim', [
+    (torch.float32, 40, 32),  # the smoke stack
+    (torch.bfloat16, 160, 128),  # the flagship stack
+    (torch.float32, 256, 224),  # the widest stack K3 takes
+])
+def test_lift_topk_bwd_matches_plain(cuda, dtype, channels, dim):
+  args, g_stats, kwargs = _raw_lift_bwd_inputs(cuda, dtype, channels, dim)
+  before = kernels.LAUNCHES['lift_topk_bwd']
+  stack = args[0].clone().requires_grad_()
+  stats, _ = view_scan.lift_topk(stack, *args[1:], **kwargs)
+  (got,) = torch.autograd.grad(stats, stack, g_stats)
+  assert kernels.LAUNCHES['lift_topk_bwd'] == before + 1
+  want = view_scan.lift_topk_bwd_plain(*args, g_stats, **kwargs)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_patch_sample_2d_bwd_matches_plain(cuda, dtype):
+  args, kwargs = _plane_inputs(cuda, dtype)
+  padded = args[0].clone().requires_grad_()
+  before = kernels.LAUNCHES['patch_sample_2d_bwd']
+  values, _ = view_scan.patch_sample_2d(padded, args[1], **kwargs)
+  g = torch.randn(values.shape, device=cuda).to(dtype)
+  (got,) = torch.autograd.grad(values, padded, g)
+  assert kernels.LAUNCHES['patch_sample_2d_bwd'] == before + 1
+  want = view_scan.patch_sample_2d_bwd_plain(
+      g, args[1], plane_shape=tuple(padded.shape))
+  torch.cuda.synchronize()
+  assert not got[..., kwargs['dim']].any()
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+def test_backward_kernels_batches_are_independent(cuda):
+  """Each example of a batch-2 launch of K3 and K4 equals that example
+  launched alone: the kernels' per-example offsets."""
+  args, g_stats, kwargs = _raw_lift_bwd_inputs(cuda, torch.float32, 40, 32)
+  both = kernels.lift_topk_bwd(*args, g_stats, **kwargs)
+  for i in range(2):
+    alone = [t[i:i + 1].contiguous() for t in (*args, g_stats)]
+    torch.testing.assert_close(kernels.lift_topk_bwd(*alone, **kwargs),
+                               both[i:i + 1],
+                               **BWD_TOLERANCES[torch.float32])
+  (padded, points), _ = _plane_inputs(cuda, torch.float32)
+  g = torch.randn(points.shape[:2] + (17,), device=cuda)
+  both = kernels.patch_sample_2d_bwd(g, points,
+                                     plane_shape=tuple(padded.shape))
+  for i in range(2):
+    alone = kernels.patch_sample_2d_bwd(
+        g[i:i + 1].contiguous(), points[i:i + 1].contiguous(),
+        plane_shape=(1,) + tuple(padded.shape[1:]))
+    torch.testing.assert_close(alone, both[i:i + 1],
+                               **BWD_TOLERANCES[torch.float32])
