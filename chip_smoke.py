@@ -1,23 +1,31 @@
-"""Drive the port's serving and training paths on one NVIDIA GPU (H100).
+"""Drive the port's serving, training, RANSAC and gather-bench paths on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
 Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA kernels of ``snap_tpu_torch/csrc`` (one nvcc
-   call);
+2. build: compiles the seven CUDA kernels of ``snap_tpu_torch/csrc`` (one
+   nvcc call);
 3. kernels: K1 (``lift_topk_fwd``), K2 (``patch_sample_2d``), K3
    (``lift_topk_bwd``) and K4 (``patch_sample_2d_bwd``) on seeded inputs at
    the flagship shapes and the training batch of 2 against their plain
    PyTorch versions (K3's inputs hold single-view points and unselected
-   ranks, and repeat a rank for exact score ties);
+   ranks, and repeat a rank for exact score ties); B4 (``pose_scoring``) on
+   seeded inputs at the eval shape with transformed points on cell edges,
+   borders and off the map, mask on and off; B5 (``slice_gather``) and B6
+   (``table_gather``) at the gather tool's shapes over all N points;
 4. serving reference: the tiny ``smoke_exhaustive`` localizer on the card
    (f32, TF32 off) against the same model on the CPU (the plain path);
 5. training reference: ``smoke_train_exhaustive`` (f32, TF32 off), 2 steps
    on the card and on the CPU in lockstep, each step from the same weights,
    batch and (injected) draws; the loss and every parameter's gradient must
    agree at each step, leaf by leaf in the largest entry and in norm;
+5b. RANSAC reference: the tiny ``smoke_eval_ransac`` localizer on the card
+   (f32, TF32 off) against the CPU, with the CPU's pose samples injected:
+   sampled and refinement scores within tolerance, ``best_index`` exact
+   outside near ties, the refined pose within tolerance;
 6. serving main path: ``snap_tpu_torch.evaluate`` on ``bench_full`` (R50,
    20 views of 180x240, 120x160x60 voxels, 64 rotations + refinement,
    bf16, random seeded weights), batch 1, 2 synthetic queries; K1 and K2
@@ -29,15 +37,27 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
    the temperature and (on a step whose draws keep it) the aerial trunk,
    the parameters move once the learning rate is above 0, and every kernel
    launches each step (K1 >= 2, K2 >= 1, K3 >= 2, K4 >= 1);
-8. the four kernels against their plain versions again, on the inputs the
+7b. RANSAC main path: ``snap_tpu_torch.evaluate`` on
+   ``eval_full1chip_ransac`` (R50 street-view + aerial, 20 views of
+   180x240, 0.2 m, top-k 4 lift, 20,000 pose samples x 8 retries, grid
+   refinement, f32, random seeded weights) at batch 4: one warm batch, one
+   timed; per batch B4 launches >= 2, K1 >= 2, K2 never, finite scores;
+   the share of match-PDF categories an f32 prefix sum could not draw
+   (ROADMAP C14);
+7c. the gather bench: ``snap_tpu_torch.bench_gather`` at the tool's shapes
+   (its JSON line printed), B5 and B6 launching;
+8. the kernels against their plain versions again, on the inputs the
    main paths gave them (the backward kernels' cotangents scaled by a power
-   of two to a largest entry in [1, 2)), and CUDA-event times of kernel,
-   plain version and, for K2 and K4, ``F.grid_sample`` (its input gradient
-   for K4) as a library yardstick.
+   of two to a largest entry in [1, 2); K1 also on the RANSAC path's f32
+   lift), and CUDA-event times of kernel, plain version and, where one
+   PyTorch call computes the same function, that call (``F.grid_sample``
+   and its input gradient for K2 and K4; ``F.embedding_bag`` and
+   ``F.embedding`` for B5 and B6, from the bench).
 
 The line before the last is a JSON object with one entry per kernel (K1
-and K2 launches from the serving run, K3 and K4 from the training run); the
-last line is ``{"ok": true, "device": {...}}``.
+and K2 launches from the serving run, K3 and K4 from the training run, B4
+from the RANSAC run, B5 and B6 from the gather bench); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -48,24 +68,27 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from snap_tpu_torch import bench_gather
 from snap_tpu_torch import configs
 from snap_tpu_torch import evaluate
 from snap_tpu_torch import train
 from snap_tpu_torch.data import loader
+from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.models import pose_estimation
+from snap_tpu_torch.models import pose_exhaustive_voting as pev
+from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
+from snap_tpu_torch.utils import geometry
+from snap_tpu_torch.utils import grids
 from snap_tpu_torch.train_lib import optimizers
 from snap_tpu_torch.train_lib import trainer
 
 T0 = time.perf_counter()
-
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores, for the kernels' lower bounds.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 # Tolerances (atol, rtol), kernel against plain version: both accumulate in
 # f32 and differ by summation order (the backward kernels add with atomics,
@@ -93,6 +116,26 @@ TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float32: (1e-4, 1e-5)}
 # selected scores differ by a non-zero amount within NEAR_TIE_RTOL of their
 # size; exact ties (the seeded inputs repeat a rank) keep theirs.
 NEAR_TIE_RTOL = 1e-4
+# B4 against its plain version (and the RANSAC reference, card against
+# CPU): each (pose, point) term is computed alike, operation by operation,
+# and the sum over the points (4,652 at the eval shape, of terms up to
+# ~1.6e-3 there) runs in another order: (atol, rtol). The argmax over 20,000
+# such sums can flip between two scores closer than that: best_index must
+# match except where the other side's score at the chosen index is within
+# the tolerance of its maximum (such cases are counted and printed).
+POSE_SCORE_TOL = (1e-5, 1e-4)
+# The RANSAC reference's card and CPU planes differ by summation order
+# (cuDNN, cuBLAS) before the scores: scores to (atol, rtol), the refined
+# pose to POSE_ATOL (m and rad).
+RANSAC_SCORE_TOL = (1e-4, 1e-4)
+POSE_ATOL = 1e-4
+# The plain scorer's chunk of poses on the card: [B, chunk, N] temporaries.
+PLAIN_POSE_CHUNK = 512
+# f32 operations per (pose, valid point) of B4: the transform (4 mul, 4 add,
+# 2 div), bounds (4 cmp), clamp and floor (2 sub, 4 min/max, 2 floor),
+# upper and frac (2 min, 2 add, 2 sub), weights (2 sub), four taps (8 mul,
+# 3 add) and the sum (1 add).
+POSE_OPS_PER_PAIR = 42
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = 1e-2
@@ -252,15 +295,10 @@ def time_ms(fn, iters: int = 20) -> float:
   return start.elapsed_time(end) / iters
 
 
-def _nbytes(*tensors) -> int:
-  return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _bound(nbytes: int, ops: int):
-  """(bound_ms, bound_by): the larger of the bytes time and the ops time."""
-  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-  return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
-                                     else 'operations')
+# Bounds: the larger of the bytes moved over the HBM rate and the f32
+# operations over the f32 peak (bench_gather's H100 figures).
+_nbytes = bench_gather.nbytes
+_bound = bench_gather.bound
 
 
 def lift_bound(args, kwargs, stats, valid):
@@ -421,6 +459,24 @@ def training_reference() -> None:
       f'its largest entry and within {worst_norm} of its norm (per step)')
 
 
+def fft_contraction_bound(config: configs.Config):
+  """X3, the FFT correlation's channel contraction (PyTorch's einsum, not
+  a kernel of the port): its bound per example of ``config`` (bench_full:
+  64 rotations of a [120, 80, 32] template on the [120, 160, 32] map). The
+  template spectra of every rotation and the map's spectrum are read once
+  and the products written once (complex64), 8 real operations per complex
+  multiply-add."""
+  grid_map = loader.map_grid(config.data).bev()
+  grid_q = bev_localizer.build_query_frustum_grid(
+      grid_map.cell_size, config.model.query_frustum_depth)[0]
+  (h, w), (hq, wq) = grid_map.extent, grid_q.extent
+  cells = pev._next_fast_len(h + 2 * (hq - 1)) * (
+      pev._next_fast_len(w + 2 * (wq - 1)) // 2 + 1)
+  dim, rot = config.model.bev_mapper.matching_dim, config.model.num_rotations
+  nbytes = (rot + 1) * cells * dim * 8 + rot * cells * 8
+  return _bound(nbytes, rot * cells * dim * 8)
+
+
 def serving_main_path():
   """bench_full at batch 1 on 2 queries, bf16; returns launches, captures."""
   # The matmuls run in bf16; the f32 refinement conv of bf16 values is
@@ -445,7 +501,9 @@ def serving_main_path():
       raise AssertionError(f'{kernel} was not launched on the serving path')
   ms = [1e3 * s for s in result['batch_seconds']]
   log(f'serving main path: launches {launches}, ms per query {ms}, position '
-      f'error {result["position_error_m"]} m (random weights)')
+      f'error {result["position_error_m"]} m (random weights); X3 (FFT '
+      f'channel contraction) bound per query '
+      f'{fft_contraction_bound(configs.bench_full())}')
   return launches, lift, sample
 
 
@@ -522,28 +580,309 @@ def training_main_path(smi: str):
   return launches, lift_bwd, sample_bwd
 
 
-def report(name, source, launches, err, k_ms, p_ms, bound, lib_ms):
-  return dict(name=name, route='cuda', source=source,
-              replaces='tools/pallas_gather_probe.py:39', launches=launches,
-              max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
-              bound_by=bound[1], library_ms=lib_ms)
+def assert_close_scores(name: str, got: torch.Tensor, want: torch.Tensor,
+                        tol) -> float:
+  """Pose scores within (atol, rtol); returns the max abs error."""
+  atol, rtol = tol
+  err = (got - want).abs()
+  bad = err > atol + rtol * want.abs()
+  if bad.any() or not torch.isfinite(got).all():
+    raise AssertionError(
+        f'{name}: {int(bad.sum())} of {got.numel()} scores off, max abs err '
+        f'{float(err.max()):.3g} (atol {atol}, rtol {rtol})')
+  return float(err.max())
+
+
+def argmax_agrees(name: str, got: torch.Tensor, want: torch.Tensor,
+                  tol) -> int:
+  """Per row, ``got``'s argmax is ``want``'s, or a near tie: ``want``'s
+  score at ``got``'s argmax lies within ``tol`` of ``want``'s maximum.
+  Returns the number of near ties."""
+  atol, rtol = tol
+  g_idx, w_idx = got.argmax(-1), want.argmax(-1)
+  near = 0
+  for row in range(got.shape[0]):
+    if int(g_idx[row]) == int(w_idx[row]):
+      continue
+    top = float(want[row, w_idx[row]])
+    chosen = float(want[row, g_idx[row]])
+    if top - chosen > atol + rtol * abs(top):
+      raise AssertionError(
+          f'{name}: row {row} picks {int(g_idx[row])} (score {chosen}), '
+          f'the reference {int(w_idx[row])} (score {top})')
+    near += 1
+  return near
+
+
+def check_pose_scoring(args, kwargs):
+  """B4 against its plain version: (max abs error, near ties of argmax)."""
+  got = kernels.pose_scoring(*args, **kwargs)
+  want = pose_estimation.pose_scoring_plain(*args, **kwargs,
+                                            pose_chunk=PLAIN_POSE_CHUNK)
+  torch.cuda.synchronize()
+  err = assert_close_scores('pose_scoring', got, want, POSE_SCORE_TOL)
+  return err, argmax_agrees('pose_scoring argmax', got, want, POSE_SCORE_TOL)
+
+
+def seeded_pose_scoring_inputs(device: str, mask: bool):
+  """B4 at the eval shape, batch 2: 4,652 query points (meters, in the
+  query frustum) on a 120 x 160 map of 0.2 m cells, 20,001 poses. A fifth
+  of the poses have angle 0 or pi / 2 and whole-cell translations, and a
+  fifth of the points lie on whole or half cells, so that transformed
+  points fall on cell centers (where floor and the upper tap jump) and on
+  the map's border; translations reach a cell or more off the map."""
+  g = torch.Generator(device=device).manual_seed(1)
+  b, n, h, w, p, cell = 2, 4652, 120, 160, 20_001, 0.2
+  angle = (torch.rand((b, p), generator=g, device=device) * 2 - 1) * math.pi
+  extent = torch.tensor([h * cell, w * cell], device=device)
+  t = torch.rand((b, p, 2), generator=g, device=device) * (extent + 4) - 2
+  angle[:, :2000] = 0.0
+  angle[:, 2000:4000] = math.pi / 2
+  t[:, :4000] = torch.randint(-5, w + 5, (b, 4000, 2), generator=g,
+                              device=device).float() * cell
+  xy = torch.rand((b, n, 2), generator=g, device=device) * torch.tensor(
+      [24.0, 16.0], device=device) - torch.tensor([12.0, 0.0], device=device)
+  xy[:, :1000] = torch.randint(-120, 121, (b, 1000, 2), generator=g,
+                               device=device).float() * (cell / 2)
+  sim = torch.rand((b, n, h, w), generator=g, device=device) * 1.6e-3
+  valid_points = torch.rand((b, n), generator=g, device=device) < 0.9
+  valid_map = torch.rand((b, h, w), generator=g, device=device) < 0.95
+  return ((angle, t, sim, xy, valid_points, valid_map),
+          dict(cell_size=cell, mask_out_of_bounds=mask))
+
+
+def check_gathers(device: str):
+  """B5 and B6 at the gather tool's shapes, over all N: B5's max abs
+  error (B6 must equal ``table[ids]``)."""
+  inputs = bench_gather.make_inputs(bench_gather.N, seed=2, device=device)
+  flat = bench_gather.flat_stack(inputs['stack'])
+  rid = bench_gather.row_ids(inputs['row0'], inputs['col0'])
+  w = bench_gather.W
+  got = kernels.slice_gather(flat, rid, w=w)
+  want = gathers.slice_gather_plain(flat, rid, w=w)
+  rows = kernels.table_gather(inputs['table'], inputs['ids'])
+  rows_want = gathers.table_gather_plain(inputs['table'], inputs['ids'])
+  torch.cuda.synchronize()
+  if got.shape[0] != bench_gather.N or rows.shape[0] != bench_gather.N:
+    raise AssertionError('the gathers did not cover all N points')
+  err = assert_close('slice_gather', got, want)
+  if not torch.equal(rows, rows_want):
+    raise AssertionError('table_gather differs from table[ids]')
+  return err
+
+
+def ransac_reference() -> None:
+  """The tiny RANSAC localizer on the card against the CPU (f32, TF32 off),
+  same weights and batch, the CPU's pose samples injected on the card."""
+  cfg = configs.smoke_eval_ransac()
+  models = {dev: evaluate.build_localizer(cfg, dev, 0)
+            for dev in ('cpu', 'cuda')}
+  examples = loader.make_pair_examples(
+      loader.split_generator(cfg.data, 'eval'), range(cfg.batch_size),
+      cfg.data)
+  kernels.reset_launch_counts()
+  with torch.inference_mode():
+    cpu = models['cpu'](loader.pair_batch_to_torch(examples, 'cpu'),
+                        generator=torch.Generator().manual_seed(0))
+    samples = cpu['map_t_query_samples'][:, 1:]
+    card = models['cuda'](loader.pair_batch_to_torch(examples, 'cuda'),
+                          pose_samples=geometry.Transform2D(
+                              angle=samples.angle.cuda(),
+                              t=samples.t.cuda()))
+  torch.cuda.synchronize()
+  if kernels.LAUNCHES['pose_scoring'] < 2:
+    raise AssertionError(f'RANSAC reference launches {kernels.LAUNCHES}')
+  err = assert_close_scores('RANSAC reference scores_poses',
+                            card['scores_poses'].cpu(), cpu['scores_poses'],
+                            RANSAC_SCORE_TOL)
+  near = argmax_agrees('RANSAC reference best_index',
+                       card['scores_poses'][:, 1:].cpu(),
+                       cpu['scores_poses'][:, 1:], RANSAC_SCORE_TOL)
+  b = cpu['scores_poses'].shape[0]
+  refine = [x['scores_grid_refine'].reshape(b, -1).cpu() for x in (card, cpu)]
+  err_refine = assert_close_scores('RANSAC reference scores_grid_refine',
+                                   *refine, RANSAC_SCORE_TOL)
+  near_refine = argmax_agrees('RANSAC reference refinement argmax', *refine,
+                              RANSAC_SCORE_TOL)
+  same = ((card['best_index'].cpu() == cpu['best_index'])
+          & (refine[0].argmax(-1) == refine[1].argmax(-1)))
+  for key in ('map_t_query_ransac', 'map_t_query'):
+    dt = (card[key].t.cpu() - cpu[key].t)[same].abs()
+    da = (card[key].angle.cpu() - cpu[key].angle)[same].abs()
+    if dt.numel() and max(float(dt.max()), float(da.max())) > POSE_ATOL:
+      raise AssertionError(f'RANSAC reference {key} off by {dt}, {da}')
+  log(f'RANSAC reference (smoke_eval_ransac, f32): scores max abs err '
+      f'{err:.3g}, refinement {err_refine:.3g}; best_index '
+      f'{cpu["best_index"].tolist()} (near ties {near}, refinement '
+      f'{near_refine}); poses compared on {int(same.sum())} of {b}')
+
+
+def f32_prefix_sum_blind_share(probs: torch.Tensor):
+  """ROADMAP C14: of the categories of ``probs [M]`` with mass > 0, the
+  share that an inverse-CDF draw on an f32 prefix sum can never pick (no
+  width: the sum does not grow there), and their share of the mass. Two
+  f32 prefix sums, on the host: the exact one rounded once to f32 (the
+  best any f32 prefix sum can be), and a sequential f32 one (numpy)."""
+  p = probs.float().cpu().numpy()
+  live = p > 0
+  total = p.sum(dtype=np.float64)
+  shares = []
+  for cdf in (np.cumsum(p, dtype=np.float64).astype(np.float32),
+              np.cumsum(p, dtype=np.float32)):
+    blind = live & ~(np.diff(cdf, prepend=np.float32(0)) > 0)
+    shares.append((float(blind.sum() / max(live.sum(), 1)),
+                   float(p[blind].sum(dtype=np.float64) / total)))
+  return shares
+
+
+def ransac_main_path(smi: str):
+  """eval_full1chip_ransac at batch 4: a warm batch and a timed one;
+  returns launches and the captured inputs of B4, K1 and the draws."""
+  model = evaluate.build_localizer(configs.eval_full1chip_ransac(), 'cuda', 0)
+  per_batch = []
+
+  def check_batch(i: int, pred) -> None:
+    counts = dict(kernels.LAUNCHES)
+    prev = per_batch[-1] if per_batch else {k: 0 for k in counts}
+    launched = {k: counts[k] - prev[k] for k in counts}
+    if (launched['pose_scoring'] < 2 or launched['lift_topk_fwd'] < 2
+        or launched['patch_sample_2d'] != 0):
+      raise AssertionError(f'batch {i}: launches {launched}')
+    for key in ('scores_poses', 'scores_grid_refine'):
+      if not torch.isfinite(pred[key]).all():
+        raise AssertionError(f'batch {i}: non-finite {key}')
+    if tuple(pred['scores_poses'].shape) != (4, 20_001):
+      raise AssertionError(f'scores_poses {tuple(pred["scores_poses"].shape)}')
+    tfm = pred['map_t_query']
+    if not (torch.isfinite(tfm.t).all() and torch.isfinite(tfm.angle).all()):
+      raise AssertionError(f'batch {i}: non-finite pose')
+    per_batch.append(counts)
+    log(f'RANSAC batch {i}: launches {launched}, best_index '
+        f'{pred["best_index"].tolist()}')
+
+  torch.cuda.reset_peak_memory_stats()
+  with Capture(kernels, 'pose_scoring', 0) as scoring, \
+       Capture(view_scan, 'lift_topk', 0) as lift, \
+       Capture(pose_estimation, 'sample_categorical', 0) as draws:
+    kernels.reset_launch_counts()
+    result = evaluate.evaluate('eval_full1chip_ransac', 8, 'cuda', seed=0,
+                               batch_size=4, model=model,
+                               on_batch=check_batch)
+    launches = dict(kernels.LAUNCHES)
+  peak = torch.cuda.max_memory_allocated()
+  probs = draws.largest()[0][0]
+  (blind, blind_mass), (seq, seq_mass) = f32_prefix_sum_blind_share(probs[0])
+  ms = [1e3 * s for s in result['batch_seconds']]
+  build = [1e3 * s for s in result['build_seconds']]
+  log(f'RANSAC main path (eval_full1chip_ransac, batch 4, f32): launches '
+      f'{launches}; ms per batch {ms} (timed batch: {ms[-1]:.1f} ms), host '
+      f'batch build ms {build}, peak memory {peak / 2**30:.2f} GiB; '
+      f'recall_1m {result["recall_1m"]}, recall_top1 '
+      f'{result["recall_top1"]}, sample recalls '
+      f'{[result[k] for k in result if k.startswith("recall_samples")]} '
+      f'(random weights); {smi}')
+  log(f'C14: match PDF of example 0 has {probs.shape[1]} categories; of '
+      f'those with mass > 0, the exact prefix sum rounded to f32 gives '
+      f'{blind:.4%} (holding {blind_mass:.4%} of the mass) no width, a '
+      f'sequential f32 prefix sum {seq:.4%} (holding {seq_mass:.4%})')
+  del model, draws, probs
+  torch.cuda.empty_cache()
+  return launches, scoring, lift
+
+
+def gather_bench_phase():
+  """snap_tpu_torch.bench_gather at the tool's shapes (prints its line)."""
+  kernels.reset_launch_counts()
+  result = bench_gather.main([])
+  launches = dict(kernels.LAUNCHES)
+  by_name = {s['name']: s for s in result['strategies']}
+  for name, kernel in (('pallas_slice', 'slice_gather'),
+                       ('pallas_dyngather', 'table_gather')):
+    if launches[kernel] == 0 or by_name[name]['launches'] == 0:
+      raise AssertionError(f'{kernel} was not launched by the gather bench')
+  if by_name['pallas_dyngather']['max_abs_err'] != 0.0:
+    raise AssertionError('table_gather differs from table[ids]')
+  if not by_name['pallas_slice']['max_abs_err'] <= 0.125:
+    raise AssertionError(f'slice_gather off by '
+                         f'{by_name["pallas_slice"]["max_abs_err"]}')
+  return launches, by_name
+
+
+def pose_scoring_bound(args, out):
+  """B4: poses, points and valid points' maps read once, scores written;
+  POSE_OPS_PER_PAIR f32 operations per (pose, valid point)."""
+  angle, t, sim, xy, valid_points, valid_map = args
+  cells = sim.shape[-2] * sim.shape[-1]
+  valid = int(valid_points.sum())
+  nbytes = _nbytes(angle, t, xy, valid_points, valid_map, out) + (
+      valid * cells * sim.element_size())
+  return _bound(nbytes, angle.shape[-1] * valid * POSE_OPS_PER_PAIR)
+
+
+def new_kernel_rows(ransac_launches, bench_launches, scoring, bench):
+  """Rows of B4 (checked and timed on the RANSAC path's own inputs) and of
+  B5 and B6 (from the gather bench)."""
+  checks = {shape: check_pose_scoring(*call)
+            for shape, call in scoring.calls.items()}
+  per_call = {}
+  for shape, (args, kw) in scoring.calls.items():
+    per_call[shape] = (
+        time_ms(lambda: kernels.pose_scoring(*args, **kw)),
+        pose_scoring_bound(args, kernels.pose_scoring(*args, **kw)))
+  log(f'pose_scoring on main-path inputs: (max abs err, near ties of the '
+      f'argmax) per call {checks}; (ms, (bound ms, bound by)) per call '
+      f'{per_call}')
+  args, kw = scoring.largest()
+  out = kernels.pose_scoring(*args, **kw)
+  rows = [report(
+      'pose_scoring', 'snap_tpu_torch/csrc/pose_scoring.cu',
+      ransac_launches['pose_scoring'], max(e for e, _ in checks.values()),
+      time_ms(lambda: kernels.pose_scoring(*args, **kw)),
+      time_ms(lambda: pose_estimation.pose_scoring_plain(
+          *args, **kw, pose_chunk=PLAIN_POSE_CHUNK), iters=2),
+      pose_scoring_bound(args, out), None,
+      replaces='snap_tpu/models/pose_estimation.py:95')]
+  for name, kernel, replaces in (
+      ('pallas_slice', 'slice_gather', 'tools/bench_gather.py:84'),
+      ('pallas_dyngather', 'table_gather', 'tools/bench_gather.py:124')):
+    row = bench[name]
+    rows.append(report(
+        kernel, f'snap_tpu_torch/csrc/{kernel}.cu', bench_launches[kernel],
+        row['max_abs_err'], row['ms'], row['plain_ms'],
+        (row['bound_ms'], row['bound_by']), row['library_ms'],
+        replaces=replaces))
+  shape = max(scoring.calls, key=lambda s: math.prod(s))
+  for row, at in zip(rows, (shape, 'the tool shape', 'the tool shape')):
+    log(f'{row["name"]} at {at}: {row["ms"]:.4f} ms (plain '
+        f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms by '
+        f'{row["bound_by"]}, library {row["library_ms"]})')
+  return rows
+
+
+def report(name, source, launches, err, k_ms, p_ms, bound, lib_ms,
+           replaces='tools/pallas_gather_probe.py:39'):
+  return dict(name=name, route='cuda', source=source, replaces=replaces,
+              launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+              bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
 
 
 def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
-                sample_bwd):
-  """Check each kernel on every captured input, then time it on the
-  largest: one JSON row per kernel."""
+                sample_bwd, lift_f32):
+  """Check each kernel on every captured input (K1 also on the RANSAC
+  path's f32 lift), then time it on the largest: one JSON row per kernel."""
   errs = {
-      'lift_topk_fwd': max(check_lift(*c) for c in lift.calls.values()),
+      'lift_topk_fwd': max(check_lift(*c) for c in (
+          *lift.calls.values(), *lift_f32.calls.values())),
       'patch_sample_2d': max(check_sample(*c) for c in sample.calls.values()),
       'lift_topk_bwd': max(check_lift_bwd(*c)
                            for c in lift_bwd.calls.values()),
       'patch_sample_2d_bwd': max(check_sample_bwd(*c)
                                  for c in sample_bwd.calls.values()),
   }
-  log(f'kernels on main-path inputs (lift {list(lift.calls)}, sample '
-      f'{list(sample.calls)}, lift_bwd {list(lift_bwd.calls)}, sample_bwd '
-      f'{list(sample_bwd.calls)}): max abs err {errs}')
+  log(f'kernels on main-path inputs (lift {list(lift.calls)} bf16 and '
+      f'{list(lift_f32.calls)} f32, sample {list(sample.calls)}, lift_bwd '
+      f'{list(lift_bwd.calls)}, sample_bwd {list(sample_bwd.calls)}): max '
+      f'abs err {errs}')
 
   rows = []
   args, kw = lift.largest()
@@ -614,21 +953,34 @@ def main() -> int:
       f'lift_topk_bwd {check_lift_bwd(*lift_bwd):.3g}, patch_sample_2d_bwd '
       f'{check_sample_bwd(*sample_bwd):.3g}')
   del lift, sample, lift_bwd, sample_bwd
+  scoring = {mask: check_pose_scoring(*seeded_pose_scoring_inputs('cuda',
+                                                                   mask))
+             for mask in (False, True)}
+  log(f'kernels on seeded inputs: pose_scoring (max abs err, near ties of '
+      f'the argmax) without / with the mask {scoring[False]} / '
+      f'{scoring[True]}; over all {bench_gather.N} points, slice_gather '
+      f'{check_gathers("cuda")}, table_gather exact')
 
-  # 4-5. References: the tiny localizer and trainer, card against CPU.
+  # 4-5b. References: the tiny localizer, trainer and RANSAC localizer,
+  # card against CPU.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   serving_reference()
   training_reference()
+  ransac_reference()
 
-  # 6-7. Main paths, each with the launch counts reset just before it.
+  # 6-7c. Main paths, each with the launch counts reset just before it.
   serve_launches, lift, sample = serving_main_path()
   train_launches, lift_bwd, sample_bwd = training_main_path(smi)
+  torch.backends.cudnn.allow_tf32 = False  # the RANSAC config is f32
+  ransac_launches, scoring, lift_f32 = ransac_main_path(smi)
+  bench_launches, bench = gather_bench_phase()
 
   # 8. Kernels on the main paths' own inputs: check, then time.
   with torch.no_grad():
     rows = kernel_rows(serve_launches, train_launches, lift, sample,
-                       lift_bwd, sample_bwd)
+                       lift_bwd, sample_bwd, lift_f32)
+    rows += new_kernel_rows(ransac_launches, bench_launches, scoring, bench)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -18,12 +18,30 @@ can hold the two side by side (tests/test_torch_localizer.py).
   schedule; no grid refinement.
 - ``smoke_train_exhaustive()``: ``smoke_exhaustive`` with the training
   settings of ``smoke_localization.py`` (constant lr 1e-3, clipping at 1).
+- ``smoke_eval_ransac()``: ``smoke_localization.py`` (RANSAC backend, the
+  in-FoV query points, 64 pose samples x 2 retries) merged with
+  ``smoke_eval_localization.py`` (grid refinement, batch 2, f32).
+- ``eval_full1chip_ransac()``: ``train_localization.py:scale=full1chip``
+  (whose default backend is RANSAC) merged with ``eval_localization.py``
+  as ``snap_tpu/evaluator.py:get_model_and_dataset`` merges them: batch 4,
+  f32, 20,000 pose samples x 8 retries, grid refinement.
+
+``DataConfig.locations`` and ``shuffle_seed`` seed the scene generator as
+``snap_tpu/data/loader.py:get_dataset`` does (``data/loader.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple, Union
+
+
+# ``defaults.base().shuffle_seed``, the experiments' data seed.
+SHUFFLE_SEED = 1234567
+# ``train_localization.py:121-132``: the joined training cities.
+TRAIN_LOCATIONS = ','.join(f'{c}-synthetic' for c in (
+    'barcelona', 'london', 'paris', 'manhattan', 'sanfrancisco', 'brooklyn',
+    'manila', 'singapore', 'taiwan', 'tokyo1', 'rio', 'sydney'))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,10 +112,15 @@ class BEVLocalizerConfig:
   bev_mapper: BEVMapperConfig = BEVMapperConfig()
   add_confidence_query: bool = False
   add_confidence_map: bool = False
+  mask_score_out_of_bounds: bool = False
+  clip_negative_scores: bool = True
   add_temperature: bool = True
   init_temperature: float = 2.0
+  num_pose_samples: Optional[int] = None
+  num_pose_sampling_retries: int = 1
   query_frustum_depth: float = 16.0
   filter_points_in_fov: bool = False
+  threshold_remove_accurate_poses: Optional[Tuple[float, float]] = None
   do_grid_refinement: bool = False
   pose_backend: str = 'ransac'
   num_rotations: int = 64
@@ -106,14 +129,29 @@ class BEVLocalizerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LocationsConfig:
+  """The pseudo-cities that seed the train and eval scene generators."""
+
+  training: Optional[str] = None
+  evaluation: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
-  """Synthetic-scene settings (``defaults.streetview_singlescene``)."""
+  """Synthetic-scene settings (``defaults.streetview_singlescene``).
+
+  ``shuffle_seed`` is what the JAX loader is given as ``shuffle_seed``: the
+  experiment's for training, the eval config's ``data.rng_seed`` for
+  evaluation.
+  """
 
   num_views: int = 10
   image_size: Tuple[int, int] = (180, 240)
   voxel_size: float = 0.2
   add_images: bool = True
   add_rasters: bool = True
+  locations: LocationsConfig = LocationsConfig()
+  shuffle_seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,9 +197,11 @@ def bench_full(batch_size: int = 1) -> Config:
       pose_backend='exhaustive',
       num_rotations=64,
       filter_points_in_fov=False,
+      clip_negative_scores=False,
       do_grid_refinement=True,
   )
-  data = DataConfig(num_views=20, image_size=(180, 240), voxel_size=0.2)
+  data = DataConfig(num_views=20, image_size=(180, 240), voxel_size=0.2,
+                    locations=LocationsConfig(training='bench-city'))
   return Config(model=model, data=data, dtype_str='bfloat16',
                 batch_size=batch_size)
 
@@ -191,8 +231,12 @@ def smoke_exhaustive(batch_size: int = 2) -> Config:
       pose_backend='exhaustive',
       num_rotations=16,
       filter_points_in_fov=False,
+      num_pose_samples=64,
+      num_pose_sampling_retries=2,
   )
-  data = DataConfig(num_views=3, image_size=(36, 48), voxel_size=1.0)
+  data = DataConfig(num_views=3, image_size=(36, 48), voxel_size=1.0,
+                    locations=LocationsConfig(training='smoke-city'),
+                    shuffle_seed=SHUFFLE_SEED)
   return Config(model=model, data=data, dtype_str='float32',
                 batch_size=batch_size)
 
@@ -210,10 +254,15 @@ def train_full1chip_exhaustive(batch_size: int = 2) -> Config:
                 start_decay_step=4_000, steps_per_cycle=16_000)
   train = TrainConfig(lr_configs=lr, max_grad_norm=1.0,
                       num_training_steps=20_000)
+  data = dataclasses.replace(
+      serve.data, shuffle_seed=SHUFFLE_SEED,
+      locations=LocationsConfig(training=TRAIN_LOCATIONS))
   return dataclasses.replace(
       serve,
-      model=dataclasses.replace(serve.model, do_grid_refinement=False),
-      train=train)
+      model=dataclasses.replace(serve.model, do_grid_refinement=False,
+                                num_pose_samples=10_000,
+                                num_pose_sampling_retries=8),
+      data=data, train=train)
 
 
 def smoke_train_exhaustive(batch_size: int = 2) -> Config:
@@ -225,11 +274,52 @@ def smoke_train_exhaustive(batch_size: int = 2) -> Config:
                         num_training_steps=8))
 
 
+def _eval_data(train_data: DataConfig, location: str) -> DataConfig:
+  """``evaluator.py:get_model_and_dataset``: the experiment's scene keys,
+  the eval config's seed (``data.rng_seed`` = 0) and one location for both
+  splits."""
+  return dataclasses.replace(
+      train_data, shuffle_seed=0,
+      locations=LocationsConfig(training=location, evaluation=location))
+
+
+def smoke_eval_ransac(batch_size: int = 2) -> Config:
+  """``smoke_localization.py`` (RANSAC) under ``smoke_eval_localization.py``:
+  the in-FoV query points, 64 samples x 2 retries, grid refinement, f32,
+  evaluated on 'smokeville-synthetic_eval'."""
+  smoke = smoke_exhaustive(batch_size)
+  model = dataclasses.replace(
+      smoke.model, pose_backend='ransac', filter_points_in_fov=True,
+      num_pose_samples=64, num_pose_sampling_retries=2,
+      do_grid_refinement=True)
+  return dataclasses.replace(
+      smoke, model=model,
+      data=_eval_data(smoke.data, 'smokeville-synthetic_eval'))
+
+
+def eval_full1chip_ransac(batch_size: int = 4) -> Config:
+  """``train_localization.py:scale=full1chip`` (RANSAC, its default backend)
+  under ``eval_localization.py``: R50 street-view + aerial mapper, 20 views
+  of 180x240, 0.2 m voxels, top-k 4 lift, 20,000 pose samples x 8 retries,
+  grid refinement, batch 4, f32, evaluated on the first test city,
+  'osaka-synthetic_eval'."""
+  train = train_full1chip_exhaustive(batch_size)
+  model = dataclasses.replace(
+      train.model, pose_backend='ransac', filter_points_in_fov=True,
+      clip_negative_scores=True, num_pose_samples=20_000,
+      num_pose_sampling_retries=8, do_grid_refinement=True)
+  return dataclasses.replace(
+      train, model=model, dtype_str='float32',
+      data=_eval_data(train.data, 'osaka-synthetic_eval'))
+
+
 CONFIGS = {
     'bench_full': bench_full,
     'smoke_exhaustive': smoke_exhaustive,
     'train_full1chip_exhaustive': train_full1chip_exhaustive,
     'smoke_train_exhaustive': smoke_train_exhaustive,
+    'smoke_eval_ransac': smoke_eval_ransac,
+    'eval_full1chip_ransac': eval_full1chip_ransac,
 }
 
 

@@ -1,14 +1,15 @@
 """Synthetic map/query batches as torch tensors with typed geometry.
 
 The port's counterpart of the host path of ``snap_tpu/data/loader.py``: a
-``SyntheticSceneGenerator`` configured as the JAX loader configures it,
-examples stacked with numpy, and pose/intrinsics dicts wrapped into
-``Transform3D`` / ``FisheyeCamera`` on the requested device.
+``SyntheticSceneGenerator`` configured and seeded as the JAX loader
+configures and seeds it (``split_generator``), examples stacked with numpy,
+and pose/intrinsics dicts wrapped into ``Transform3D`` / ``FisheyeCamera``
+on the requested device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -23,9 +24,27 @@ DataDict = Dict[str, Any]
 Device = Union[str, torch.device]
 
 
-def make_generator(data_config: configs.DataConfig,
-                   seed: int) -> synthetic.SyntheticSceneGenerator:
-  """The scene generator with the JAX loader's settings for ``data_config``."""
+# The seed salt of each split (``snap_tpu/data/loader.py:get_dataset``).
+SPLIT_SALTS = {'train': 0, 'eval': 1}
+
+
+def location_seed(location: Optional[str], base_seed: int) -> int:
+  """Stable per-location seed so pseudo-cities have disjoint content
+  (a copy of ``snap_tpu/data/loader.py:location_seed``)."""
+  if not location:
+    return base_seed
+  h = 0
+  for ch in str(location):
+    h = (h * 131 + ord(ch)) % (2**31)
+  return (base_seed * 1_000_003 + h) % (2**31)
+
+
+def make_generator(data_config: configs.DataConfig, seed: int,
+                   location: Optional[str] = None
+                   ) -> synthetic.SyntheticSceneGenerator:
+  """The scene generator with the JAX loader's settings for ``data_config``,
+  seeded with ``location_seed(location, seed)`` (``seed`` itself when there
+  is no location)."""
   return synthetic.SyntheticSceneGenerator(
       scene_config=types.SceneConfig(num_views=data_config.num_views),
       rasters_config=types.RastersConfig(resolution=data_config.voxel_size),
@@ -33,8 +52,23 @@ def make_generator(data_config: configs.DataConfig,
       pairing_config=types.PairingConfig(),
       image_hw=tuple(data_config.image_size),
       voxel_size=data_config.voxel_size,
-      seed=seed,
+      seed=location_seed(location, seed),
   )
+
+
+def split_generator(data_config: configs.DataConfig,
+                    split: str) -> synthetic.SyntheticSceneGenerator:
+  """The ``'train'`` or ``'eval'`` generator of the JAX loader for this
+  config: seeded with ``location_seed(location, shuffle_seed + salt)``, the
+  eval split's location defaulting to the training one
+  (``snap_tpu/data/loader.py:294-303``, ``:335-336``)."""
+  locations = data_config.locations
+  location = locations.training
+  if split == 'eval':
+    location = locations.evaluation or locations.training
+  return make_generator(data_config,
+                        data_config.shuffle_seed + SPLIT_SALTS[split],
+                        location)
 
 
 def map_grid(data_config: configs.DataConfig) -> grids.Grid3D:

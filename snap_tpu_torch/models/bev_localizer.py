@@ -1,11 +1,21 @@
 """Estimate the 3-DoF pose of a query view against a neural map.
 
-Port of ``snap_tpu/models/bev_localizer.py`` with the exhaustive backend:
-the map and the query (on a gravity-aligned frustum grid) go through the
-same BEV mapper, the dense (rotation x translation) pose volume is voted by
-FFT correlation, and the argmax is refined over a fan of fine angles.
-``loss_metrics_function`` gives the training loss (InfoNCE of the GT pose's
-score against every cell of the volume) and the recall metrics.
+Port of ``snap_tpu/models/bev_localizer.py`` with both pose backends. The
+map and the query (on a gravity-aligned frustum grid) go through the same
+BEV mapper; then
+
+- ``pose_backend='exhaustive'``: the dense (rotation x translation) pose
+  volume is voted by FFT correlation and its argmax refined over a fan of
+  fine angles;
+- ``pose_backend='ransac'`` (the reference's default): every query point is
+  correlated with every map cell, pose hypotheses are drawn from the
+  resulting match PDF, scored by bilinear reads of the per-point score maps
+  (B4, ``models/pose_estimation.py``), and the best is refined on a dense
+  offset lattice.
+
+``loss_metrics_function`` gives the loss (InfoNCE of the GT pose's score
+against the volume, or against the sampled poses' scores) and the recall
+metrics.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from torch import nn
 
 from snap_tpu_torch import configs
 from snap_tpu_torch.models import bev_mapper
+from snap_tpu_torch.models import pose_estimation
 from snap_tpu_torch.models import pose_exhaustive_voting as pev
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
@@ -59,11 +70,9 @@ class BEVLocalizer(nn.Module):
                grid_map: grids.Grid2D, streetview_hfov_deg: float = 72.0,
                dtype: torch.dtype = torch.float32):
     super().__init__()
-    if config.pose_backend != 'exhaustive':
-      raise NotImplementedError(
-          f'pose_backend={config.pose_backend!r}: the port has the '
-          "'exhaustive' backend; RANSAC is ROADMAP item A9.")
-    if config.filter_points_in_fov:
+    if config.pose_backend not in ('exhaustive', 'ransac'):
+      raise ValueError(f'Unknown pose_backend {config.pose_backend!r}')
+    if config.pose_backend == 'exhaustive' and config.filter_points_in_fov:
       raise ValueError('The exhaustive backend needs the dense query grid '
                        '(filter_points_in_fov=False).')
     if config.add_confidence_query or config.add_confidence_map:
@@ -80,11 +89,14 @@ class BEVLocalizer(nn.Module):
 
   def forward(self, data: Dict[str, Any], train: bool = False,
               generator: Optional[torch.Generator] = None,
-              draws: Optional[bev_mapper.TrainDraws] = None
+              draws: Optional[bev_mapper.TrainDraws] = None,
+              pose_samples: Optional[geometry.Transform2D] = None
               ) -> Dict[str, Any]:
     """Localize the query in the map. With ``train``, the mapper's z jitter
     and modality dropout apply, from ``draws`` or else drawn on
-    ``generator`` (a CPU ``torch.Generator``)."""
+    ``generator`` (a CPU ``torch.Generator``). The RANSAC backend draws its
+    ``[B, num_pose_samples]`` pose hypotheses on ``generator`` too, unless
+    they are given as ``pose_samples``."""
     query = data['query']
     batch = query['images'].shape[0]
     device = query['images'].device
@@ -101,9 +113,69 @@ class BEVLocalizer(nn.Module):
     m_t_q_gt = data.get('T_query2map')
     if isinstance(m_t_q_gt, geometry.Transform3D):
       m_t_q_gt = geometry.Transform2D.from_Transform3D(m_t_q_gt)
-    pred.update(self._poses_exhaustive(
-        pred['query']['bev_matching'], pred['map']['bev_matching'], m_t_q_gt))
+    plane_q, plane_map = pred['query']['bev_matching'], pred['map'][
+        'bev_matching']
+    if self.config.pose_backend == 'exhaustive':
+      pred.update(self._poses_exhaustive(plane_q, plane_map, m_t_q_gt))
+      return pred
+    pred.update(self._poses_sampled(plane_q, plane_map, q_xy_p, m_t_q_gt,
+                                    generator, pose_samples))
     return pred
+
+  def _point_scores(self, plane_q, plane_map
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The dense point-vs-map similarity ``sim_points [B, N, H, W]`` f32
+    (clipped, scaled by the temperature, divided by the valid count), its
+    match PDF ``prob_points`` (softmax over the map, divided likewise) and
+    the query points' validity ``[B, N]``."""
+    b = plane_map.features.shape[0]
+    valid_points = plane_q.valid.reshape(b, -1)
+    f_p_q = plane_q.features.reshape(b, -1, plane_q.features.shape[-1])
+    # A plain product, left to cuBLAS as the JAX package leaves it to XLA.
+    sim = torch.einsum('bnd,bijd->bnij', f_p_q, plane_map.features)
+    if self.config.clip_negative_scores:
+      sim = torch.relu(sim)
+    sim = sim.float()
+    if self.config.add_temperature:
+      sim = sim * torch.exp(self.temperature)
+    prob = torch.softmax(sim.reshape(*sim.shape[:2], -1), -1).reshape(
+        sim.shape)
+    num_valid = valid_points.sum(-1).clamp(min=1)[:, None, None, None]
+    return sim / num_valid, prob / num_valid, valid_points
+
+  def _poses_sampled(self, plane_q, plane_map, q_xy_p, m_t_q_gt, generator,
+                     pose_samples) -> Dict[str, Any]:
+    """PDF-RANSAC hypotheses, B4 scoring, the best refined on a lattice."""
+    out: Dict[str, Any] = {}
+    b = plane_map.features.shape[0]
+    q_xy_p = q_xy_p.reshape(-1, 2)[None].expand(b, -1, 2).contiguous()
+    sim, prob, valid_points = self._point_scores(plane_q, plane_map)
+    if pose_samples is None:
+      if generator is None:
+        raise ValueError('the RANSAC backend needs a generator for its '
+                         'pose samples, or pose_samples')
+      pose_samples = pose_estimation.sample_transforms_ransac(
+          prob.detach(), q_xy_p, self.config.num_pose_samples,
+          self.config.num_pose_sampling_retries, self.grid_map, generator)
+    del prob
+    m_t_q = pose_samples
+    if m_t_q_gt is not None:
+      m_t_q = geometry.Transform2D.cat([m_t_q_gt.unsqueeze(-1), m_t_q])
+    out['map_t_query_samples'] = m_t_q
+    out['scores_poses'] = scores = pose_estimation.pose_scoring_many(
+        m_t_q, sim, q_xy_p, valid_points, plane_map.valid, self.grid_map,
+        self.config.mask_score_out_of_bounds)
+    # The GT pose (index 0, if present) only takes part in the loss.
+    start = int(m_t_q_gt is not None)
+    out['best_index'] = best = torch.argmax(scores[:, start:], -1)
+    out['map_t_query'] = m_t_q[:, start:].take(best)
+    if self.config.do_grid_refinement:
+      out['map_t_query_ransac'] = out['map_t_query']
+      out['map_t_query'], out['scores_grid_refine'] = (
+          pose_estimation.grid_refinement(
+              out['map_t_query'], sim, q_xy_p, valid_points, plane_map.valid,
+              self.grid_map, self.config.mask_score_out_of_bounds))
+    return out
 
   def _poses_exhaustive(self, plane_q, plane_map, m_t_q_gt) -> Dict[str, Any]:
     """Dense translation x rotation voting, argmax, fine refinement."""
@@ -158,26 +230,47 @@ class BEVLocalizer(nn.Module):
 
   def loss_metrics_function(self, pred: Dict[str, Any], data: Dict[str, Any]
                             ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """Per-example losses and metrics (``BEVLocalizerModel``'s, dense path).
+    """Per-example losses and metrics (``BEVLocalizerModel``'s).
 
-    The loss is InfoNCE: ``logsumexp`` over the masked pose volume minus the
-    GT pose's score read from the unmasked one. Metrics: position and
-    rotation error of ``map_t_query``, coarse top-1, the recalls at 0.5, 1,
-    2 and 5 m / deg, and the temperature parameter.
+    The loss is InfoNCE. Dense path: ``logsumexp`` over the masked pose
+    volume minus the GT pose's score read from the unmasked one. Sampled
+    path: ``-log_softmax`` of the GT pose's score (index 0) among the
+    sampled poses' scores, without the samples that lie within
+    ``threshold_remove_accurate_poses`` of the GT. Metrics: position and
+    rotation error of ``map_t_query``, top-1 (dense: the coarse argmax
+    within one cell and bin of the GT; sampled: the GT pose scores best),
+    the recalls at 0.5, 1, 2 and 5 m / deg, the temperature parameter and,
+    sampled only, the share of samples within (0.5 m, 1 deg), (1 m, 2 deg)
+    and (2 m, 4 deg) of the GT.
     """
-    volume = pred['scores_pose_volume']
+    scores = pred['scores_poses']
     m_t_q_gt = data['T_query2map']
     if isinstance(m_t_q_gt, geometry.Transform3D):
       m_t_q_gt = geometry.Transform2D.from_Transform3D(m_t_q_gt)
-    flat = torch.where(torch.isfinite(volume), volume, -torch.inf)
-    flat = flat.reshape(volume.shape[0], -1)
-    nll = torch.logsumexp(flat, -1) - pred['scores_poses'][..., 0]
+    dense = 'scores_pose_volume' in pred
+    if dense:
+      volume = pred['scores_pose_volume']
+      flat = torch.where(torch.isfinite(volume), volume, -torch.inf)
+      flat = flat.reshape(volume.shape[0], -1)
+      nll = torch.logsumexp(flat, -1) - scores[..., 0]
+    else:
+      samples_t_gt = (pred['map_t_query_samples'].inv
+                      @ m_t_q_gt.unsqueeze(-1))
+      dr_samples, dt_samples = samples_t_gt.magnitude()
+      threshold = self.config.threshold_remove_accurate_poses
+      if threshold is not None:
+        remove = (dr_samples < threshold[0]) & (dt_samples < threshold[1])
+        remove[..., 0] = False  # Keep the GT pose score.
+        scores = torch.where(remove, -torch.inf, scores)
+      nll = -torch.log_softmax(scores, -1)[..., 0]
     losses = {'localization/nll': nll, 'total': nll}
     dr, dt = (pred['map_t_query'].inv @ m_t_q_gt).magnitude()
+    top1 = (pred['top1_coarse_correct'] if dense
+            else torch.argmax(pred['scores_poses'], -1) == 0)
     metrics = {
         'loc/err_max_position': dt,
         'loc/err_max_rotation': dr,
-        'loc/recall_top1': pred['top1_coarse_correct'],
+        'loc/recall_top1': top1,
     }
     for t in [0.5, 1, 2, 5]:
       metrics[f'loc/recall_max_{t}m'] = dt < t
@@ -185,4 +278,9 @@ class BEVLocalizer(nn.Module):
     if self.config.add_temperature:
       metrics['loc/temperature'] = self.temperature.detach().expand(
           nll.shape)
+    if not dense:
+      for dt_thresh, dr_thresh in [(0.5, 1), (1, 2), (2, 4)]:
+        recall = (dr_samples < dr_thresh) & (dt_samples < dt_thresh)
+        metrics[f'loc/recall_samples_{dt_thresh}m_{dr_thresh}deg'] = (
+            recall[..., 1:].float().mean(-1))  # exclude the GT pose
     return losses, metrics

@@ -36,7 +36,8 @@ BUILD_TIMEOUT_S = 180
 # Launches per kernel since the last reset_launch_counts(); each kernel's
 # source is csrc/<name>.cu and its C entry point carries the same name.
 LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0, 'lift_topk_bwd': 0,
-            'patch_sample_2d_bwd': 0}
+            'patch_sample_2d_bwd': 0, 'pose_scoring': 0, 'slice_gather': 0,
+            'table_gather': 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -45,6 +46,16 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launch_counts() -> None:
   for name in LAUNCHES:
     LAUNCHES[name] = 0
+
+
+def on_card(t: Tensor, kernel_name: str) -> bool:
+  """A wrapper's dispatch on its input's device: True for the kernel
+  (CUDA), False for the plain version (CPU); any other device raises."""
+  if t.device.type == 'cuda':
+    return True
+  if t.device.type == 'cpu':
+    return False
+  raise ValueError(f'{kernel_name}: no kernel for device {t.device}')
 
 
 def _nvcc() -> str:
@@ -105,6 +116,9 @@ def load_library() -> ctypes.CDLL:
   lib.patch_sample_2d.argtypes = [vp] * 4 + [i32] * 8 + [vp]
   lib.lift_topk_bwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [i64, vp]
   lib.patch_sample_2d_bwd.argtypes = [vp] * 3 + [i32] * 7 + [i64, vp]
+  lib.pose_scoring.argtypes = [vp] * 7 + [i32] * 5 + [f32, i32, vp]
+  lib.slice_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
+  lib.table_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
   for name in LAUNCHES:
     getattr(lib, name).restype = i32
   _lib = lib
@@ -264,3 +278,89 @@ def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
   _raise_on_error(code, 'patch_sample_2d_bwd')
   LAUNCHES['patch_sample_2d_bwd'] += 1
   return grad.to(g_values.dtype)
+
+
+def pose_scoring(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
+                 valid_points: Tensor, valid_map: Tensor, *,
+                 cell_size: float, mask_out_of_bounds: bool) -> Tensor:
+  """B4 on the card: ``[B, P]`` f32 scores of the poses ``(angle, t)``.
+
+  Forward only: B4's backward (a scatter of ``valid * w_tap`` into ``sim``)
+  is not written yet, so this raises where autograd would need it, rather
+  than return a score with no gradient.
+  """
+  if sim.device.type != 'cuda':
+    raise ValueError(f'pose_scoring needs CUDA tensors, got {sim.device}')
+  if torch.is_grad_enabled() and sim.requires_grad:
+    raise RuntimeError('pose_scoring has no backward kernel yet: score '
+                       'under torch.no_grad() or inference_mode()')
+  b, n, h, w = sim.shape
+  p = angle.shape[-1]
+  dev = sim.device
+  _check(angle, 'angle', torch.float32, (b, p), dev)
+  _check(t, 't', torch.float32, (b, p, 2), dev)
+  _check(sim, 'sim', torch.float32, (b, n, h, w), dev)
+  _check(xy, 'xy', torch.float32, (b, n, 2), dev)
+  _check(valid_points, 'valid_points', torch.bool, (b, n), dev)
+  _check(valid_map, 'valid_map', torch.bool, (b, h, w), dev)
+  out = torch.empty((b, p), dtype=torch.float32, device=dev)
+  lib = load_library()
+  code = lib.pose_scoring(
+      angle.data_ptr(), t.data_ptr(), sim.data_ptr(), xy.data_ptr(),
+      valid_points.data_ptr(), valid_map.data_ptr(), out.data_ptr(), b, p,
+      n, h, w, float(cell_size), int(mask_out_of_bounds),
+      torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'pose_scoring')
+  LAUNCHES['pose_scoring'] += 1
+  return out
+
+
+def slice_gather(stack: Tensor, rid: Tensor, *, w: int) -> Tensor:
+  """B5 on the card: ``[N, C]`` bf16 sums of the 2x2 taps at ``rid``."""
+  if stack.device.type != 'cuda':
+    raise ValueError(f'slice_gather needs CUDA tensors, got {stack.device}')
+  rows, c = stack.shape
+  n = rid.shape[0]
+  if c % 8 or stack.data_ptr() % 16:
+    raise ValueError('slice_gather needs 16-byte aligned rows of bf16')
+  if rows < w + 3:
+    raise ValueError(f'stack of {rows} rows holds no 2x2 patch at w={w}')
+  dev = stack.device
+  _check(stack, 'stack', torch.bfloat16, (rows, c), dev)
+  _check(rid, 'rid', torch.int32, (n,), dev)
+  out = torch.empty((n, c), dtype=torch.bfloat16, device=dev)
+  lib = load_library()
+  code = lib.slice_gather(stack.data_ptr(), rid.data_ptr(), out.data_ptr(),
+                          n, c, w, rows,
+                          torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'slice_gather')
+  LAUNCHES['slice_gather'] += 1
+  return out
+
+
+# B6 stages the whole table in 8 KB of shared memory.
+TABLE_GATHER_MAX_FLOATS = 2048
+
+
+def table_gather(table: Tensor, ids: Tensor) -> Tensor:
+  """B6 on the card: ``[N, D]`` f32 rows ``table[ids]``."""
+  if table.device.type != 'cuda':
+    raise ValueError(f'table_gather needs CUDA tensors, got {table.device}')
+  rows, d = table.shape
+  n = ids.shape[0]
+  if d % 4 or rows * d > TABLE_GATHER_MAX_FLOATS or table.data_ptr() % 16:
+    raise ValueError(f'table_gather takes aligned tables of at most '
+                     f'{TABLE_GATHER_MAX_FLOATS} floats, D % 4 == 0; got '
+                     f'{tuple(table.shape)}')
+  dev = table.device
+  _check(table, 'table', torch.float32, (rows, d), dev)
+  _check(ids, 'ids', torch.int32, (n,), dev)
+  out = torch.empty((n, d), dtype=torch.float32, device=dev)
+  lib = load_library()
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  code = lib.table_gather(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                          n, rows, d, sms,
+                          torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'table_gather')
+  LAUNCHES['table_gather'] += 1
+  return out

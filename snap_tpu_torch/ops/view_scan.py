@@ -39,15 +39,6 @@ class ViewScanOutput(NamedTuple):
   min_distance: Tensor  # [B, N]
 
 
-def _dispatch(t: Tensor, kernel_name: str) -> bool:
-  """True for the kernel (CUDA), False for the plain version (CPU)."""
-  if t.device.type == 'cuda':
-    return True
-  if t.device.type == 'cpu':
-    return False
-  raise ValueError(f'{kernel_name}: no kernel for device {t.device}')
-
-
 def gather_bilinear_patches(images: Tensor, row0: Tensor, col0: Tensor
                             ) -> Tensor:
   """``[B, R, W, C]`` stack, ``[B, N]`` origins -> ``[B, N, 2, 2, C]`` patches.
@@ -224,7 +215,7 @@ class _LiftTopk(torch.autograd.Function):
   @staticmethod
   def forward(ctx, stack, view_idx, p2d, select, depth, kwargs):
     args = (stack, view_idx, p2d, select, depth)
-    if _dispatch(stack, 'lift_topk'):
+    if kernels.on_card(stack, 'lift_topk'):
       stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
     else:
       stats, valid = lift_topk_plain(*args, **kwargs)
@@ -237,7 +228,7 @@ class _LiftTopk(torch.autograd.Function):
   def backward(ctx, g_stats, g_valid):
     del g_valid
     args = (*ctx.saved_tensors, g_stats.contiguous())
-    if _dispatch(g_stats, 'lift_topk_bwd'):
+    if kernels.on_card(g_stats, 'lift_topk_bwd'):
       d_stack = kernels.lift_topk_bwd(*args, **ctx.kwargs)
     else:
       d_stack = lift_topk_bwd_plain(*args, **ctx.kwargs)
@@ -371,7 +362,7 @@ class _PatchSample2d(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, padded, points, dim, has_valid):
-    if _dispatch(padded, 'patch_sample_2d'):
+    if kernels.on_card(padded, 'patch_sample_2d'):
       values, valid = kernels.patch_sample_2d(padded, points, dim=dim,
                                               has_valid=has_valid)
     else:
@@ -387,7 +378,7 @@ class _PatchSample2d(torch.autograd.Function):
     del g_valid
     (points,) = ctx.saved_tensors
     args = (g_values.contiguous(), points)
-    if _dispatch(g_values, 'patch_sample_2d_bwd'):
+    if kernels.on_card(g_values, 'patch_sample_2d_bwd'):
       d_padded = kernels.patch_sample_2d_bwd(*args,
                                              plane_shape=ctx.plane_shape)
     else:

@@ -7,7 +7,8 @@
 
 Builds the localizer of the named config with weights drawn from
 ``--seed``, makes one batch of synthetic map/query pairs per step with the
-port's generator (examples ``step * batch + k``), and takes ``num_steps``
+port's generator (the config's training split, seeded as the JAX loader
+seeds it; examples ``step * batch + k``), and takes ``num_steps``
 Adam steps (``train_lib.trainer.train_step``). Prints one JSON line per
 step (loss, gradient and update norms, learning rate, step time) and, at
 the end, writes the model's ``state_dict`` to ``<workdir>/params.pt``.
@@ -58,7 +59,7 @@ def train(config_name: str = 'train_full1chip_exhaustive', num_steps: int = 3,
   model.train()
   optimizer = optimizers.Adam(config.train)
   state = trainer.create_train_state(model, optimizer, seed)
-  generator = loader.make_generator(config.data, seed)
+  generator = loader.split_generator(config.data, 'train')
   cuda = torch.device(device).type == 'cuda'
   logs, metrics, step_seconds, batch_seconds = [], [], [], []
   for step in range(num_steps):

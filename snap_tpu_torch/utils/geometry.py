@@ -46,6 +46,10 @@ class Transform2D:
   t: Tensor  # [..., 2]
 
   @classmethod
+  def from_radians(cls, angle: Tensor, t: Tensor) -> 'Transform2D':
+    return cls(angle=torch.as_tensor(angle), t=torch.as_tensor(t))
+
+  @classmethod
   def from_R(cls, R: Tensor, t: Tensor) -> 'Transform2D':
     return cls(angle=torch.atan2(R[..., 1, 0], R[..., 0, 0]), t=t)
 
@@ -59,6 +63,24 @@ class Transform2D:
 
   def __getitem__(self, idx: Any) -> 'Transform2D':
     return Transform2D(angle=self.angle[idx], t=self.t[idx])
+
+  def unsqueeze(self, dim: int) -> 'Transform2D':
+    """A new batch axis at ``dim`` (JAX's ``tfm[..., None]`` for -1)."""
+    dim = dim if dim >= 0 else self.angle.ndim + 1 + dim
+    return Transform2D(angle=self.angle.unsqueeze(dim),
+                       t=self.t.unsqueeze(dim))
+
+  @staticmethod
+  def cat(tfms, dim: int = -1) -> 'Transform2D':
+    """Concatenate along batch axis ``dim``."""
+    dim = dim if dim >= 0 else tfms[0].angle.ndim + dim
+    return Transform2D(angle=torch.cat([t.angle for t in tfms], dim),
+                       t=torch.cat([t.t for t in tfms], dim))
+
+  def take(self, idx: Tensor) -> 'Transform2D':
+    """Per batch row ``b``, the transform at ``idx[b]`` of the last axis."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    return Transform2D(angle=self.angle[rows, idx], t=self.t[rows, idx])
 
   @property
   def R(self) -> Tensor:

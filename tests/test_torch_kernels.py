@@ -1,5 +1,6 @@
-"""The CUDA kernels K1/K3 (lift_topk_fwd/bwd) and K2/K4 (patch_sample_2d
-and its backward).
+"""The CUDA kernels K1/K3 (lift_topk_fwd/bwd), K2/K4 (patch_sample_2d
+and its backward), B4 (pose_scoring), B5 (slice_gather) and B6
+(table_gather).
 
 Tests that need a card take the ``cuda`` fixture and skip where there is
 none (a CUDA kernel has no CPU mode); on a card, run them with
@@ -13,8 +14,12 @@ import pytest
 import torch
 
 from snap_tpu_torch import evaluate
+from snap_tpu_torch.models import pose_estimation
+from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
+from snap_tpu_torch.utils import geometry
+from snap_tpu_torch.utils import grids
 
 torch.set_num_threads(2)
 
@@ -140,7 +145,8 @@ def test_build_recipe():
   assert path.parts[-3] == 'build' and path.suffix == '.so'
   sources = sorted(p.name for p in kernels.CSRC.glob('*.cu'))
   assert sources == ['lift_topk_bwd.cu', 'lift_topk_fwd.cu',
-                     'patch_sample_2d.cu', 'patch_sample_2d_bwd.cu']
+                     'patch_sample_2d.cu', 'patch_sample_2d_bwd.cu',
+                     'pose_scoring.cu', 'slice_gather.cu', 'table_gather.cu']
   assert sorted(f'{name}.cu' for name in kernels.LAUNCHES) == sources
   assert kernels.library_path() == path  # stable: keyed by the sources
 
@@ -227,3 +233,94 @@ def test_backward_kernels_batches_are_independent(cuda):
         plane_shape=(1,) + tuple(padded.shape[1:]))
     torch.testing.assert_close(alone, both[i:i + 1],
                                **BWD_TOLERANCES[torch.float32])
+
+
+def _scoring_inputs(device, seed=0, b=2, n=300, h=20, w=24, p=3000,
+                    cell=0.5):
+  """B4 inputs with transformed points on cell edges and borders (angles 0
+  and pi / 2, whole-cell translations, points at cell edges), inside the
+  map and off it; some points and map cells invalid."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  angle = (torch.rand((b, p), generator=g) * 2 - 1) * math.pi
+  t = torch.rand((b, p, 2), generator=g) * torch.tensor(
+      [h * cell + 2, w * cell + 2]) - 1
+  edge0, edge1 = min(p, 500), min(p, 800)
+  angle[:, :edge0] = 0.0
+  angle[:, edge0:edge1] = math.pi / 2
+  t[:, :edge1] = torch.randint(-2, min(h, w) + 2, (b, edge1, 2),
+                               generator=g).float() * cell
+  xy = torch.rand((b, n, 2), generator=g) * 8 - 4
+  xy[:, :60] = torch.randint(-4, 5, (b, 60, 2), generator=g).float() * cell
+  sim = torch.randn((b, n, h, w), generator=g)
+  valid_points = torch.rand((b, n), generator=g) < 0.8
+  valid_map = torch.rand((b, h, w), generator=g) < 0.9
+  args = [x.to(device) for x in (angle, t, sim, xy, valid_points, valid_map)]
+  return args, cell
+
+
+@pytest.mark.parametrize('mask', [False, True])
+def test_pose_scoring_matches_plain(cuda, mask):
+  args, cell = _scoring_inputs(cuda)
+  kwargs = dict(cell_size=cell, mask_out_of_bounds=mask)
+  before = kernels.LAUNCHES['pose_scoring']
+  poses = geometry.Transform2D(angle=args[0], t=args[1])
+  got = pose_estimation.pose_scoring_many(
+      poses, *args[2:], grids.Grid2D(tuple(args[2].shape[-2:]), cell), mask)
+  assert kernels.LAUNCHES['pose_scoring'] == before + 1
+  want = pose_estimation.pose_scoring_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  # Each (pose, point) term is the plain version's to the bit; the sums
+  # over 300 points of O(1) terms differ by order.
+  torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+  on_cpu = pose_estimation.pose_scoring_plain(
+      *(a.cpu() for a in args), **kwargs)
+  torch.testing.assert_close(got.cpu(), on_cpu, atol=1e-4, rtol=1e-5)
+
+
+def test_pose_scoring_raises_where_a_gradient_is_needed(cuda):
+  args, cell = _scoring_inputs(cuda, p=10)
+  args[2].requires_grad_()
+  with pytest.raises(RuntimeError, match='no backward kernel'):
+    kernels.pose_scoring(*args, cell_size=cell, mask_out_of_bounds=False)
+  with torch.no_grad():
+    kernels.pose_scoring(*args, cell_size=cell, mask_out_of_bounds=False)
+
+
+def test_slice_and_table_gather_match_plain(cuda):
+  g = torch.Generator(device='cpu').manual_seed(0)
+  w, rows, n = 60, 920 * 61, 100_003
+  stack = torch.randn((rows, 160), generator=g).to(torch.bfloat16).to(cuda)
+  rid = torch.randint(0, rows - w - 2, (n,), generator=g,
+                      dtype=torch.int32).to(cuda)
+  before = dict(kernels.LAUNCHES)
+  got = gathers.slice_gather(stack, rid, w=w)
+  want = gathers.slice_gather_plain(stack, rid, w=w)
+  table = torch.randn((8, 128), generator=g).to(cuda)
+  ids = torch.randint(0, 8, (n,), generator=g, dtype=torch.int32).to(cuda)
+  rows_got = gathers.table_gather(table, ids)
+  torch.cuda.synchronize()
+  assert kernels.LAUNCHES['slice_gather'] == before['slice_gather'] + 1
+  assert kernels.LAUNCHES['table_gather'] == before['table_gather'] + 1
+  assert torch.equal(got, want)  # both add in f32 and round once
+  assert torch.equal(rows_got, gathers.table_gather_plain(table, ids))
+
+
+def test_new_cuda_launchers_refuse_cpu_tensors():
+  args, cell = _scoring_inputs('cpu', p=10)
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.pose_scoring(*args, cell_size=cell, mask_out_of_bounds=False)
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.slice_gather(torch.zeros((200, 16), dtype=torch.bfloat16),
+                         torch.zeros(5, dtype=torch.int32), w=9)
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.table_gather(torch.zeros((8, 128)),
+                         torch.zeros(5, dtype=torch.int32))
+  before = dict(kernels.LAUNCHES)
+  sim = args[2].clone().requires_grad_()
+  poses = geometry.Transform2D(angle=args[0], t=args[1])
+  scores = pose_estimation.pose_scoring_many(
+      poses, sim, *args[3:], grids.Grid2D(tuple(sim.shape[-2:]), cell),
+      False)
+  scores.sum().backward()  # the plain version on the CPU has a gradient
+  assert sim.grad is not None and sim.grad.abs().sum() > 0
+  assert kernels.LAUNCHES == before

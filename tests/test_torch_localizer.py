@@ -65,8 +65,9 @@ def _torch_config():
 @pytest.fixture(scope='module')
 def slice_outputs():
   tcfg = _torch_config()
+  # The examples the evaluate CLI serves first (the config's eval split).
   examples = loader.make_pair_examples(
-      loader.make_generator(tcfg.data, 3), [0, 1], tcfg.data)
+      loader.split_generator(tcfg.data, 'eval'), [0, 1], tcfg.data)
   jbatch = jloader.process_batch(copy.deepcopy(examples),
                                  jtypes.DataMode.PAIR_SCENE_VIEW)
   jbatch.pop('_host')
@@ -291,11 +292,20 @@ def test_geometry_matches_jax():
 
 
 def test_ransac_backend_raises():
-  cfg = dataclasses.replace(configs.smoke_exhaustive().model,
-                            pose_backend='ransac')
-  with pytest.raises(NotImplementedError, match='A9'):
-    bev_localizer.BEVLocalizer(cfg, loader.map_grid(
-        configs.smoke_exhaustive().data).bev())
+  """An unknown backend raises; the RANSAC backend (ported since) raises
+  when it has neither a generator for its pose samples nor the samples."""
+  smoke = configs.smoke_exhaustive()
+  grid = loader.map_grid(smoke.data).bev()
+  with pytest.raises(ValueError, match='Unknown pose_backend'):
+    bev_localizer.BEVLocalizer(
+        dataclasses.replace(smoke.model, pose_backend='sampled'), grid)
+  model = bev_localizer.BEVLocalizer(
+      dataclasses.replace(smoke.model, pose_backend='ransac',
+                          filter_points_in_fov=True), grid)
+  batch = loader.pair_batch_to_torch(loader.make_pair_examples(
+      loader.split_generator(smoke.data, 'eval'), [0], smoke.data), 'cpu')
+  with pytest.raises(ValueError, match='generator'), torch.inference_mode():
+    model(batch)
 
 
 def test_evaluate_reads_params_npz(slice_outputs, tmp_path):
