@@ -52,7 +52,11 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
    lift), and CUDA-event times of kernel, plain version and, where one
    PyTorch call computes the same function, that call (``F.grid_sample``
    and its input gradient for K2 and K4; ``F.embedding_bag`` and
-   ``F.embedding`` for B5 and B6, from the bench).
+   ``F.embedding`` for B5 and B6, from the bench); K2, K3, K4 and their
+   library calls timed again with the launches queued behind a spin of the
+   card (the card's time alone, without the host's launch overhead); K3's
+   selected ranks by its sort's bins, and K2's and K3's device time by
+   launch stage (``torch.profiler``).
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -281,18 +285,63 @@ def seeded_kernel_inputs(device: str):
   return lift, sample, lift_bwd, sample_bwd
 
 
-def time_ms(fn, iters: int = 20) -> float:
-  """Mean CUDA-event time of ``fn()`` over ``iters`` launches, after warmup."""
+# Cycles the card spins (torch.cuda._sleep) before a run of time_ms(...,
+# spin=True): ~4 ms at the H100's clocks, longer than the host takes to
+# queue 20 launches of any wrapper, so that the events time the card's work
+# back to back and not the host's launch overhead.
+SPIN_CYCLES = 7_000_000
+
+
+def time_ms(fn, iters: int = 20, spin: bool = False) -> float:
+  """Mean CUDA-event time of ``fn()`` over ``iters`` launches, after warmup;
+  with ``spin``, the launches queued behind a spin of the card."""
   fn()
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
+  if spin:
+    torch.cuda._sleep(SPIN_CYCLES)
   start.record()
   for _ in range(iters):
     fn()
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def lift_bwd_bin_counts(view_idx: torch.Tensor, p2d: torch.Tensor,
+                        select: torch.Tensor, *, views: int, h: int,
+                        w: int) -> torch.Tensor:
+  """K3's bins: the selected ranks whose lower tap (clamped as the lift
+  clamps it) lies on each pixel of each view, ``[B, views, h, w]`` int64."""
+  b = view_idx.shape[0]
+  li = torch.clamp(p2d[..., 0] - 0.5, 0, h - 1).floor().long()
+  lj = torch.clamp(p2d[..., 1] - 0.5, 0, w - 1).floor().long()
+  example = torch.arange(b, device=p2d.device)[:, None, None]
+  bins = ((example * views + view_idx.long()) * h + li) * w + lj
+  counts = torch.bincount(bins[select], minlength=b * views * h * w)
+  return counts.reshape(b, views, h, w)
+
+
+def kernel_stages_ms(fn, names, iters: int = 5):
+  """Device ms per call of each CUDA kernel named in ``names`` that ``fn``
+  launches, and of all the others together (``torch.profiler``, over
+  ``iters`` calls after a warm one)."""
+  fn()
+  torch.cuda.synchronize()
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for _ in range(iters):
+      fn()
+    torch.cuda.synchronize()
+  stages = {name: 0.0 for name in (*names, 'other')}
+  for evt in prof.key_averages():
+    us = evt.self_device_time_total
+    if us <= 0:
+      continue
+    name = next((n for n in names if n in evt.key), 'other')
+    stages[name] += us / 1e3 / iters
+  return stages
 
 
 # Bounds: the larger of the bytes moved over the HBM rate and the f32
@@ -903,6 +952,13 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       sample_bound(args, kw, *out), time_ms(grid_sample_call(*args))))
   args, kw = lift_bwd.largest()
   out = kernels.lift_topk_bwd(*args, **kw)
+  stack, view_idx, p2d, select = args[:4]
+  bins = lift_bwd_bin_counts(
+      view_idx, p2d, select, views=stack.shape[1] // (kw['h'] + 1),
+      h=kw['h'], w=kw['w'])
+  log(f'lift_topk_bwd at {tuple(stack.shape)}: {int(bins.sum())} selected '
+      f'ranks in {int((bins > 0).sum())} of {bins.numel()} bins (example, '
+      f'view, lower-tap pixel), the largest {int(bins.max())}')
   rows.append(report(
       'lift_topk_bwd', 'snap_tpu_torch/csrc/lift_topk_bwd.cu',
       train_launches['lift_topk_bwd'], errs['lift_topk_bwd'],
@@ -918,6 +974,31 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       time_ms(lambda: view_scan.patch_sample_2d_bwd_plain(*args, **kw)),
       sample_bwd_bound(args, kw, out),
       time_ms(grid_sample_bwd_call(*args, kw['plane_shape']))))
+  args, kw = sample.largest()
+  queued = {
+      'patch_sample_2d': time_ms(lambda: kernels.patch_sample_2d(*args, **kw),
+                                 spin=True),
+      'F.grid_sample': time_ms(grid_sample_call(*args), spin=True)}
+  stages = kernel_stages_ms(lambda: kernels.patch_sample_2d(*args, **kw),
+                            ('pack_plane_kernel', 'patch_sample_2d_kernel'))
+  log(f'patch_sample_2d stages at {tuple(args[1].shape)}, device ms per '
+      f'call: {stages}')
+  args, kw = lift_bwd.largest()
+  queued['lift_topk_bwd'] = time_ms(
+      lambda: kernels.lift_topk_bwd(*args, **kw), spin=True)
+  stages = kernel_stages_ms(lambda: kernels.lift_topk_bwd(*args, **kw),
+                            ('count_kernel', 'scan_kernel', 'ranks_kernel',
+                             'runs_kernel'))
+  log(f'lift_topk_bwd stages at {tuple(args[0].shape)}, device ms per call: '
+      f'{stages}')
+  args, kw = sample_bwd.largest()
+  queued['patch_sample_2d_bwd'] = time_ms(
+      lambda: kernels.patch_sample_2d_bwd(*args, **kw), spin=True)
+  queued['grid_sampler_2d_backward'] = time_ms(
+      grid_sample_bwd_call(*args, kw['plane_shape']), spin=True)
+  log(f'ms per call with the launches queued behind a spin of the card '
+      f'(host launch overhead hidden; the rows below are timed without): '
+      f'{queued}')
   for row, calls in zip(rows, (lift, sample, lift_bwd, sample_bwd)):
     shape = max(calls.calls, key=lambda s: math.prod(s))
     log(f'{row["name"]} at {shape}: {row["ms"]:.4f} ms (plain '

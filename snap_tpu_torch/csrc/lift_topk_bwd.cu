@@ -23,37 +23,55 @@
 //           m = max(..max(max(-1e30, z_0), z_1).., z_{K-1}) passes to z_k,
 //           an exact tie splitting it evenly (jnp.maximum's rule);
 //   d c_k[s] = d z_k hat_s(depth_k);
-// then w_tap * [d f_k, d c_k] is atomically added into an f32
-// [B, R, W, C] buffer at each of the 4 taps of each selected rank. The
-// wrapper casts the buffer to the stack's dtype. Coordinates, selection and
-// depth get no gradient (the reference's VJP returns None for them).
+// and w_tap * [d f_k, d c_k] goes to each of the 4 taps of each selected
+// rank, summed in f32 into a [B, R, W, C] buffer that the wrapper casts to
+// the stack's dtype. Coordinates, selection and depth get no gradient.
 //
-// Design: one warp per point, in three passes over the point's ranks, so
-// nothing of size K x C is kept:
-//   1. recompute the forward exactly as K1 does (m, l, S1, S2 for the D
-//      feature channels in registers, lanes over channels c = lane + 32 j);
-//      lane k keeps z_k. The forward's m and l are recomputed here rather
-//      than saved by K1: they would cost 8 B per point in each direction
-//      (18 MB at the flagship shape) against one extra gather pass.
-//   2. re-gather the D feature channels of each selected rank, reduce u_k
-//      over the warp, scatter d f_k (coalesced: 32 lanes add to 32
-//      consecutive floats of one tap);
-//   3. scatter d c_k: the hat has at most two non-zero bins per rank.
-// E2 - mean^2 is formed with round-to-nearest intrinsics (no FMA
-// contraction), so a single-view point's tie is exactly 0 here as in the
-// reference.
+// Design: the selected ranks are sorted by the pixel of their lower tap, so
+// that the sum over a pixel's ranks is formed in registers and reaches the
+// global buffer as one vector add per tap and 4 channels, instead of one
+// scalar atomic per rank, tap and channel (~280 per address on the training
+// path). Four launches from one call:
+//   1. count: one thread per rank; a selected rank's bin is (example, view,
+//      lower-tap pixel). Lanes of a warp with the same bin add their number
+//      to the bin's count with one atomic (__match_any_sync), and each rank
+//      keeps its place within the bin.
+//   2. scan: one block turns the counts (108k bins on the training path)
+//      into each bin's first slot and the total.
+//   3. ranks: one warp per point. It recomputes the forward exactly as K1
+//      does, in rank order (the variance's tie rule makes the rounding of
+//      E2 - mean^2 matter), writes d f_k (D f32) into the rank's slot of the
+//      sorted order, then d z_k, and each rank's lane writes its record (the
+//      tap fractions, the depth-hat abscissa, d z_k) and its bin. Writing
+//      d f_k (512 B per rank at D = 128) moves fewer bytes than the point's
+//      f32 gmu and gE2 rows (1 KB, read again for every rank of the point).
+//      Each lane holds 4 feature channels per 128 (D % 4 == 0, D <= 256),
+//      and lane k forms z_k from the two depth bins whose hat is non-zero.
+//      The ranks go in groups of 4, every tap of a group loaded before any
+//      is used; with K <= 4 (every configuration) the combined features stay
+//      in registers for pass 2, with more each group is gathered again.
+//   4. runs: one block per kChunk consecutive sorted ranks. Its feature
+//      warps give each lane 4 channels of d f, its score warps a depth bin
+//      each; a warp adds w_tap * [d f_k, d c_k] of consecutive ranks of one
+//      pixel into registers (4 taps x 4 channels) and, when the pixel
+//      changes, adds them to the zeroed global buffer with float4 atomics
+//      (red.global.add.v4.f32). An address receives one add per run of each
+//      of the 4 pixels whose taps reach it (and per block boundary).
+// This departs from the 8 x 8 tile bins with a shared-memory accumulator
+// that were tried first: there each rank's read-modify-writes of shared
+// memory (4 taps x C floats, ~5 KB) bound the last stage at ~1.4 ms on the
+// training path's input, and it took 3.2 ms on an H100; the pixel runs
+// need no shared memory.
 //
-// Same-address atomics: consecutive points are consecutive z-levels of one
-// column and project to nearly the same pixels. Warp w therefore takes
-// point (w * stride) mod (B * N), with the stride coprime to B * N chosen by
-// the wrapper near 0.618 (B * N): the warps in flight spread over the whole
-// map instead of piling onto a few pixels.
-//
-// What bounds it on an H100: bytes. It reads the stack (L2-resident, 18 MB
-// at the flagship shape [1, 920, 61, 160] bf16), the per-rank inputs
-// (~0.1 GB) and g (1.152M x 257 x 2 B = 0.59 GB), and adds into the f32
-// buffer (36 MB, L2-resident). The atomics (per selected rank, 4 taps x
-// (D + 2) floats) are the expected limit in practice.
+// What bounds it on an H100: operations. The bound counts ~3.8k f32
+// operations per selected rank (7.84M at batch 2 on the training path) and
+// the inputs, g (2.3M x 257 x 2 B = 1.18 GB) and the output read or written
+// once: 0.49 ms. The design adds its own traffic: the stack's gathers
+// (L2-resident: the stack is 36 MB at batch 2), and the d f rows written
+// and read once (4 GB at batch 2, ~2.4 ms at 3.35 TB/s). The f32 buffer is
+// 71.8 MB at batch 2, more than the 50 MB L2: the design before this one
+// (one warp per point, ~4 G scalar f32 atomics into that buffer) ran at 40x
+// the bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,9 +81,43 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCountThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kRankThreads = 128;  // 4 points per block of the rank stage
+constexpr int kChunk = 512;        // sorted ranks per block of the run stage
+constexpr int kGroup = 8;          // ranks a run-stage warp fetches together
+constexpr int kMaxRunWarps = 8;
 
 __device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ inline float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// 4 channels: loaded raw, converted later.
+template <typename T> struct Quad;
+
+template <> struct Quad<float> {
+  using Raw = uint4;
+  __device__ static Raw load(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ static void convert(const Raw& v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
+};
+
+template <> struct Quad<__nv_bfloat16> {
+  using Raw = uint2;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static void convert(const Raw& v, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  }
+};
 
 __device__ inline float warp_sum(float x) {
 #pragma unroll
@@ -73,170 +125,229 @@ __device__ inline float warp_sum(float x) {
   return x;
 }
 
-struct Taps {
-  long long offset[4];  // element offsets of the 4 taps' channel rows
-  float weight[4];
-  float x;              // depth-hat abscissa in [0, S - 1]
-};
-
-// The bilinear taps and depth-hat abscissa of one rank, as K1 forms them.
-__device__ inline Taps rank_taps(int view, float p_i, float p_j, float dep,
-                                 int W, int C, int h, int w, int S,
-                                 float depth_min, float depth_max,
-                                 float log_range) {
-  Taps t;
-  const float pi = fminf(fmaxf(p_i - 0.5f, 0.f), (float)(h - 1));
-  const float pj = fminf(fmaxf(p_j - 0.5f, 0.f), (float)(w - 1));
-  const float li = floorf(pi), lj = floorf(pj);
-  const float fi = pi - li, fj = pj - lj;
-  const long long row0 = (long long)view * (h + 1) + (long long)li;
-  const long long col0 = (long long)lj;
-  t.offset[0] = (row0 * W + col0) * C;
-  t.offset[1] = (row0 * W + col0 + 1) * C;
-  t.offset[2] = ((row0 + 1) * W + col0) * C;
-  t.offset[3] = ((row0 + 1) * W + col0 + 1) * C;
-  t.weight[0] = (1.f - fi) * (1.f - fj);
-  t.weight[1] = (1.f - fi) * fj;
-  t.weight[2] = fi * (1.f - fj);
-  t.weight[3] = fi * fj;
-  const float d = fminf(fmaxf(dep, depth_min), depth_max);
-  const float x = logf(d / depth_min) / log_range * (float)(S - 1);
-  t.x = fminf(fmaxf(x, 0.f), (float)(S - 1));
-  return t;
+// One vector reduction (red.global.add.v4.f32, sm_90) of 16 aligned bytes.
+__device__ inline void add_float4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
 }
 
 __device__ inline float hat(float x, int s) {
   return fmaxf(0.f, 1.f - fabsf(x - (float)s));
 }
 
-template <typename T, int CPJ>
-__global__ void lift_topk_bwd_kernel(
-    const T* __restrict__ stack,           // [B, R, W, C]
-    const int32_t* __restrict__ view_idx,  // [B, N, K]
-    const float* __restrict__ p2d,         // [B, N, K, 2]
-    const uint8_t* __restrict__ selected,  // [B, N, K]
-    const float* __restrict__ depth,       // [B, N, K]
-    const T* __restrict__ g_stats,         // [B, N, 2D + 1]
-    float* __restrict__ grad,              // [B, R, W, C], zeroed
-    int B, int N, int K, int R, int W, int C, int D, int h, int w,
-    float depth_min, float depth_max, float log_range, long long stride) {
+// A pixel coordinate clamped to the taps' range [0, n - 1].
+__device__ inline float clamped(float p, int n) {
+  return fminf(fmaxf(p - 0.5f, 0.f), (float)(n - 1));
+}
+
+// A rank's lower tap, tap fractions and depth-hat abscissa, as K1 forms
+// them.
+struct Geo {
+  int li, lj;
+  float fi, fj, x;
+};
+
+__device__ inline Geo rank_geo(float p_i, float p_j, float dep, int h, int w,
+                               int S, float depth_min, float depth_max,
+                               float log_range) {
+  Geo g;
+  const float pi = clamped(p_i, h), pj = clamped(p_j, w);
+  const float li = floorf(pi), lj = floorf(pj);
+  g.li = (int)li;
+  g.lj = (int)lj;
+  g.fi = pi - li;
+  g.fj = pj - lj;
+  const float d = fminf(fmaxf(dep, depth_min), depth_max);
+  const float x = logf(d / depth_min) / log_range * (float)(S - 1);
+  g.x = fminf(fmaxf(x, 0.f), (float)(S - 1));
+  return g;
+}
+
+__device__ inline void tap_weights(float fi, float fj, float* w) {
+  w[0] = (1.f - fi) * (1.f - fj);
+  w[1] = (1.f - fi) * fj;
+  w[2] = fi * (1.f - fj);
+  w[3] = fi * fj;
+}
+
+// Shapes shared by the stages.
+struct Dims {
+  int B, N, K, R, W, C, D, h, w;
+  int V;  // views: R = V (h + 1)
+  float depth_min, depth_max, log_range;
+};
+
+// A rank's bin: its example, view and lower-tap pixel.
+__device__ inline int bin_of(const Dims& d, int b, int view, int li, int lj) {
+  return ((b * d.V + view) * d.h + li) * d.w + lj;
+}
+
+// 1. Per bin, the number of selected ranks; per rank, its place in its bin.
+__global__ void __launch_bounds__(kCountThreads) count_kernel(
+    const int32_t* __restrict__ view_idx, const float* __restrict__ p2d,
+    const uint8_t* __restrict__ selected, int* __restrict__ counts,
+    int* __restrict__ within, Dims d) {
   const int lane = threadIdx.x & 31;
-  const long long total = (long long)B * N;
-  const long long warp =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp >= total) return;
-  const long long point = (warp * stride) % total;
-  const int b = (int)(point / N);
-  const int S = C - D;
-  const T* base = stack + (long long)b * R * W * C;
-  float* gbase = grad + (long long)b * R * W * C;
-  const long long r0 = point * K;
-
-  // Pass 1: the forward, as K1 computes it.
-  float s1[CPJ], s2[CPJ];
-#pragma unroll
-  for (int j = 0; j < CPJ; ++j) { s1[j] = 0.f; s2[j] = 0.f; }
-  float m = kNegInf, l = 0.f;
-  float my_z = kNegInf;  // lane k: the score of rank k (-1e30 unselected)
-  int count = 0;
-  for (int k = 0; k < K; ++k) {
-    const long long r = r0 + k;
-    if (!selected[r]) continue;  // warp-uniform
-    const Taps t = rank_taps(view_idx[r], p2d[2 * r], p2d[2 * r + 1],
-                             depth[r], W, C, h, w, S, depth_min, depth_max,
-                             log_range);
-    float f[CPJ];
-    float partial = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPJ; ++j) {
-      const int c = lane + 32 * j;
-      f[j] = 0.f;
-      if (c < C) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          f[j] += t.weight[q] * to_float(base[t.offset[q] + c]);
-        if (c >= D) partial += f[j] * hat(t.x, c - D);
-      }
+  const long long total = (long long)d.B * d.N * d.K;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // The loop runs warp by warp (its bound is uniform over a warp), so that
+  // every lane takes part in the ballot.
+  for (long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x -
+                         lane;
+       first < total; first += stride) {
+    const long long r = first + lane;
+    const bool sel = r < total && selected[r];
+    int bin = -1;
+    if (sel) {
+      bin = bin_of(d, (int)(r / ((long long)d.N * d.K)), view_idx[r],
+                   (int)floorf(clamped(p2d[2 * r], d.h)),
+                   (int)floorf(clamped(p2d[2 * r + 1], d.w)));
     }
-    const float score = warp_sum(partial);
-    if (lane == k) my_z = score;
-    const float new_m = fmaxf(m, score);
-    const float safe_m = new_m <= kNegInf ? 0.f : new_m;
-    const float rescale = expf((m <= kNegInf ? kNegInf : m) - safe_m);
-    const float wv = expf(score - safe_m);
-    l = l * rescale + wv;
-#pragma unroll
-    for (int j = 0; j < CPJ; ++j) {
-      s1[j] = s1[j] * rescale + wv * f[j];
-      s2[j] = s2[j] * rescale + wv * f[j] * f[j];
-    }
-    m = new_m;
-    ++count;
-  }
-  if (count == 0) return;  // invalid point: g is zero, nothing to add
-
-  const float l_safe = fmaxf(l, 1e-20f);
-  const T* g = g_stats + point * (2 * D + 1);
-  float gmu[CPJ], ge2[CPJ];
-#pragma unroll
-  for (int j = 0; j < CPJ; ++j) {
-    const int c = lane + 32 * j;
-    gmu[j] = 0.f;
-    ge2[j] = 0.f;
-    if (c < D) {
-      const float mean = __fdiv_rn(s1[j], l_safe);
-      const float e2 = __fdiv_rn(s2[j], l_safe);
-      const float var_raw = __fsub_rn(e2, __fmul_rn(mean, mean));
-      const float tau = var_raw > 0.f ? 1.f : (var_raw == 0.f ? 0.5f : 0.f);
-      ge2[j] = to_float(g[D + c]) * tau;
-      gmu[j] = to_float(g[c]) - 2.f * mean * ge2[j];
+    const unsigned active = __ballot_sync(kFull, sel);
+    if (sel) {
+      const unsigned peers = __match_any_sync(active, bin);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(counts + bin, __popc(peers));
+      base = __shfl_sync(peers, base, leader);
+      within[r] = base + __popc(peers & ((1u << lane) - 1u));
     }
   }
-  const float g_m = to_float(g[2 * D]);
-  const bool my_sel = lane < K && selected[r0 + lane];
-  const float my_p = my_sel ? expf(my_z - m) / l_safe : 0.f;
+}
 
-  // Pass 2: feature-channel gradients; lane k keeps u_k.
-  float my_u = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const long long r = r0 + k;
-    if (!selected[r]) continue;
-    const Taps t = rank_taps(view_idx[r], p2d[2 * r], p2d[2 * r + 1],
-                             depth[r], W, C, h, w, S, depth_min, depth_max,
-                             log_range);
-    const float p = __shfl_sync(kFull, my_p, k);
-    float f[CPJ];
-    float partial = 0.f;
+// 2. Each bin's first slot; offsets[nbins] = the number of selected ranks.
+// One block walks the counts 4 per thread at a time, a warp-shuffle scan
+// within each step and a running carry across steps.
+__global__ void __launch_bounds__(kScanThreads) scan_kernel(
+    const int* __restrict__ counts, int* __restrict__ offsets, int nbins) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int carry = 0;
+  for (int first = 0; first < nbins; first += 4 * kScanThreads) {
+    const int i0 = first + 4 * t;
+    int v[4], own = 0;
 #pragma unroll
-    for (int j = 0; j < CPJ; ++j) {
-      const int c = lane + 32 * j;
-      f[j] = 0.f;
-      if (c < D) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          f[j] += t.weight[q] * to_float(base[t.offset[q] + c]);
-        partial += gmu[j] * f[j] + ge2[j] * f[j] * f[j];
-      }
+    for (int e = 0; e < 4; ++e) {
+      v[e] = i0 + e < nbins ? counts[i0 + e] : 0;
+      own += v[e];
     }
-    const float u = warp_sum(partial);
-    if (lane == k) my_u = u;
+    int incl = own;  // inclusive scan over the warp's threads
 #pragma unroll
-    for (int j = 0; j < CPJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < D) {
-        const float df = p * (gmu[j] + 2.f * ge2[j] * f[j]);
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += o;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int ws = warp_sums[lane];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          atomicAdd(gbase + t.offset[q] + c, t.weight[q] * df);
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kFull, ws, off);
+        if (lane >= off) ws += o;
       }
+      warp_sums[lane] = ws;
+    }
+    __syncthreads();
+    int next = carry + (warp ? warp_sums[warp - 1] : 0) + incl - own;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (i0 + e < nbins) offsets[i0 + e] = next;
+      next += v[e];
+    }
+    carry += warp_sums[kScanThreads / 32 - 1];
+    __syncthreads();  // warp_sums is written again in the next step
+  }
+  if (t == 0) offsets[nbins] = carry;
+}
+
+// Lane k of a point's warp: rank k's selection, geometry, first tap, bin
+// and slot in the sorted order. The loads are issued together, within[r]
+// for an unselected rank too (read and ignored).
+struct LaneRank {
+  bool sel;
+  Geo geo;
+  long long tap0;  // element offset of the lower-left tap in the example
+  int bin, slot;
+};
+
+__device__ inline LaneRank lane_rank(const Dims& d, int b, long long r0,
+                                     int lane, const int32_t* view_idx,
+                                     const float* p2d, const uint8_t* selected,
+                                     const float* depth, const int* offsets,
+                                     const int* within) {
+  LaneRank m{false, {0, 0, 0.f, 0.f, 0.f}, 0, 0, 0};
+  if (lane < d.K) {
+    const long long r = r0 + lane;
+    const bool sel = selected[r];
+    const int view = view_idx[r];
+    const float pi = p2d[2 * r], pj = p2d[2 * r + 1], dep = depth[r];
+    const int pos = within[r];
+    if (sel) {
+      m.sel = true;
+      m.geo = rank_geo(pi, pj, dep, d.h, d.w, d.C - d.D, d.depth_min,
+                       d.depth_max, d.log_range);
+      m.tap0 = (((long long)view * (d.h + 1) + m.geo.li) * d.W + m.geo.lj) *
+               d.C;
+      m.bin = bin_of(d, b, view, m.geo.li, m.geo.lj);
+      m.slot = offsets[m.bin] + pos;
     }
   }
+  return m;
+}
 
-  // d z_k = p_k (u_k - sum_j p_j u_j) + the max chain's share of g_m.
-  // Exclusive prefix max of z over the lanes (ranks) gives the running max
-  // before each rank; an exclusive suffix product of the factors (0 past a
-  // strict new max, 1/2 past a tie, 1 otherwise) gives what reaches it.
-  const float sum_pu = warp_sum(my_p * my_u);
+// The online-softmax update of a selected rank (K1's rank_step).
+template <int CPL, int E>
+__device__ inline void online_update(float score, const float (&f)[CPL][E],
+                                     float& m, float& l, float (&s1)[CPL][E],
+                                     float (&s2)[CPL][E]) {
+  const float new_m = fmaxf(m, score);
+  const float safe_m = new_m <= kNegInf ? 0.f : new_m;
+  const float rescale = expf((m <= kNegInf ? kNegInf : m) - safe_m);
+  const float wv = expf(score - safe_m);
+  l = l * rescale + wv;
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      s1[q][e] = s1[q][e] * rescale + wv * f[q][e];
+      s2[q][e] = s2[q][e] * rescale + wv * f[q][e] * f[q][e];
+    }
+  m = new_m;
+}
+
+// gmu and gE2 of a lane's channels (channel c = (cell + 32 q) E + e) from
+// the pooled sums and the cotangent.
+template <int CPL, int E>
+__device__ inline void point_grads(const float (&s1)[CPL][E],
+                                   const float (&s2)[CPL][E], float l_safe,
+                                   const float (&g_mean)[CPL][E],
+                                   const float (&g_var)[CPL][E], int cell,
+                                   int D, float (&gmu)[CPL][E],
+                                   float (&ge2)[CPL][E]) {
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      gmu[q][e] = 0.f;
+      ge2[q][e] = 0.f;
+      if ((cell + 32 * q) * E + e < D) {
+        const float mean = __fdiv_rn(s1[q][e], l_safe);
+        const float e2 = __fdiv_rn(s2[q][e], l_safe);
+        const float var_raw = __fsub_rn(e2, __fmul_rn(mean, mean));
+        const float tau = var_raw > 0.f ? 1.f : (var_raw == 0.f ? 0.5f : 0.f);
+        ge2[q][e] = g_var[q][e] * tau;
+        gmu[q][e] = g_mean[q][e] - 2.f * mean * ge2[q][e];
+      }
+    }
+}
+
+// The share of g_m that m = max(..max(max(-1e30, z_0), z_1).., z_{K-1})
+// passes to z_lane. Exclusive prefix max of z over the lanes (ranks) gives
+// the running max before each rank; an exclusive suffix product of the
+// factors (0 past a strict new max, 1/2 past a tie, 1 otherwise) gives what
+// reaches it.
+__device__ inline float max_chain_share(int lane, int K, float my_z,
+                                        float g_m) {
   const float z = lane < K ? my_z : kNegInf;
   float incl = z;
 #pragma unroll
@@ -257,87 +368,402 @@ __global__ void lift_topk_bwd_kernel(
   }
   float after = __shfl_down_sync(kFull, suffix, 1);
   if (lane == 31) after = 1.f;
-  const float share = g_m * after * (gt ? 1.f : (eq ? 0.5f : 0.f));
-  const float my_dz = my_sel ? my_p * (my_u - sum_pu) + share : 0.f;
+  return g_m * after * (gt ? 1.f : (eq ? 0.5f : 0.f));
+}
 
-  // Pass 3: score-channel gradients, d c_k[s] = d z_k hat_s(depth_k).
-  for (int k = 0; k < K; ++k) {
-    const long long r = r0 + k;
-    if (!selected[r]) continue;
-    const float dz = __shfl_sync(kFull, my_dz, k);
-    const Taps t = rank_taps(view_idx[r], p2d[2 * r], p2d[2 * r + 1],
-                             depth[r], W, C, h, w, S, depth_min, depth_max,
-                             log_range);
-    for (int s = lane; s < S; s += 32) {
-      const float hs = hat(t.x, s);
-      if (hs > 0.f) {
+// d f of one rank for a lane's channels, into the rank's d f row, and the
+// lane's part of u.
+template <int CPL, int E>
+__device__ inline float emit_d_f(const float (&f)[CPL][E], float p,
+                                 const float (&gmu)[CPL][E],
+                                 const float (&ge2)[CPL][E], int cell, int D,
+                                 float* row) {
+  float partial = 0.f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          atomicAdd(gbase + t.offset[q] + D + s, t.weight[q] * dz * hs);
+  for (int q = 0; q < CPL; ++q) {
+    const int c0 = (cell + 32 * q) * E;
+    float df[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      df[e] = 0.f;
+      if (c0 + e < D) {
+        partial += gmu[q][e] * f[q][e] + ge2[q][e] * f[q][e] * f[q][e];
+        df[e] = p * (gmu[q][e] + 2.f * ge2[q][e] * f[q][e]);
       }
     }
+    // Whole float4s: D % 4 == 0, so the rows are 16-byte aligned.
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      if (c0 + e < D)
+        __stcs(reinterpret_cast<float4*>(row + c0 + e),
+               make_float4(df[e], df[e + 1], df[e + 2], df[e + 3]));
+  }
+  return partial;
+}
+
+// The last step of a point: d z_k and the records of its selected ranks.
+__device__ inline void write_records(const LaneRank& me, int lane, int K,
+                                     float my_z, float my_p, float my_u,
+                                     float g_m, float4* records, int* bins) {
+  const float sum_pu = warp_sum(my_p * my_u);
+  const float share = max_chain_share(lane, K, my_z, g_m);
+  if (me.sel) {
+    const float dz = my_p * (my_u - sum_pu) + share;
+    records[me.slot] = make_float4(me.geo.fi, me.geo.fj, me.geo.x, dz);
+    bins[me.slot] = me.bin;
   }
 }
 
-template <typename T, int CPJ>
-void launch(const void* stack, const int32_t* view_idx, const float* p2d,
-            const uint8_t* selected, const float* depth, const void* g_stats,
-            float* grad, int B, int N, int K, int R, int W, int C, int D,
-            int h, int w, float depth_min, float depth_max, float log_range,
-            long long stride, cudaStream_t stream) {
-  constexpr int kWarps = 8;
-  const long long points = (long long)B * N;
-  const unsigned blocks = (unsigned)((points + kWarps - 1) / kWarps);
-  lift_topk_bwd_kernel<T, CPJ><<<blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(stack), view_idx, p2d, selected, depth,
-      static_cast<const T*>(g_stats), grad, B, N, K, R, W, C, D, h, w,
-      depth_min, depth_max, log_range, stride);
+// 3. Per point: the forward again, d f_k into the sorted slots, records.
+// Lane l holds feature channels 4 (l + 32 q) .. + 3, q < CPL (D <= 128 CPL);
+// lane k forms z_k from the two depth bins whose hat is non-zero. The ranks
+// go in groups of 4, every tap of a group's selected ranks loaded before any
+// is used. kOneGroup (K <= 4) makes the one group's loop a compile-time one:
+// its combined features stay in registers for pass 2 (a loop bound known
+// only at run time cost ~1 ms on the training path's input); with more
+// ranks the taps are gathered again.
+template <typename T, int CPL, bool kOneGroup>
+__global__ void __launch_bounds__(kRankThreads) ranks_kernel(
+    const T* __restrict__ stack,           // [B, R, W, C]
+    const int32_t* __restrict__ view_idx,  // [B, N, K]
+    const float* __restrict__ p2d,         // [B, N, K, 2]
+    const uint8_t* __restrict__ selected,  // [B, N, K]
+    const float* __restrict__ depth,       // [B, N, K]
+    const T* __restrict__ g_stats,         // [B, N, 2D + 1]
+    const int* __restrict__ offsets,       // [bins + 1]
+    const int* __restrict__ within,        // [B, N, K]
+    float* __restrict__ d_f,               // [slots, D]
+    float4* __restrict__ records,          // [slots]: fi, fj, x, d z
+    int* __restrict__ bins,                // [slots]
+    Dims d) {
+  constexpr int KG = 4;  // ranks per group
+  using Raw = typename Quad<T>::Raw;
+  const int lane = threadIdx.x & 31;
+  const long long point =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (point >= (long long)d.B * d.N) return;
+  const int b = (int)(point / d.N);
+  const int C = d.C, D = d.D, S = C - D, W = d.W;
+  const long long r0 = point * d.K;
+  const LaneRank me = lane_rank(d, b, r0, lane, view_idx, p2d, selected,
+                                depth, offsets, within);
+  const unsigned sel = __ballot_sync(kFull, me.sel);
+  if (!sel) return;  // invalid point: g is zero, nothing to add
+
+  const T* base = stack + (long long)b * d.R * W * C;
+  const long long down = (long long)W * C;
+  // The point's cotangent for the lane's channels, fetched ahead (read
+  // once: evict first, so that the stack stays in L2).
+  const T* g = g_stats + point * (2 * D + 1);
+  float g_mean[CPL][4], g_var[CPL][4];
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int c0 = 4 * (lane + 32 * q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      g_mean[q][e] = c0 < D ? to_float(__ldcs(g + c0 + e)) : 0.f;
+      g_var[q][e] = c0 < D ? to_float(__ldcs(g + D + c0 + e)) : 0.f;
+    }
+  }
+  const float g_m = to_float(g[2 * D]);
+
+  // Lane k: rank k's score from the two depth bins around x.
+  float my_z = kNegInf;
+  if (me.sel) {
+    float tw[4];
+    tap_weights(me.geo.fi, me.geo.fj, tw);
+    const int s0 = min((int)me.geo.x, S - 1), s1 = min(s0 + 1, S - 1);
+    const T* taps[4] = {base + me.tap0, base + me.tap0 + C,
+                        base + me.tap0 + down, base + me.tap0 + down + C};
+    float fa = 0.f, fb = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      fa += tw[t] * to_float(taps[t][D + s0]);
+      fb += tw[t] * to_float(taps[t][D + s1]);
+    }
+    my_z = fa * hat(me.geo.x, s0) + (s1 > s0 ? fb * hat(me.geo.x, s1) : 0.f);
+  }
+
+  // The combined features of ranks k0 .. k0 + 3 for the lane's channels.
+  float f[KG][CPL][4];
+  auto gather = [&](int k0) {
+    Raw raw[KG][CPL][4];
+    float tw[KG][4];
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      const int k = k0 + u;
+      const long long off = __shfl_sync(kFull, me.tap0, k);
+      tap_weights(__shfl_sync(kFull, me.geo.fi, k),
+                  __shfl_sync(kFull, me.geo.fj, k), tw[u]);
+      const bool on = (sel >> k) & 1;  // 0 for k >= K
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        const int c0 = 4 * (lane + 32 * q);
+        if (on && c0 < D) {
+          const T* p = base + off + c0;
+          raw[u][q][0] = Quad<T>::load(p);
+          raw[u][q][1] = Quad<T>::load(p + C);
+          raw[u][q][2] = Quad<T>::load(p + down);
+          raw[u][q][3] = Quad<T>::load(p + down + C);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) raw[u][q][t] = Raw{};
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KG; ++u)
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[u][q][e] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float v[4];
+          Quad<T>::convert(raw[u][q][t], v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[u][q][e] += tw[u][t] * v[e];
+        }
+      }
+  };
+
+  // Pass 1: the online softmax in rank order, as K1 and the reference run
+  // it.
+  float s1[CPL][4], s2[CPL][4];
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { s1[q][e] = 0.f; s2[q][e] = 0.f; }
+  float m = kNegInf, l = 0.f;
+  const int num_k = kOneGroup ? KG : d.K;  // k0 + u <= 31 as K <= 32
+  for (int k0 = 0; k0 < num_k; k0 += KG) {
+    gather(k0);
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      const int k = k0 + u;
+      const float score = __shfl_sync(kFull, my_z, k);
+      if ((sel >> k) & 1) online_update(score, f[u], m, l, s1, s2);
+    }
+  }
+
+  const float l_safe = fmaxf(l, 1e-20f);
+  float gmu[CPL][4], ge2[CPL][4];
+  point_grads(s1, s2, l_safe, g_mean, g_var, lane, D, gmu, ge2);
+  const float my_p = me.sel ? expf(my_z - m) / l_safe : 0.f;
+
+  // Pass 2: d f_k into rank k's slot; lane k keeps u_k.
+  float my_u = 0.f;
+  for (int k0 = 0; k0 < num_k; k0 += KG) {
+    if (!kOneGroup) gather(k0);
+    float u[KG];
+#pragma unroll
+    for (int v = 0; v < KG; ++v) {
+      const int k = k0 + v;
+      const float p = __shfl_sync(kFull, my_p, k);
+      const int slot = __shfl_sync(kFull, me.slot, k);
+      u[v] = 0.f;
+      if ((sel >> k) & 1)
+        u[v] = emit_d_f(f[v], p, gmu, ge2, lane, D, d_f + (long long)slot * D);
+    }
+#pragma unroll
+    for (int v = 0; v < KG; ++v) {
+      const float sum = warp_sum(u[v]);
+      if (lane == k0 + v) my_u = sum;
+    }
+  }
+  write_records(me, lane, d.K, my_z, my_p, my_u, g_m, records, bins);
+}
+
+// 4. Per block of kChunk sorted ranks: the first feature_warps warps hold 4
+// channels of d f per lane, the others a depth bin per lane; each warp sums
+// a pixel's consecutive ranks in registers and adds the sum at the pixel's
+// 4 taps when the pixel changes.
+__global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
+    const float* __restrict__ d_f, const float4* __restrict__ records,
+    const int* __restrict__ bins, const int* __restrict__ offsets,
+    float* __restrict__ grad, int nbins, int feature_warps, Dims d) {
+  const int begin = blockIdx.x * kChunk;
+  const int end = min(offsets[nbins], begin + kChunk);
+  if (begin >= end) return;
+  const int C = d.C, D = d.D, S = C - D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool feature = warp < feature_warps;
+  const int c0 = 4 * (warp * 32 + lane);             // feature warps
+  const int s = (warp - feature_warps) * 32 + lane;  // score warps
+  const bool active = feature ? c0 < D : s < S;
+
+  float acc[4][4];  // taps x (4 channels, or the depth bin in [q][0])
+  int cur = -1;
+  auto flush = [&]() {
+    const int lj = cur % d.w, li = (cur / d.w) % d.h;
+    const int ev = cur / (d.w * d.h);  // example * V + view
+    float* tap = grad + (((long long)ev * (d.h + 1) + li) * d.W + lj) * C;
+    float* taps[4] = {tap, tap + C, tap + (long long)d.W * C,
+                      tap + (long long)d.W * C + C};
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (feature) {
+          const float4 v = make_float4(acc[q][0], acc[q][1], acc[q][2],
+                                       acc[q][3]);
+          if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+            add_float4(taps[q] + c0, v);
+        } else if (acc[q][0] != 0.f) {
+          atomicAdd(taps[q] + D + s, acc[q][0]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+  };
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+
+  for (int j0 = begin; j0 < end; j0 += kGroup) {
+    // Lane u holds rank j0 + u's record and bin; a feature lane has its
+    // channels of the group's d f rows in flight before the first add.
+    const int n = min(kGroup, end - j0);
+    float4 rec = make_float4(0.f, 0.f, 0.f, 0.f);
+    int bin = -1;
+    if (lane < n) {
+      rec = records[j0 + lane];
+      bin = bins[j0 + lane];
+    }
+    float4 v[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (feature && active && u < n)
+        v[u] = __ldcs(reinterpret_cast<const float4*>(
+            d_f + (long long)(j0 + u) * D + c0));
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      if (u >= n) break;  // warp-uniform
+      const int pixel = __shfl_sync(kFull, bin, u);
+      if (pixel != cur) {  // warp-uniform
+        if (cur >= 0) flush();
+        cur = pixel;
+      }
+      float tw[4];
+      tap_weights(__shfl_sync(kFull, rec.x, u), __shfl_sync(kFull, rec.y, u),
+                  tw);
+      const float x = __shfl_sync(kFull, rec.z, u);
+      const float dz = __shfl_sync(kFull, rec.w, u);
+      if (feature) {
+        const float val[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][e] += tw[q] * val[e];
+      } else if (active) {
+        const float dc = dz * hat(x, s);
+        if (dc != 0.f) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[q][0] += tw[q] * dc;
+        }
+      }
+    }
+  }
+  if (cur >= 0) flush();
 }
 
 template <typename T>
-int dispatch(const void* stack, const int32_t* view_idx, const float* p2d,
-             const uint8_t* selected, const float* depth, const void* g_stats,
-             float* grad, int B, int N, int K, int R, int W, int C, int D,
-             int h, int w, float depth_min, float depth_max, float log_range,
-             long long stride, cudaStream_t stream) {
-  if (K > 32) return (int)cudaErrorInvalidValue;  // one rank per lane
-#define SNAP_LAUNCH(N_CPJ)                                                  \
-  launch<T, N_CPJ>(stack, view_idx, p2d, selected, depth, g_stats, grad, B, \
-                   N, K, R, W, C, D, h, w, depth_min, depth_max, log_range, \
-                   stride, stream)
-  const int cpj = (C + 31) / 32;
-  if (cpj <= 2) SNAP_LAUNCH(2);
-  else if (cpj <= 4) SNAP_LAUNCH(4);
-  else if (cpj <= 5) SNAP_LAUNCH(5);
-  else if (cpj <= 8) SNAP_LAUNCH(8);
-  else return (int)cudaErrorInvalidValue;
-#undef SNAP_LAUNCH
+int launch_ranks(const void* stack, const int32_t* view_idx, const float* p2d,
+                 const uint8_t* selected, const float* depth,
+                 const void* g_stats, const int* offsets, const int* within,
+                 float* d_f, float4* records, int* bins, const Dims& d,
+                 cudaStream_t stream) {
+  constexpr int kPerBlock = kRankThreads / 32;
+  const long long points = (long long)d.B * d.N;
+  const unsigned blocks = (unsigned)((points + kPerBlock - 1) / kPerBlock);
+  const auto* st = static_cast<const T*>(stack);
+  const auto* g = static_cast<const T*>(g_stats);
+  const bool one_group = d.K <= 4;
+  if (d.D <= 128 && one_group)
+    ranks_kernel<T, 1, true><<<blocks, kRankThreads, 0, stream>>>(
+        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
+        bins, d);
+  else if (d.D <= 128)
+    ranks_kernel<T, 1, false><<<blocks, kRankThreads, 0, stream>>>(
+        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
+        bins, d);
+  else if (d.D <= 256 && one_group)
+    ranks_kernel<T, 2, true><<<blocks, kRankThreads, 0, stream>>>(
+        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
+        bins, d);
+  else if (d.D <= 256)
+    ranks_kernel<T, 2, false><<<blocks, kRankThreads, 0, stream>>>(
+        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
+        bins, d);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (stack and g_stats). grad is f32 and
-// must be zeroed by the caller. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (stack and g_stats). Scratch, allocated
+// by the caller: counts [bins] int32 zeroed, offsets [bins + 1] int32,
+// within and bins_of_slots [B * N * K] int32, d_f [B * N * K, D] f32 and
+// records [B * N * K, 4] f32, with bins = B * V * h * w and V = R / (h + 1).
+// grad [B, R, W, C] f32 must be zeroed; C * dtype size a multiple of 16
+// bytes; D % 4 == 0 and D <= 256; K <= 32.
+// Returns a cudaError_t (0 on success).
 extern "C" int lift_topk_bwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, const void* g_stats, void* grad,
-    int dtype, int B, int N, int K, int R, int W, int C, int D, int h, int w,
-    float depth_min, float depth_max, float log_range, long long stride,
+    void* counts, void* offsets, void* within, void* d_f, void* records,
+    void* bins_of_slots, int dtype, int B, int N, int K, int R, int W, int C,
+    int D, int h, int w, float depth_min, float depth_max, float log_range,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int feature_warps = (D + 127) / 128, score_warps = (C - D + 31) / 32;
+  if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 1 ||
+      feature_warps + score_warps > kMaxRunWarps)
+    return (int)cudaErrorInvalidValue;
+  const Dims d{B, N, K, R, W, C, D, h, w, R / (h + 1), depth_min, depth_max,
+               log_range};
+  const int nbins = B * d.V * h * w;
   const auto* idx = static_cast<const int32_t*>(view_idx);
   const auto* pts = static_cast<const float*>(p2d);
   const auto* sel = static_cast<const uint8_t*>(selected);
+  auto* cnt = static_cast<int*>(counts);
+  auto* off = static_cast<int*>(offsets);
+  auto* pos = static_cast<int*>(within);
+  auto* df = static_cast<float*>(d_f);
+  auto* rec = static_cast<float4*>(records);
+  auto* slot_bins = static_cast<int*>(bins_of_slots);
+
+  const long long ranks = (long long)B * N * K;
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long want = (ranks + kCountThreads - 1) / kCountThreads;
+  const unsigned count_blocks =
+      (unsigned)(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
+  count_kernel<<<count_blocks, kCountThreads, 0, s>>>(idx, pts, sel, cnt, pos,
+                                                      d);
+  int code = (int)cudaGetLastError();
+  if (code) return code;
+  scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, off, nbins);
+  if ((code = (int)cudaGetLastError())) return code;
   const auto* dep = static_cast<const float*>(depth);
-  auto* out = static_cast<float*>(grad);
-  if (dtype == 0)
-    return dispatch<float>(stack, idx, pts, sel, dep, g_stats, out, B, N, K,
-                           R, W, C, D, h, w, depth_min, depth_max, log_range,
-                           stride, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(stack, idx, pts, sel, dep, g_stats, out, B,
-                                   N, K, R, W, C, D, h, w, depth_min,
-                                   depth_max, log_range, stride, s);
-  return (int)cudaErrorInvalidValue;
+  code = dtype == 0
+             ? launch_ranks<float>(stack, idx, pts, sel, dep, g_stats, off,
+                                   pos, df, rec, slot_bins, d, s)
+             : launch_ranks<__nv_bfloat16>(stack, idx, pts, sel, dep,
+                                           g_stats, off, pos, df, rec,
+                                           slot_bins, d, s);
+  if (code) return code;
+  // Enough blocks for every rank; those past the selected ones return.
+  const unsigned blocks = (unsigned)((ranks + kChunk - 1) / kChunk);
+  runs_kernel<<<blocks, (feature_warps + score_warps) * 32, 0, s>>>(
+      df, rec, slot_bins, off, static_cast<float*>(grad), nbins,
+      feature_warps, d);
+  return (int)cudaGetLastError();
 }

@@ -113,8 +113,8 @@ def load_library() -> ctypes.CDLL:
   vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
   lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [vp]
-  lib.patch_sample_2d.argtypes = [vp] * 4 + [i32] * 8 + [vp]
-  lib.lift_topk_bwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [i64, vp]
+  lib.patch_sample_2d.argtypes = [vp] * 6 + [i32] * 9 + [vp]
+  lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 10 + [f32] * 3 + [vp]
   lib.patch_sample_2d_bwd.argtypes = [vp] * 3 + [i32] * 7 + [i64, vp]
   lib.pose_scoring.argtypes = [vp] * 7 + [i32] * 5 + [f32, i32, vp]
   lib.slice_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
@@ -191,7 +191,11 @@ def lift_topk_fwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
 
 def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
                     has_valid: bool) -> Tuple[Tensor, Tensor]:
-  """K2 on the card: ``values [B, P, dim]`` (plane dtype), ``valid [B, P]``."""
+  """K2 on the card: ``values [B, P, dim]`` (plane dtype), ``valid [B, P]``.
+
+  The kernel first repacks the plane into 16-byte aligned feature rows and
+  a uint8 validity plane (scratch allocated here), then samples.
+  """
   if padded.device.type != 'cuda':
     raise ValueError(f'patch_sample_2d needs CUDA tensors, got {padded.device}')
   if padded.dtype not in _DTYPE_CODES:
@@ -203,13 +207,23 @@ def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
   dev = padded.device
   _check(padded, 'padded', padded.dtype, (b, hp, wp, c), dev)
   _check(points, 'points', torch.float32, (b, p, 2), dev)
+  if points.data_ptr() % 8:
+    raise ValueError('patch_sample_2d needs 8-byte aligned points')
+  per_chunk = 16 // padded.element_size()
+  dim_padded = -(-dim // per_chunk) * per_chunk
+  if b * p * (dim_padded // per_chunk) >= 2**31:
+    raise ValueError(f'patch_sample_2d: {b} x {p} points are too many')
+  feats = torch.empty((b, hp, wp, dim_padded), dtype=padded.dtype,
+                      device=dev)
+  valid_plane = torch.empty((b, hp, wp), dtype=torch.uint8, device=dev)
   values = torch.empty((b, p, dim), dtype=padded.dtype, device=dev)
   valid = torch.empty((b, p), dtype=torch.bool, device=dev)
   lib = load_library()
   code = lib.patch_sample_2d(
-      padded.data_ptr(), points.data_ptr(), values.data_ptr(),
-      valid.data_ptr(), _DTYPE_CODES[padded.dtype], b, p, hp - 1, wp - 1, c,
-      dim, int(has_valid), torch.cuda.current_stream(dev).cuda_stream)
+      padded.data_ptr(), feats.data_ptr(), valid_plane.data_ptr(),
+      points.data_ptr(), values.data_ptr(), valid.data_ptr(),
+      _DTYPE_CODES[padded.dtype], b, p, hp - 1, wp - 1, c, dim, dim_padded,
+      int(has_valid), torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'patch_sample_2d')
   LAUNCHES['patch_sample_2d'] += 1
   return values, valid
@@ -219,7 +233,14 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
                   select: Tensor, depth: Tensor, g_stats: Tensor, *, h: int,
                   w: int, dim: int, depth_min_max: Tuple[float, float]
                   ) -> Tensor:
-  """K3 on the card: ``d stack`` (stack dtype) from ``g_stats`` = d stats."""
+  """K3 on the card: ``d stack`` (stack dtype) from ``g_stats`` = d stats.
+
+  Scratch allocated here for the kernel's stages, sized by every rank so
+  that nothing waits on the card for the count of selected ones: per bin
+  (example, view, lower-tap pixel) its count and first slot; per rank its
+  place in its bin, a record, its bin and its f32 ``d f`` row
+  (``B * N * K * dim * 4`` bytes, 4.7 GB on the training path).
+  """
   if stack.device.type != 'cuda':
     raise ValueError(f'lift_topk_bwd needs CUDA tensors, got {stack.device}')
   if stack.dtype not in _DTYPE_CODES:
@@ -230,6 +251,9 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
     raise ValueError(f'stack {tuple(stack.shape)} vs h={h} w={w} dim={dim}')
   if c > 8 * 32:
     raise ValueError(f'lift_topk_bwd supports at most 256 channels, got {c}')
+  if (c * stack.element_size()) % 16 or stack.data_ptr() % 16 or dim % 4:
+    raise ValueError('lift_topk_bwd needs 16-byte aligned stack rows and '
+                     f'dim % 4 == 0, got {c} channels, dim {dim}')
   if k > 32:
     raise ValueError(f'lift_topk_bwd supports at most 32 ranks, got {k}')
   dev = stack.device
@@ -239,14 +263,26 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   _check(select, 'select', torch.bool, (b, n, k), dev)
   _check(depth, 'depth', torch.float32, (b, n, k), dev)
   _check(g_stats, 'g_stats', stack.dtype, (b, n, 2 * dim + 1), dev)
+  ranks = b * n * k
+  bins = b * (r // (h + 1)) * h * w
+  if ranks >= 2**31 or bins >= 2**31:
+    raise ValueError(f'lift_topk_bwd: {ranks} ranks, {bins} bins are too many')
+  counts = torch.zeros((bins,), dtype=torch.int32, device=dev)
+  offsets = torch.empty((bins + 1,), dtype=torch.int32, device=dev)
+  within = torch.empty((ranks,), dtype=torch.int32, device=dev)
+  slot_bins = torch.empty((ranks,), dtype=torch.int32, device=dev)
+  records = torch.empty((ranks, 4), dtype=torch.float32, device=dev)
+  d_f = torch.empty((ranks, dim), dtype=torch.float32, device=dev)
   grad = torch.zeros((b, r, wp, c), dtype=torch.float32, device=dev)
   lo, hi = depth_min_max
   lib = load_library()
   code = lib.lift_topk_bwd(
       stack.data_ptr(), view_idx.data_ptr(), p2d.data_ptr(),
       select.data_ptr(), depth.data_ptr(), g_stats.data_ptr(),
-      grad.data_ptr(), _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h,
-      w, float(lo), float(hi), math.log(hi / lo), spread_stride(b * n),
+      grad.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+      within.data_ptr(), d_f.data_ptr(), records.data_ptr(),
+      slot_bins.data_ptr(), _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c,
+      dim, h, w, float(lo), float(hi), math.log(hi / lo),
       torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'lift_topk_bwd')
   LAUNCHES['lift_topk_bwd'] += 1

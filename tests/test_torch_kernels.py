@@ -13,6 +13,7 @@ import math
 import pytest
 import torch
 
+import chip_smoke
 from snap_tpu_torch import evaluate
 from snap_tpu_torch.models import pose_estimation
 from snap_tpu_torch.ops import gathers
@@ -211,6 +212,126 @@ def test_patch_sample_2d_bwd_matches_plain(cuda, dtype):
   assert not got[..., kwargs['dim']].any()
   torch.testing.assert_close(got.float(), want.float(),
                              **BWD_TOLERANCES[dtype])
+
+
+def _binned_lift_bwd_inputs(device, dtype, channels, dim, k, seed=3):
+  """K3 inputs on views of 45 x 60 pixels: 1,000 points per example with
+  every rank on one pixel (4,000 or more ranks in one of K3's bins, more
+  than one block of its last stage takes), points whose lower taps lie on
+  the last row or column of an 8 x 8 tile and on the view's last pixel row
+  and column (whose upper taps, on the pad row and column, get a weight of
+  0), points past the edges, and view 1 of 3 empty."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, v, h, w, n = 2, 3, 45, 60, 6000
+  stack = torch.randn((b, v * (h + 1), w + 1, channels), generator=g)
+  view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
+  view_idx[view_idx == 1] = 2
+  p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor(
+      [h + 2.0, w + 2.0]) - 1
+  select = torch.rand((b, n, k), generator=g) < 0.7
+  pile = slice(0, 1000)
+  p2d[:, pile] = torch.tensor([20.3, 33.7])
+  view_idx[:, pile] = 0
+  select[:, pile] = True
+  edge = slice(1000, 3000)
+  tile_end = torch.tensor([7.5, 15.5, 23.5, 39.5, h - 0.5, h + 0.7])
+  tile_end_j = torch.tensor([7.5, 31.5, 55.5, w - 0.5, w + 0.3, 0.2])
+  shape = (b, 2000, k)
+  p2d[:, edge, :, 0] = tile_end[torch.randint(0, 6, shape, generator=g)] + (
+      torch.rand(shape, generator=g) * 0.99 * (torch.rand(shape, generator=g)
+                                               < 0.5))
+  p2d[:, edge, :, 1] = tile_end_j[torch.randint(0, 6, shape, generator=g)]
+  depth = torch.rand((b, n, k), generator=g) * 40
+  g_stats = torch.randn((b, n, 2 * dim + 1), generator=g)
+  args = [t.to(device) for t in (stack.to(dtype), view_idx, p2d, select,
+                                 depth)]
+  return args, g_stats.to(dtype).to(device), dict(
+      h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0))
+
+
+@pytest.mark.parametrize('dtype,channels,dim,k', [
+    (torch.float32, 40, 32, 4),  # the smoke stack
+    (torch.bfloat16, 160, 128, 4),  # the flagship stack
+    (torch.float32, 256, 224, 4),  # the widest stack K3 takes
+    (torch.float32, 40, 32, 6),  # K > 4: pass 2 gathers again
+])
+def test_lift_topk_bwd_bins_match_plain(cuda, dtype, channels, dim, k):
+  """K3 where its sorting by lower-tap pixel matters: a pile-up on one
+  pixel, tile and view edges, an empty view."""
+  args, g_stats, kwargs = _binned_lift_bwd_inputs(cuda, dtype, channels, dim,
+                                                  k)
+  counts = chip_smoke.lift_bwd_bin_counts(*args[1:4], views=3, h=45, w=60)
+  assert counts.max() >= 4000 and not counts[:, 1].any()
+  before = kernels.LAUNCHES['lift_topk_bwd']
+  got = kernels.lift_topk_bwd(*args, g_stats, **kwargs)
+  assert kernels.LAUNCHES['lift_topk_bwd'] == before + 1
+  want = view_scan.lift_topk_bwd_plain(*args, g_stats, **kwargs)
+  torch.cuda.synchronize()
+  views = want.reshape(2, 3, 46, 61, -1)
+  assert not views[:, 1].any()
+  # The last pixel row and column are reached; the pad row and column only
+  # with a tap weight of 0.
+  assert views[:, :, 44].abs().max() > 0 and views[:, :, :, 59].abs().max() > 0
+  assert not views[:, :, 45].any() and not views[:, :, :, 60].any()
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+def _edge_plane_inputs(device, dtype, dim, has_valid, seed=4):
+  """A plane of 11 x 8 cells and points on every edge of it (low, high,
+  cell centres, just inside and just outside) and at random."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, h, w = 2, 11, 8
+  plane = torch.randn((b, h + 1, w + 1, dim + int(has_valid)), generator=g)
+  if has_valid:
+    plane[..., dim] = (plane[..., dim] > -1.0).float()
+  rows = torch.tensor([-1e-3, 0.0, 0.25, 0.5, 0.75, 1.0, h - 1.0, h - 0.5,
+                       h - 0.25, h - 1e-4, h, h + 0.3])
+  cols = torch.tensor([-1e-3, 0.0, 0.3, 0.5, 1.5, w - 1.0, w - 0.5, w - 0.2,
+                       w - 1e-4, w, w + 0.5, 3.0])
+  edges = torch.stack(torch.meshgrid(rows, cols, indexing='ij'), -1)
+  points = torch.rand((b, 3000, 2), generator=g) * torch.tensor(
+      [h + 2.0, w + 2.0]) - 1
+  points = torch.cat([edges.reshape(1, -1, 2).expand(b, -1, -1), points], 1)
+  return [plane.to(dtype).to(device), points.contiguous().to(device)], dict(
+      dim=dim, has_valid=has_valid)
+
+
+@pytest.mark.parametrize('dim,has_valid', [(17, True), (32, True),
+                                           (32, False)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_patch_sample_2d_edges_match_plain(cuda, dtype, dim, has_valid):
+  """K2's 16-byte chunks with a tail (D = 17) and without (D = 32)."""
+  args, kwargs = _edge_plane_inputs(cuda, dtype, dim, has_valid)
+  before = kernels.LAUNCHES['patch_sample_2d']
+  values, valid = kernels.patch_sample_2d(*args, **kwargs)
+  assert kernels.LAUNCHES['patch_sample_2d'] == before + 1
+  values_p, valid_p = view_scan.patch_sample_2d_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(valid, valid_p) and valid.any() and not valid.all()
+  torch.testing.assert_close(values.float(), values_p.float(),
+                             **TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize('k', [4, 6])
+def test_lift_bwd_bin_counts_bin_every_selected_rank(k):
+  """The count of K3's bins that chip_smoke.py prints: each selected rank
+  on the pixel of its clamped lower tap, in its example and view; nothing
+  else counted."""
+  args, _, _ = _binned_lift_bwd_inputs('cpu', torch.float32, 40, 32, k)
+  _, view_idx, p2d, select, _ = args
+  counts = chip_smoke.lift_bwd_bin_counts(view_idx, p2d, select, views=3,
+                                          h=45, w=60)
+  assert counts.shape == (2, 3, 45, 60)
+  want = torch.zeros((2, 3, 45, 60), dtype=torch.int64)
+  li = torch.clamp(p2d[..., 0] - 0.5, 0, 44).floor().long()
+  lj = torch.clamp(p2d[..., 1] - 0.5, 0, 59).floor().long()
+  for e, n, r in select.nonzero().tolist():
+    want[e, view_idx[e, n, r], li[e, n, r], lj[e, n, r]] += 1
+  assert torch.equal(counts, want)
+  assert int(counts.sum()) == int(select.sum())
+  assert counts[0, 0, 19, 33] >= 1000 * k  # the pile-up
+  assert not counts[:, 1].any()
 
 
 def test_backward_kernels_batches_are_independent(cuda):
