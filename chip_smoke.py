@@ -7,7 +7,8 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the seven CUDA kernels of ``snap_tpu_torch/csrc`` (one
-   nvcc call);
+   nvcc call); prints the SASS instructions of B4's and K1's loops
+   (``cuobjdump``);
 3. kernels: K1 (``lift_topk_fwd``), K2 (``patch_sample_2d``), K3
    (``lift_topk_bwd``) and K4 (``patch_sample_2d_bwd``) on seeded inputs at
    the flagship shapes and the training batch of 2 against their plain
@@ -20,8 +21,10 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
    (f32, TF32 off) against the same model on the CPU (the plain path);
 5. training reference: ``smoke_train_exhaustive`` (f32, TF32 off), 2 steps
    on the card and on the CPU in lockstep, each step from the same weights,
-   batch and (injected) draws; the loss and every parameter's gradient must
-   agree at each step, leaf by leaf in the largest entry and in norm;
+   batch and (injected) draws, the CPU's max poolings made to pick the
+   entries the card's picked (``MaxChoices``, ROADMAP C11); the loss and
+   every parameter's gradient must agree at each step, leaf by leaf in the
+   largest entry and in norm;
 5b. RANSAC reference: the tiny ``smoke_eval_ransac`` localizer on the card
    (f32, TF32 off) against the CPU, with the CPU's pose samples injected:
    sampled and refinement scores within tolerance, ``best_index`` exact
@@ -52,11 +55,16 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
    lift), and CUDA-event times of kernel, plain version and, where one
    PyTorch call computes the same function, that call (``F.grid_sample``
    and its input gradient for K2 and K4; ``F.embedding_bag`` and
-   ``F.embedding`` for B5 and B6, from the bench); K2, K3, K4 and their
-   library calls timed again with the launches queued behind a spin of the
-   card (the card's time alone, without the host's launch overhead); K3's
-   selected ranks by its sort's bins, and K2's and K3's device time by
-   launch stage (``torch.profiler``).
+   ``F.embedding`` for B5 and B6, from the bench); K1 also timed on the
+   RANSAC path's f32 input, and B4 on both of its calls (sampled poses and
+   the refinement lattice), each with its bound and B4's grid and waves;
+   K1, K2, K3, K4, B4 and their library calls timed again with the
+   launches queued behind a spin of the card (the card's time alone,
+   without the host's launch overhead); K3's selected ranks by its sort's
+   bins, and K2's and K3's device time by launch stage
+   (``torch.profiler``); for every launch of each kernel on these inputs,
+   its registers, shared memory and spills and the blocks per SM the card
+   keeps resident at that launch's shape (``kernels.occupancy``).
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -68,6 +76,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -82,8 +91,10 @@ from snap_tpu_torch import evaluate
 from snap_tpu_torch import train
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.models import bev_mapper
 from snap_tpu_torch.models import pose_estimation
 from snap_tpu_torch.models import pose_exhaustive_voting as pev
+from snap_tpu_torch.models import resnet
 from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
@@ -143,6 +154,16 @@ POSE_OPS_PER_PAIR = 42
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = 1e-2
+# The training reference's replay of the card's max choices (MaxChoices)
+# takes only near ties: at every output whose choice it changes, the CPU's
+# own max and its value at the card's choice (for a relu, x and 0) must lie
+# within CHOICE_GAP_RTOL of the site's largest magnitude, and a step may
+# change at most MAX_FLIPS_PER_STEP outputs of one site (ten sound runs
+# changed 0-4 relu outputs of 4.27M, 1-2 root-pool outputs and 6-24
+# vertical-pooling ones a step). A fault that moves values further, or
+# flips more, fails the check instead of being replayed.
+CHOICE_GAP_RTOL = 1e-4
+MAX_FLIPS_PER_STEP = 100
 
 STREET_ROOT = 'bev_mapper.streetview_encoder.image_encoder.encoder.root_block.conv_root.weight'
 PROJ_MLP = 'bev_mapper.streetview_encoder.proj_mlp.Dense_0.weight'
@@ -461,12 +482,190 @@ def serving_reference() -> None:
       f'{cpu_idx.tolist()} equal on card and CPU')
 
 
-def training_reference() -> None:
+class _PoolAt(torch.autograd.Function):
+  """The 3x3, stride-2, padding-1 max pool of ``x [B, C, H, W]`` read at
+  given argmax ``indices`` (as ``F.max_pool2d`` returns them): the input's
+  values there, laid out as ``like`` (the pool's own output: the layers
+  after it sum in an order that follows the layout), and ``max_pool2d``'s
+  own backward with those indices."""
+
+  @staticmethod
+  def forward(ctx, x, indices, like):
+    ctx.save_for_backward(x, indices)
+    flat = x.reshape(*x.shape[:2], -1)
+    values = flat.gather(2, indices.reshape(*indices.shape[:2], -1))
+    return torch.empty_like(like).copy_(values.reshape(indices.shape))
+
+  @staticmethod
+  def backward(ctx, g):
+    x, indices = ctx.saved_tensors
+    return torch.ops.aten.max_pool2d_with_indices_backward(
+        g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, indices), None, None
+
+
+def _tie_gap(gaps: torch.Tensor, flipped: torch.Tensor,
+             values: torch.Tensor) -> float:
+  """The largest of ``gaps`` where ``flipped``, relative to the largest
+  finite magnitude of ``values``; 0 where nothing flipped."""
+  if not bool(flipped.any()):
+    return 0.0
+  finite = values[torch.isfinite(values)].abs()
+  scale = float(finite.max()) if finite.numel() else 0.0
+  return float(gaps[flipped].max()) / max(scale, 1e-30)
+
+
+def flips_per_site(flips):
+  """``MaxChoices.flips`` of one step summed per site: name -> [outputs
+  flipped, outputs, largest gap]; raises where a site flipped more than
+  ``MAX_FLIPS_PER_STEP`` outputs."""
+  per_site = {}
+  for name, n, total, gap in flips:
+    count = per_site.setdefault(name, [0, 0, 0.0])
+    count[0] += n
+    count[1] += total
+    count[2] = max(count[2], gap)
+  for name, (n, total, _) in per_site.items():
+    if n > MAX_FLIPS_PER_STEP:
+      raise AssertionError(f'{name}: {n} of {total} max choices flipped in a '
+                           f'step (limit {MAX_FLIPS_PER_STEP})')
+  return per_site
+
+
+class MaxChoices:
+  """Records which entries the maxima of a model pick, or makes another
+  copy of the model pick recorded ones (ROADMAP C11).
+
+  Sites: every ``VerticalPooling`` in max mode (the street-view volume's
+  vertical pooling, the fusion of the map modalities), the 3x3 max pool of
+  every ResNet root, and every ``F.relu`` (max(x, 0)). Recording keeps,
+  per site call in order, the entries that reach the max: for
+  ``VerticalPooling`` a mask over the pooled axis (``amax`` spreads its
+  gradient over all of them), for the root pool the indices
+  ``max_pool2d`` returns, for a relu the mask x > 0. Replaying recomputes
+  each site's output from its own inputs at the recorded entries, so the
+  values stay this model's and the gradient takes the recorded path;
+  replaying a model's own choices leaves its outputs and gradients as they
+  were (bit for bit). ``flips`` holds, per site call, the site's name, the
+  outputs whose own choice differs from the recorded one and all its
+  outputs, and the largest gap between this copy's own max and its value
+  at a recorded choice, relative to the site's largest magnitude; a gap
+  over ``CHOICE_GAP_RTOL`` (a choice that is no near tie) raises. A context
+  manager: the hooks, and ``F.relu``'s stand-in, go on exit.
+  """
+
+  def __init__(self, model: torch.nn.Module, replay=None):
+    self.calls, self.flips, self.replay = [], [], replay
+    self._stashed = {}
+    self._handles = []
+    for name, module in model.named_modules():
+      if isinstance(module, bev_mapper.VerticalPooling) and (
+          module.mode == 'max'):
+        self._handles.append(
+            module.register_forward_hook(self._pooling_hook(name)))
+      elif isinstance(module, resnet.RootBlock):
+        self._handles.append(module.conv_root.register_forward_hook(
+            self._stash_hook(name)))
+        self._handles.append(
+            module.register_forward_hook(self._root_hook(name)))
+
+  def __enter__(self):
+    self._relu = F.relu
+    F.relu = self._relu_site
+    return self
+
+  def __exit__(self, *exc):
+    F.relu = self._relu
+    for handle in self._handles:
+      handle.remove()
+    if exc[0] is None and self.replay is not None and (
+        len(self.flips) != len(self.replay)):
+      raise AssertionError(f'replayed {len(self.flips)} of '
+                           f'{len(self.replay)} recorded max choices')
+
+  def _choose(self, name: str, own: torch.Tensor, flips_of) -> torch.Tensor:
+    if self.replay is None:
+      self.calls.append(own)
+      return own
+    recorded = self.replay[len(self.flips)].to(own.device)
+    if recorded.shape != own.shape:
+      raise AssertionError(f'{name}: recorded choice {tuple(recorded.shape)}'
+                           f' against {tuple(own.shape)}')
+    flips, total, gap = flips_of(own, recorded)
+    self.flips.append((name, flips, total, gap))
+    if not gap <= CHOICE_GAP_RTOL:
+      raise AssertionError(
+          f'{name}: a recorded max choice is {gap:.3g} of the site\'s '
+          f'largest magnitude from a tie here (limit {CHOICE_GAP_RTOL})')
+    return recorded
+
+  def _pooling_hook(self, name: str):
+    def hook(module, args, output):
+      features, valid = args[0].features, args[0].valid
+      has_data = valid.any(-1)
+      guard = torch.where(has_data[..., None], valid, True)[..., None]
+      masked = torch.where(guard, features, -torch.inf)
+      values = masked.detach()
+      top = values.amax(-2)
+      own = values == top[..., None, :]
+
+      def flips_of(a, b):
+        flipped = (a != b).any(-2)
+        picked = torch.where(b, values, torch.inf).amin(-2)
+        return (int(flipped.sum()), a[..., 0, :].numel(),
+                _tie_gap(top - picked, flipped, values))
+      chosen = self._choose(name, own, flips_of)
+      if self.replay is None:
+        return None
+      plane = torch.where(chosen, masked, -torch.inf).amax(-2)
+      plane = torch.where(has_data[..., None], plane, 0)
+      return type(output)(features=plane, valid=output.valid)
+    return hook
+
+  def _relu_site(self, x: torch.Tensor, inplace: bool = False):
+    values = x.detach()
+    own = values > 0
+    chosen = self._choose('F.relu', own, lambda a, b: (
+        int((a != b).sum()), a.numel(),
+        _tie_gap(values.abs(), a != b, values)))
+    if self.replay is None:
+      return self._relu(x, inplace=inplace)
+    return torch.where(chosen, x, 0)
+
+  def _stash_hook(self, name: str):
+    def hook(module, args, output):
+      self._stashed[name] = output
+    return hook
+
+  def _root_hook(self, name: str):
+    def hook(module, args, output):
+      x = self._stashed.pop(name).permute(0, 3, 1, 2)
+      with torch.no_grad():
+        pooled, own = F.max_pool2d(x, 3, stride=2, padding=1,
+                                   return_indices=True)
+      values = x.detach()
+
+      def flips_of(a, b):
+        at = values.reshape(*values.shape[:2], -1).gather(
+            2, b.reshape(*b.shape[:2], -1)).reshape(b.shape)
+        return (int((a != b).sum()), a.numel(),
+                _tie_gap(pooled - at, a != b, values))
+      chosen = self._choose(name, own, flips_of)
+      if self.replay is None:
+        return None
+      return _PoolAt.apply(x, chosen, pooled).permute(0, 2, 3, 1)
+    return hook
+
+
+def training_reference():
   """2 steps of the tiny trainer on the card and on the CPU in lockstep:
   each step starts both from the CPU's weights, with the same batch and
-  draws; the loss and every gradient leaf agree. (Comparing after separate
-  updates would not work: Adam's first update is ~lr * sign(g), so a
-  gradient entry near 0 that differs in sign moves its weight by 2 lr.)"""
+  draws (the card's, injected on the CPU), and the CPU's max poolings pick
+  the entries the card's picked (``MaxChoices``); the loss and every
+  gradient leaf agree. (Comparing after separate updates would not work:
+  Adam's first update is ~lr * sign(g), so a gradient entry near 0 that
+  differs in sign moves its weight by 2 lr.) Returns per step the worst
+  leaf error relative to its largest entry and to its norm, and the flips
+  per max site."""
   cfg = configs.smoke_train_exhaustive()
   models = {dev: evaluate.build_localizer(cfg, dev, 0).train()
             for dev in ('cpu', 'cuda')}
@@ -474,17 +673,22 @@ def training_reference() -> None:
   states = {dev: trainer.create_train_state(m, adam, seed=0)
             for dev, m in models.items()}
   generator = loader.make_generator(cfg.data, 0)
-  worst, worst_norm, losses = [0.0, 0.0], [0.0, 0.0], []
+  worst, worst_norm, losses, flips = [0.0, 0.0], [0.0, 0.0], [], []
+  worst_leaf = ['', '']
   for i in range(2):
     models['cuda'].load_state_dict(models['cpu'].state_dict())
     examples = loader.make_train_examples(generator, i, cfg.batch_size,
                                           cfg.data)
-    outs = {}
-    for dev in ('cpu', 'cuda'):
-      batch = loader.pair_batch_to_torch(examples, dev)
-      draws = None if dev == 'cpu' else outs['cpu'].draws  # injected
-      outs[dev] = trainer.train_step(states[dev], batch, adam, draws=draws)
-    cpu, card = outs['cpu'], outs['cuda']
+    with MaxChoices(models['cuda']) as on_card:
+      card = trainer.train_step(states['cuda'],
+                                loader.pair_batch_to_torch(examples, 'cuda'),
+                                adam)
+    with MaxChoices(models['cpu'], replay=on_card.calls) as replayed:
+      cpu = trainer.train_step(states['cpu'],
+                               loader.pair_batch_to_torch(examples, 'cpu'),
+                               adam, draws=card.draws)
+    flips.append({name: f'{n} of {total}, gap {gap:.3g}' for name, (
+        n, total, gap) in flips_per_site(replayed.flips).items() if n})
     loss = [trainer.summarize([o.metrics])['loss/total'] for o in (cpu, card)]
     losses.append(loss)
     if not math.isclose(loss[0], loss[1], rel_tol=TRAIN_LOSS_RTOL):
@@ -501,11 +705,17 @@ def training_reference() -> None:
       if not err_norm <= TRAIN_GRAD_NORM_RTOL * norm + 1e-7:
         raise AssertionError(f'step {i}: gradient of {name} off by '
                              f'{err_norm:.3g} in norm (norm {norm:.3g})')
-      worst[i] = max(worst[i], err / max(scale, 1e-30))
+      if err / max(scale, 1e-30) > worst[i]:
+        worst[i], worst_leaf[i] = err / max(scale, 1e-30), name
       worst_norm[i] = max(worst_norm[i], err_norm / max(norm, 1e-30))
   log(f'training reference (smoke_train_exhaustive, f32): losses [cpu, '
       f'card] per step {losses}; every gradient leaf within {worst} of '
-      f'its largest entry and within {worst_norm} of its norm (per step)')
+      f'its largest entry (worst: {worst_leaf}) and within {worst_norm} of '
+      f'its norm (per step); '
+      f'max choices the card flipped against the CPU\'s own, replayed on '
+      f'the CPU (site: outputs over its calls, the largest gap from a tie '
+      f'relative to the site\'s largest magnitude), per step {flips}')
+  return worst, worst_leaf, worst_norm, flips
 
 
 def fft_contraction_bound(config: configs.Config):
@@ -874,12 +1084,20 @@ def new_kernel_rows(ransac_launches, bench_launches, scoring, bench):
   checks = {shape: check_pose_scoring(*call)
             for shape, call in scoring.calls.items()}
   per_call = {}
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
   for shape, (args, kw) in scoring.calls.items():
-    per_call[shape] = (
-        time_ms(lambda: kernels.pose_scoring(*args, **kw)),
-        pose_scoring_bound(args, kernels.pose_scoring(*args, **kw)))
+    plan = kernels.pose_scoring_plan(*shape, args[2].shape[1], sms=sms)
+    per_call[shape] = dict(
+        ms=time_ms(lambda: kernels.pose_scoring(*args, **kw)),
+        spin_ms=time_ms(lambda: kernels.pose_scoring(*args, **kw), spin=True),
+        bound=pose_scoring_bound(args, kernels.pose_scoring(*args, **kw)),
+        valid_points=int(args[4].sum()),
+        grid=f'{plan["tiles"]} tiles x {plan["groups"]} groups of '
+             f'{plan["group"]} points x {plan["examples"]} examples = '
+             f'{plan["blocks"]} blocks, {plan["waves"]:.3f} waves of {sms}')
+    log_occupancy('pose_scoring', f'{shape[1]} poses')
   log(f'pose_scoring on main-path inputs: (max abs err, near ties of the '
-      f'argmax) per call {checks}; (ms, (bound ms, bound by)) per call '
+      f'argmax) per call {checks}; per call (poses = the second number) '
       f'{per_call}')
   args, kw = scoring.largest()
   out = kernels.pose_scoring(*args, **kw)
@@ -894,6 +1112,7 @@ def new_kernel_rows(ransac_launches, bench_launches, scoring, bench):
   for name, kernel, replaces in (
       ('pallas_slice', 'slice_gather', 'tools/bench_gather.py:84'),
       ('pallas_dyngather', 'table_gather', 'tools/bench_gather.py:124')):
+    log_occupancy(kernel, 'the tool shape')  # the gather bench's last call
     row = bench[name]
     rows.append(report(
         kernel, f'snap_tpu_torch/csrc/{kernel}.cu', bench_launches[kernel],
@@ -906,6 +1125,63 @@ def new_kernel_rows(ransac_launches, bench_launches, scoring, bench):
         f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms by '
         f'{row["bound_by"]}, library {row["library_ms"]})')
   return rows
+
+
+def sass_loops(function: str):
+  """The loops of the compiled kernel whose mangled name contains
+  ``function`` (``cuobjdump -sass``): per loop (a predicated backward
+  branch; an unpredicated one returns from out-of-line code), its
+  instructions and those outside the loops nested in it, largest first;
+  None where the toolkit has no ``cuobjdump``."""
+  tool = kernels._nvcc().replace('nvcc', 'cuobjdump')
+  try:
+    sass = subprocess.run([tool, '-sass', str(kernels.library_path())],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+  except (OSError, subprocess.SubprocessError):
+    return None
+  body, labels, pending, inside = [], {}, [], False
+  for line in sass.splitlines():
+    if 'Function :' in line:
+      inside = function in line
+      continue
+    if not inside:
+      continue
+    label = re.match(r'\s*(\.L_x_\d+):', line)
+    if label:
+      pending.append(label.group(1))
+    found = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;', line)
+    if found:
+      addr = int(found.group(1), 16)
+      labels.update((name, addr) for name in pending)
+      pending = []
+      body.append((addr, found.group(2)))
+  loops = []
+  for addr, text in body:
+    target = re.search(r'BRA\S* (?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))', text)
+    if target:
+      to = labels.get(target.group(1)) if target.group(1) else int(
+          target.group(2), 16)
+      if to is not None and to < addr and text.startswith('@'):
+        loops.append((to, addr))
+  counts = []
+  for start, end in loops:
+    total = sum(start <= a <= end for a, _ in body)
+    nested = sum(sum(s <= a <= e for a, _ in body) for s, e in loops
+                 if start <= s and e <= end and (s, e) != (start, end))
+    counts.append((total, total - nested))
+  return sorted(counts, reverse=True)
+
+
+def log_occupancy(kernel: str, at: str) -> None:
+  """Logs each launch of ``kernel``'s last call: registers, shared and
+  local memory (``cudaFuncGetAttributes``) and the blocks per SM the card
+  keeps resident at the launch's block size and dynamic shared memory."""
+  for o in kernels.occupancy(kernel):
+    log(f'resources: {kernel} at {at}: {o["name"]}: {o["registers"]} '
+        f'registers, {o["static_smem"]} B static + {o["dynamic_smem"]} B '
+        f'dynamic shared memory, {o["local_bytes"]} B local memory (spills, '
+        f'stack); {o["threads"]} threads, {o["blocks_per_sm"]} blocks per SM')
 
 
 def report(name, source, launches, err, k_ms, p_ms, bound, lib_ms,
@@ -936,6 +1212,7 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
   rows = []
   args, kw = lift.largest()
   out = kernels.lift_topk_fwd(*args, **kw)
+  log_occupancy('lift_topk_fwd', 'the serving input')
   rows.append(report(
       'lift_topk_fwd', 'snap_tpu_torch/csrc/lift_topk_fwd.cu',
       serve_launches['lift_topk_fwd'], errs['lift_topk_fwd'],
@@ -944,6 +1221,7 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       lift_bound(args, kw, *out), None))
   args, kw = sample.largest()
   out = kernels.patch_sample_2d(*args, **kw)
+  log_occupancy('patch_sample_2d', 'the serving input')
   rows.append(report(
       'patch_sample_2d', 'snap_tpu_torch/csrc/patch_sample_2d.cu',
       serve_launches['patch_sample_2d'], errs['patch_sample_2d'],
@@ -952,6 +1230,7 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       sample_bound(args, kw, *out), time_ms(grid_sample_call(*args))))
   args, kw = lift_bwd.largest()
   out = kernels.lift_topk_bwd(*args, **kw)
+  log_occupancy('lift_topk_bwd', 'the training input')
   stack, view_idx, p2d, select = args[:4]
   bins = lift_bwd_bin_counts(
       view_idx, p2d, select, views=stack.shape[1] // (kw['h'] + 1),
@@ -967,6 +1246,7 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       lift_bwd_bound(args, kw, out), None))
   args, kw = sample_bwd.largest()
   out = kernels.patch_sample_2d_bwd(*args, **kw)
+  log_occupancy('patch_sample_2d_bwd', 'the training input')
   rows.append(report(
       'patch_sample_2d_bwd', 'snap_tpu_torch/csrc/patch_sample_2d_bwd.cu',
       train_launches['patch_sample_2d_bwd'], errs['patch_sample_2d_bwd'],
@@ -974,11 +1254,23 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       time_ms(lambda: view_scan.patch_sample_2d_bwd_plain(*args, **kw)),
       sample_bwd_bound(args, kw, out),
       time_ms(grid_sample_bwd_call(*args, kw['plane_shape']))))
+  args, kw = lift_f32.largest()
+  out = kernels.lift_topk_fwd(*args, **kw)
+  log_occupancy('lift_topk_fwd', 'the RANSAC input')
+  log(f'lift_topk_fwd at the RANSAC path\'s f32 input {tuple(args[0].shape)}'
+      f' ({int(args[3].sum())} selected ranks): '
+      f'{time_ms(lambda: kernels.lift_topk_fwd(*args, **kw)):.4f} ms, spin '
+      f'{time_ms(lambda: kernels.lift_topk_fwd(*args, **kw), spin=True):.4f}'
+      f' ms (bound, bound by: {lift_bound(args, kw, *out)})')
+  del out
+  args, kw = lift.largest()
+  queued = {'lift_topk_fwd': time_ms(
+      lambda: kernels.lift_topk_fwd(*args, **kw), spin=True)}
   args, kw = sample.largest()
-  queued = {
+  queued.update({
       'patch_sample_2d': time_ms(lambda: kernels.patch_sample_2d(*args, **kw),
                                  spin=True),
-      'F.grid_sample': time_ms(grid_sample_call(*args), spin=True)}
+      'F.grid_sample': time_ms(grid_sample_call(*args), spin=True)})
   stages = kernel_stages_ms(lambda: kernels.patch_sample_2d(*args, **kw),
                             ('pack_plane_kernel', 'patch_sample_2d_kernel'))
   log(f'patch_sample_2d stages at {tuple(args[1].shape)}, device ms per '
@@ -1026,6 +1318,11 @@ def main() -> int:
   kernels.load_library()
   log(f'build: {time.perf_counter() - t:.1f} s '
       f'({kernels.library_path().name})')
+  log(f'SASS loops (instructions, of them outside nested loops), largest '
+      f'first: pose_scoring_kernel<false> '
+      f'{sass_loops("pose_scoring_kernelILb0E")}, lift_topk_fwd_kernel'
+      f'<bf16, 1, true> '
+      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb1E")}')
 
   # 3. Kernels against their plain versions on seeded flagship-shape inputs.
   lift, sample, lift_bwd, sample_bwd = seeded_kernel_inputs('cuda')

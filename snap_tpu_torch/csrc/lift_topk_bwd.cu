@@ -77,7 +77,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
+
+LaunchLog launches;
 
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -683,26 +687,19 @@ int launch_ranks(const void* stack, const int32_t* view_idx, const float* p2d,
   const unsigned blocks = (unsigned)((points + kPerBlock - 1) / kPerBlock);
   const auto* st = static_cast<const T*>(stack);
   const auto* g = static_cast<const T*>(g_stats);
+  const auto run = [&](auto kernel) {
+    launches.add(kernel, "ranks_kernel", kRankThreads, 0);
+    kernel<<<blocks, kRankThreads, 0, stream>>>(
+        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
+        bins, d);
+    return (int)cudaGetLastError();
+  };
   const bool one_group = d.K <= 4;
-  if (d.D <= 128 && one_group)
-    ranks_kernel<T, 1, true><<<blocks, kRankThreads, 0, stream>>>(
-        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
-        bins, d);
-  else if (d.D <= 128)
-    ranks_kernel<T, 1, false><<<blocks, kRankThreads, 0, stream>>>(
-        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
-        bins, d);
-  else if (d.D <= 256 && one_group)
-    ranks_kernel<T, 2, true><<<blocks, kRankThreads, 0, stream>>>(
-        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
-        bins, d);
-  else if (d.D <= 256)
-    ranks_kernel<T, 2, false><<<blocks, kRankThreads, 0, stream>>>(
-        st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
-        bins, d);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (d.D <= 128 && one_group) return run(ranks_kernel<T, 1, true>);
+  if (d.D <= 128) return run(ranks_kernel<T, 1, false>);
+  if (d.D <= 256 && one_group) return run(ranks_kernel<T, 2, true>);
+  if (d.D <= 256) return run(ranks_kernel<T, 2, false>);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -721,6 +718,7 @@ extern "C" int lift_topk_bwd(
     void* bins_of_slots, int dtype, int B, int N, int K, int R, int W, int C,
     int D, int h, int w, float depth_min, float depth_max, float log_range,
     void* stream) {
+  launches.clear();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int feature_warps = (D + 127) / 128, score_warps = (C - D + 31) / 32;
   if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 1 ||
@@ -746,10 +744,12 @@ extern "C" int lift_topk_bwd(
   const long long want = (ranks + kCountThreads - 1) / kCountThreads;
   const unsigned count_blocks =
       (unsigned)(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
+  launches.add(count_kernel, "count_kernel", kCountThreads, 0);
   count_kernel<<<count_blocks, kCountThreads, 0, s>>>(idx, pts, sel, cnt, pos,
                                                       d);
   int code = (int)cudaGetLastError();
   if (code) return code;
+  launches.add(scan_kernel, "scan_kernel", kScanThreads, 0);
   scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, off, nbins);
   if ((code = (int)cudaGetLastError())) return code;
   const auto* dep = static_cast<const float*>(depth);
@@ -762,8 +762,16 @@ extern "C" int lift_topk_bwd(
   if (code) return code;
   // Enough blocks for every rank; those past the selected ones return.
   const unsigned blocks = (unsigned)((ranks + kChunk - 1) / kChunk);
-  runs_kernel<<<blocks, (feature_warps + score_warps) * 32, 0, s>>>(
+  const int run_threads = (feature_warps + score_warps) * 32;
+  launches.add(runs_kernel, "runs_kernel", run_threads, 0);
+  runs_kernel<<<blocks, run_threads, 0, s>>>(
       df, rec, slot_bins, off, static_cast<float*>(grad), nbins,
       feature_warps, d);
   return (int)cudaGetLastError();
+}
+
+// The launches of the last call (launch_log.cuh). Returns their count, or
+// minus a cudaError_t.
+extern "C" int lift_topk_bwd_occupancy(KernelOccupancy* out, int capacity) {
+  return launches.report(out, capacity);
 }

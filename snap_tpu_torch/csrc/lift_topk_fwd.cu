@@ -18,231 +18,444 @@
 // A rank that is not selected leaves the state exactly as the reference's
 // masked update does (its weight is 0), so it is skipped without a read.
 //
-// Design: one warp per point; lanes split the C channels into 16-byte chunks
-// (8 bf16 or 4 f32 values per load), CPL chunks per lane; the per-channel S1/S2
-// and the scalar m/l live in registers across the K ranks; the score's dot
-// product over the S bins is a warp shuffle reduction.
+// What bounds it on an H100: bytes. At the serving shape the stack is
+// [1, 920, 61, 160] bf16 = 18 MB and stays in the 50 MB L2; device memory
+// sees the per-rank inputs (~0.08 GB) and the stats written (1.152M x 257 x
+// 2 B = 0.59 GB): ~0.2 ms at 3.35 TB/s. On the RANSAC path (f32, batch 4)
+// the stats are 4.6M x 1,028 B = 4.7 GB, ~1.4 ms. What holds it back is
+// L2 and instruction issue: a selected rank reads 4 taps x (the D feature
+// channels + the sector or two of its two depth bins), ~4.7 GB of 32-byte
+// sectors at the serving input (4.05M selected ranks; the first design
+// read all C channels, 5.2 GB), and a point is ~1,100 SASS instructions
+// (the static count of its loop; at 4 warp-instructions per clock and SM
+// that alone is ~1.4 ms for 1.152M points).
 //
-// What bounds it on an H100: bytes. At the flagship shape the stack is
-// [1, 920, 61, 160] bf16 = 18 MB and stays in the 50 MB L2; the gathered
-// traffic is 1.152M points x 4 ranks x 4 taps x 320 B = 5.9 GB, mostly L2
-// hits. Device memory sees the per-rank inputs (~0.08 GB) and the bf16 stats
-// written (1.152M x 257 x 2 B = 0.59 GB): ~0.2 ms at 3.35 TB/s.
+// Design (K3's rank stage, csrc/lift_topk_bwd.cu): a warp per point.
+//   - Lane l holds feature channels 4 (l + 32 q) .. + 3, q < CPL (D % 4 ==
+//     0, D <= 128 CPL): all 32 lanes busy at D = 128, 8-byte loads in bf16
+//     and 16-byte loads in f32.
+//   - Lanes 0..K-1 load their rank's inputs once; the others get them by
+//     shuffles. Lane k forms score z_k from the two depth bins whose hat is
+//     non-zero (the other bins' terms are exact zeros).
+//   - Every tap of a group of ranks is loaded before any is used (groups of
+//     4 / CPL ranks, so the raw taps take a fixed 16 registers of loads);
+//     with K <= 4 / CPL (every configuration) the group loop is unrolled at
+//     compile time. A point costs two dependent memory round trips (its
+//     ranks' inputs, then all taps) instead of two per rank.
+//   - The online softmax runs in rank order, as the reference and K3 do:
+//     the variance's tie rule (C7) makes the rounding of E2 - mean^2 matter.
+//   - A warp walks kPointsPerWarp consecutive points (on the map lift, the
+//     z levels of a column, whose taps overlap in L1), loading the next
+//     point's rank inputs while it computes the current one. Their stats
+//     rows (514 B in bf16, 1,028 B in f32, mostly off a 16-byte boundary)
+//     form one contiguous span: each row is staged in the warp's shared
+//     memory behind the partial 16-byte chunk carried from the row before,
+//     and written as 16-byte stores, scalar stores only for the span's two
+//     end chunks. No block-wide barrier: warps run independently. A block
+//     per 8 points with a block-wide staged write took 1.42 ms (bf16) and
+//     7.4 ms (f32) at the serving and RANSAC paths' inputs on an H100;
+//     this design 1.37 and 5.4 (1.28 and 4.95 with S1 and S2 times one
+//     reciprocal per point, given up: a quotient an ulp off the plain
+//     version's can put the variance on the other side of its tie at 0
+//     from K3's).
+//   - Launch bounds keep f32 within 128 registers and bf16 within 80 (2 and
+//     3 blocks per SM): a build a few registers over lost a block per SM
+//     and a third of its speed on an H100.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
 
+LaunchLog launches;
+
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;
+// Consecutive points per warp, and the blocks per SM that ptxas must fit
+// in registers, by dtype: a kernel a few registers over 128 (f32) or 80
+// (bf16) loses a block per SM, and a third of its speed with it.
+constexpr int kPointsPerWarp = 16;
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 2 ? 3 : 2;
 
-template <typename T> struct Vec;
+__device__ inline float to_float(float x) { return x; }
+__device__ inline float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ inline void from_float(float x, float* out) { *out = x; }
+__device__ inline void from_float(float x, __nv_bfloat16* out) {
+  *out = __float2bfloat16(x);
+}
 
-template <> struct Vec<float> {
-  static constexpr int kElems = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+// 4 channels: loaded raw, converted later.
+template <typename T> struct Quad;
+
+template <> struct Quad<float> {
+  using Raw = uint4;
+  __device__ static Raw load(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
   }
-  __device__ static float from_float(float x) { return x; }
+  __device__ static void convert(const Raw& v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
 };
 
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int kElems = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
+template <> struct Quad<__nv_bfloat16> {
+  using Raw = uint2;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static void convert(const Raw& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  }
+};
+
+__device__ inline float hat(float x, int s) {
+  return fmaxf(0.f, 1.f - fabsf(x - (float)s));
+}
+
+struct Dims {
+  int B, N, K, R, W, C, D, h, w;
+  float depth_min, depth_max, log_range;
+};
+
+// Elements of a warp's staging buffer: a row after a carried partial
+// chunk, rounded up to whole 16-byte chunks.
+template <typename T> __host__ __device__ constexpr int staged_stride(int row) {
+  return (row + 2 * (16 / (int)sizeof(T)) - 2) / (16 / (int)sizeof(T)) *
+         (16 / (int)sizeof(T));
+}
+
+// Lane k < K: rank k of a point, as loaded.
+struct RankIn {
+  bool sel;
+  int view;
+  float pi, pj, dep;
+};
+
+__device__ inline RankIn load_ranks(long long point, int lane, const Dims& d,
+                                    const int32_t* view_idx, const float* p2d,
+                                    const uint8_t* selected,
+                                    const float* depth) {
+  RankIn in{false, 0, 0.f, 0.f, 0.f};
+  if (lane < d.K) {
+    const long long r = point * d.K + lane;
+    in.sel = selected[r];
+    in.view = view_idx[r];
+    in.pi = p2d[2 * r];
+    in.pj = p2d[2 * r + 1];
+    in.dep = depth[r];
+  }
+  return in;
+}
+
+// One point's stats row into my_row (shared memory) and its valid flag.
+template <typename T, int CPL, bool kOneGroup>
+__device__ inline void lift_point(const T* __restrict__ stack,
+                                  const RankIn& in, long long point, int lane,
+                                  const Dims& d, T* my_row, uint8_t* valid) {
+  constexpr int KG = 4 / CPL;  // ranks per group
+  using Raw = typename Quad<T>::Raw;
+  const int C = d.C, D = d.D, S = C - D, W = d.W;
+  const int b = (int)(point / d.N);
+  const T* base = stack + (long long)b * d.R * W * C;
+  const long long down = (long long)W * C;
+
+  // Lane k < K: rank k's geometry and first tap.
+  bool sel = false;
+  float fi = 0.f, fj = 0.f, x = 0.f;
+  long long tap0 = 0;
+  if (lane < d.K) {
+    const int view = in.view;
+    const float dep = in.dep;
+    if (in.sel) {
+      sel = true;
+      const float pi = fminf(fmaxf(in.pi - 0.5f, 0.f), (float)(d.h - 1));
+      const float pj = fminf(fmaxf(in.pj - 0.5f, 0.f), (float)(d.w - 1));
+      const float li = floorf(pi), lj = floorf(pj);
+      fi = pi - li;
+      fj = pj - lj;
+      tap0 = (((long long)view * (d.h + 1) + (int)li) * W + (int)lj) * C;
+      const float dc = fminf(fmaxf(dep, d.depth_min), d.depth_max);
+      const float xr =
+          logf(dc / d.depth_min) / d.log_range * (float)(S - 1);
+      x = fminf(fmaxf(xr, 0.f), (float)(S - 1));
     }
   }
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
+  const unsigned selmask = __ballot_sync(kFull, sel);
+
+  // Lane k: score z_k from the two depth bins around x (loads issued
+  // here, used after the first group's taps are in flight).
+  float za[4], zb[4];
+  const int s0 = min((int)x, S - 1), s1 = min(s0 + 1, S - 1);
+  if (sel) {
+    const T* taps[4] = {base + tap0, base + tap0 + C, base + tap0 + down,
+                        base + tap0 + down + C};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      za[t] = to_float(taps[t][D + s0]);
+      zb[t] = to_float(taps[t][D + s1]);
+    }
   }
-};
 
-template <typename T, int CPL>
-__global__ void lift_topk_fwd_kernel(
-    const T* __restrict__ stack,        // [B, R, W, C]
-    const int32_t* __restrict__ view_idx,  // [B, N, K]
-    const float* __restrict__ p2d,      // [B, N, K, 2] (row, col) pixels
-    const uint8_t* __restrict__ selected,  // [B, N, K]
-    const float* __restrict__ depth,    // [B, N, K]
-    T* __restrict__ stats,              // [B, N, 2D + 1]
-    uint8_t* __restrict__ valid,        // [B, N]
-    int B, int N, int K, int R, int W, int C, int D, int h, int w,
-    float depth_min, float depth_max, float log_range) {
-  constexpr int E = Vec<T>::kElems;
-  const int lane = threadIdx.x & 31;
-  const long long point =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (point >= (long long)B * N) return;
-  const int b = (int)(point / N);
-  const int S = C - D;
-  const int num_chunks = C / E;
-  const T* base = stack + (long long)b * R * W * C;
-
-  float s1[CPL][E], s2[CPL][E];
+  float f[KG][CPL][4];
+  auto gather = [&](int k0) {
+    Raw raw[KG][CPL][4];
+    float tw[KG][4];
 #pragma unroll
-  for (int q = 0; q < CPL; ++q) {
+    for (int u = 0; u < KG; ++u) {
+      const int k = k0 + u;
+      const long long off = __shfl_sync(kFull, tap0, k & 31);
+      const float gi = __shfl_sync(kFull, fi, k & 31);
+      const float gj = __shfl_sync(kFull, fj, k & 31);
+      tw[u][0] = (1.f - gi) * (1.f - gj);
+      tw[u][1] = (1.f - gi) * gj;
+      tw[u][2] = gi * (1.f - gj);
+      tw[u][3] = gi * gj;
+      const bool on = k < 32 && ((selmask >> k) & 1);
 #pragma unroll
-    for (int e = 0; e < E; ++e) { s1[q][e] = 0.f; s2[q][e] = 0.f; }
-  }
-  float m = kNegInf, l = 0.f;
-  int count = 0;
-
-  for (int k = 0; k < K; ++k) {
-    const long long r = point * K + k;
-    if (!selected[r]) continue;  // warp-uniform: one point per warp
-    const int view = view_idx[r];
-    const float pi = fminf(fmaxf(p2d[2 * r] - 0.5f, 0.f), (float)(h - 1));
-    const float pj = fminf(fmaxf(p2d[2 * r + 1] - 0.5f, 0.f), (float)(w - 1));
-    const float li = floorf(pi), lj = floorf(pj);
-    const float fi = pi - li, fj = pj - lj;
-    const int row0 = view * (h + 1) + (int)li;
-    const int col0 = (int)lj;
-    const float tap_w[4] = {(1.f - fi) * (1.f - fj), (1.f - fi) * fj,
-                            fi * (1.f - fj), fi * fj};
-    const T* taps[4] = {
-        base + ((long long)row0 * W + col0) * C,
-        base + ((long long)row0 * W + col0 + 1) * C,
-        base + ((long long)(row0 + 1) * W + col0) * C,
-        base + ((long long)(row0 + 1) * W + col0 + 1) * C};
-
-    // Depth-hat weights' abscissa: x in [0, S-1] over log-depth bins.
-    const float d = fminf(fmaxf(depth[r], depth_min), depth_max);
-    float x = logf(d / depth_min) / log_range * (float)(S - 1);
-    x = fminf(fmaxf(x, 0.f), (float)(S - 1));
-
-    float f[CPL][E];
-    float partial = 0.f;
+      for (int q = 0; q < CPL; ++q) {
+        const int c0 = 4 * (lane + 32 * q);
+        if (on && c0 < D) {
+          const T* p = base + off + c0;
+          raw[u][q][0] = Quad<T>::load(p);
+          raw[u][q][1] = Quad<T>::load(p + C);
+          raw[u][q][2] = Quad<T>::load(p + down);
+          raw[u][q][3] = Quad<T>::load(p + down + C);
+        } else {
 #pragma unroll
-    for (int q = 0; q < CPL; ++q) {
-      const int chunk = lane + 32 * q;
+          for (int t = 0; t < 4; ++t) raw[u][q][t] = Raw{};
+        }
+      }
+    }
 #pragma unroll
-      for (int e = 0; e < E; ++e) f[q][e] = 0.f;
-      if (chunk < num_chunks) {
+    for (int u = 0; u < KG; ++u)
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[u][q][e] = 0.f;
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          float v[E];
-          Vec<T>::load(taps[t] + chunk * E, v);
+          float v[4];
+          Quad<T>::convert(raw[u][q][t], v);
 #pragma unroll
-          for (int e = 0; e < E; ++e) f[q][e] += tap_w[t] * v[e];
-        }
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int c = chunk * E + e;
-          if (c >= D) partial += f[q][e] * fmaxf(0.f, 1.f - fabsf(x - (float)(c - D)));
+          for (int e = 0; e < 4; ++e) f[u][q][e] += tw[u][t] * v[e];
         }
       }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      partial += __shfl_xor_sync(0xffffffffu, partial, off);
-    const float score = partial;
+  };
 
-    // Online-softmax update of a selected rank (reference: rank_step).
-    const float new_m = fmaxf(m, score);
-    const float safe_m = new_m <= kNegInf ? 0.f : new_m;
-    const float rescale = expf((m <= kNegInf ? kNegInf : m) - safe_m);
-    const float wv = expf(score - safe_m);
-    l = l * rescale + wv;
+  float s1a[CPL][4], s2a[CPL][4];
 #pragma unroll
-    for (int q = 0; q < CPL; ++q) {
+  for (int q = 0; q < CPL; ++q)
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        s1[q][e] = s1[q][e] * rescale + wv * f[q][e];
-        s2[q][e] = s2[q][e] * rescale + wv * f[q][e] * f[q][e];
+    for (int e = 0; e < 4; ++e) { s1a[q][e] = 0.f; s2a[q][e] = 0.f; }
+  float m = kNegInf, l = 0.f;
+  float my_z = kNegInf;
+  const int num_k = kOneGroup ? KG : d.K;
+  for (int k0 = 0; k0 < num_k; k0 += KG) {
+    gather(k0);
+    if (k0 == 0 && sel) {
+      const float tw[4] = {(1.f - fi) * (1.f - fj), (1.f - fi) * fj,
+                           fi * (1.f - fj), fi * fj};
+      float fa = 0.f, fb = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        fa += tw[t] * za[t];
+        fb += tw[t] * zb[t];
+      }
+      my_z = fa * hat(x, s0) + (s1 > s0 ? fb * hat(x, s1) : 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      const int k = k0 + u;
+      const float score = __shfl_sync(kFull, my_z, k & 31);
+      if (k < 32 && ((selmask >> k) & 1)) {
+        // Online-softmax update of a selected rank (reference: rank_step).
+        const float new_m = fmaxf(m, score);
+        const float safe_m = new_m <= kNegInf ? 0.f : new_m;
+        const float rescale = expf((m <= kNegInf ? kNegInf : m) - safe_m);
+        const float wv = expf(score - safe_m);
+        l = l * rescale + wv;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s1a[q][e] = s1a[q][e] * rescale + wv * f[u][q][e];
+            s2a[q][e] = s2a[q][e] * rescale + wv * f[u][q][e] * f[u][q][e];
+          }
+        m = new_m;
       }
     }
-    m = new_m;
-    ++count;
   }
 
-  const bool ok = count > 0;
+  const bool ok = selmask != 0;
+  // mean, E2 and E2 - mean^2 rounded as the plain version and K3 round
+  // them (correctly rounded quotients, no FMA): the variance's tie at 0
+  // falls on the same side in all three.
   const float l_safe = fmaxf(l, 1e-20f);
-  T* out = stats + point * (2 * D + 1);
 #pragma unroll
   for (int q = 0; q < CPL; ++q) {
-    const int chunk = lane + 32 * q;
-    if (chunk >= num_chunks) continue;
+    const int c0 = 4 * (lane + 32 * q);
+    if (c0 >= D) continue;
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int c = chunk * E + e;
-      if (c < D) {
-        const float mean = s1[q][e] / l_safe;
-        const float var = fmaxf(s2[q][e] / l_safe - mean * mean, 0.f);
-        out[c] = Vec<T>::from_float(ok ? mean : 0.f);
-        out[D + c] = Vec<T>::from_float(ok ? var : 0.f);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float mean = __fdiv_rn(s1a[q][e], l_safe);
+      const float e2 = __fdiv_rn(s2a[q][e], l_safe);
+      const float var = fmaxf(__fsub_rn(e2, __fmul_rn(mean, mean)), 0.f);
+      from_float(ok ? mean : 0.f, my_row + c0 + e);
+      from_float(ok ? var : 0.f, my_row + D + c0 + e);
     }
   }
   if (lane == 0) {
-    out[2 * D] = Vec<T>::from_float(ok ? m : 0.f);
-    valid[point] = ok ? 1 : 0;
+    from_float(ok ? m : 0.f, my_row + 2 * D);
+    *valid = ok ? 1 : 0;
   }
 }
 
+// A warp walks kPointsPerWarp consecutive points. Their stats rows are one
+// contiguous span: each row is staged in the warp's shared memory after
+// the partial 16-byte chunk carried from the row before, whole chunks are
+// written as 16-byte stores, and the span's first and last partial chunks
+// (shared with the neighbouring warps' spans) as scalars.
+template <typename T, int CPL, bool kOneGroup>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks<T>)
+lift_topk_fwd_kernel(
+    const T* __restrict__ stack,           // [B, R, W, C]
+    const int32_t* __restrict__ view_idx,  // [B, N, K]
+    const float* __restrict__ p2d,         // [B, N, K, 2] (row, col) pixels
+    const uint8_t* __restrict__ selected,  // [B, N, K]
+    const float* __restrict__ depth,       // [B, N, K]
+    T* __restrict__ stats,                 // [B, N, 2D + 1]
+    uint8_t* __restrict__ valid,           // [B, N]
+    Dims d) {
+  constexpr int kPerVec = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = 2 * d.D + 1;
+  T* buf = reinterpret_cast<T*>(smem) + warp * staged_stride<T>(row);
+  const long long total = (long long)d.B * d.N;
+  const long long p0 =
+      ((long long)blockIdx.x * kWarps + warp) * kPointsPerWarp;
+  if (p0 >= total) return;  // warp-uniform; the block never synchronizes
+  const long long p1 = min(p0 + kPointsPerWarp, total);
+
+  // buf[0, pending) holds the elements from global element `at` on (a
+  // chunk boundary); on the first row its first `lead` are the previous
+  // span's, not written here.
+  long long at = p0 * row;
+  int lead = (int)(at % kPerVec);
+  at -= lead;
+  int pending = lead;
+  RankIn next = load_ranks(p0, lane, d, view_idx, p2d, selected, depth);
+  for (long long point = p0; point < p1; ++point) {
+    const RankIn in = next;
+    if (point + 1 < p1)  // the next point's inputs load during this one
+      next = load_ranks(point + 1, lane, d, view_idx, p2d, selected, depth);
+    lift_point<T, CPL, kOneGroup>(stack, in, point, lane, d, buf + pending,
+                                  valid + point);
+    __syncwarp();
+    const int count = pending + row;
+    const int chunks = count / kPerVec;
+    T* out = stats + at;
+    int c = 0;
+    if (lead) {
+      for (int i = lead + lane; i < kPerVec; i += 32) out[i] = buf[i];
+      c = 1;
+      lead = 0;
+    }
+    const uint4* src = reinterpret_cast<const uint4*>(buf);
+    uint4* dst = reinterpret_cast<uint4*>(out);
+    for (c += lane; c < chunks; c += 32) dst[c] = src[c];
+    const int rest = count - chunks * kPerVec;
+    T carried;
+    if (lane < rest) carried = buf[chunks * kPerVec + lane];
+    __syncwarp();
+    if (lane < rest) buf[lane] = carried;
+    __syncwarp();
+    at += (long long)chunks * kPerVec;
+    pending = rest;
+  }
+  if (lane < pending) stats[at + lane] = buf[lane];
+}
+
 template <typename T, int CPL>
-void launch(const void* stack, const int32_t* view_idx, const float* p2d,
-            const uint8_t* selected, const float* depth, void* stats,
-            uint8_t* valid, int B, int N, int K, int R, int W, int C, int D,
-            int h, int w, float depth_min, float depth_max,
-            float log_range, cudaStream_t stream) {
-  constexpr int kWarps = 8;
-  const long long points = (long long)B * N;
-  const unsigned blocks = (unsigned)((points + kWarps - 1) / kWarps);
-  lift_topk_fwd_kernel<T, CPL><<<blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(stack), view_idx, p2d, selected, depth,
-      static_cast<T*>(stats), valid, B, N, K, R, W, C, D, h, w, depth_min,
-      depth_max, log_range);
+int launch(const void* stack, const int32_t* view_idx, const float* p2d,
+           const uint8_t* selected, const float* depth, void* stats,
+           uint8_t* valid, const Dims& d, cudaStream_t stream) {
+  const long long points = (long long)d.B * d.N;
+  const long long per_block = (long long)kWarps * kPointsPerWarp;
+  const unsigned blocks = (unsigned)((points + per_block - 1) / per_block);
+  const int smem = kWarps * staged_stride<T>(2 * d.D + 1) * (int)sizeof(T);
+  const auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    launches.add(kernel, "lift_topk_fwd_kernel", kWarps * 32, smem);
+    kernel<<<blocks, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(stack), view_idx, p2d, selected, depth,
+        static_cast<T*>(stats), valid, d);
+    return (int)cudaGetLastError();
+  };
+  if (d.K <= 4 / CPL) return run(lift_topk_fwd_kernel<T, CPL, true>);
+  return run(lift_topk_fwd_kernel<T, CPL, false>);
 }
 
 template <typename T>
 int dispatch(const void* stack, const int32_t* view_idx, const float* p2d,
              const uint8_t* selected, const float* depth, void* stats,
-             uint8_t* valid, int B, int N, int K, int R, int W, int C, int D,
-             int h, int w, float depth_min, float depth_max,
-             float log_range, cudaStream_t stream) {
-  const int chunks = C / Vec<T>::kElems;
-  const int cpl = (chunks + 31) / 32;
-#define SNAP_LAUNCH(N_CPL)                                                    \
-  launch<T, N_CPL>(stack, view_idx, p2d, selected, depth, stats, valid, B, N,   \
-                   K, R, W, C, D, h, w, depth_min, depth_max, log_range,  \
-                   stream)
-  if (cpl <= 1) SNAP_LAUNCH(1);
-  else if (cpl <= 2) SNAP_LAUNCH(2);
-  else if (cpl <= 4) SNAP_LAUNCH(4);
-  else return (int)cudaErrorInvalidValue;
-#undef SNAP_LAUNCH
-  return (int)cudaGetLastError();
+             uint8_t* valid, const Dims& d, cudaStream_t stream) {
+  const int cpl = (d.D + 127) / 128;
+  if (cpl <= 1)
+    return launch<T, 1>(stack, view_idx, p2d, selected, depth, stats, valid,
+                        d, stream);
+  if (cpl <= 2)
+    return launch<T, 2>(stack, view_idx, p2d, selected, depth, stats, valid,
+                        d, stream);
+  if (cpl <= 4)
+    return launch<T, 4>(stack, view_idx, p2d, selected, depth, stats, valid,
+                        d, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. Needs D % 4 == 0, D <= 512, K <= 32 and
+// 16-byte aligned stack rows and stats. Returns a cudaError_t (0 on
+// success).
 extern "C" int lift_topk_fwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, void* stats, void* valid,
     int dtype, int B, int N, int K, int R, int W, int C, int D, int h, int w,
     float depth_min, float depth_max, float log_range, void* stream) {
+  launches.clear();
+  if ((long long)B * N == 0) return 0;
+  if (D % 4 || K > 32) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* idx = static_cast<const int32_t*>(view_idx);
   const auto* pts = static_cast<const float*>(p2d);
   const auto* sel = static_cast<const uint8_t*>(selected);
   const auto* dep = static_cast<const float*>(depth);
   auto* val = static_cast<uint8_t*>(valid);
+  const Dims d{B, N, K, R, W, C, D, h, w, depth_min, depth_max, log_range};
   if (dtype == 0)
-    return dispatch<float>(stack, idx, pts, sel, dep, stats, val, B, N, K, R,
-                           W, C, D, h, w, depth_min, depth_max,
-                           log_range, s);
+    return dispatch<float>(stack, idx, pts, sel, dep, stats, val, d, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(stack, idx, pts, sel, dep, stats, val, B,
-                                   N, K, R, W, C, D, h, w, depth_min,
-                                   depth_max, log_range, s);
+    return dispatch<__nv_bfloat16>(stack, idx, pts, sel, dep, stats, val, d,
+                                   s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launches of the last call (launch_log.cuh). Returns their count, or
+// minus a cudaError_t.
+extern "C" int lift_topk_fwd_occupancy(KernelOccupancy* out, int capacity) {
+  return launches.report(out, capacity);
 }

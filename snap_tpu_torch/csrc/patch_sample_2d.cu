@@ -49,7 +49,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
+
+LaunchLog launches;
 
 constexpr int kThreads = 256;
 
@@ -172,6 +176,7 @@ int launch(const void* padded, void* feats, uint8_t* valid_plane,
            int H, int W, int C, int D, int Dp, int has_valid,
            cudaStream_t stream) {
   const long long pixels = (long long)B * (H + 1) * (W + 1);
+  launches.add(pack_plane_kernel<T>, "pack_plane_kernel", kThreads, 0);
   pack_plane_kernel<T><<<resident_blocks(pack_plane_kernel<T>, pixels * Dp),
                          kThreads, 0, stream>>>(
       static_cast<const T*>(padded), static_cast<T*>(feats), valid_plane,
@@ -179,6 +184,8 @@ int launch(const void* padded, void* feats, uint8_t* valid_plane,
   int code = (int)cudaGetLastError();
   if (code) return code;
   const long long work = (long long)B * P * (Dp / (16 / (int)sizeof(T)));
+  launches.add(patch_sample_2d_kernel<T>, "patch_sample_2d_kernel", kThreads,
+               0);
   patch_sample_2d_kernel<T><<<resident_blocks(patch_sample_2d_kernel<T>,
                                               work),
                               kThreads, 0, stream>>>(
@@ -199,6 +206,7 @@ extern "C" int patch_sample_2d(const void* padded, void* feats,
                                void* values, void* valid, int dtype, int B,
                                int P, int H, int W, int C, int D, int Dp,
                                int has_valid, void* stream) {
+  launches.clear();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* pts = static_cast<const float*>(points);
   auto* vplane = static_cast<uint8_t*>(valid_plane);
@@ -210,4 +218,10 @@ extern "C" int patch_sample_2d(const void* padded, void* feats,
     return launch<__nv_bfloat16>(padded, feats, vplane, pts, values, val, B, P,
                                  H, W, C, D, Dp, has_valid, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launches of the last call (launch_log.cuh). Returns their count, or
+// minus a cudaError_t.
+extern "C" int patch_sample_2d_occupancy(KernelOccupancy* out, int capacity) {
+  return launches.report(out, capacity);
 }

@@ -33,7 +33,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
+
+LaunchLog launches;
 
 __device__ inline float to_float(float x) { return x; }
 __device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -84,6 +88,8 @@ int launch(const void* g_values, const float* points, float* grad, int B,
   constexpr int kWarps = 8;
   const long long n = (long long)B * P;
   const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
+  launches.add(patch_sample_2d_bwd_kernel<T>, "patch_sample_2d_bwd_kernel",
+               kWarps * 32, 0);
   patch_sample_2d_bwd_kernel<T><<<blocks, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(g_values), points, grad, B, P, H, W, C, D,
       stride);
@@ -98,6 +104,7 @@ extern "C" int patch_sample_2d_bwd(const void* g_values, const void* points,
                                    void* grad, int dtype, int B, int P, int H,
                                    int W, int C, int D, long long stride,
                                    void* stream) {
+  launches.clear();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* pts = static_cast<const float*>(points);
   auto* out = static_cast<float*>(grad);
@@ -107,4 +114,10 @@ extern "C" int patch_sample_2d_bwd(const void* g_values, const void* points,
     return launch<__nv_bfloat16>(g_values, pts, out, B, P, H, W, C, D, stride,
                                  s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launches of the last call (launch_log.cuh). Returns their count, or
+// minus a cudaError_t.
+extern "C" int patch_sample_2d_bwd_occupancy(KernelOccupancy* out, int capacity) {
+  return launches.report(out, capacity);
 }

@@ -32,7 +32,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
+
+LaunchLog launches;
 
 constexpr int kThreads = 256;
 
@@ -86,13 +90,21 @@ __global__ void slice_gather_kernel(
 extern "C" int slice_gather(const void* stack, const void* rid, void* out,
                             long long N, int C, int W, int rows,
                             void* stream) {
+  launches.clear();
   if (N <= 0) return 0;
   const int chunks = C / 8;
   const long long items = N * chunks;
   const unsigned blocks = (unsigned)((items + kThreads - 1) / kThreads);
+  launches.add(slice_gather_kernel, "slice_gather_kernel", kThreads, 0);
   slice_gather_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(stack), static_cast<const int*>(rid),
       static_cast<uint4*>(out), N, chunks, W, rows);
   return (int)cudaGetLastError();
+}
+
+// The launches of the last call (launch_log.cuh). Returns their count, or
+// minus a cudaError_t.
+extern "C" int slice_gather_occupancy(KernelOccupancy* out, int capacity) {
+  return launches.report(out, capacity);
 }

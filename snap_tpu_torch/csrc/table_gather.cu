@@ -17,7 +17,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
+
+LaunchLog launches;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTableFloats = 2048;  // 8 KB of static shared memory
@@ -48,6 +52,7 @@ __global__ void table_gather_kernel(
 extern "C" int table_gather(const void* table, const void* ids, void* out,
                             long long N, int rows, int D, int num_sms,
                             void* stream) {
+  launches.clear();
   if (N <= 0) return 0;
   if (D % 4 || rows <= 0 || (long long)rows * D > kMaxTableFloats)
     return (int)cudaErrorInvalidValue;
@@ -58,9 +63,16 @@ extern "C" int table_gather(const void* table, const void* ids, void* out,
   long long blocks = (items + kThreads - 1) / kThreads;
   const long long cap = (long long)num_sms * 16;
   if (blocks > cap) blocks = cap;
+  launches.add(table_gather_kernel, "table_gather_kernel", kThreads, 0);
   table_gather_kernel<<<(unsigned)blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table), static_cast<const int*>(ids),
       static_cast<float4*>(out), N, rows, quads);
   return (int)cudaGetLastError();
+}
+
+// The launches of the last call (launch_log.cuh). Returns their count, or
+// minus a cudaError_t.
+extern "C" int table_gather_occupancy(KernelOccupancy* out, int capacity) {
+  return launches.report(out, capacity);
 }

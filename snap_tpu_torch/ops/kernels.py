@@ -21,7 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -71,7 +71,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-  sources = sorted(CSRC.glob('*.cu'))
+  sources = sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cuh'))
   digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
   for src in sources:
     digest.update(src.name.encode())
@@ -104,6 +104,14 @@ def build() -> pathlib.Path:
   return target
 
 
+class _Occupancy(ctypes.Structure):
+  """csrc/launch_log.cuh:KernelOccupancy."""
+  _fields_ = [('name', ctypes.c_char_p)] + [
+      (field, ctypes.c_int) for field in (
+          'threads', 'dynamic_smem', 'registers', 'static_smem',
+          'local_bytes', 'blocks_per_sm')]
+
+
 def load_library() -> ctypes.CDLL:
   """Build (if needed) and load the kernel library; bind argument types."""
   global _lib
@@ -116,13 +124,30 @@ def load_library() -> ctypes.CDLL:
   lib.patch_sample_2d.argtypes = [vp] * 6 + [i32] * 9 + [vp]
   lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 10 + [f32] * 3 + [vp]
   lib.patch_sample_2d_bwd.argtypes = [vp] * 3 + [i32] * 7 + [i64, vp]
-  lib.pose_scoring.argtypes = [vp] * 7 + [i32] * 5 + [f32, i32, vp]
+  lib.pose_scoring.argtypes = [vp] * 8 + [i32] * 5 + [f32] + [i32] * 3 + [vp]
   lib.slice_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
   lib.table_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
   for name in LAUNCHES:
     getattr(lib, name).restype = i32
+    getattr(lib, f'{name}_occupancy').argtypes = [
+        ctypes.POINTER(_Occupancy), i32]
+    getattr(lib, f'{name}_occupancy').restype = i32
   _lib = lib
   return lib
+
+
+def occupancy(name: str) -> Tuple[Dict[str, object], ...]:
+  """The launches of the last call of kernel ``name`` (a key of
+  ``LAUNCHES``), in order: each one's kernel, block size (``threads``),
+  ``dynamic_smem`` bytes, ``registers`` per thread, ``static_smem`` and
+  ``local_bytes`` (spills) from ``cudaFuncGetAttributes``, and the
+  ``blocks_per_sm`` the card keeps resident at that launch's shape."""
+  records = (_Occupancy * 4)()
+  count = getattr(load_library(), f'{name}_occupancy')(records, 4)
+  if count < 0:
+    raise RuntimeError(f'{name}_occupancy failed: cudaError_t {-count}')
+  return tuple({field: getattr(r, field) for field, _ in r._fields_}
+               | {'name': r.name.decode()} for r in records[:count])
 
 
 def spread_stride(total: int) -> int:
@@ -164,10 +189,12 @@ def lift_topk_fwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   n, k = view_idx.shape[1:]
   if r % (h + 1) or wp != w + 1 or not 0 < dim < c:
     raise ValueError(f'stack {tuple(stack.shape)} vs h={h} w={w} dim={dim}')
-  if (c * stack.element_size()) % 16 or stack.data_ptr() % 16:
-    raise ValueError('lift_topk_fwd needs 16-byte aligned stack rows')
-  if (c * stack.element_size()) // 16 > 4 * 32:
-    raise ValueError(f'lift_topk_fwd supports at most {4 * 32 * 16} B rows')
+  if (c * stack.element_size()) % 16 or stack.data_ptr() % 16 or dim % 4:
+    raise ValueError('lift_topk_fwd needs 16-byte aligned stack rows and '
+                     f'dim % 4 == 0, got {c} channels, dim {dim}')
+  if dim > 4 * 128 or k > 32:
+    raise ValueError(f'lift_topk_fwd supports dim <= 512 and at most 32 '
+                     f'ranks, got dim {dim}, {k} ranks')
   dev = stack.device
   _check(stack, 'stack', stack.dtype, (b, r, wp, c), dev)
   _check(view_idx, 'view_idx', torch.int32, (b, n, k), dev)
@@ -316,14 +343,60 @@ def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
   return grad.to(g_values.dtype)
 
 
+# B4's block scores POSE_TILE poses (csrc/pose_scoring.cu: kThreads x
+# kPosesPerThread); its dynamic shared memory holds two staged maps, the
+# staged valid map (with the mask) and a point group of at most
+# POSE_MAX_GROUP points, within an H100 block's 227 KB.
+POSE_TILE = 768 * 9
+POSE_MAX_GROUP = 1024
+MAX_DYNAMIC_SMEM = 232_448
+# A block's fixed cost (its poses' cos and sin, the first map's copy) in
+# points' worth of scoring, for the plan's cost model.
+POSE_BLOCK_OVERHEAD_POINTS = 4
+
+
+def pose_scoring_smem_bytes(h: int, w: int, group: int, mask: bool) -> int:
+  """B4's dynamic shared memory per block (the C side's
+  ``block_smem_bytes``): two maps of ``h + 1`` rows of ``w + 1``
+  floats rounded up to 4, the valid map's bytes alike, 20 B per point
+  (its coordinates, footprint and index)."""
+  cells = (h + 1) * ((w + 1 + 3) & ~3)
+  return 2 * cells * 4 + (((cells + 15) & ~15) if mask else 0) + 20 * group
+
+
+def pose_scoring_plan(b: int, p: int, n: int, *, sms: int,
+                      tile: int = POSE_TILE) -> dict:
+  """B4's grid (pose tiles x point groups x examples), one block per SM
+  (its shared memory allows no second): the number of groups G that
+  minimizes waves x points per group, so that the grid fills whole waves
+  where it can."""
+  tiles = -(-p // tile)
+  g_min = max(1, -(-n // POSE_MAX_GROUP))
+  best = None
+  for g in range(g_min, max(g_min, min(n, 4 * sms)) + 1):
+    group = max(1, -(-n // g))
+    if g > 1 and (g - 1) * group >= n:
+      continue  # the last group would be empty
+    waves = -(-(tiles * g * b) // sms)
+    cost = waves * (group + POSE_BLOCK_OVERHEAD_POINTS)
+    if best is None or cost < best[0]:
+      best = (cost, g, group)
+  _, g, group = best
+  blocks = tiles * g * b
+  return dict(tiles=tiles, groups=g, examples=b, group=group, blocks=blocks,
+              waves=blocks / sms)
+
+
 def pose_scoring(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
                  valid_points: Tensor, valid_map: Tensor, *,
                  cell_size: float, mask_out_of_bounds: bool) -> Tensor:
   """B4 on the card: ``[B, P]`` f32 scores of the poses ``(angle, t)``.
 
-  Forward only: B4's backward (a scatter of ``valid * w_tap`` into ``sim``)
-  is not written yet, so this raises where autograd would need it, rather
-  than return a score with no gradient.
+  Two launches from one call when the plan has more than one point group:
+  the scoring into ``[B, G, P]`` partial sums (scratch allocated here), then
+  their sum per pose. Forward only: B4's backward (a scatter of
+  ``valid * w_tap`` into ``sim``) is not written yet, so this raises where
+  autograd would need it, rather than return a score with no gradient.
   """
   if sim.device.type != 'cuda':
     raise ValueError(f'pose_scoring needs CUDA tensors, got {sim.device}')
@@ -339,12 +412,25 @@ def pose_scoring(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
   _check(xy, 'xy', torch.float32, (b, n, 2), dev)
   _check(valid_points, 'valid_points', torch.bool, (b, n), dev)
   _check(valid_map, 'valid_map', torch.bool, (b, h, w), dev)
+  if not 0 < h < 2**15 or not 0 < w < 2**15:
+    raise ValueError(f'pose_scoring: map of {h} x {w} cells')
+  plan = pose_scoring_plan(
+      b, p, n, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+  smem = pose_scoring_smem_bytes(h, w, plan['group'], mask_out_of_bounds)
+  if smem > MAX_DYNAMIC_SMEM:
+    raise ValueError(
+        f'pose_scoring: a {h} x {w} map does not fit twice in a block\'s '
+        f'shared memory ({smem} of {MAX_DYNAMIC_SMEM} bytes)')
   out = torch.empty((b, p), dtype=torch.float32, device=dev)
+  g = plan['groups']
+  partial = (torch.empty((b, g, p), dtype=torch.float32, device=dev)
+             if g > 1 else out)
   lib = load_library()
   code = lib.pose_scoring(
       angle.data_ptr(), t.data_ptr(), sim.data_ptr(), xy.data_ptr(),
-      valid_points.data_ptr(), valid_map.data_ptr(), out.data_ptr(), b, p,
-      n, h, w, float(cell_size), int(mask_out_of_bounds),
+      valid_points.data_ptr(), valid_map.data_ptr(), out.data_ptr(),
+      partial.data_ptr(), b, p, n, h, w, float(cell_size),
+      int(mask_out_of_bounds), g, plan['group'],
       torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'pose_scoring')
   LAUNCHES['pose_scoring'] += 1

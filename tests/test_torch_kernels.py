@@ -8,8 +8,10 @@ none (a CUDA kernel has no CPU mode); on a card, run them with
 the build recipe and the wrappers' refusals.
 """
 
+from fractions import Fraction
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -371,7 +373,9 @@ def _scoring_inputs(device, seed=0, b=2, n=300, h=20, w=24, p=3000,
   t[:, :edge1] = torch.randint(-2, min(h, w) + 2, (b, edge1, 2),
                                generator=g).float() * cell
   xy = torch.rand((b, n, 2), generator=g) * 8 - 4
-  xy[:, :60] = torch.randint(-4, 5, (b, 60, 2), generator=g).float() * cell
+  edge = min(n, 60)
+  xy[:, :edge] = torch.randint(-4, 5, (b, edge, 2),
+                               generator=g).float() * cell
   sim = torch.randn((b, n, h, w), generator=g)
   valid_points = torch.rand((b, n), generator=g) < 0.8
   valid_map = torch.rand((b, h, w), generator=g) < 0.9
@@ -445,3 +449,293 @@ def test_new_cuda_launchers_refuse_cpu_tensors():
   scores.sum().backward()  # the plain version on the CPU has a gradient
   assert sim.grad is not None and sim.grad.abs().sum() > 0
   assert kernels.LAUNCHES == before
+
+
+def _lift_edge_inputs(device, dtype, channels, dim, k, seed=5):
+  """K1 inputs: N = 3001 points per example (6,002 in all: K1's last block
+  of 128 points and its last warp of 16 are partly empty), 300 points
+  with no selected rank, depths on (or within an ulp of) a bin edge and
+  past both clamps (the hat on bins 0 and S - 1 alone), pixels past every
+  edge."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, v, h, w, n = 2, 5, 7, 9, 3001
+  lo, hi = 1.0, 32.0
+  bins = channels - dim
+  stack = torch.randn((b, v * (h + 1), w + 1, channels), generator=g)
+  view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
+  p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor(
+      [h + 2.0, w + 2.0]) - 1
+  select = torch.rand((b, n, k), generator=g) < 0.6
+  select[:, :300] = False
+  depth = torch.rand((b, n, k), generator=g) * 40
+  edge = torch.randint(0, bins, (b, 600, k), generator=g).double()
+  depth[:, 300:900] = (lo * (hi / lo) ** (edge / (bins - 1))).float()
+  depth[:, 900:1000] = 0.25 * lo
+  depth[:, 1000:1100] = 4 * hi
+  args = [t.to(device) for t in (stack.to(dtype), view_idx, p2d, select,
+                                 depth)]
+  return args, dict(h=h, w=w, dim=dim, depth_min_max=(lo, hi))
+
+
+@pytest.mark.parametrize('dtype,channels,dim,k', [
+    (torch.float32, 40, 32, 4),
+    (torch.bfloat16, 160, 128, 4),
+    (torch.float32, 160, 128, 4),  # the RANSAC path's f32 stack
+    (torch.float32, 40, 32, 6),  # K > 4: the ranks in two groups
+    (torch.bfloat16, 160, 128, 6),
+    (torch.float32, 320, 288, 6),  # three channel quads per lane
+    (torch.float32, 320, 288, 1),
+])
+def test_lift_topk_fwd_edges_match_plain(cuda, dtype, channels, dim, k):
+  args, kwargs = _lift_edge_inputs(cuda, dtype, channels, dim, k)
+  before = kernels.LAUNCHES['lift_topk_fwd']
+  stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
+  assert kernels.LAUNCHES['lift_topk_fwd'] == before + 1
+  stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(valid, valid_p)
+  assert not valid[:, :300].any() and not stats[:, :300].any()
+  torch.testing.assert_close(stats.float(), stats_p.float(),
+                             **TOLERANCES[dtype])
+
+
+def test_lift_topk_fwd_refuses_unaligned_dim(cuda):
+  args, kwargs = _lift_inputs(cuda, torch.float32, 40, 32)
+  with pytest.raises(ValueError, match='dim % 4 == 0'):
+    kernels.lift_topk_fwd(*args, **{**kwargs, 'dim': 30})
+
+
+def _scoring_case(case, device, mask, seed=6):
+  """B4 inputs for ``case``: 'ragged' (P one pose tile + 37, N = 1,301: no
+  whole tile or group), 'valid_counts' (examples with 95%, 5% and no valid
+  points), 'off_map' (every pose far off the map), 'one_cell' (every pose
+  the same: every lane reads one cell), 'one_point', 'odd_width' (W = 23:
+  the maps are copied 4 bytes at a time)."""
+  kw = dict(b=2, n=300, h=20, w=24, p=3000)
+  if case == 'ragged':
+    kw.update(n=1301, p=kernels.POSE_TILE + 37)
+  elif case == 'valid_counts':
+    kw.update(b=3)
+  elif case == 'one_point':
+    kw.update(n=1)
+  elif case == 'odd_width':
+    kw.update(w=23)
+  args, cell = _scoring_inputs('cpu', seed=seed, **kw)
+  angle, t, sim, xy, valid_points, valid_map = args
+  if case == 'valid_counts':
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    valid_points[0] = torch.rand(kw['n'], generator=g) < 0.95
+    valid_points[1] = torch.rand(kw['n'], generator=g) < 0.05
+    valid_points[2] = False
+  elif case == 'off_map':
+    t[:] = torch.tensor([-1000.0, 2000.0])
+  elif case == 'one_cell':
+    angle[:] = 0.3
+    t[:] = torch.tensor([4.1, 5.3])
+  elif case == 'one_point':
+    valid_points[:] = True
+  args = [a.to(device) for a in args]
+  return args, dict(cell_size=cell, mask_out_of_bounds=mask)
+
+
+@pytest.mark.parametrize('mask', [False, True])
+@pytest.mark.parametrize('case', ['ragged', 'valid_counts', 'off_map',
+                                  'one_cell', 'odd_width'])
+def test_pose_scoring_cases_match_plain(cuda, case, mask):
+  args, kwargs = _scoring_case(case, cuda, mask)
+  before = kernels.LAUNCHES['pose_scoring']
+  got = kernels.pose_scoring(*args, **kwargs)
+  assert kernels.LAUNCHES['pose_scoring'] == before + 1
+  want = pose_estimation.pose_scoring_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+  if case == 'valid_counts':
+    assert not got[2].any()
+  if case == 'off_map':
+    assert bool(got.any()) != mask  # clamped reads count without the mask
+
+
+@pytest.mark.parametrize('mask', [False, True])
+def test_pose_scoring_one_point_is_the_plain_term_to_the_bit(cuda, mask):
+  """One point: each score is one term, which B4 rounds as the plain
+  version does, operation by operation (poses on cell edges and borders
+  included)."""
+  args, kwargs = _scoring_case('one_point', cuda, mask)
+  got = kernels.pose_scoring(*args, **kwargs)
+  want = pose_estimation.pose_scoring_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
+
+
+def test_pose_scoring_refuses_maps_too_large_for_shared_memory(cuda):
+  args, kwargs = _scoring_case('one_point', cuda, False)
+  angle, t, _, xy, valid_points, _ = args
+  sim = torch.zeros((2, 1, 300, 400), device=cuda)
+  valid_map = torch.ones((2, 300, 400), dtype=torch.bool, device=cuda)
+  with pytest.raises(ValueError, match='does not fit'):
+    kernels.pose_scoring(angle, t, sim, xy, valid_points, valid_map,
+                         **kwargs)
+
+
+def _lattice_inputs(device, mask, seed=7):
+  """B4 at the RANSAC path's map (120 x 160 cells of 0.2 m) on refinement
+  lattices (make_refinement_offsets around one pose an example: each pose
+  tile sees a narrow angle range, and each point is staged only where its
+  footprint lies), points up to the corners of the query's 24 x 32 m
+  range, and every point's map a constant: 1 + n / 512 for points n = 0
+  and 1 (mod 4), its negative for 2 and 3. A point's stale read from the
+  buffer's previous map (two points back) has the other sign."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, n, h, w, cell = 2, 300, 120, 160, 0.2
+  init = geometry.Transform2D(
+      angle=(torch.rand((b,), generator=g) * 2 - 1) * math.pi,
+      t=torch.rand((b, 2), generator=g) * torch.tensor([h * cell, w * cell]))
+  offsets, _ = pose_estimation.make_refinement_offsets()
+  poses = init.unsqueeze(-1) @ offsets
+  xy = torch.rand((b, n, 2), generator=g) * torch.tensor([24.0, 32.0]) - (
+      torch.tensor([0.0, 16.0]))
+  # 40 points within 0.5 m of the range's far corners (x 24 m, y +-16 m).
+  xy[:, :40, 0] = 24.0 - torch.rand((b, 40), generator=g) * 0.5
+  xy[:, :40, 1] = torch.tensor([16.0, -16.0]).repeat(20) * (
+      1.0 - torch.rand((b, 40), generator=g) * 0.03)
+  level = torch.where(torch.arange(n) % 4 < 2, 1.0, -1.0) * (
+      1 + torch.arange(n) / 512)
+  sim = level[None, :, None, None].expand(b, n, h, w).contiguous()
+  valid_points = torch.ones((b, n), dtype=torch.bool)
+  valid_map = torch.rand((b, h, w), generator=g) < 0.9
+  args = [x.contiguous().to(device) for x in (
+      poses.angle, poses.t, sim, xy, valid_points, valid_map)]
+  return args, dict(cell_size=cell, mask_out_of_bounds=mask)
+
+
+@pytest.mark.parametrize('mask', [False, True])
+def test_pose_scoring_refinement_lattice_reads_each_points_own_map(cuda,
+                                                                   mask):
+  args, kwargs = _lattice_inputs(cuda, mask)
+  got = kernels.pose_scoring(*args, **kwargs)
+  want = pose_estimation.pose_scoring_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert args[0].shape[-1] == 41**3
+  assert kernels.pose_scoring_plan(2, 41**3, 300, sms=132)['tiles'] > 1
+  torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+def _tied_lift_inputs(device, k=16, seed=8):
+  """K1 inputs in f32 whose every step but the epilogue's divisions is
+  exact: each point's ranks read one pixel centre of one view (bilinear
+  weights 1, 0, 0, 0) at depth_min (the score is bin 0's value), and the
+  stack holds bf16 values, so the softmax weights are 1 and the sums
+  c f and c f^2 over c selected ranks are exact. Then mean = f, E2 = f^2
+  and E2 - mean^2 = 0 exactly, where the quotients are correctly rounded."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, v, h, w, n, channels, dim = 2, 3, 7, 9, 2000, 40, 32
+  lo, hi = 1.0, 32.0
+  stack = torch.randn((b, v * (h + 1), w + 1, channels),
+                      generator=g).to(torch.bfloat16).float()
+  view = torch.randint(0, v, (b, n, 1), generator=g, dtype=torch.int32)
+  pixel = torch.stack([torch.randint(0, h, (b, n), generator=g),
+                       torch.randint(0, w, (b, n), generator=g)], -1)
+  view_idx = view.expand(b, n, k).contiguous()
+  p2d = (pixel.float() + 0.5)[:, :, None, :].expand(b, n, k, 2).contiguous()
+  select = torch.rand((b, n, k), generator=g) < torch.rand(
+      (b, n, 1), generator=g)
+  depth = torch.full((b, n, k), lo)
+  args = [t.to(device) for t in (stack, view_idx, p2d, select, depth)]
+  return args, dict(h=h, w=w, dim=dim, depth_min_max=(lo, hi))
+
+
+def test_lift_topk_fwd_tied_stats_are_the_plain_versions_to_the_bit(cuda):
+  """Where E2 - mean^2 is exactly 0, K1's stats are the plain version's bit
+  for bit: a quotient an ulp off would leave a variance of an ulp (or
+  clamp another point's), the tie K3's backward splits (C7)."""
+  args, kwargs = _tied_lift_inputs(cuda)
+  stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
+  stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(valid, valid_p)
+  assert torch.equal(stats, stats_p)
+  dim = kwargs['dim']
+  assert not stats[..., dim:2 * dim].any()  # every variance is exactly 0
+
+
+def test_occupancy_reports_each_launch_of_the_last_call(cuda):
+  args, kwargs = _lift_inputs(cuda, torch.bfloat16, 160, 128)
+  kernels.lift_topk_fwd(*args, **kwargs)
+  launch, = kernels.occupancy('lift_topk_fwd')
+  assert launch['name'] == 'lift_topk_fwd_kernel'
+  assert launch['threads'] == 256 and launch['blocks_per_sm'] >= 1
+  assert launch['dynamic_smem'] > 0 and launch['registers'] > 0
+  args, kwargs = _scoring_case('ragged', cuda, False)
+  kernels.pose_scoring(*args, **kwargs)
+  names = [o['name'] for o in kernels.occupancy('pose_scoring')]
+  assert names == ['pose_scoring_kernel', 'sum_groups_kernel']
+  scoring, _ = kernels.occupancy('pose_scoring')
+  assert scoring['blocks_per_sm'] == 1
+  assert scoring['dynamic_smem'] == kernels.pose_scoring_smem_bytes(
+      20, 24, kernels.pose_scoring_plan(2, kernels.POSE_TILE + 37, 1301,
+                                        sms=torch.cuda.get_device_properties(
+                                            cuda).multi_processor_count)[
+                                                'group'], False)
+
+
+@pytest.mark.parametrize('b,p,n', [(4, 20_001, 4652), (4, 68_921, 4652),
+                                   (2, 7_205, 1301), (1, 5, 1),
+                                   (3, 100, 5000)])
+def test_pose_scoring_plan_covers_every_pose_and_point(b, p, n):
+  plan = kernels.pose_scoring_plan(b, p, n, sms=132)
+  tiles, groups, group = plan['tiles'], plan['groups'], plan['group']
+  assert (tiles - 1) * kernels.POSE_TILE < p <= tiles * kernels.POSE_TILE
+  assert (groups - 1) * group < n <= groups * group
+  assert group <= kernels.POSE_MAX_GROUP
+  assert plan['blocks'] == tiles * groups * b
+  assert kernels.pose_scoring_smem_bytes(120, 160, group, True) <= (
+      kernels.MAX_DYNAMIC_SMEM)
+
+
+def test_pose_scoring_plan_fills_whole_waves_on_the_main_path():
+  """B4's grid at the RANSAC path's calls on 132 SMs: the last wave is
+  (nearly) full."""
+  for poses in (20_001, 68_921):
+    waves = kernels.pose_scoring_plan(4, poses, 4652, sms=132)['waves']
+    assert math.ceil(waves) - waves <= 0.1, (poses, waves)
+  assert kernels.pose_scoring_smem_bytes(300, 400, 1, False) > (
+      kernels.MAX_DYNAMIC_SMEM)
+
+
+def _rn32(x):
+  """The f32 nearest to the rational ``x`` (ties to even; normal range)."""
+  if x == 0:
+    return 0.0
+  sign, x = (-1, -x) if x < 0 else (1, x)
+  e = x.numerator.bit_length() - x.denominator.bit_length()
+  if x < Fraction(2) ** e:
+    e -= 1
+  m = x / Fraction(2) ** (e - 23)  # in [2^23, 2^24)
+  q, r = divmod(m.numerator, m.denominator)
+  twice = 2 * r
+  if twice > m.denominator or (twice == m.denominator and q % 2):
+    q += 1
+  return sign * float(Fraction(q) * Fraction(2) ** (e - 23))
+
+
+@pytest.mark.parametrize('cell', [0.2, 0.5, 0.25, 0.1, 1 / 3])
+def test_pose_scoring_division_is_correctly_rounded(cell):
+  """B4 divides by the cell as q = a r, q + (a - cell q) r with r the
+  rounded reciprocal (csrc/pose_scoring.cu:div_rn, Markstein): exactly
+  the rounded quotient that __fdiv_rn and the plain version give, checked
+  in exact arithmetic on f32 numerators of the maps' range and beyond."""
+  rng = np.random.default_rng(0)
+  a = np.concatenate([
+      rng.uniform(-200, 200, 1500),
+      rng.uniform(1, 2, 1000) * 2.0 ** rng.integers(-30, 30, 1000),
+      np.arange(-40, 41) * 0.1, np.arange(-40, 41) * cell]).astype(np.float32)
+  b = Fraction(float(np.float32(cell)))
+  r = Fraction(_rn32(1 / b))
+  for value in a:
+    x = Fraction(float(value))
+    if x == 0:
+      continue
+    q = Fraction(_rn32(x * r))
+    rem = Fraction(_rn32(x - b * q))
+    assert rem == x - b * q  # the FMA remainder is exact
+    assert _rn32(q + rem * r) == _rn32(x / b), float(value)
