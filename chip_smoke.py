@@ -60,9 +60,10 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
    the refinement lattice), each with its bound and B4's grid and waves;
    K1, K2, K3, K4, B4 and their library calls timed again with the
    launches queued behind a spin of the card (the card's time alone,
-   without the host's launch overhead); K3's selected ranks by its sort's
-   bins, and K2's and K3's device time by launch stage
-   (``torch.profiler``); for every launch of each kernel on these inputs,
+   without the host's launch overhead); K3's selected ranks and K4's points
+   by their sorts' bins (count, non-empty bins, the largest), and K2's,
+   K3's and K4's device time by launch stage (``torch.profiler``); for
+   every launch of each kernel on these inputs,
    its registers, shared memory and spills and the blocks per SM the card
    keeps resident at that launch's shape (``kernels.occupancy``).
 
@@ -342,6 +343,19 @@ def lift_bwd_bin_counts(view_idx: torch.Tensor, p2d: torch.Tensor,
   bins = ((example * views + view_idx.long()) * h + li) * w + lj
   counts = torch.bincount(bins[select], minlength=b * views * h * w)
   return counts.reshape(b, views, h, w)
+
+
+def sample_bwd_bin_counts(points: torch.Tensor, plane_shape) -> torch.Tensor:
+  """K4's bins: the points whose lower tap (clamped as K2 clamps it) lies on
+  each cell of each example, ``[B, H, W]`` int64 for a plane of
+  ``plane_shape`` = ``[B, H + 1, W + 1, C]``."""
+  b, hp, wp, _ = plane_shape
+  h, w = hp - 1, wp - 1
+  li = torch.clamp(points[..., 0] - 0.5, 0, h - 1).floor().long()
+  lj = torch.clamp(points[..., 1] - 0.5, 0, w - 1).floor().long()
+  example = torch.arange(b, device=points.device)[:, None]
+  bins = (example * h + li) * w + lj
+  return torch.bincount(bins.reshape(-1), minlength=b * h * w).reshape(b, h, w)
 
 
 def kernel_stages_ms(fn, names, iters: int = 5):
@@ -1288,6 +1302,17 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       lambda: kernels.patch_sample_2d_bwd(*args, **kw), spin=True)
   queued['grid_sampler_2d_backward'] = time_ms(
       grid_sample_bwd_call(*args, kw['plane_shape']), spin=True)
+  bins = sample_bwd_bin_counts(args[1], kw['plane_shape'])
+  log(f'patch_sample_2d_bwd at {tuple(args[1].shape)}: {int(bins.sum())} '
+      f'points in {int((bins > 0).sum())} of {bins.numel()} bins (example, '
+      f'lower-tap cell), the largest {int(bins.max())}, median of the '
+      f'non-empty {int(bins[bins > 0].median())}')
+  stages = kernel_stages_ms(lambda: kernels.patch_sample_2d_bwd(*args, **kw),
+                            ('bin_points_kernel', 'scan_kernel',
+                             'place_points_kernel', 'sum_runs_kernel',
+                             'cast_grad_kernel'))
+  log(f'patch_sample_2d_bwd stages at {tuple(args[1].shape)}, device ms per '
+      f'call (the memset in other): {stages}')
   log(f'ms per call with the launches queued behind a spin of the card '
       f'(host launch overhead hidden; the rows below are timed without): '
       f'{queued}')

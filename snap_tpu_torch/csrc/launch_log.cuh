@@ -53,7 +53,7 @@ class LaunchLog {
     const char* name;
     int threads, dynamic_smem;
   };
-  static constexpr int kMax = 4;
+  static constexpr int kMax = 8;
   Entry entries_[kMax];
   int count_ = 0;
 };

@@ -77,6 +77,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bin_sort.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -86,7 +87,6 @@ LaunchLog launches;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCountThreads = 256;
-constexpr int kScanThreads = 1024;
 constexpr int kRankThreads = 128;  // 4 points per block of the rank stage
 constexpr int kChunk = 512;        // sorted ranks per block of the run stage
 constexpr int kGroup = 8;          // ranks a run-stage warp fetches together
@@ -216,52 +216,6 @@ __global__ void __launch_bounds__(kCountThreads) count_kernel(
       within[r] = base + __popc(peers & ((1u << lane) - 1u));
     }
   }
-}
-
-// 2. Each bin's first slot; offsets[nbins] = the number of selected ranks.
-// One block walks the counts 4 per thread at a time, a warp-shuffle scan
-// within each step and a running carry across steps.
-__global__ void __launch_bounds__(kScanThreads) scan_kernel(
-    const int* __restrict__ counts, int* __restrict__ offsets, int nbins) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  int carry = 0;
-  for (int first = 0; first < nbins; first += 4 * kScanThreads) {
-    const int i0 = first + 4 * t;
-    int v[4], own = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = i0 + e < nbins ? counts[i0 + e] : 0;
-      own += v[e];
-    }
-    int incl = own;  // inclusive scan over the warp's threads
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += o;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int ws = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(kFull, ws, off);
-        if (lane >= off) ws += o;
-      }
-      warp_sums[lane] = ws;
-    }
-    __syncthreads();
-    int next = carry + (warp ? warp_sums[warp - 1] : 0) + incl - own;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (i0 + e < nbins) offsets[i0 + e] = next;
-      next += v[e];
-    }
-    carry += warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();  // warp_sums is written again in the next step
-  }
-  if (t == 0) offsets[nbins] = carry;
 }
 
 // Lane k of a point's warp: rank k's selection, geometry, first tap, bin

@@ -32,6 +32,30 @@ from snap_tpu_torch.utils import grids
 Tensor = torch.Tensor
 
 
+def template_points(angles: Tensor, grid: grids.Grid2D, batch: int
+                    ) -> Tensor:
+  """Where the templates read the query BEV: ``[B, R * H * W, 2]`` grid
+  coordinates, template r at cell u reading ``c + R(angle_r) (u - c)``
+  (rotation about the grid center c), in template order. ``angles``:
+  ``[R]`` (shared) or ``[B, R]`` radians, on the device of the result."""
+  device = angles.device
+  angles = angles.float()
+  if angles.ndim == 1:
+    angles = angles[None].expand(batch, -1)
+  r = angles.shape[1]
+  c = torch.as_tensor(grid.extent_meters / 2, dtype=torch.float32,
+                      device=device)
+  # corner_t_center @ rotated_t_grid @ corner_t_center.inv
+  corner_t_center = geometry.Transform2D(angle=torch.zeros((), device=device),
+                                         t=c)
+  rotated = geometry.Transform2D(angle=angles, t=torch.zeros(batch, r, 2,
+                                                             device=device))
+  templates_t_grid = corner_t_center @ rotated @ corner_t_center.inv
+  grid_xy = grid.index_to_xyz(grid.grid_index(device).float()).reshape(-1, 2)
+  templates_uv = templates_t_grid.transform(grid_xy) / grid.cell_size
+  return templates_uv.reshape(batch, -1, 2)
+
+
 def sample_query_templates(
     features: Tensor,
     valid: Tensor,
@@ -45,23 +69,9 @@ def sample_query_templates(
   template r at cell u holds the query value at ``c + R(angle_r) (u - c)``.
   """
   b, h, w, d = features.shape
-  device = features.device
-  angles = angles.to(device=device, dtype=torch.float32)
-  if angles.ndim == 1:
-    angles = angles[None].expand(b, -1)
-  r = angles.shape[1]
-  c = torch.as_tensor(grid.extent_meters / 2, dtype=torch.float32,
-                      device=device)
-  # corner_t_center @ rotated_t_grid @ corner_t_center.inv
-  corner_t_center = geometry.Transform2D(angle=torch.zeros((), device=device),
-                                         t=c)
-  rotated = geometry.Transform2D(angle=angles, t=torch.zeros(b, r, 2,
-                                                             device=device))
-  templates_t_grid = corner_t_center @ rotated @ corner_t_center.inv
-  grid_xy = grid.index_to_xyz(grid.grid_index(device).float()).reshape(-1, 2)
-  templates_uv = templates_t_grid.transform(grid_xy) / grid.cell_size
-  t_feats, t_valid = view_scan.interpolate_patch_2d(
-      features, valid, templates_uv.reshape(b, -1, 2))
+  points = template_points(angles.to(features.device), grid, b)
+  r = points.shape[1] // (h * w)
+  t_feats, t_valid = view_scan.interpolate_patch_2d(features, valid, points)
   t_feats = torch.where(t_valid[..., None], t_feats, 0)
   return t_feats.reshape(b, r, h, w, d), t_valid.reshape(b, r, h, w)
 

@@ -6,9 +6,10 @@ PyTorch's headers. The library lands in ``build/kernels/`` at the repo root
 (listed in ``.gitignore``), named by a hash of the sources, on first use.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty`` (``torch.zeros`` for the backward kernels'
-f32 accumulation buffers), launches on the current CUDA stream, raises on a
-non-zero ``cudaError_t``, and adds one to its count in ``LAUNCHES``.
+outputs with ``torch.empty`` (``torch.zeros`` for K3's f32 accumulation
+buffer and counts; K4's C side zeroes its own), launches on the current
+CUDA stream, raises on a non-zero ``cudaError_t``, and adds one to its
+count in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ def load_library() -> ctypes.CDLL:
   lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [vp]
   lib.patch_sample_2d.argtypes = [vp] * 6 + [i32] * 9 + [vp]
   lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 10 + [f32] * 3 + [vp]
-  lib.patch_sample_2d_bwd.argtypes = [vp] * 3 + [i32] * 7 + [i64, vp]
+  lib.patch_sample_2d_bwd.argtypes = [vp] * 8 + [i32] * 7 + [vp]
   lib.pose_scoring.argtypes = [vp] * 8 + [i32] * 5 + [f32] + [i32] * 3 + [vp]
   lib.slice_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
   lib.table_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
@@ -142,22 +143,12 @@ def occupancy(name: str) -> Tuple[Dict[str, object], ...]:
   ``dynamic_smem`` bytes, ``registers`` per thread, ``static_smem`` and
   ``local_bytes`` (spills) from ``cudaFuncGetAttributes``, and the
   ``blocks_per_sm`` the card keeps resident at that launch's shape."""
-  records = (_Occupancy * 4)()
-  count = getattr(load_library(), f'{name}_occupancy')(records, 4)
+  records = (_Occupancy * 8)()
+  count = getattr(load_library(), f'{name}_occupancy')(records, 8)
   if count < 0:
     raise RuntimeError(f'{name}_occupancy failed: cudaError_t {-count}')
   return tuple({field: getattr(r, field) for field, _ in r._fields_}
                | {'name': r.name.decode()} for r in records[:count])
-
-
-def spread_stride(total: int) -> int:
-  """A stride coprime to ``total`` near 0.618 ``total``: warp w of a
-  backward kernel takes item (w * stride) mod total, a permutation that
-  spreads the warps in flight over the whole output."""
-  stride = max(1, int(total * 0.6180339887)) | 1
-  while math.gcd(stride, total) != 1:
-    stride += 2
-  return stride
 
 
 def _check(t: Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...],
@@ -319,7 +310,13 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
 def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
                         plane_shape: Tuple[int, int, int, int]) -> Tensor:
   """K4 on the card: ``d padded`` ``plane_shape`` in ``g_values``' dtype,
-  zero on the validity channel, from ``g_values`` = d values."""
+  zero on the validity channel, from ``g_values`` = d values.
+
+  Scratch allocated here for the kernel's stages (it zeroes what it needs
+  zeroed): per bin (example, lower-tap cell) its count and first slot; per
+  point its place in its bin and its 16-byte record in the sorted order;
+  the f32 accumulator of the plane's D channels rounded up to 4.
+  """
   if g_values.device.type != 'cuda':
     raise ValueError(
         f'patch_sample_2d_bwd needs CUDA tensors, got {g_values.device}')
@@ -332,15 +329,27 @@ def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
   dev = g_values.device
   _check(g_values, 'g_values', g_values.dtype, (b, p, dim), dev)
   _check(points, 'points', torch.float32, (b, p, 2), dev)
-  grad = torch.zeros((b, hp, wp, c), dtype=torch.float32, device=dev)
+  if points.data_ptr() % 8:
+    raise ValueError('patch_sample_2d_bwd needs 8-byte aligned points')
+  n, bins = b * p, b * (hp - 1) * (wp - 1)
+  if not 0 < n < 2**30 or not 0 < bins < 2**30:
+    raise ValueError(f'patch_sample_2d_bwd: {n} points, {bins} bins')
+  acc = torch.empty((b, hp, wp, -(-dim // 4) * 4), dtype=torch.float32,
+                    device=dev)
+  counts = torch.empty((bins,), dtype=torch.int32, device=dev)
+  offsets = torch.empty((bins + 1,), dtype=torch.int32, device=dev)
+  within = torch.empty((n,), dtype=torch.int32, device=dev)
+  records = torch.empty((n, 4), dtype=torch.int32, device=dev)
+  grad = torch.empty(plane_shape, dtype=g_values.dtype, device=dev)
   lib = load_library()
   code = lib.patch_sample_2d_bwd(
       g_values.data_ptr(), points.data_ptr(), grad.data_ptr(),
-      _DTYPE_CODES[g_values.dtype], b, p, hp - 1, wp - 1, c, dim,
-      spread_stride(b * p), torch.cuda.current_stream(dev).cuda_stream)
+      acc.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+      within.data_ptr(), records.data_ptr(), _DTYPE_CODES[g_values.dtype], b,
+      p, hp - 1, wp - 1, c, dim, torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'patch_sample_2d_bwd')
   LAUNCHES['patch_sample_2d_bwd'] += 1
-  return grad.to(g_values.dtype)
+  return grad
 
 
 # B4's block scores POSE_TILE poses (csrc/pose_scoring.cu: kThreads x

@@ -19,9 +19,11 @@ from snap_tpu.ops import view_scan as jview_scan
 from snap_tpu.utils import geometry as jgeometry
 from snap_tpu_torch import configs
 from snap_tpu_torch.data import loader
+from snap_tpu_torch.models import pose_exhaustive_voting as pev
 from snap_tpu_torch.ops import view_fusion
 from snap_tpu_torch.ops import view_scan
 from snap_tpu_torch.utils import geometry
+from snap_tpu_torch.utils import grids
 
 torch.set_num_threads(2)
 
@@ -216,29 +218,50 @@ def test_max_chain_shares_split_ties_like_jnp_maximum():
                                 np.asarray(want))
 
 
-def _plane_and_points(seed):
+def _plane_and_points(seed, points_from='edges'):
+  """A 7 x 9 plane of 5 channels, validity and cotangents from a numpy
+  seed, and points: on every edge of the plane (low, high, cell centres,
+  just inside and just outside) and at random ('edges'), or where 5
+  rotated templates read it (``pose_exhaustive_voting.template_points``:
+  template order, the rotated corners off the plane, 'templates')."""
   rng = np.random.default_rng(seed)
   h, w, d = 7, 9, 5
   array = rng.normal(size=(h, w, d)).astype(np.float32)
   valid = rng.random((h, w)) < 0.8
-  edges = np.array([0.0, 0.2, 0.5, 0.7, 1.0, h - 1.0, h - 0.5, h - 0.3,
-                    h - 1e-4, h, -1e-3])
-  cols = np.array([0.0, 0.3, 0.5, w - 0.5, w - 0.2, w - 1e-4, 4.4, w, 2.5,
-                   0.1, 3.0])
-  edge_pts = np.stack(np.meshgrid(edges, cols, indexing='ij'), -1)
-  rand_pts = rng.uniform([-1, -1], [h + 1, w + 1], size=(200, 2))
-  points = np.concatenate([edge_pts.reshape(-1, 2), rand_pts]).astype(
-      np.float32)
+  if points_from == 'edges':
+    edges = np.array([0.0, 0.2, 0.5, 0.7, 1.0, h - 1.0, h - 0.5, h - 0.3,
+                      h - 1e-4, h, -1e-3])
+    cols = np.array([0.0, 0.3, 0.5, w - 0.5, w - 0.2, w - 1e-4, 4.4, w, 2.5,
+                     0.1, 3.0])
+    edge_pts = np.stack(np.meshgrid(edges, cols, indexing='ij'), -1)
+    rand_pts = rng.uniform([-1, -1], [h + 1, w + 1], size=(200, 2))
+    points = np.concatenate([edge_pts.reshape(-1, 2), rand_pts]).astype(
+        np.float32)
+  else:
+    angles = np.concatenate([[0.0], rng.uniform(0, 2 * np.pi, 4)])
+    points = pev.template_points(
+        torch.from_numpy(angles.astype(np.float32)),
+        grids.Grid2D((h, w), 0.5), 1)[0].numpy()
   cotangent = rng.normal(size=(points.shape[0], d)).astype(np.float32)
   return array, valid, points, cotangent
 
 
 @pytest.mark.parametrize('backward', ['plain_bwd', 'autograd_of_plain'])
-def test_sampler_backward_matches_jax_vjp(monkeypatch, backward):
-  """d array of interpolate_patch_2d against ``jax.vjp``: low-edge,
-  high-edge (the pad row/col folds back onto the edge) and out-of-bounds
-  points; the cotangent is masked by validity downstream on both sides."""
-  array, valid, points, cotangent = _plane_and_points(12)
+@pytest.mark.parametrize('points_from', ['edges', 'templates'])
+@pytest.mark.parametrize('mode', ['direct', 'sorted', 'segsum'])
+def test_sampler_backward_matches_jax_vjp(monkeypatch, mode, points_from,
+                                          backward):
+  """d array of interpolate_patch_2d against ``jax.vjp``, under each of the
+  JAX package's exact scatter modes of its patch-gather backward (the
+  direct scatter-add, the sorted one, and the sort-cumsum-difference
+  'segsum': the same transpose as K4's sorted runs): low-edge, high-edge
+  (the pad row/col folds back onto the edge) and out-of-bounds points, or
+  the templates' own points; the cotangent is masked by validity
+  downstream on both sides."""
+  array, valid, points, cotangent = _plane_and_points(12, points_from)
+  monkeypatch.setattr(jview_scan, '_gather_backward_mode',
+                      jview_scan.gather_backward_mode())  # restored
+  jview_scan.set_gather_backward_mode(mode)
 
   def jax_values(a):
     values, ok = jview_scan.interpolate_patch_2d(a, jnp.asarray(valid),
@@ -247,6 +270,7 @@ def test_sampler_backward_matches_jax_vjp(monkeypatch, backward):
 
   _, vjp = jax.vjp(jax_values, jnp.asarray(array))
   (want,) = vjp(jnp.asarray(cotangent))
+  assert jview_scan.gather_backward_mode() == mode
   if backward == 'autograd_of_plain':
     monkeypatch.setattr(
         view_scan, 'patch_sample_2d',

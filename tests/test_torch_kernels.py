@@ -18,6 +18,7 @@ import torch
 import chip_smoke
 from snap_tpu_torch import evaluate
 from snap_tpu_torch.models import pose_estimation
+from snap_tpu_torch.models import pose_exhaustive_voting as pev
 from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
@@ -152,15 +153,6 @@ def test_build_recipe():
                      'pose_scoring.cu', 'slice_gather.cu', 'table_gather.cu']
   assert sorted(f'{name}.cu' for name in kernels.LAUNCHES) == sources
   assert kernels.library_path() == path  # stable: keyed by the sources
-
-
-@pytest.mark.parametrize('total', [1, 2, 7, 1_152_000, 614_400, 2 * 614_400])
-def test_spread_stride_is_a_permutation(total):
-  stride = kernels.spread_stride(total)
-  assert math.gcd(stride, total) == 1
-  if total < 10_000:
-    assert sorted((w * stride) % total for w in range(total)) == list(
-        range(total))
 
 
 def _raw_lift_bwd_inputs(device, dtype, channels, dim, k=4, seed=0):
@@ -356,6 +348,89 @@ def test_backward_kernels_batches_are_independent(cuda):
         plane_shape=(1,) + tuple(padded.shape[1:]))
     torch.testing.assert_close(alone, both[i:i + 1],
                                **BWD_TOLERANCES[torch.float32])
+
+
+def _pileup_sample_bwd_inputs(device, dtype, dim, seed=9):
+  """K4 inputs on a plane of 11 x 8 cells, 8,000 points an example: every
+  point of example 0 on one cell (a run of 8,000, longer than a walker's
+  chunk and than a block's slots), and in example 1 5,000 points past the
+  far corner and 1,000 past the near one (the clamp piles them onto the
+  corner cells), the rest spread over the plane and one cell past it."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, h, w, p = 2, 11, 8, 8000
+  points = torch.rand((b, p, 2), generator=g) * torch.tensor(
+      [h + 2.0, w + 2.0]) - 1
+  points[0] = torch.tensor([5.3, 4.7])
+  points[1, :5000] = torch.tensor([h + 3.0, w + 5.0])
+  points[1, 5000:6000] = torch.tensor([-2.0, -3.0])
+  g_values = torch.randn((b, p, dim), generator=g).to(dtype)
+  return (g_values.to(device), points.to(device)), dict(
+      plane_shape=(b, h + 1, w + 1, dim + 1))
+
+
+def _template_sample_bwd_inputs(device, dtype, dim, seed=10):
+  """K4 inputs where the templates read the query BEV
+  (``pose_exhaustive_voting.template_points``) on a 24 x 16 plane: 8
+  rotations a batch of 2 (0, a right angle and six others), in template
+  order, the rotated corners off the plane."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, h, w = 2, 24, 16
+  angles = torch.cat([torch.tensor([0.0, math.pi / 2]),
+                      torch.rand(6, generator=g) * 2 * math.pi])
+  points = pev.template_points(angles, grids.Grid2D((h, w), 0.5), b)
+  g_values = torch.randn((b, points.shape[1], dim), generator=g).to(dtype)
+  return (g_values.to(device), points.contiguous().to(device)), dict(
+      plane_shape=(b, h + 1, w + 1, dim + 1))
+
+
+SAMPLE_BWD_CASES = {'pileup': _pileup_sample_bwd_inputs,
+                    'templates': _template_sample_bwd_inputs}
+
+
+@pytest.mark.parametrize('dim', [17, 32])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', sorted(SAMPLE_BWD_CASES))
+def test_patch_sample_2d_bwd_sorted_runs_match_plain(cuda, case, dtype, dim):
+  """K4 where its sort by lower-tap cell matters: a pile-up on one cell
+  and on the clamped corners (runs across walkers and blocks), and the
+  templates' own order and border clamping."""
+  args, kwargs = SAMPLE_BWD_CASES[case](cuda, dtype, dim)
+  counts = chip_smoke.sample_bwd_bin_counts(args[1], kwargs['plane_shape'])
+  if case == 'pileup':
+    assert counts[0].max() == 8000 and counts[1, -1, -1] >= 5000
+  before = kernels.LAUNCHES['patch_sample_2d_bwd']
+  got = kernels.patch_sample_2d_bwd(*args, **kwargs)
+  assert kernels.LAUNCHES['patch_sample_2d_bwd'] == before + 1
+  want = view_scan.patch_sample_2d_bwd_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert got.dtype == dtype and not got[..., dim].any()
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize('case', sorted(SAMPLE_BWD_CASES))
+def test_sample_bwd_bin_counts_bin_every_point(case):
+  """The count of K4's bins that chip_smoke.py prints: each point on the
+  cell of its clamped lower tap, in its example; nothing else counted."""
+  (_, points), kwargs = SAMPLE_BWD_CASES[case]('cpu', torch.float32, 4)
+  b, hp, wp, _ = kwargs['plane_shape']
+  counts = chip_smoke.sample_bwd_bin_counts(points, kwargs['plane_shape'])
+  assert counts.shape == (b, hp - 1, wp - 1)
+  want = torch.zeros((b, hp - 1, wp - 1), dtype=torch.int64)
+  for e in range(b):
+    for i, j in points[e].tolist():
+      li = min(max(math.floor(np.float32(i) - np.float32(0.5)), 0), hp - 2)
+      lj = min(max(math.floor(np.float32(j) - np.float32(0.5)), 0), wp - 2)
+      want[e, li, lj] += 1
+  assert torch.equal(counts, want)
+  assert int(counts.sum()) == points.shape[0] * points.shape[1]
+  if case == 'pileup':
+    assert counts[0, 4, 4] == 8000
+    assert counts[1, -1, -1] >= 5000 and counts[1, 0, 0] >= 1000
+  else:  # the rotated corners clamp onto the border
+    border = counts.clone()
+    border[:, 1:-1, 1:-1] = 0
+    assert border.sum() > counts.sum() // 8
 
 
 def _scoring_inputs(device, seed=0, b=2, n=300, h=20, w=24, p=3000,
@@ -676,6 +751,12 @@ def test_occupancy_reports_each_launch_of_the_last_call(cuda):
                                         sms=torch.cuda.get_device_properties(
                                             cuda).multi_processor_count)[
                                                 'group'], False)
+  (g_values, points), kwargs = _pileup_sample_bwd_inputs(
+      cuda, torch.bfloat16, 32)
+  kernels.patch_sample_2d_bwd(g_values, points, **kwargs)
+  names = [o['name'] for o in kernels.occupancy('patch_sample_2d_bwd')]
+  assert names == ['bin_points_kernel', 'scan_kernel', 'place_points_kernel',
+                   'sum_runs_kernel', 'cast_grad_kernel']
 
 
 @pytest.mark.parametrize('b,p,n', [(4, 20_001, 4652), (4, 68_921, 4652),
