@@ -3,7 +3,11 @@ NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
-Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
+Phases, each printed with its elapsed seconds; any failure raises (exit != 0).
+The main paths (6-7b) read their batches from the dataset's iterators,
+made on the card (``generator_kind`` must be ``device-torch``) and log each
+batch's build time; the references (4-5b) give the card and the CPU the
+host generator's batch:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the seven CUDA kernels of ``snap_tpu_torch/csrc`` (one
@@ -49,6 +53,16 @@ Phases, each printed with its elapsed seconds; any failure raises (exit != 0):
    (ROADMAP C14);
 7c. the gather bench: ``snap_tpu_torch.bench_gather`` at the tool's shapes
    (its JSON line printed), B5 and B6 launching;
+7d. data on the card: the device generator (``data/device_synthetic.py``)
+   makes the training batch (``train_full1chip_exhaustive``, batch 2) and
+   the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
+   and on the CPU from the same draws, compared leaf by leaf (floats to
+   1e-5, colors to 1e-4, at most 1e-3 of a leaf's elements off); the
+   schema against the host generator's; ten builds of each timed (host
+   clock and CUDA events) with their peak memory, the kernel launches and
+   device time of one build (``torch.profiler``, after the main paths so
+   that they run unprofiled as before), and three batches from the
+   dataset's iterator, whose ``generator_kind`` must be ``device-torch``;
 8. the kernels against their plain versions again, on the inputs the
    main paths gave them (the backward kernels' cotangents scaled by a power
    of two to a largest entry in [1, 2); K1 also on the RANSAC path's f32
@@ -90,7 +104,9 @@ from snap_tpu_torch import bench_gather
 from snap_tpu_torch import configs
 from snap_tpu_torch import evaluate
 from snap_tpu_torch import train
+from snap_tpu_torch.data import device_synthetic
 from snap_tpu_torch.data import loader
+from snap_tpu_torch.data import types as data_types
 from snap_tpu_torch.models import bev_localizer
 from snap_tpu_torch.models import bev_mapper
 from snap_tpu_torch.models import pose_estimation
@@ -481,9 +497,11 @@ class Capture:
 
 
 def serving_reference() -> None:
-  """The tiny localizer on the card (kernels) against the CPU (plain)."""
+  """The tiny localizer on the card (kernels) against the CPU (plain), both
+  on the host generator's batch."""
   ref = {dev: evaluate.evaluate('smoke_exhaustive', 2, dev, seed=0,
-                                batch_size=2)['last_pred']
+                                batch_size=2, on_device_generation=False
+                                )['last_pred']
          for dev in ('cpu', 'cuda')}
   cpu_idx = ref['cpu']['best_volume_index']
   gpu_idx = ref['cuda']['best_volume_index'].cpu()
@@ -750,6 +768,136 @@ def fft_contraction_bound(config: configs.Config):
   return _bound(nbytes, rot * cells * dim * 8)
 
 
+# The device generator, card against CPU on the same draws: the CPU tests'
+# tolerances (tests/test_torch_device_synthetic.py): floats to 1e-5, colors
+# to 1e-4 (the card's and the CPU's cos differ by an ulp of phases up to
+# ~6e4 rad at the horizon, where the fade leaves ~0 of the color), and a
+# share of at most 1e-3 of the elements off (a boolean decided on its
+# threshold: a ray grazing a box edge, a cell on a frustum's edge).
+DATA_ATOL, DATA_IMAGE_ATOL, DATA_FLIP_SHARE = 1e-5, 1e-4, 1e-3
+# The host generator's builds per batch on the card's machine (numpy;
+# PERF.md section 5), logged beside the device generator's.
+HOST_BUILD = {'train_full1chip_exhaustive': '4.7-5.7 s',
+              'eval_full1chip_ransac': '13.5-14.7 s'}
+DATA_BUILDS = 10
+
+
+def leaves(tree, prefix=''):
+  """``{path: tensor}`` of a batch (dicts and geometry dataclasses)."""
+  if isinstance(tree, dict):
+    return {k: v for key, value in tree.items() if key != '_host'
+            for k, v in leaves(value, f'{prefix}/{key}').items()}
+  if hasattr(tree, '__dataclass_fields__'):
+    return {k: v for name in tree.__dataclass_fields__
+            for k, v in leaves(getattr(tree, name), f'{prefix}/{name}').items()}
+  return {prefix: tree}
+
+
+def compare_batches(card, cpu):
+  """Card against CPU, leaf by leaf; returns the largest error of the
+  floats within tolerance and the elements off per leaf that has any."""
+  worst, off = 0.0, {}
+  got_leaves = leaves(card)
+  for path, want in leaves(cpu).items():
+    got = got_leaves[path].cpu()
+    if (got.shape, got.dtype) != (want.shape, want.dtype):
+      raise AssertionError(f'data {path}: {got.shape} {got.dtype} vs '
+                           f'{want.shape} {want.dtype}')
+    if want.dtype == torch.bool:
+      bad = got != want
+    else:
+      err = (got.double() - want.double()).abs()
+      if 'images' in path or 'rgb' in path:
+        bad = err > DATA_IMAGE_ATOL
+      else:
+        bad = err > DATA_ATOL * (1 + want.double().abs())
+      if (~bad).any():
+        worst = max(worst, float(err[~bad].max()))
+    if bad.any():
+      off[path] = int(bad.sum())
+      if float(bad.double().mean()) > DATA_FLIP_SHARE:
+        raise AssertionError(f'data {path}: {off[path]} of {bad.numel()} '
+                             'elements off between card and CPU')
+  return worst, off
+
+
+def data_on_card(smi: str):
+  """The device generator on the card against the same draws on the CPU,
+  its schema against the host generator's, and its build times: ten
+  builds per config (host clock with the card's work, and CUDA events)
+  and the peak memory above what was allocated before, then three batches
+  from the dataset's iterator (built in this thread and stream, the host
+  not waiting for the card)."""
+  for name, split, bs in (('train_full1chip_exhaustive', 'train', 2),
+                          ('eval_full1chip_ransac', 'eval', 4)):
+    data = configs.get_config(name, batch_size=bs).data
+    spec = loader.device_spec(data)
+    mode = data_types.DataMode(data.mode)
+    seed = loader.split_seed(data, split)
+    draws = device_synthetic.draw_batch(spec, mode, seed, range(bs))
+    make = lambda d, dev: device_synthetic.make_batch(  # noqa: E731
+        spec, mode, device_synthetic.draws_to(d, dev))
+    card, cpu = make(draws, 'cuda'), make(draws, 'cpu')
+    torch.cuda.synchronize()
+    worst, off = compare_batches(card, cpu)
+    host = loader.process_batch(loader.make_examples(
+        loader.split_generator(data, split), [0], data, mode), mode, 'cpu')
+    schema = {k: (tuple(v.shape[1:]), v.dtype)
+              for k, v in leaves(host).items()}
+    if schema != {k: (tuple(v.shape[1:]), v.dtype)
+                  for k, v in leaves(card).items()}:
+      raise AssertionError(f'{name}: the device batch\'s schema is not the '
+                           'host generator\'s')
+    if set(host['_host']) != set(loader.host_strings(mode, seed, [0])):
+      raise AssertionError(f'{name}: host strings differ')
+    del card, cpu, host
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall, events = [], []
+    for i in range(DATA_BUILDS):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      t0 = time.perf_counter()
+      start.record()
+      batch = make(device_synthetic.draw_batch(
+          spec, mode, seed, range(i * bs, (i + 1) * bs)), 'cuda')
+      end.record()
+      end.synchronize()
+      wall.append(1e3 * (time.perf_counter() - t0))
+      events.append(start.elapsed_time(end))
+      del batch
+    peak = torch.cuda.max_memory_allocated() - base
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+      make(device_synthetic.draw_batch(spec, mode, seed, range(bs)), 'cuda')
+      torch.cuda.synchronize()
+    kernel_events = [e for e in prof.key_averages()
+                     if e.self_device_time_total > 0]
+    launches = sum(e.count for e in kernel_events)
+    device_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
+    with loader.get_dataset(data, bs, device='cuda') as dataset:
+      kind = dataset.meta_data['generator_kind']
+      if kind != 'device-torch':
+        raise AssertionError(f'{name}: generator_kind {kind}')
+      it = dataset.train_iter if split == 'train' else dataset.valid_iter
+      builds = []
+      for _ in range(3):
+        next(it)
+        builds.append(it.last_build)
+    log(f'data on the card ({name}, batch {bs}): card vs CPU on the same '
+        f'draws, largest float error {worst:.3g}, elements off {off}; schema '
+        f'= host path\'s; {DATA_BUILDS} builds: wall ms '
+        f'{[round(x, 3) for x in wall]}, CUDA-event ms '
+        f'{[round(x, 3) for x in events]}, peak memory '
+        f'{peak / 2**30:.3f} GiB above the {base / 2**30:.2f} GiB allocated '
+        f'before; one build {launches} kernel launches, {device_ms:.3f} ms '
+        f'of device time (profiler); through the dataset\'s iterator '
+        f'host ms {[round(b.wall_ms, 3) for b in builds]}, card ms '
+        f'{[round(b.card_ms, 3) for b in builds]}; the host generator\'s build '
+        f'{HOST_BUILD[name]} a batch (PERF.md section 5); {smi}')
+
+
 def serving_main_path():
   """bench_full at batch 1 on 2 queries, bf16; returns launches, captures."""
   # The matmuls run in bf16; the f32 refinement conv of bf16 values is
@@ -772,8 +920,13 @@ def serving_main_path():
   for kernel in ('lift_topk_fwd', 'patch_sample_2d'):
     if launches[kernel] == 0:
       raise AssertionError(f'{kernel} was not launched on the serving path')
-  ms = [1e3 * s for s in result['batch_seconds']]
-  log(f'serving main path: launches {launches}, ms per query {ms}, position '
+  if result['generator_kind'] != 'device-torch':
+    raise AssertionError(f'serving data from {result["generator_kind"]}')
+  log(f'serving main path: launches {launches}, forward ms per query '
+      f'(card, CUDA events) {result["forward_ms"]}, the whole loop '
+      f'{1e3 * result["eval_seconds"]} ms, data {result["generator_kind"]}, '
+      f'build ms per query (host) {result["build_ms"]}, (card) '
+      f'{result["build_card_ms"]}, position '
       f'error {result["position_error_m"]} m (random weights); X3 (FFT '
       f'channel contraction) bound per query '
       f'{fft_contraction_bound(configs.bench_full())}')
@@ -841,13 +994,18 @@ def training_main_path(smi: str):
   peak = torch.cuda.max_memory_allocated()
   if not aerial_checked:
     raise AssertionError('no step kept the aerial modality')
+  if result['generator_kind'] != 'device-torch':
+    raise AssertionError(f'training data from {result["generator_kind"]}')
   ms = [1e3 * s for s in result['step_seconds']]
   log(f'training main path (train_full1chip_exhaustive, batch 2, bf16): '
       f'launches {launches}; ms per step {ms} (steps 2-3: '
-      f'{sum(ms[1:]) / len(ms[1:]):.1f} ms), host batch build ms '
-      f'{[1e3 * s for s in result["batch_seconds"]]}, peak memory '
-      f'{peak / 2**30:.2f} GiB, aerial gradient checked on steps '
-      f'{aerial_checked}; {smi}')
+      f'{sum(ms[1:]) / len(ms[1:]):.1f} ms), with the wait for its batch '
+      f'{[1e3 * s for s in result["wall_seconds"]]}, data '
+      f'{result["generator_kind"]}, build ms per step (host) '
+      f'{result["build_ms"]}, (card) {result["build_card_ms"]} (the '
+      f'host generator\'s build {HOST_BUILD["train_full1chip_exhaustive"]}), '
+      f'peak memory {peak / 2**30:.2f} GiB, aerial gradient checked on '
+      f'steps {aerial_checked}; {smi}')
   del model, params, before, result
   torch.cuda.empty_cache()
   return launches, lift_bwd, sample_bwd
@@ -1045,13 +1203,19 @@ def ransac_main_path(smi: str):
   peak = torch.cuda.max_memory_allocated()
   probs = draws.largest()[0][0]
   (blind, blind_mass), (seq, seq_mass) = f32_prefix_sum_blind_share(probs[0])
-  ms = [1e3 * s for s in result['batch_seconds']]
-  build = [1e3 * s for s in result['build_seconds']]
+  if result['generator_kind'] != 'device-torch':
+    raise AssertionError(f'RANSAC data from {result["generator_kind"]}')
+  ms = result['forward_ms']
   log(f'RANSAC main path (eval_full1chip_ransac, batch 4, f32): launches '
-      f'{launches}; ms per batch {ms} (timed batch: {ms[-1]:.1f} ms), host '
-      f'batch build ms {build}, peak memory {peak / 2**30:.2f} GiB; '
-      f'recall_1m {result["recall_1m"]}, recall_top1 '
-      f'{result["recall_top1"]}, sample recalls '
+      f'{launches}; forward ms per batch (card, CUDA events) {ms} (timed '
+      f'batch: {ms[-1]:.1f} ms), the whole loop '
+      f'{1e3 * result["eval_seconds"]} ms, '
+      f'data {result["generator_kind"]}, build ms per batch (host) '
+      f'{result["build_ms"]}, (card) {result["build_card_ms"]} (the '
+      f'host generator\'s build {HOST_BUILD["eval_full1chip_ransac"]}), peak '
+      f'memory {peak / 2**30:.2f} GiB, {len(result["results"]["pair_id"])} '
+      f'rows of per-example metrics; recall_1m {result["recall_1m"]}, '
+      f'recall_top1 {result["recall_top1"]}, sample recalls '
       f'{[result[k] for k in result if k.startswith("recall_samples")]} '
       f'(random weights); {smi}')
   log(f'C14: match PDF of example 0 has {probs.shape[1]} categories; of '
@@ -1372,12 +1536,18 @@ def main() -> int:
   training_reference()
   ransac_reference()
 
-  # 6-7c. Main paths, each with the launch counts reset just before it.
+  # 6-7c. Main paths, each with the launch counts reset just before it;
+  # their batches made on the card by the dataset's iterators.
   serve_launches, lift, sample = serving_main_path()
   train_launches, lift_bwd, sample_bwd = training_main_path(smi)
   torch.backends.cudnn.allow_tf32 = False  # the RANSAC config is f32
   ransac_launches, scoring, lift_f32 = ransac_main_path(smi)
   bench_launches, bench = gather_bench_phase()
+
+  # 7d. The device generator on the card. After the main paths: its
+  # profile of one build is this script's first, and later launches on
+  # the host-bound paths would pay for it.
+  data_on_card(smi)
 
   # 8. Kernels on the main paths' own inputs: check, then time.
   with torch.no_grad():

@@ -142,7 +142,11 @@ class DataConfig:
 
   ``shuffle_seed`` is what the JAX loader is given as ``shuffle_seed``: the
   experiment's for training, the eval config's ``data.rng_seed`` for
-  evaluation.
+  evaluation. ``on_device_generation`` None makes the batches on the
+  entry point's device when it is a CUDA card and on the host otherwise
+  (``data/loader.py:get_dataset``). ``num_workers`` threads build the host
+  path's batches; the device path builds each batch in the consumer's
+  thread and stream.
   """
 
   num_views: int = 10
@@ -150,6 +154,13 @@ class DataConfig:
   voxel_size: float = 0.2
   add_images: bool = True
   add_rasters: bool = True
+  add_lidar_rays: bool = False
+  num_rays: Optional[int] = None
+  mode: str = 'pair_scene_view'
+  evaluation_size: int = 1024
+  num_workers: int = 2
+  prefetch_buffer_size: int = 2
+  on_device_generation: Optional[bool] = None
   locations: LocationsConfig = LocationsConfig()
   shuffle_seed: int = 0
 
@@ -201,6 +212,7 @@ def bench_full(batch_size: int = 1) -> Config:
       do_grid_refinement=True,
   )
   data = DataConfig(num_views=20, image_size=(180, 240), voxel_size=0.2,
+                    evaluation_size=1,
                     locations=LocationsConfig(training='bench-city'))
   return Config(model=model, data=data, dtype_str='bfloat16',
                 batch_size=batch_size)
@@ -235,6 +247,7 @@ def smoke_exhaustive(batch_size: int = 2) -> Config:
       num_pose_sampling_retries=2,
   )
   data = DataConfig(num_views=3, image_size=(36, 48), voxel_size=1.0,
+                    evaluation_size=4,
                     locations=LocationsConfig(training='smoke-city'),
                     shuffle_seed=SHUFFLE_SEED)
   return Config(model=model, data=data, dtype_str='float32',
@@ -255,7 +268,7 @@ def train_full1chip_exhaustive(batch_size: int = 2) -> Config:
   train = TrainConfig(lr_configs=lr, max_grad_norm=1.0,
                       num_training_steps=20_000)
   data = dataclasses.replace(
-      serve.data, shuffle_seed=SHUFFLE_SEED,
+      serve.data, shuffle_seed=SHUFFLE_SEED, evaluation_size=32,
       locations=LocationsConfig(training=TRAIN_LOCATIONS))
   return dataclasses.replace(
       serve,
@@ -274,12 +287,13 @@ def smoke_train_exhaustive(batch_size: int = 2) -> Config:
                         num_training_steps=8))
 
 
-def _eval_data(train_data: DataConfig, location: str) -> DataConfig:
+def _eval_data(train_data: DataConfig, location: str,
+               evaluation_size: int) -> DataConfig:
   """``evaluator.py:get_model_and_dataset``: the experiment's scene keys,
-  the eval config's seed (``data.rng_seed`` = 0) and one location for both
-  splits."""
+  the eval config's seed (``data.rng_seed`` = 0) and evaluation size, and
+  one location for both splits."""
   return dataclasses.replace(
-      train_data, shuffle_seed=0,
+      train_data, shuffle_seed=0, evaluation_size=evaluation_size,
       locations=LocationsConfig(training=location, evaluation=location))
 
 
@@ -294,7 +308,7 @@ def smoke_eval_ransac(batch_size: int = 2) -> Config:
       do_grid_refinement=True)
   return dataclasses.replace(
       smoke, model=model,
-      data=_eval_data(smoke.data, 'smokeville-synthetic_eval'))
+      data=_eval_data(smoke.data, 'smokeville-synthetic_eval', 4))
 
 
 def eval_full1chip_ransac(batch_size: int = 4) -> Config:
@@ -310,7 +324,7 @@ def eval_full1chip_ransac(batch_size: int = 4) -> Config:
       num_pose_sampling_retries=8, do_grid_refinement=True)
   return dataclasses.replace(
       train, model=model, dtype_str='float32',
-      data=_eval_data(train.data, 'osaka-synthetic_eval'))
+      data=_eval_data(train.data, 'osaka-synthetic_eval', 4096))
 
 
 CONFIGS = {

@@ -7,22 +7,33 @@
         --num_queries=2 --batch_size=2 --device=cpu
 
 Builds the localizer of the named config (exhaustive or RANSAC backend),
-makes ``num_queries`` synthetic map/query pairs with the port's generator
-(the config's eval split, seeded as the JAX loader seeds it), localizes
-them in batches, and prints each query's position and angle error, the
+reads the first ``num_queries`` synthetic map/query pairs of the config's
+eval split (seeded as the JAX loader seeds it) from the dataset's eval
+iterator, localizes them in batches (``evaluator.eval_on_dataset``), and
+prints each query's position and angle error, then one JSON line: the
 recall at 1 m, the top-1 recall and, for the RANSAC backend, the share of
-pose samples near the GT. Weights are drawn from ``--seed``, or read from
-``--params_npz``: a flat ``.npz`` of the JAX model's params keyed by
-'/'-joined flax paths; the RANSAC backend's pose samples are drawn on a CPU
-``torch.Generator`` seeded from ``--seed``. The default device is ``cuda``;
-there is no fallback to the CPU when no card is found.
+pose samples near the GT, the data path (``generator_kind``:
+``device-torch`` when the card makes the batches, ``host-numpy`` when
+numpy does), each batch's forward and build times and the whole loop's
+wall time. The batches are made on the card when ``--device`` is a CUDA
+card, unless ``--on_device_generation=false``;
+``--on_device_generation=true --device=cpu`` runs the device generator on
+the CPU. With ``--workdir`` the per-example metrics land in
+``<workdir>/evaluation/<location><tag>/results.npz``. Weights are drawn
+from ``--seed``, or read from ``--params_npz``: a flat ``.npz`` of the JAX
+model's params keyed by '/'-joined flax paths; the RANSAC backend's pose
+samples are drawn on a CPU ``torch.Generator`` seeded from ``--seed``. The
+default device is ``cuda``; there is no fallback to the CPU when no card
+is found.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import pathlib
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -31,9 +42,9 @@ import torch
 
 from snap_tpu_torch import configs
 from snap_tpu_torch import convert
+from snap_tpu_torch import evaluator
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
-from snap_tpu_torch.utils import geometry
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
@@ -55,11 +66,9 @@ def build_localizer(config: configs.Config, device: str = 'cuda',
   return model.to(device).eval()
 
 
-def pose_errors(pred_t: geometry.Transform2D, batch: Dict[str, Any]):
-  """Position (m) and angle (deg) error of ``map_t_query`` against GT."""
-  gt = geometry.Transform2D.from_Transform3D(batch['T_query2map'])
-  dr, dt = (pred_t.inv @ gt).magnitude()
-  return dt, dr
+def on_device_flag(value: str) -> Optional[bool]:
+  """The CLIs' ``--on_device_generation`` value as the config's field."""
+  return {'auto': None, 'true': True, 'false': False}[value]
 
 
 def evaluate(config_name: str = 'bench_full', num_queries: int = 4,
@@ -68,73 +77,117 @@ def evaluate(config_name: str = 'bench_full', num_queries: int = 4,
              model: Optional[bev_localizer.BEVLocalizer] = None,
              profile: bool = False,
              on_batch: Optional[Callable[[int, Dict[str, Any]], None]] = None,
-             ) -> Dict[str, Any]:
-  """Localize ``num_queries`` synthetic queries; returns errors and times.
+             on_device_generation: Optional[bool] = None,
+             workdir: Optional[str] = None,
+             tag: str = '') -> Dict[str, Any]:
+  """Localize the first ``num_queries`` queries of the eval split.
 
-  The result holds per-query ``position_error_m`` / ``angle_error_deg``,
-  ``recall_1m``, the means of ``loss_metrics_function``'s top-1 recall
-  and, RANSAC only, its sample recalls, the per-batch wall times of the
-  forward (each ends in a device synchronize) and of building the batch on
-  the host, and the last batch's predictions under ``last_pred``.
+  The queries are the eval iterator's (``loader.get_dataset`` with
+  ``evaluation_size = num_queries``), made on the card or on the host as
+  ``on_device_generation`` says (None: on the card iff ``device`` is
+  CUDA). The result holds the packed per-example metrics
+  (``evaluator.pack_localization_metrics``) under ``results``, per-query
+  ``position_error_m`` / ``angle_error_deg``, ``recall_1m``, the means of
+  the top-1 recall and, RANSAC only, of the sample recalls, each batch's
+  forward time (``forward_ms``: on a CUDA card the card's, between two
+  events recorded around the forward on its stream, with no synchronize
+  in the loop; on the CPU the wall time), the wall time of the whole loop
+  from the first batch's build to the last batch's metrics on the host
+  (``eval_seconds``), each batch's build time (``build_ms``: the host's ms
+  in the build; ``build_card_ms``: the card's ms from CUDA events, None
+  off the card), ``generator_kind`` and the last batch's predictions
+  under ``last_pred``.
   ``on_batch(i, pred)`` sees each batch's predictions. With ``profile``,
   the last batch's forward runs under ``torch.profiler`` and ``profile``
-  holds its per-op table, sorted by device time.
+  holds its per-op table, sorted by device time. With ``workdir``, the
+  per-example metrics are written to
+  ``<workdir>/evaluation/<location><tag>/results.npz``, the config beside
+  them as ``config.json``.
   """
   config = configs.get_config(config_name, batch_size=batch_size)
+  data = dataclasses.replace(config.data, evaluation_size=num_queries,
+                             on_device_generation=on_device_generation)
   if model is None:
     model = build_localizer(config, device, seed, params_npz)
-  generator = loader.split_generator(config.data, 'eval')
   pose_generator = torch.Generator().manual_seed(seed)
-  pos_err, ang_err, batch_seconds, build_seconds = [], [], [], []
-  metrics: Dict[str, list] = {}
-  pred = None
-  for i, start in enumerate(range(0, num_queries, batch_size)):
-    t0 = time.perf_counter()
-    indices = range(start, min(start + batch_size, num_queries))
-    examples = loader.make_pair_examples(generator, indices, config.data)
-    batch = loader.pair_batch_to_torch(examples, device)
-    build_seconds.append(time.perf_counter() - t0)
-    last = start + batch_size >= num_queries
+  cuda = torch.device(device).type == 'cuda'
+  num_batches = -(-num_queries // batch_size)
+  forwards, builds, sample_recalls = [], [], []
+  last = {}
+
+  @contextlib.contextmanager
+  def step_context(step: int):
     with contextlib.ExitStack() as stack:
-      if profile and last:
-        prof = stack.enter_context(torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]))
-      t0 = time.perf_counter()
-      with torch.inference_mode():
-        pred = model(batch, generator=pose_generator)
-        if torch.device(device).type == 'cuda':
-          torch.cuda.synchronize(device)
-      batch_seconds.append(time.perf_counter() - t0)
-    with torch.inference_mode():
-      _, batch_metrics = model.loss_metrics_function(pred, batch)
-    for key in ('loc/recall_top1', 'loc/recall_samples_0.5m_1deg',
-                'loc/recall_samples_1m_2deg', 'loc/recall_samples_2m_4deg'):
-      if key in batch_metrics:
-        metrics.setdefault(key.split('/')[1], []).extend(
-            batch_metrics[key].float().cpu().tolist())
-    if on_batch is not None:
-      on_batch(i, pred)
-    dt, dr = pose_errors(pred['map_t_query'], batch)
-    pos_err += dt.cpu().tolist()
-    ang_err += dr.cpu().tolist()
-  pos = np.asarray(pos_err)
+      if profile and step == num_batches - 1:
+        last['prof'] = stack.enter_context(torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]))
+      if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        forwards.append((start, end))
+      else:
+        t0 = time.perf_counter()
+        yield
+        forwards.append(1e3 * (time.perf_counter() - t0))
+
+  with loader.get_dataset(data, batch_size, device=device) as dataset:
+
+    def record(step: int, batch, pred, metrics) -> None:
+      builds.append(dataset.valid_iter.last_build)
+      sample_recalls.append((batch['batch_mask'], {
+          key.split('/')[1]: value for key, value in metrics.items()
+          if key.startswith('loc/recall_samples')}))
+      last['pred'] = pred
+      if on_batch is not None:
+        on_batch(step, pred)
+
+    t0 = time.perf_counter()
+    results = evaluator.eval_on_dataset(model, dataset, batch_size,
+                                        pose_generator, step_context, record)
+    eval_seconds = time.perf_counter() - t0
+  if cuda:
+    forwards = [start.elapsed_time(end) for start, end in forwards]
+  recalls: Dict[str, list] = {}
+  for mask, values in sample_recalls:
+    for key, value in values.items():
+      recalls.setdefault(key, []).extend(
+          value[mask > 0].float().cpu().tolist())
+  kind = dataset.meta_data['generator_kind']
+  dump = None
+  if workdir is not None:
+    location = data.locations.evaluation or data.locations.training
+    dump = pathlib.Path(workdir) / 'evaluation' / f'{location}{tag}'
+    evaluator.write_eval_dump(dump, results, {
+        'config_name': config_name, 'config': config, 'data': data,
+        'seed': seed, 'params_npz': params_npz,
+        'data_generator_kind': kind})
+  pos = results['error_max_meter']
   table = None
   if profile:
-    sort_by = ('cuda_time_total' if torch.device(device).type == 'cuda'
-               else 'cpu_time_total')
-    table = prof.key_averages().table(sort_by=sort_by, row_limit=30)
+    table = last['prof'].key_averages().table(
+        sort_by='cuda_time_total' if cuda else 'cpu_time_total',
+        row_limit=30)
   return {
       'config': config_name,
       'device': str(device),
       'num_queries': num_queries,
-      'position_error_m': pos_err,
-      'angle_error_deg': ang_err,
+      'generator_kind': kind,
+      'position_error_m': pos.tolist(),
+      'angle_error_deg': results['error_max_deg'].tolist(),
       'recall_1m': float((pos < 1.0).mean()),
-      **{k: float(np.mean(v)) for k, v in metrics.items()},
-      'batch_seconds': batch_seconds,
-      'build_seconds': build_seconds,
-      'last_pred': pred,
+      'recall_top1': float(results['recall_top1'].mean()),
+      **{k: float(np.mean(v)) for k, v in recalls.items()},
+      'forward_ms': forwards,
+      'eval_seconds': eval_seconds,
+      'build_ms': [build.wall_ms for build in builds],
+      'build_card_ms': [build.card_ms for build in builds],
+      'dump': None if dump is None else str(dump),
+      'results': results,
+      'last_pred': last['pred'],
       'profile': table,
   }
 
@@ -148,18 +201,29 @@ def main(argv=None) -> None:
   parser.add_argument('--device', default='cuda')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--params_npz', default=None)
+  parser.add_argument('--on_device_generation', default='auto',
+                      choices=('auto', 'true', 'false'),
+                      help='make the queries on the device (auto: iff it '
+                      'is a CUDA card)')
+  parser.add_argument('--workdir', default=None,
+                      help='write <workdir>/evaluation/<location><tag>/'
+                      'results.npz')
+  parser.add_argument('--tag', default='')
   parser.add_argument('--profile', action='store_true',
                       help="print the last batch's per-op profile")
   args = parser.parse_args(argv)
   result = evaluate(args.config, args.num_queries, args.device, args.seed,
-                    args.batch_size, args.params_npz, profile=args.profile)
+                    args.batch_size, args.params_npz, profile=args.profile,
+                    on_device_generation=on_device_flag(
+                        args.on_device_generation),
+                    workdir=args.workdir, tag=args.tag)
   if result['profile'] is not None:
     print(result['profile'])
   for i, (dt, dr) in enumerate(zip(result['position_error_m'],
                                    result['angle_error_deg'])):
     print(f'query {i}: position error {dt:.3f} m, angle error {dr:.3f} deg')
   summary = {k: v for k, v in result.items()
-             if k not in ('last_pred', 'profile')}
+             if k not in ('results', 'last_pred', 'profile')}
   print(json.dumps(summary))
 
 

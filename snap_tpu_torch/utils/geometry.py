@@ -130,6 +130,13 @@ class Transform3D:
     R_inv = self.R.transpose(-1, -2)
     return Transform3D(R=R_inv, t=-_matvec(R_inv, self.t))
 
+  def magnitude(self) -> Tuple[Tensor, Tensor]:
+    """Rotation angle (deg, from the trace) and translation norm."""
+    trace = self.R.diagonal(dim1=-2, dim2=-1).sum(-1)
+    cos = ((trace - 1) / 2).clamp(-1, 1)
+    return torch.rad2deg(torch.arccos(cos).abs()), torch.linalg.norm(
+        self.t, dim=-1)
+
   def transform(self, p3d: Tensor) -> Tensor:
     return self.t[..., None, :] + _apply(self.R, p3d)
 

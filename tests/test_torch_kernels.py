@@ -107,12 +107,15 @@ def test_patch_sample_2d_matches_plain(cuda, dtype):
 
 
 def test_smoke_localizer_on_card_matches_cpu(cuda):
-  """The whole slice in f32: card (kernels) against CPU (plain versions)."""
+  """The whole slice in f32: card (kernels) against CPU (plain versions),
+  both on the host generator's batch."""
   kernels.reset_launch_counts()
-  on_card = evaluate.evaluate('smoke_exhaustive', 2, 'cuda', batch_size=2)
+  on_card = evaluate.evaluate('smoke_exhaustive', 2, 'cuda', batch_size=2,
+                              on_device_generation=False)
   assert kernels.LAUNCHES['lift_topk_fwd'] and kernels.LAUNCHES[
       'patch_sample_2d']
-  on_cpu = evaluate.evaluate('smoke_exhaustive', 2, 'cpu', batch_size=2)
+  on_cpu = evaluate.evaluate('smoke_exhaustive', 2, 'cpu', batch_size=2,
+                             on_device_generation=False)
   card, cpu = on_card['last_pred'], on_cpu['last_pred']
   assert torch.equal(card['best_volume_index'].cpu(), cpu['best_volume_index'])
   torch.testing.assert_close(card['map_t_query'].t.cpu(),
