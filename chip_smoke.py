@@ -1,5 +1,5 @@
-"""Drive the port's serving, training, RANSAC and gather-bench paths on one
-NVIDIA GPU (H100).
+"""Drive the port's serving, training, RANSAC, held-out evaluation, bench and
+gather-bench paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -51,9 +51,21 @@ host generator's batch:
    timed; per batch B4 launches >= 2, K1 >= 2, K2 never, finite scores;
    the share of match-PDF categories an f32 prefix sum could not draw
    (ROADMAP C14);
-7c. the gather bench: ``snap_tpu_torch.bench_gather`` at the tool's shapes
+7c. held-out main path: ``evaluator.run`` of the held-out protocol
+   (``eval_full1chip_exhaustive``: the exhaustive localizer in f32 with
+   dense refinement, TF32 off, batch 4) over zurich and oslo, 8 card-made
+   examples a city, on a workdir under ``workdirs/`` that holds the
+   flagship's config in the reference's keys and seeded weights as flat
+   flax params: each dump's config is the protocol's, K1 and K2 launch at
+   least twice a batch, the metrics are finite; a second run must read
+   both dumps with no launch and give the same arrays; each city's summary
+   line printed;
+7d. the bench: ``snap_tpu_torch.bench`` at full width (``bench_full`` at
+   batch 4, ``train_full1chip_exhaustive`` at batch 2; its JSON line
+   printed), on card-made batches, every figure finite, K1-K4 launching;
+7e. the gather bench: ``snap_tpu_torch.bench_gather`` at the tool's shapes
    (its JSON line printed), B5 and B6 launching;
-7d. data on the card: the device generator (``data/device_synthetic.py``)
+7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
    and on the CPU from the same draws, compared leaf by leaf (floats to
@@ -79,18 +91,23 @@ host generator's batch:
    K3's and K4's device time by launch stage (``torch.profiler``); for
    every launch of each kernel on these inputs,
    its registers, shared memory and spills and the blocks per SM the card
-   keeps resident at that launch's shape (``kernels.occupancy``).
+   keeps resident at that launch's shape (``kernels.occupancy``); K1 and
+   K2 also checked and timed on the held-out run's f32 inputs, behind a
+   spin too, ``F.grid_sample`` in f32 beside K2.
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
-from the RANSAC run, B5 and B6 from the gather bench); the last line is
-``{"ok": true, "device": {...}}``.
+from the RANSAC run, B5 and B6 from the gather bench) and two for K1 and
+K2 at the held-out run's f32 inputs (``/heldout_f32``, launches from that
+run); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import pathlib
 import re
 import subprocess
 import sys
@@ -100,9 +117,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from snap_tpu_torch import bench
 from snap_tpu_torch import bench_gather
 from snap_tpu_torch import configs
+from snap_tpu_torch import convert
 from snap_tpu_torch import evaluate
+from snap_tpu_torch import evaluator
 from snap_tpu_torch import train
 from snap_tpu_torch.data import device_synthetic
 from snap_tpu_torch.data import loader
@@ -1227,6 +1247,127 @@ def ransac_main_path(smi: str):
   return launches, scoring, lift
 
 
+# The held-out phase: two cities of the protocol, cut to 8 examples each.
+HELDOUT_CITIES = ('zurich', 'oslo')
+HELDOUT_EXAMPLES = 8
+HELDOUT_BATCH = 4
+HELDOUT_DIR = pathlib.Path(__file__).resolve().parent / 'workdirs' / (
+    'heldout_seeded')
+
+
+def heldout_eval_config(overwrite: bool) -> configs.EvalConfig:
+  """``eval_localization.py:evaluation_size=8,batch_size=4`` over the two
+  cities, on the workdir of ``write_heldout_workdir``."""
+  ec = configs.eval_localization(evaluation_size=HELDOUT_EXAMPLES,
+                                 batch_size=HELDOUT_BATCH)
+  return dataclasses.replace(
+      ec, workdir=str(HELDOUT_DIR), overwrite=overwrite,
+      data=dataclasses.replace(ec.data, split=','.join(HELDOUT_CITIES)))
+
+
+def write_heldout_workdir() -> None:
+  """An experiment workdir of the flagship run with seeded weights: its
+  config in the reference's keys (``config.json``) and the weights as flat
+  flax params (``params.npz``, ~192 MB; removed after the phase)."""
+  HELDOUT_DIR.mkdir(parents=True, exist_ok=True)
+  (HELDOUT_DIR / evaluator.CONFIG_FILE).write_text(json.dumps(
+      configs.to_reference(configs.train_full1chip_exhaustive())))
+  model = evaluate.build_localizer(configs.eval_full1chip_exhaustive(), 'cpu',
+                                   0)
+  np.savez(HELDOUT_DIR / evaluator.PARAMS_FILE, **convert.flax_from_torch(
+      dict(model.named_parameters()), model))
+
+
+def heldout_main_path(smi: str):
+  """``evaluator.run`` of the held-out protocol (``eval_full1chip_exhaustive``:
+  R50 street-view + aerial, 20 views of 180x240, 0.2 m, top-k 4 lift, 64
+  rotations + dense refinement, f32 with TF32 off, batch 4) over zurich and
+  oslo, 8 card-made examples a city, seeded weights; then again, from the
+  dumps. Returns the first run's launches and K1's and K2's inputs."""
+  write_heldout_workdir()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  with Capture(view_scan, 'lift_topk', 0) as lift, \
+       Capture(view_scan, 'patch_sample_2d', 1) as sample:
+    kernels.reset_launch_counts()
+    first = evaluator.run(heldout_eval_config(overwrite=True), device='cuda')
+    launches = dict(kernels.LAUNCHES)
+  seconds = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated()
+  batches = len(HELDOUT_CITIES) * -(-HELDOUT_EXAMPLES // HELDOUT_BATCH)
+  for kernel in ('lift_topk_fwd', 'patch_sample_2d'):
+    if launches[kernel] < 2 * batches:
+      raise AssertionError(f'held-out run: {kernel} launched '
+                           f'{launches[kernel]} times for {batches} batches')
+  for city in HELDOUT_CITIES:
+    results, record = first[city]
+    want = configs.merge_eval_config(
+        heldout_eval_config(overwrite=True),
+        configs.train_full1chip_exhaustive(), f'{city}-synthetic_eval')
+    if configs.from_reference(record) != want:
+      raise AssertionError(f'{city}: the dump\'s config is not the protocol')
+    if not (want.model.do_grid_refinement and want.dtype_str == 'float32'):
+      raise AssertionError(f'{city}: not the held-out protocol')
+    if record['data_generator_kind'] != 'device-torch':
+      raise AssertionError(f'{city}: data from '
+                           f'{record["data_generator_kind"]}')
+    if record['cudnn_allow_tf32'] or record['matmul_allow_tf32']:
+      raise AssertionError(f'{city}: ran with TF32 on')
+    for key in ('error_max_meter', 'error_max_deg', 'pose_score_max', 'loss'):
+      if results[key].shape != (HELDOUT_EXAMPLES,) or not np.isfinite(
+          results[key]).all():
+        raise AssertionError(f'{city}: {key} {results[key]}')
+  kernels.reset_launch_counts()
+  t1 = time.perf_counter()
+  again = evaluator.run(heldout_eval_config(overwrite=False), device='cuda')
+  cached_seconds = time.perf_counter() - t1
+  if any(kernels.LAUNCHES.values()):
+    raise AssertionError(f'the second run launched {dict(kernels.LAUNCHES)}')
+  for city in HELDOUT_CITIES:
+    for key, value in first[city][0].items():
+      if not np.array_equal(again[city][0][key], value):
+        raise AssertionError(f'{city}: the cached {key} differs')
+  (HELDOUT_DIR / evaluator.PARAMS_FILE).unlink()
+  for city in HELDOUT_CITIES:
+    print(json.dumps(evaluate.city_summary(city, *first[city])), flush=True)
+  log(f'held-out main path (eval_full1chip_exhaustive over '
+      f'{HELDOUT_CITIES}, {HELDOUT_EXAMPLES} examples a city, batch '
+      f'{HELDOUT_BATCH}, f32, TF32 off, random weights): launches '
+      f'{launches}; the first run {seconds:.2f} s, peak memory '
+      f'{peak / 2**30:.2f} GiB; the second run read both dumps in '
+      f'{cached_seconds:.3f} s with no launch, every array equal; {smi}')
+  torch.cuda.empty_cache()
+  return launches, lift, sample
+
+
+def bench_phase(smi: str) -> dict:
+  """``snap_tpu_torch.bench`` at full width (prints its JSON line); under
+  PyTorch's default TF32 settings, as its entry point runs."""
+  was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cudnn.allow_tf32 = True
+  torch.backends.cuda.matmul.allow_tf32 = False
+  kernels.reset_launch_counts()
+  line = bench.main([])
+  launches = dict(kernels.LAUNCHES)
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+  if line['generator_kind'] != {'eval': 'device-torch',
+                                'train': 'device-torch'}:
+    raise AssertionError(f'bench data from {line["generator_kind"]}')
+  for key in ('localization_queries_per_sec', 'bev_maps_per_sec',
+              'train_step_sec_full_scale', 'train_step_hbm_gb', 'train_loss'):
+    if not (math.isfinite(line[key]) and line[key] > 0):
+      raise AssertionError(f'bench {key} = {line[key]}')
+  for kernel in ('lift_topk_fwd', 'patch_sample_2d', 'lift_topk_bwd',
+                 'patch_sample_2d_bwd'):
+    if launches[kernel] == 0:
+      raise AssertionError(f'{kernel} was not launched by the bench')
+  log(f'bench: launches {launches}; {smi}')
+  torch.cuda.empty_cache()
+  return line
+
+
 def gather_bench_phase():
   """snap_tpu_torch.bench_gather at the tool's shapes (prints its line)."""
   kernels.reset_launch_counts()
@@ -1303,6 +1444,49 @@ def new_kernel_rows(ransac_launches, bench_launches, scoring, bench):
         f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms by '
         f'{row["bound_by"]}, library {row["library_ms"]})')
   return rows
+
+
+def heldout_rows(launches, lift, sample):
+  """K1 and K2 on the held-out run's own f32 inputs: checked against their
+  plain versions on every captured input, then timed on the largest (and
+  behind a spin), ``F.grid_sample`` in f32 beside K2."""
+  errs = {'lift': max(check_lift(*c) for c in lift.calls.values()),
+          'sample': max(check_sample(*c) for c in sample.calls.values())}
+  log(f'kernels on the held-out run\'s f32 inputs (lift {list(lift.calls)}, '
+      f'sample {list(sample.calls)}): max abs err {errs}')
+  args, kw = lift.largest()
+  out = kernels.lift_topk_fwd(*args, **kw)
+  log_occupancy('lift_topk_fwd', 'the held-out f32 input')
+  lift_row = report(
+      'lift_topk_fwd/heldout_f32', 'snap_tpu_torch/csrc/lift_topk_fwd.cu',
+      launches['lift_topk_fwd'], errs['lift'],
+      time_ms(lambda: kernels.lift_topk_fwd(*args, **kw)),
+      time_ms(lambda: view_scan.lift_topk_plain(*args, **kw), iters=2),
+      lift_bound(args, kw, *out), None)
+  del out
+  spin = {'lift_topk_fwd': time_ms(lambda: kernels.lift_topk_fwd(*args, **kw),
+                                   spin=True)}
+  log(f'lift_topk_fwd at the held-out f32 input {tuple(args[0].shape)} '
+      f'({int(args[3].sum())} selected ranks)')
+  args, kw = sample.largest()
+  out = kernels.patch_sample_2d(*args, **kw)
+  log_occupancy('patch_sample_2d', 'the held-out f32 input')
+  sample_row = report(
+      'patch_sample_2d/heldout_f32', 'snap_tpu_torch/csrc/patch_sample_2d.cu',
+      launches['patch_sample_2d'], errs['sample'],
+      time_ms(lambda: kernels.patch_sample_2d(*args, **kw)),
+      time_ms(lambda: view_scan.patch_sample_2d_plain(*args, **kw)),
+      sample_bound(args, kw, *out), time_ms(grid_sample_call(*args)))
+  spin['patch_sample_2d'] = time_ms(
+      lambda: kernels.patch_sample_2d(*args, **kw), spin=True)
+  spin['F.grid_sample'] = time_ms(grid_sample_call(*args), spin=True)
+  log(f'held-out f32 inputs, ms per call queued behind a spin: {spin}')
+  for row, calls in ((lift_row, lift), (sample_row, sample)):
+    shape = max(calls.calls, key=lambda s: math.prod(s))
+    log(f'{row["name"]} at {shape}: {row["ms"]:.4f} ms (plain '
+        f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms by '
+        f'{row["bound_by"]}, library {row["library_ms"]})')
+  return [lift_row, sample_row]
 
 
 def sass_loops(function: str):
@@ -1536,15 +1720,17 @@ def main() -> int:
   training_reference()
   ransac_reference()
 
-  # 6-7c. Main paths, each with the launch counts reset just before it;
+  # 6-7e. Main paths, each with the launch counts reset just before it;
   # their batches made on the card by the dataset's iterators.
   serve_launches, lift, sample = serving_main_path()
   train_launches, lift_bwd, sample_bwd = training_main_path(smi)
   torch.backends.cudnn.allow_tf32 = False  # the RANSAC config is f32
   ransac_launches, scoring, lift_f32 = ransac_main_path(smi)
-  bench_launches, bench = gather_bench_phase()
+  heldout_launches, heldout_lift, heldout_sample = heldout_main_path(smi)
+  bench_phase(smi)
+  bench_launches, gather_bench = gather_bench_phase()
 
-  # 7d. The device generator on the card. After the main paths: its
+  # 7f. The device generator on the card. After the main paths: its
   # profile of one build is this script's first, and later launches on
   # the host-bound paths would pay for it.
   data_on_card(smi)
@@ -1553,7 +1739,9 @@ def main() -> int:
   with torch.no_grad():
     rows = kernel_rows(serve_launches, train_launches, lift, sample,
                        lift_bwd, sample_bwd, lift_f32)
-    rows += new_kernel_rows(ransac_launches, bench_launches, scoring, bench)
+    rows += new_kernel_rows(ransac_launches, bench_launches, scoring,
+                            gather_bench)
+    rows += heldout_rows(heldout_launches, heldout_lift, heldout_sample)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

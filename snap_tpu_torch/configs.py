@@ -26,22 +26,40 @@ can hold the two side by side (tests/test_torch_localizer.py).
   as ``snap_tpu/evaluator.py:get_model_and_dataset`` merges them: batch 4,
   f32, 20,000 pose samples x 8 retries, grid refinement.
 
+- ``eval_full1chip_exhaustive()``: the held-out protocol, the flagship
+  run (``train_full1chip_exhaustive``) under ``eval_localization.py:
+  evaluation_size=256,batch_size=4``: dense refinement, f32, batch 4.
+
 ``DataConfig.locations`` and ``shuffle_seed`` seed the scene generator as
 ``snap_tpu/data/loader.py:get_dataset`` does (``data/loader.py``).
+
+An evaluation of an experiment (``snap_tpu/evaluator.py``) takes an
+``EvalConfig`` (``eval_localization()``, ``smoke_eval_localization()``)
+and the experiment's ``Config``, which ``from_reference`` reads from the
+reference's config dict (``to_reference`` writes one), and
+``merge_eval_config`` gives the config it runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import typing
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 
 # ``defaults.base().shuffle_seed``, the experiments' data seed.
 SHUFFLE_SEED = 1234567
+# ``defaults.py:22-30``: the cities of each split.
+DATA_SPLITS_CITIES = {
+    'train': ('barcelona', 'london', 'paris', 'manhattan', 'sanfrancisco',
+              'brooklyn', 'manila', 'singapore', 'taiwan', 'tokyo1', 'rio',
+              'sydney'),
+    'test': ('osaka', 'amsterdam', 'mexico', 'melbourne', 'saopaulo',
+             'seattle'),
+}
 # ``train_localization.py:121-132``: the joined training cities.
-TRAIN_LOCATIONS = ','.join(f'{c}-synthetic' for c in (
-    'barcelona', 'london', 'paris', 'manhattan', 'sanfrancisco', 'brooklyn',
-    'manila', 'singapore', 'taiwan', 'tokyo1', 'rio', 'sydney'))
+TRAIN_LOCATIONS = ','.join(f'{c}-synthetic'
+                           for c in DATA_SPLITS_CITIES['train'])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,12 +169,12 @@ class DataConfig:
 
   num_views: int = 10
   image_size: Tuple[int, int] = (180, 240)
-  voxel_size: float = 0.2
+  voxel_size: Optional[float] = 0.2
   add_images: bool = True
   add_rasters: bool = True
   add_lidar_rays: bool = False
   num_rays: Optional[int] = None
-  mode: str = 'pair_scene_view'
+  mode: Optional[str] = 'pair_scene_view'
   evaluation_size: int = 1024
   num_workers: int = 2
   prefetch_buffer_size: int = 2
@@ -287,28 +305,16 @@ def smoke_train_exhaustive(batch_size: int = 2) -> Config:
                         num_training_steps=8))
 
 
-def _eval_data(train_data: DataConfig, location: str,
-               evaluation_size: int) -> DataConfig:
-  """``evaluator.py:get_model_and_dataset``: the experiment's scene keys,
-  the eval config's seed (``data.rng_seed`` = 0) and evaluation size, and
-  one location for both splits."""
-  return dataclasses.replace(
-      train_data, shuffle_seed=0, evaluation_size=evaluation_size,
-      locations=LocationsConfig(training=location, evaluation=location))
-
-
 def smoke_eval_ransac(batch_size: int = 2) -> Config:
   """``smoke_localization.py`` (RANSAC) under ``smoke_eval_localization.py``:
   the in-FoV query points, 64 samples x 2 retries, grid refinement, f32,
   evaluated on 'smokeville-synthetic_eval'."""
-  smoke = smoke_exhaustive(batch_size)
-  model = dataclasses.replace(
-      smoke.model, pose_backend='ransac', filter_points_in_fov=True,
-      num_pose_samples=64, num_pose_sampling_retries=2,
-      do_grid_refinement=True)
-  return dataclasses.replace(
-      smoke, model=model,
-      data=_eval_data(smoke.data, 'smokeville-synthetic_eval', 4))
+  smoke = smoke_exhaustive()
+  experiment = dataclasses.replace(smoke, model=dataclasses.replace(
+      smoke.model, pose_backend='ransac', filter_points_in_fov=True))
+  return merge_eval_config(
+      dataclasses.replace(smoke_eval_localization(), batch_size=batch_size),
+      experiment, 'smokeville-synthetic_eval')
 
 
 def eval_full1chip_ransac(batch_size: int = 4) -> Config:
@@ -317,15 +323,317 @@ def eval_full1chip_ransac(batch_size: int = 4) -> Config:
   of 180x240, 0.2 m voxels, top-k 4 lift, 20,000 pose samples x 8 retries,
   grid refinement, batch 4, f32, evaluated on the first test city,
   'osaka-synthetic_eval'."""
-  train = train_full1chip_exhaustive(batch_size)
-  model = dataclasses.replace(
+  train = train_full1chip_exhaustive()
+  experiment = dataclasses.replace(train, model=dataclasses.replace(
       train.model, pose_backend='ransac', filter_points_in_fov=True,
-      clip_negative_scores=True, num_pose_samples=20_000,
-      num_pose_sampling_retries=8, do_grid_refinement=True)
-  return dataclasses.replace(
-      train, model=model, dtype_str='float32',
-      data=_eval_data(train.data, 'osaka-synthetic_eval', 4096))
+      clip_negative_scores=True))
+  return merge_eval_config(
+      eval_localization(evaluation_size=4096, batch_size=batch_size),
+      experiment, 'osaka-synthetic_eval')
 
+
+def eval_full1chip_exhaustive(batch_size: int = 4) -> Config:
+  """The held-out protocol of the flagship run: ``train_full1chip_
+  exhaustive`` under ``eval_localization.py:evaluation_size=256,
+  batch_size=4`` (``tools/run_supervisor.py:309-314``) on
+  'zurich-synthetic_eval': dense refinement on (one +-5 deg fan), f32, 256
+  examples a city."""
+  return merge_eval_config(
+      eval_localization(evaluation_size=256, batch_size=batch_size),
+      train_full1chip_exhaustive(), 'zurich-synthetic_eval')
+
+
+# Offline evaluation of an experiment (``snap_tpu/evaluator.py``).
+
+
+def streetview_singlescene() -> DataConfig:
+  """``defaults.streetview_singlescene()``: the loader's defaults, with the
+  scene keys (``voxel_size``, ``mode``) unset for the experiment to give."""
+  return DataConfig(voxel_size=None, mode=None, add_rasters=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalDataConfig:
+  """``data`` of ``configs/eval_localization.py``: the split (a name of
+  ``DATA_SPLITS_CITIES`` or comma-joined cities), each city's location
+  name, the data seed and the loader's defaults."""
+
+  rng_seed: int = 0
+  split: str = 'test'
+  name_pattern: str = '{}-synthetic_eval'
+  loader: DataConfig = dataclasses.field(
+      default_factory=streetview_singlescene)
+
+
+def _eval_model_overrides() -> Dict[str, Any]:
+  return dict(num_pose_samples=20_000, num_pose_sampling_retries=8,
+              do_grid_refinement=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+  """``configs/eval_localization.py:25-45``: an evaluation of the
+  experiment in ``workdir`` (at ``checkpoint_step``, or the one it holds).
+
+  ``model`` overrides the experiment's model: field -> value, a dict
+  merging into a nested config field by field (``merge``).
+  """
+
+  workdir: Optional[str] = None
+  checkpoint_step: Optional[int] = None
+  batch_size: int = 4
+  rng_seed: int = 0
+  dtype_str: str = 'float32'
+  tag: str = ''
+  overwrite: bool = False
+  data: EvalDataConfig = EvalDataConfig()
+  model: Mapping[str, Any] = dataclasses.field(
+      default_factory=_eval_model_overrides)
+
+
+def eval_localization(evaluation_size: int = 4096, batch_size: int = 4,
+                      tag: str = '', num_rotations: int = 0,
+                      refinement_stages: str = '',
+                      subcell: int = 0) -> EvalConfig:
+  """``configs/eval_localization.py`` with the arguments of its ``:12-23``
+  that the port's model honours (``point_tile_eval``, a memory device of
+  the XLA program, is not one): ``num_rotations`` > 0 sets the coarse
+  rotation bins, ``refinement_stages`` the dense fans (``'5x0.25'``,
+  ``'11x1+1.25x0.125'``), ``subcell`` the sub-bin peak fit."""
+  model = _eval_model_overrides()
+  if num_rotations:
+    model['num_rotations'] = int(num_rotations)
+  if subcell:
+    model['subcell_refinement'] = True
+  if refinement_stages:
+    model['dense_refinement_stages'] = tuple(
+        tuple(float(v) for v in stage.split('x'))
+        for stage in refinement_stages.split('+'))
+  loader = dataclasses.replace(streetview_singlescene(),
+                               evaluation_size=int(evaluation_size))
+  return EvalConfig(batch_size=int(batch_size), tag=tag,
+                    data=EvalDataConfig(loader=loader), model=model)
+
+
+def smoke_eval_localization() -> EvalConfig:
+  """``configs/smoke_eval_localization.py``: 4 examples of 'smokeville'
+  at batch 2, 64 pose samples x 2 retries, grid refinement, f32."""
+  loader = dataclasses.replace(streetview_singlescene(), evaluation_size=4)
+  return EvalConfig(
+      batch_size=2,
+      data=EvalDataConfig(split='smokeville', loader=loader),
+      model=dict(num_pose_samples=64, num_pose_sampling_retries=2,
+                 do_grid_refinement=True))
+
+
+EVAL_CONFIGS = {
+    'eval_localization': eval_localization,
+    'smoke_eval_localization': smoke_eval_localization,
+}
+
+
+def merge(config, overrides: Mapping[str, Any]):
+  """The dataclass ``config`` with ``overrides`` (field -> value; a dict
+  merges into a nested dataclass field by field), as
+  ``snap_tpu/utils/configs.py:configs_merge`` merges ConfigDicts."""
+  names = {f.name for f in dataclasses.fields(config)}
+  changes = {}
+  for key, value in overrides.items():
+    if key not in names:
+      raise ValueError(f'{type(config).__name__} has no field {key!r}')
+    current = getattr(config, key)
+    if dataclasses.is_dataclass(current) and isinstance(value, Mapping):
+      value = merge(current, value)
+    changes[key] = value
+  return dataclasses.replace(config, **changes)
+
+
+# ``evaluator.py:get_model_and_dataset``: the data keys an experiment gives
+# its evaluation; every other data key is the eval loader's.
+EXPERIMENT_DATA_KEYS = ('voxel_size', 'add_images', 'add_lidar_rays',
+                        'add_rasters', 'mode', 'num_views', 'image_size')
+
+
+def merge_eval_config(eval_config: EvalConfig, experiment: Config,
+                      location: str) -> Config:
+  """The config an evaluation of ``experiment`` at ``location`` runs
+  (``snap_tpu/evaluator.py:157-221``): the eval batch size and dtype; the
+  eval loader overridden by the experiment's ``EXPERIMENT_DATA_KEYS``,
+  ``location`` for both splits and the eval data seed as the shuffle seed;
+  the experiment's model overridden by the eval model."""
+  data = dataclasses.replace(
+      eval_config.data.loader,
+      **{key: getattr(experiment.data, key) for key in EXPERIMENT_DATA_KEYS},
+      locations=LocationsConfig(training=location, evaluation=location),
+      shuffle_seed=eval_config.data.rng_seed)
+  return dataclasses.replace(
+      experiment, batch_size=eval_config.batch_size, data=data,
+      model=merge(experiment.model, eval_config.model),
+      dtype_str=eval_config.dtype_str)
+
+
+# A reference config as a plain dict (``ConfigDict.to_dict()``, as JSON).
+
+# Keys the port reads and ignores, by the dataclass of their section.
+_IGNORED_KEYS = {
+    ResNetConfig: (
+        # Rematerialized blocks and units: memory devices of the XLA
+        # program, numerically neutral.
+        'checkpoint_blocks', 'checkpoint_units',
+        # A warm start of the initial weights: an evaluation reads the
+        # trained ones, and the port's trainer draws its own (A7).
+        'pretrained_path'),
+    StreetViewEncoderConfig: (
+        # The lift's point tiles in training and at eval: memory devices of
+        # the XLA program (rematerialized tiles), numerically neutral.
+        'point_tile', 'point_tile_eval',
+        'pretrained_path'),  # a warm start, as above
+    BEVMapperConfig: ('pretrained_path',),  # a warm start, as above
+    # The MLP of ``pooling='mlp'``, on which the port's mapper raises (A14).
+    VerticalPoolingConfig: ('mlp',),
+    DataConfig: (
+        # Where a TFDS build would live; the synthetic generator reads none.
+        'version', 'data_dir', 'dirname',
+        # Read by the reference only as metadata, and not at all.
+        'training_size_per_builder', 'raster_size'),
+    # Whether frozen params get Adam moments: a memory device.
+    OptimizerConfig: ('allocate_frozen_state',),
+}
+# Keys whose value the port checks: the one value it runs.
+_CHECKED_KEYS = {
+    DataConfig: {'name': 'streetview_singlescene'},
+    LrConfig: {'learning_rate_schedule': 'compound'},
+}
+# Settings the port cannot run: a config that sets one raises.
+_UNPORTED_KEYS = {
+    BEVLocalizerConfig: {'bev_mapper_query': 'a query mapper of its own '
+                                             '(A14)'},
+    BEVMapperConfig: {'semantic_encoder': 'the semantic modality (A10)',
+                      'bev_net': 'the residual BEV stage (A14)'},
+    StreetViewEncoderConfig: {'depth_mlp': 'a depth MLP (A14)'},
+}
+# Top-level keys read and ignored: the JAX trainer's bookkeeping
+# (checkpoints, summaries, profiling, eval cadence, where its init runs,
+# the tensor-parallel threshold), the seed of its flax init (the port draws
+# its own weights) and the records an evaluation adds to its dump.
+_IGNORED_TOP = (
+    'checkpoint', 'checkpoint_steps', 'max_checkpoints_to_keep',
+    'log_eval_steps', 'steps_per_eval', 'write_summary', 'log_summary_steps',
+    'xprof', 'debug_train', 'debug_eval', 'eval_batch_size', 'init_backend',
+    'tp_min_dim', 'rng_seed', 'eval_checkpoint_step', 'data_generator_kind',
+    'eval_seconds', 'build_ms', 'build_card_ms', 'cudnn_allow_tf32',
+    'matmul_allow_tf32')
+_TOP_KEYS = ('model', 'data', 'batch_size', 'dtype_str', 'shuffle_seed',
+             'lr_configs', 'optimizer_configs', 'max_grad_norm',
+             'num_training_steps')
+_CHECKED_TOP = {'model_name': 'bev_localizer', 'data_dtype_str': 'float32',
+                'num_training_epochs': None}
+
+
+def _check(where: str, value, want) -> None:
+  if value != want:
+    raise ValueError(f'from_reference: {where} = {value!r}; the port runs '
+                     f'{want!r} only')
+
+
+def _tuples(value):
+  if isinstance(value, (list, tuple)):
+    return tuple(_tuples(v) for v in value)
+  return value
+
+
+def _nested_dataclass(hint):
+  return next((t for t in (hint, *typing.get_args(hint))
+               if dataclasses.is_dataclass(t)), None)
+
+
+def _from_dict(cls, d: Mapping[str, Any], where: str, **given):
+  hints = typing.get_type_hints(cls)
+  kwargs = dict(given)
+  for key, value in d.items():
+    name = f'{where}.{key}'
+    if key in _IGNORED_KEYS.get(cls, ()):
+      continue
+    if key in _CHECKED_KEYS.get(cls, {}):
+      _check(name, value, _CHECKED_KEYS[cls][key])
+      continue
+    if key in _UNPORTED_KEYS.get(cls, {}):
+      if value is not None:
+        raise ValueError(f'from_reference: {name} is set; the port does not '
+                         f'run {_UNPORTED_KEYS[cls][key]}')
+      continue
+    if key not in hints or key in given:
+      raise ValueError(f'from_reference: unknown key {name}')
+    sub = _nested_dataclass(hints[key])
+    if sub is not None and isinstance(value, Mapping):
+      kwargs[key] = _from_dict(sub, value, name)
+    else:
+      kwargs[key] = _tuples(value)
+  missing = sorted(set(hints) - set(kwargs))
+  if missing:
+    raise ValueError(f'from_reference: {where} lacks {missing}')
+  return cls(**kwargs)
+
+
+def from_reference(d: Mapping[str, Any]) -> Config:
+  """The port's ``Config`` of a JAX experiment config given as a plain dict
+  (``ConfigDict.to_dict()``, as JSON: tuples as lists).
+
+  Reads every key the port models; ignores, by name, the keys that do not
+  change what the model computes (``_IGNORED_KEYS``, ``_IGNORED_TOP``);
+  raises ``ValueError`` naming the key on a setting the port cannot run, on
+  an unknown key and on a missing one.
+  """
+  for key, want in _CHECKED_TOP.items():
+    _check(key, d.get(key), want)
+  _check('mesh.model', d.get('mesh', {}).get('model', 1), 1)
+  known = {*_TOP_KEYS, *_IGNORED_TOP, *_CHECKED_TOP, 'mesh'}
+  unknown = sorted(set(d) - known)
+  missing = sorted(set(_TOP_KEYS) - set(d))
+  if unknown or missing:
+    raise ValueError(f'from_reference: unknown keys {unknown}, missing '
+                     f'{missing}')
+  train = TrainConfig(
+      lr_configs=_from_dict(LrConfig, d['lr_configs'], 'lr_configs'),
+      optimizer_configs=_from_dict(OptimizerConfig, d['optimizer_configs'],
+                                   'optimizer_configs'),
+      max_grad_norm=d['max_grad_norm'],
+      num_training_steps=d['num_training_steps'])
+  return Config(
+      model=_from_dict(BEVLocalizerConfig, d['model'], 'model'),
+      data=_from_dict(DataConfig, d['data'], 'data',
+                      shuffle_seed=d['shuffle_seed']),
+      dtype_str=d['dtype_str'], batch_size=d['batch_size'], train=train)
+
+
+def plain(value):
+  """Dataclasses, dicts and tuples as dicts and lists (for JSON)."""
+  if dataclasses.is_dataclass(value):
+    return {f.name: plain(getattr(value, f.name))
+            for f in dataclasses.fields(value)}
+  if isinstance(value, Mapping):
+    return {k: plain(v) for k, v in value.items()}
+  if isinstance(value, (list, tuple)):
+    return [plain(v) for v in value]
+  return value
+
+
+def to_reference(config: Config) -> Dict[str, Any]:
+  """``config`` as a reference dict that ``from_reference`` reads back: an
+  experiment's ``config.json`` in the reference's keys."""
+  data = plain(config.data)
+  shuffle_seed = data.pop('shuffle_seed')
+  train = config.train
+  return {
+      **_CHECKED_TOP, 'model': plain(config.model),
+      'data': {**data, **_CHECKED_KEYS[DataConfig]},
+      'batch_size': config.batch_size, 'dtype_str': config.dtype_str,
+      'shuffle_seed': shuffle_seed,
+      'lr_configs': {**plain(train.lr_configs), **_CHECKED_KEYS[LrConfig]},
+      'optimizer_configs': plain(train.optimizer_configs),
+      'max_grad_norm': train.max_grad_norm,
+      'num_training_steps': train.num_training_steps,
+  }
 
 CONFIGS = {
     'bench_full': bench_full,
@@ -334,6 +642,7 @@ CONFIGS = {
     'smoke_train_exhaustive': smoke_train_exhaustive,
     'smoke_eval_ransac': smoke_eval_ransac,
     'eval_full1chip_ransac': eval_full1chip_ransac,
+    'eval_full1chip_exhaustive': eval_full1chip_exhaustive,
 }
 
 

@@ -1,5 +1,11 @@
-"""Localize synthetic queries with the port's localizer.
+"""Localize synthetic queries with the port's localizer, or evaluate an
+experiment over held-out cities.
 
+    python -m snap_tpu_torch.evaluate --eval_config=eval_localization \
+        --evaluation_size=256 --batch_size=4 \
+        --workdir=weights/loc_full1chip_r5 --split=zurich,oslo
+    python -m snap_tpu_torch.evaluate --eval_config=smoke_eval_localization \
+        --workdir=<experiment> --split=smokeville --device=cpu
     python -m snap_tpu_torch.evaluate --config=bench_full --num_queries=4
     python -m snap_tpu_torch.evaluate --config=eval_full1chip_ransac \\
         --num_queries=8 --batch_size=4
@@ -25,6 +31,17 @@ model's params keyed by '/'-joined flax paths; the RANSAC backend's pose
 samples are drawn on a CPU ``torch.Generator`` seeded from ``--seed``. The
 default device is ``cuda``; there is no fallback to the CPU when no card
 is found.
+
+With ``--eval_config`` (the reference's mode, ``snap_tpu/evaluate.py``)
+the experiment in ``--workdir`` (its ``config.json`` in the reference's
+keys, ``params.npz`` and ``checkpoint.json``; ``tests/test_torch_recall.py
+--export`` writes one from a JAX export) is evaluated under the named eval
+config on each city of ``--split`` (``evaluator.run``): the dump of each
+lands in ``<workdir>/evaluation/<location><tag>/``, or an earlier dump of
+the same protocol is read back. One JSON line per city gives the dump's
+summary (``evaluator.summarize_dump``), its data path, step, wall time,
+build ms and TF32 settings. An f32 eval config runs with TF32 off in
+cuDNN and in matmuls.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import logging
 import pathlib
 import time
 from typing import Any, Callable, Dict, Optional
@@ -41,30 +59,10 @@ import numpy as np
 import torch
 
 from snap_tpu_torch import configs
-from snap_tpu_torch import convert
 from snap_tpu_torch import evaluator
+from snap_tpu_torch.evaluator import build_localizer
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
-
-_DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
-
-
-def build_localizer(config: configs.Config, device: str = 'cuda',
-                    seed: int = 0,
-                    params_npz: Optional[str] = None
-                    ) -> bev_localizer.BEVLocalizer:
-  """The localizer of ``config`` with seeded or converted weights."""
-  model = bev_localizer.BEVLocalizer(
-      config.model, loader.map_grid(config.data).bev(),
-      dtype=_DTYPES[config.dtype_str])
-  if params_npz is None:
-    convert.init_params(model, seed, config.model.init_temperature)
-  else:
-    with np.load(params_npz) as npz:
-      state = convert.params_from_flax(dict(npz), model)
-    model.load_state_dict(state)
-  return model.to(device).eval()
-
 
 def on_device_flag(value: str) -> Optional[bool]:
   """The CLIs' ``--on_device_generation`` value as the config's field."""
@@ -192,12 +190,45 @@ def evaluate(config_name: str = 'bench_full', num_queries: int = 4,
   }
 
 
+def eval_config_from_args(args) -> configs.EvalConfig:
+  """The named eval config with the CLI's overrides."""
+  eval_config = configs.EVAL_CONFIGS[args.eval_config]()
+  loader_config = dataclasses.replace(
+      eval_config.data.loader,
+      on_device_generation=on_device_flag(args.on_device_generation))
+  if args.evaluation_size is not None:
+    loader_config = dataclasses.replace(
+        loader_config, evaluation_size=args.evaluation_size)
+  data = dataclasses.replace(eval_config.data, loader=loader_config,
+                             split=args.split or eval_config.data.split)
+  return dataclasses.replace(
+      eval_config, workdir=args.workdir, data=data,
+      checkpoint_step=args.checkpoint_step,
+      batch_size=args.batch_size or eval_config.batch_size,
+      tag=args.tag, overwrite=args.overwrite)
+
+
+def city_summary(city: str, results, record) -> Dict[str, Any]:
+  """One city's JSON line: the dump's summary and what its run recorded."""
+  return {'city': city, **evaluator.summarize_dump(results),
+          'generator_kind': record.get('data_generator_kind'),
+          **{key: record.get(key) for key in (
+              'eval_checkpoint_step', 'eval_seconds', 'build_ms',
+              'build_card_ms', 'cudnn_allow_tf32', 'matmul_allow_tf32')}}
+
+
 def main(argv=None) -> None:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-  parser.add_argument('--config', default='bench_full',
-                      choices=sorted(configs.CONFIGS))
+  parser.add_argument('--config', default=None,
+                      choices=sorted(configs.CONFIGS),
+                      help='localize queries of this config (default '
+                      'bench_full)')
+  parser.add_argument('--eval_config', default=None,
+                      choices=sorted(configs.EVAL_CONFIGS),
+                      help='evaluate the experiment in --workdir')
   parser.add_argument('--num_queries', type=int, default=4)
-  parser.add_argument('--batch_size', type=int, default=1)
+  parser.add_argument('--batch_size', type=int, default=None,
+                      help='default 1, or the eval config\'s')
   parser.add_argument('--device', default='cuda')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--params_npz', default=None)
@@ -206,14 +237,34 @@ def main(argv=None) -> None:
                       help='make the queries on the device (auto: iff it '
                       'is a CUDA card)')
   parser.add_argument('--workdir', default=None,
-                      help='write <workdir>/evaluation/<location><tag>/'
-                      'results.npz')
+                      help='with --config: write <workdir>/evaluation/'
+                      '<location><tag>/results.npz; with --eval_config: '
+                      'the experiment')
   parser.add_argument('--tag', default='')
+  parser.add_argument('--split', default=None,
+                      help="a split's name ('test', 'train') or cities "
+                      'joined by commas')
+  parser.add_argument('--checkpoint_step', type=int, default=None)
+  parser.add_argument('--evaluation_size', type=int, default=None)
+  parser.add_argument('--overwrite', action='store_true')
   parser.add_argument('--profile', action='store_true',
                       help="print the last batch's per-op profile")
   args = parser.parse_args(argv)
-  result = evaluate(args.config, args.num_queries, args.device, args.seed,
-                    args.batch_size, args.params_npz, profile=args.profile,
+  if args.eval_config is not None:
+    if args.config is not None or args.workdir is None:
+      parser.error('--eval_config takes --workdir and no --config')
+    eval_config = eval_config_from_args(args)
+    if eval_config.dtype_str == 'float32':
+      torch.backends.cuda.matmul.allow_tf32 = False
+      torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.INFO)
+    for city, (results, record) in evaluator.run(
+        eval_config, device=args.device).items():
+      print(json.dumps(city_summary(city, results, record)), flush=True)
+    return
+  result = evaluate(args.config or 'bench_full', args.num_queries,
+                    args.device, args.seed, args.batch_size or 1,
+                    args.params_npz, profile=args.profile,
                     on_device_generation=on_device_flag(
                         args.on_device_generation),
                     workdir=args.workdir, tag=args.tag)

@@ -1,31 +1,71 @@
-"""Per-example evaluation over a dataset, with npz dumps.
+"""Offline evaluation of an experiment over cities, with cached npz dumps.
 
-The port of the dataset-reading core of ``snap_tpu/evaluator.py``:
-``eval_on_dataset`` runs the localizer over the eval iterator and packs
-per-example metrics (``pack_localization_metrics``), with the reference's
-one-batch lag (batch k + 1 is dispatched before batch k's metrics are read
-back); ``write_eval_dump`` / ``read_eval_dump`` store them as
-``results.npz`` beside the config as JSON; ``compute_recall`` gives the
-recall curve. The reference's three-level config merge, checkpoint restore,
-dump cache and loop over cities are not ported.
+The port of ``snap_tpu/evaluator.py``. ``run`` evaluates the cities of a
+split one by one (``run_for_location``): the experiment's config
+(``<workdir>/config.json``, the reference's keys, read by
+``configs.from_reference``) merged with the eval config
+(``configs.merge_eval_config``), its weights (``<workdir>/params.npz``:
+flax params keyed by '/'-joined paths, converted by
+``convert.params_from_flax``; the step they were taken at in
+``<workdir>/checkpoint.json``), the localizer run over the eval iterator
+(``eval_on_dataset``, per-example metrics packed by
+``pack_localization_metrics``, with the reference's one-batch lag: batch
+k + 1 is dispatched before batch k's metrics are read back), and the
+metrics dumped to ``<workdir>/evaluation/<location><tag>/results.npz``
+beside the merged config as ``config.json`` (``write_eval_dump``), which a
+later run of the same protocol reads back instead. ``compute_recall``
+gives the recall curve. Not ported: reading a workdir that the port's
+``train`` writes (``params.pt``, ROADMAP A7) and the semantic models'
+packing (A10).
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import io
 import json
+import logging
 import pathlib
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from snap_tpu_torch import configs
+from snap_tpu_torch import convert
 from snap_tpu_torch.data import loader
+from snap_tpu_torch.models import bev_localizer
 from snap_tpu_torch.utils import geometry
 
 ResultDict = Dict[str, np.ndarray]
+log = logging.getLogger(__name__)
+
+CITIES_SPLITS = configs.DATA_SPLITS_CITIES
+# An experiment's workdir: its config in the reference's keys, its weights
+# as flat flax params, and the step they were taken at.
+CONFIG_FILE = 'config.json'
+PARAMS_FILE = 'params.npz'
+CHECKPOINT_FILE = 'checkpoint.json'
+_DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
+
+
+def build_localizer(config: configs.Config, device: str = 'cuda',
+                    seed: int = 0,
+                    params_npz: Optional[str] = None
+                    ) -> bev_localizer.BEVLocalizer:
+  """The localizer of ``config`` with seeded weights, or those of a flat
+  ``.npz`` of flax params."""
+  model = bev_localizer.BEVLocalizer(
+      config.model, loader.map_grid(config.data).bev(),
+      dtype=_DTYPES[config.dtype_str])
+  if params_npz is None:
+    convert.init_params(model, seed, config.model.init_temperature)
+  else:
+    with np.load(params_npz) as npz:
+      state = convert.params_from_flax(dict(npz), model)
+    model.load_state_dict(state)
+  return model.to(device).eval()
 
 
 def compute_distance_view_to_map(
@@ -130,17 +170,6 @@ def eval_on_dataset(model, dataset: loader.Dataset, batch_size: int,
   return {k: np.stack([row[k] for row in rows]) for k in rows[0]}
 
 
-def _plain(value):
-  if dataclasses.is_dataclass(value):
-    return {f.name: _plain(getattr(value, f.name))
-            for f in dataclasses.fields(value)}
-  if isinstance(value, dict):
-    return {k: _plain(v) for k, v in value.items()}
-  if isinstance(value, (list, tuple)):
-    return [_plain(v) for v in value]
-  return value
-
-
 def write_eval_dump(eval_dir: pathlib.Path, results: ResultDict,
                     config: Any) -> None:
   """``results.npz`` (no pickled objects: strings as ``<U`` arrays) and
@@ -151,7 +180,7 @@ def write_eval_dump(eval_dir: pathlib.Path, results: ResultDict,
   np.savez(buf, **{k: np.asarray(v) for k, v in results.items()})
   (eval_dir / 'results.npz').write_bytes(buf.getvalue())
   (eval_dir / 'config.json').write_text(
-      json.dumps(_plain(config), indent=2, sort_keys=True) + '\n')
+      json.dumps(configs.plain(config), indent=2, sort_keys=True) + '\n')
 
 
 def read_eval_dump(eval_dir: pathlib.Path) -> Tuple[ResultDict, Dict]:
@@ -167,3 +196,131 @@ def compute_recall(errors: np.ndarray,
   thresholds = np.linspace(0, max_error, 100)
   recall = np.mean(errors < thresholds[:, None], axis=1)
   return thresholds, recall * 100
+
+
+def read_checkpoint_step(workdir: pathlib.Path) -> Optional[int]:
+  """The step of the workdir's weights (None when it does not say)."""
+  path = pathlib.Path(workdir) / CHECKPOINT_FILE
+  if not path.exists():
+    return None
+  return json.loads(path.read_text()).get('step')
+
+
+def get_model_and_dataset(eval_config: configs.EvalConfig,
+                          experiment: Mapping[str, Any],
+                          workdir: pathlib.Path, location: str,
+                          device: str = 'cuda'):
+  """The localizer and dataset of one location, and the merged config as a
+  reference dict with the step and the data path it records
+  (``snap_tpu/evaluator.py:get_model_and_dataset``)."""
+  config = configs.merge_eval_config(
+      eval_config, configs.from_reference(experiment), location)
+  step = read_checkpoint_step(workdir)
+  if eval_config.checkpoint_step not in (None, step):
+    raise ValueError(f'{workdir} holds the weights of step {step}, not of '
+                     f'step {eval_config.checkpoint_step}')
+  model = build_localizer(config, device,
+                          params_npz=pathlib.Path(workdir) / PARAMS_FILE)
+  dataset = loader.get_dataset(config.data, config.batch_size, device=device)
+  log.info('Loaded experiment %s at step %s.', workdir, step)
+  record = configs.to_reference(config)
+  if step is not None:
+    # So that a cache hit can check that it holds the requested step.
+    record['eval_checkpoint_step'] = int(step)
+  record['data_generator_kind'] = dataset.meta_data['generator_kind']
+  return model, dataset, record
+
+
+def run_for_location(location: str, eval_config: configs.EvalConfig,
+                     fail_if_missing: bool = False, device: str = 'cuda'
+                     ) -> Tuple[ResultDict, Dict[str, Any]]:
+  """Evaluate one location, or read the dump of an earlier run of the same
+  protocol (``snap_tpu/evaluator.py:253-312``).
+
+  The cache is keyed by location and tag. A dump there serves only if it
+  holds the requested number of examples and, when a step is requested,
+  was taken at that step (a dump that records no step never does). Else
+  the run goes to ``<location><tag>-n<size>-s<step>`` and the first dump
+  stays as it is; a dump there is read only when the step is pinned (the
+  latest step moves). ``overwrite`` recomputes into the first path. The
+  dump's ``config.json`` adds to the merged config the step
+  (``eval_checkpoint_step``), the data path (``data_generator_kind``),
+  the loop's wall time (``eval_seconds``), each batch's build ms and the
+  TF32 settings it ran under.
+  """
+  workdir = pathlib.Path(eval_config.workdir)
+  experiment = json.loads((workdir / CONFIG_FILE).read_text())
+  eval_path = workdir / 'evaluation' / f'{location}{eval_config.tag}'
+  if (eval_path / 'results.npz').exists() and not eval_config.overwrite:
+    results, dump_config = read_eval_dump(eval_path)
+    requested_size = eval_config.data.loader.evaluation_size
+    dumped_size = len(next(iter(results.values())))
+    size_ok = dumped_size == requested_size
+    dumped_step = dump_config.get('eval_checkpoint_step')
+    step_ok = (eval_config.checkpoint_step is None
+               or dumped_step == eval_config.checkpoint_step)
+    if size_ok and step_ok:
+      log.info('Loading cached dump from %s.', eval_path)
+      return results, dump_config
+    qualified = (f'{location}{eval_config.tag}'
+                 f'-n{requested_size}-s{eval_config.checkpoint_step}')
+    log.warning(
+        'Cached dump at %s does not match the requested protocol (%d '
+        'examples dumped vs %s requested; checkpoint step %s vs %s): '
+        'recomputing into %s (set overwrite to replace the dump).',
+        eval_path, dumped_size, requested_size, dumped_step,
+        eval_config.checkpoint_step, qualified)
+    eval_path = workdir / 'evaluation' / qualified
+    if (eval_path / 'results.npz').exists() and (
+        eval_config.checkpoint_step is not None):
+      log.info('Loading cached dump from %s.', eval_path)
+      return read_eval_dump(eval_path)
+  if fail_if_missing:
+    raise ValueError(f'Missing dump for {workdir} at {eval_path}.')
+  model, dataset, record = get_model_and_dataset(
+      eval_config, experiment, workdir, location, device)
+  builds = []
+  with dataset:
+    t0 = time.perf_counter()
+    results = eval_on_dataset(
+        model, dataset, eval_config.batch_size,
+        torch.Generator().manual_seed(eval_config.rng_seed),
+        on_batch=lambda *_: builds.append(dataset.valid_iter.last_build))
+    record['eval_seconds'] = time.perf_counter() - t0
+  record['cudnn_allow_tf32'] = torch.backends.cudnn.allow_tf32
+  record['matmul_allow_tf32'] = torch.backends.cuda.matmul.allow_tf32
+  record['build_ms'] = [build.wall_ms for build in builds]
+  record['build_card_ms'] = [build.card_ms for build in builds]
+  write_eval_dump(eval_path, results, record)
+  log.info('Evaluation results written to %s.', eval_path)
+  return results, record
+
+
+def run(eval_config: configs.EvalConfig, **kwargs
+        ) -> Dict[str, Tuple[ResultDict, Dict[str, Any]]]:
+  """Evaluate the cities of ``eval_config.data.split`` one after the other:
+  a split's name, or cities joined by commas."""
+  split = eval_config.data.split
+  cities = CITIES_SPLITS.get(split, split.split(','))
+  log.info('Running evaluation for cities %s.', cities)
+  return {city: run_for_location(
+      eval_config.data.name_pattern.format(city), eval_config, **kwargs)
+          for city in cities}
+
+
+def summarize_dump(results: ResultDict) -> Dict[str, Any]:
+  """A dump's summary (``tools/run_supervisor.py:summarize_dump``): the
+  number of examples, the median and mean errors in m and deg, the recall
+  at 0.5, 1, 2 and 5 of each (errors <= the threshold) and the top-1
+  recall."""
+  out = {'num_examples': int(next(iter(results.values())).shape[0])}
+  for key, unit in (('error_max_meter', 'm'), ('error_max_deg', 'deg')):
+    if key in results:
+      err = results[key]
+      out[f'median_err_{unit}'] = float(np.median(err))
+      out[f'mean_err_{unit}'] = float(np.mean(err))
+      for t in (0.5, 1.0, 2.0, 5.0):
+        out[f'recall_{t}{unit}'] = float(np.mean(err <= t))
+  if 'recall_top1' in results:
+    out['recall_top1'] = float(np.mean(results['recall_top1']))
+  return out

@@ -31,7 +31,7 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(' '.join(names))
 '''
 
 
@@ -42,7 +42,11 @@ def test_port_imports_without_jax_or_snap_tpu():
       env={'PATH': '/usr/bin:/bin', 'PYTHONPATH': str(REPO),
            'OMP_NUM_THREADS': '1'})
   assert proc.returncode == 0, proc.stderr
-  assert int(proc.stdout.split()[-1]) >= 20  # every module of the port
+  names = proc.stdout.split()
+  assert len(names) >= 20  # every module of the port
+  for name in ('snap_tpu_torch.bench', 'snap_tpu_torch.configs',
+               'snap_tpu_torch.evaluator', 'snap_tpu_torch.evaluate'):
+    assert name in names
 
 
 def test_no_pytorch_cpp_extension_in_the_port():
