@@ -4,14 +4,14 @@ gather-bench paths on one NVIDIA GPU (H100).
     python3 chip_smoke.py
 
 Phases, each printed with its elapsed seconds; any failure raises (exit != 0).
-The main paths (6-7b) read their batches from the dataset's iterators,
+The main paths (6-7d) read their batches from the dataset's iterators,
 made on the card (``generator_kind`` must be ``device-torch``) and log each
-batch's build time; the references (4-5b) give the card and the CPU the
+batch's build time; the references (4-5c) give the card and the CPU the
 host generator's batch:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the seven CUDA kernels of ``snap_tpu_torch/csrc`` (one
-   nvcc call); prints the SASS instructions of B4's and K1's loops
+2. build: compiles the eight CUDA kernels of ``snap_tpu_torch/csrc`` (one
+   nvcc call); prints the SASS instructions of B4's, B7's and K1's loops
    (``cuobjdump``);
 3. kernels: K1 (``lift_topk_fwd``), K2 (``patch_sample_2d``), K3
    (``lift_topk_bwd``) and K4 (``patch_sample_2d_bwd``) on seeded inputs at
@@ -19,8 +19,13 @@ host generator's batch:
    PyTorch versions (K3's inputs hold single-view points and unselected
    ranks, and repeat a rank for exact score ties); B4 (``pose_scoring``) on
    seeded inputs at the eval shape with transformed points on cell edges,
-   borders and off the map, mask on and off; B5 (``slice_gather``) and B6
-   (``table_gather``) at the gather tool's shapes over all N points;
+   borders and off the map, mask on and off; B7 (``pose_scoring_bwd``) at
+   the training shape (batch 2, 10,001 poses, 4,652 points, 120 x 160) on
+   the same kind of inputs, mask on and off, with invalid points, a run of
+   2,000 identical poses (every pose of a point adds into the same four
+   cells; alone, its sum is held to the closed form) and an example whose
+   cotangent is all zero; B5 (``slice_gather``) and B6 (``table_gather``)
+   at the gather tool's shapes over all N points;
 4. serving reference: the tiny ``smoke_exhaustive`` localizer on the card
    (f32, TF32 off) against the same model on the CPU (the plain path);
 5. training reference: ``smoke_train_exhaustive`` (f32, TF32 off), 2 steps
@@ -33,6 +38,11 @@ host generator's batch:
    (f32, TF32 off) against the CPU, with the CPU's pose samples injected:
    sampled and refinement scores within tolerance, ``best_index`` exact
    outside near ties, the refined pose within tolerance;
+5c. RANSAC training reference: ``smoke_train_ransac`` as phase 5, 2 steps
+   in lockstep, the CPU given the card's draws and pose samples and
+   replaying its max choices (the score clip's relu included); the loss
+   and every gradient leaf agree under the same tolerances, and B4 and B7
+   launch at least once each card step;
 6. serving main path: ``snap_tpu_torch.evaluate`` on ``bench_full`` (R50,
    20 views of 180x240, 120x160x60 voxels, 64 rotations + refinement,
    bf16, random seeded weights), batch 1, 2 synthetic queries; K1 and K2
@@ -44,6 +54,11 @@ host generator's batch:
    the temperature and (on a step whose draws keep it) the aerial trunk,
    the parameters move once the learning rate is above 0, and every kernel
    launches each step (K1 >= 2, K2 >= 1, K3 >= 2, K4 >= 1);
+7a. RANSAC training main path: ``snap_tpu_torch.train`` on
+   ``train_full1chip_ransac`` (the same model with the in-FoV query points,
+   clipped scores and 10,000 pose samples x 8 retries, batch 2), 3 steps,
+   with phase 7's checks per step and its launches: K1 >= 2, K3 >= 2, B4
+   >= 1, B7 >= 1, K2 and K4 never;
 7b. RANSAC main path: ``snap_tpu_torch.evaluate`` on
    ``eval_full1chip_ransac`` (R50 street-view + aerial, 20 views of
    180x240, 0.2 m, top-k 4 lift, 20,000 pose samples x 8 retries, grid
@@ -84,6 +99,8 @@ host generator's batch:
    ``F.embedding`` for B5 and B6, from the bench); K1 also timed on the
    RANSAC path's f32 input, and B4 on both of its calls (sampled poses and
    the refinement lattice), each with its bound and B4's grid and waves;
+   B4 and B7 on the RANSAC training run's own inputs (B7's cotangent
+   scaled as the other backward kernels'), each with its bound;
    K1, K2, K3, K4, B4 and their library calls timed again with the
    launches queued behind a spin of the card (the card's time alone,
    without the host's launch overhead); K3's selected ranks and K4's points
@@ -97,14 +114,18 @@ host generator's batch:
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
-from the RANSAC run, B5 and B6 from the gather bench) and two for K1 and
-K2 at the held-out run's f32 inputs (``/heldout_f32``, launches from that
-run); the last line is ``{"ok": true, "device": {...}}``.
+from the RANSAC run, B7 from the RANSAC training run, B5 and B6 from the
+gather bench), one for B4 at the RANSAC training run's inputs
+(``/train``, launches from that run) and two for K1 and K2 at the
+held-out run's f32 inputs (``/heldout_f32``, launches from that run); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -188,6 +209,15 @@ PLAIN_POSE_CHUNK = 512
 # upper and frac (2 min, 2 add, 2 sub), weights (2 sub), four taps (8 mul,
 # 3 add) and the sum (1 add).
 POSE_OPS_PER_PAIR = 42
+# B7 per (pose, valid point): B4's first 30 (the transform, bounds, clamp,
+# floor, upper, frac and weights), the four tap weights (4 mul), each
+# times the cotangent (4 mul) and added into the point's map (4 add).
+POSE_BWD_OPS_PER_PAIR = 42
+# B7's seeded inputs hold a run of identical poses (example 0); alone, its
+# taps' sums are R equal values v added in any order, which is one
+# sequence of partial sums: the kernel must equal the plain version to the
+# bit there and lie within R ulps of the closed form R v.
+IDENTICAL_RUN = slice(6000, 8000)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = 1e-2
@@ -492,6 +522,35 @@ def grid_sample_bwd_call(g_values: torch.Tensor, points: torch.Tensor,
       grad_out, plane, norm, 0, 1, False, [True, False])
 
 
+def pose_scoring_bwd_library_call(args, kwargs):
+  """``grid_sampler_2d_backward``'s input gradient for B7's function: per
+  (example, point) a one-channel H x W map read bilinearly at the point's
+  P transformed positions, border padding (the clamp of ``uv - 0.5`` and
+  the zero-weight upper tap at the border are B4's), cotangent
+  ``g * keep``. The grid and the cotangent are built here, outside the
+  returned call."""
+  g, angle, t, xy, valid_points, valid_map = args
+  b, n, h, w = kwargs['sim_shape']
+  cell = kwargs['cell_size']
+  cos, sin = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+  x, y = xy[:, None, :, 0], xy[:, None, :, 1]  # [B, 1, N]
+  u = (t[..., 0, None] + cos * x - sin * y) / cell  # [B, P, N]
+  v = (t[..., 1, None] + sin * x + cos * y) / cell
+  keep = valid_points[:, None, :]
+  if kwargs['mask_out_of_bounds']:
+    keep = keep & pose_estimation._pose_taps(
+        angle, t, xy, valid_map, h, w, cell, True)[1]
+  grad_out = (g[..., None] * keep).permute(0, 2, 1).reshape(b * n, 1, 1, -1)
+  # align_corners=False reads at ((x + 1) W - 1) / 2 = v - 0.5.
+  grid = torch.stack((v * (2 / w) - 1, u * (2 / h) - 1), -1)
+  grid = grid.permute(0, 2, 1, 3).reshape(b * n, 1, -1, 2).contiguous()
+  del u, v, keep
+  grad_out = grad_out.contiguous()
+  plane = torch.zeros((b * n, 1, h, w), dtype=g.dtype, device=g.device)
+  return lambda: torch.ops.aten.grid_sampler_2d_backward(
+      grad_out, plane, grid, 0, 1, False, [True, False])[0]
+
+
 class Capture:
   """Keeps the first inputs of each shape that a kernel wrapper is given."""
 
@@ -708,17 +767,21 @@ class MaxChoices:
     return hook
 
 
-def training_reference():
-  """2 steps of the tiny trainer on the card and on the CPU in lockstep:
-  each step starts both from the CPU's weights, with the same batch and
-  draws (the card's, injected on the CPU), and the CPU's max poolings pick
-  the entries the card's picked (``MaxChoices``); the loss and every
-  gradient leaf agree. (Comparing after separate updates would not work:
-  Adam's first update is ~lr * sign(g), so a gradient entry near 0 that
-  differs in sign moves its weight by 2 lr.) Returns per step the worst
-  leaf error relative to its largest entry and to its norm, and the flips
-  per max site."""
-  cfg = configs.smoke_train_exhaustive()
+def training_reference(config_name: str = 'smoke_train_exhaustive'):
+  """2 steps of the tiny trainer ``config_name`` on the card and on the CPU in
+  lockstep: each step starts both from the CPU's weights, with the same
+  batch and draws (the card's, injected on the CPU; on the RANSAC backend
+  also its pose samples, which the two devices' f64 prefix sums may round
+  to a neighbouring category), and the CPU's maxima pick the entries the
+  card's picked (``MaxChoices``); the loss and every gradient leaf agree.
+  (Comparing after separate updates would not work: Adam's first update is
+  ~lr * sign(g), so a gradient entry near 0 that differs in sign moves its
+  weight by 2 lr.) On the RANSAC backend B4 and B7 launch each card step.
+  Returns per step the worst leaf error relative to its largest entry and
+  to its norm, and the flips per max site."""
+  cfg = configs.get_config(config_name)
+  ransac = cfg.model.pose_backend == 'ransac'
+  card_launches = []
   models = {dev: evaluate.build_localizer(cfg, dev, 0).train()
             for dev in ('cpu', 'cuda')}
   adam = optimizers.Adam(cfg.train)
@@ -731,14 +794,23 @@ def training_reference():
     models['cuda'].load_state_dict(models['cpu'].state_dict())
     examples = loader.make_train_examples(generator, i, cfg.batch_size,
                                           cfg.data)
+    before = dict(kernels.LAUNCHES)
     with MaxChoices(models['cuda']) as on_card:
       card = trainer.train_step(states['cuda'],
                                 loader.pair_batch_to_torch(examples, 'cuda'),
                                 adam)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    card_launches.append(launched)
+    samples = None
+    if ransac:
+      if launched['pose_scoring'] < 1 or launched['pose_scoring_bwd'] < 1:
+        raise AssertionError(f'step {i}: card step launched {launched}')
+      samples = geometry.Transform2D(angle=card.pose_samples.angle.cpu(),
+                                     t=card.pose_samples.t.cpu())
     with MaxChoices(models['cpu'], replay=on_card.calls) as replayed:
       cpu = trainer.train_step(states['cpu'],
                                loader.pair_batch_to_torch(examples, 'cpu'),
-                               adam, draws=card.draws)
+                               adam, draws=card.draws, pose_samples=samples)
     flips.append({name: f'{n} of {total}, gap {gap:.3g}' for name, (
         n, total, gap) in flips_per_site(replayed.flips).items() if n})
     loss = [trainer.summarize([o.metrics])['loss/total'] for o in (cpu, card)]
@@ -760,13 +832,14 @@ def training_reference():
       if err / max(scale, 1e-30) > worst[i]:
         worst[i], worst_leaf[i] = err / max(scale, 1e-30), name
       worst_norm[i] = max(worst_norm[i], err_norm / max(norm, 1e-30))
-  log(f'training reference (smoke_train_exhaustive, f32): losses [cpu, '
+  log(f'training reference ({config_name}, f32): losses [cpu, '
       f'card] per step {losses}; every gradient leaf within {worst} of '
       f'its largest entry (worst: {worst_leaf}) and within {worst_norm} of '
       f'its norm (per step); '
       f'max choices the card flipped against the CPU\'s own, replayed on '
       f'the CPU (site: outputs over its calls, the largest gap from a tie '
-      f'relative to the site\'s largest magnitude), per step {flips}')
+      f'relative to the site\'s largest magnitude), per step {flips}; card '
+      f'launches per step {card_launches}')
   return worst, worst_leaf, worst_norm, flips
 
 
@@ -953,11 +1026,26 @@ def serving_main_path():
   return launches, lift, sample
 
 
-def training_main_path(smi: str):
-  """train_full1chip_exhaustive, batch 2, 3 steps; returns launches and the
-  backward kernels' captured inputs."""
-  model = evaluate.build_localizer(configs.train_full1chip_exhaustive(),
-                                   'cuda', 0)
+# Per training config of the main paths: the least launches of each kernel
+# a step, the kernels that must not launch, and the kernels whose inputs
+# phase 8 checks and times.
+TRAIN_PATHS = {
+    'train_full1chip_exhaustive': (
+        {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
+         'patch_sample_2d_bwd': 1}, (),
+        ('lift_topk_bwd', 'patch_sample_2d_bwd')),
+    'train_full1chip_ransac': (
+        {'lift_topk_fwd': 2, 'lift_topk_bwd': 2, 'pose_scoring': 1,
+         'pose_scoring_bwd': 1}, ('patch_sample_2d', 'patch_sample_2d_bwd'),
+        ('pose_scoring', 'pose_scoring_bwd')),
+}
+
+
+def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
+  """``name`` (a key of ``TRAIN_PATHS``), batch 2, 3 steps; returns
+  launches and the captured inputs of the config's kernels to check."""
+  least, never, captured = TRAIN_PATHS[name]
+  model = evaluate.build_localizer(configs.get_config(name), 'cuda', 0)
   params = dict(model.named_parameters())
   flat = lambda: torch.cat([p.detach().flatten() for p in params.values()])
   before = [flat()]
@@ -971,9 +1059,9 @@ def training_main_path(smi: str):
     if not (math.isfinite(loss) and math.isfinite(out.logs['l2_grads'])
             and out.logs['is_finite'] == 1.0):
       raise AssertionError(f'step {step}: loss {loss}, logs {out.logs}')
-    for name in (STREET_ROOT, PROJ_MLP, 'temperature'):
-      if not out.grads[name].abs().max() > 0:
-        raise AssertionError(f'step {step}: no gradient reaches {name}')
+    for leaf in (STREET_ROOT, PROJ_MLP, 'temperature'):
+      if not out.grads[leaf].abs().max() > 0:
+        raise AssertionError(f'step {step}: no gradient reaches {leaf}')
     keep = out.draws.modality_keep.cpu()
     aerial = max(float(g.abs().max()) for n, g in out.grads.items()
                  if n.startswith(AERIAL_TRUNK))
@@ -982,12 +1070,14 @@ def training_main_path(smi: str):
         raise AssertionError(f'step {step}: aerial kept {keep[1].tolist()} '
                              'but its trunk has no gradient')
       aerial_checked.append(step)
-    mins = {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
-            'patch_sample_2d_bwd': 1}
-    for kernel, least in mins.items():
-      if launched[kernel] < least:
+    for kernel, fewest in least.items():
+      if launched[kernel] < fewest:
         raise AssertionError(f'step {step}: {kernel} launched '
-                             f'{launched[kernel]} times, expected >= {least}')
+                             f'{launched[kernel]} times, expected >= {fewest}')
+    for kernel in never:
+      if launched[kernel]:
+        raise AssertionError(f'step {step}: {kernel} launched '
+                             f'{launched[kernel]} times on {name}')
     after = flat()
     moved = float((after - before[-1]).abs().max())
     lr = out.logs['learning_rate']
@@ -995,7 +1085,7 @@ def training_main_path(smi: str):
       raise AssertionError(f'step {step}: lr {lr} but params moved {moved}')
     before.append(after)
     per_step.append((counts, launched))
-    log(f'train step {step}: loss {loss:.4f}, l2_grads '
+    log(f'train step {step} ({name}): loss {loss:.4f}, l2_grads '
         f'{out.logs["l2_grads"]:.4g}, lr {lr:.3g}, params moved {moved:.3g}, '
         f'draws: z jitter {out.draws.z_jitter.tolist()}, modality keep '
         f'[street, aerial] x example {keep.tolist()}; |grad| street root '
@@ -1005,11 +1095,12 @@ def training_main_path(smi: str):
         f'launches {launched}')
 
   torch.cuda.reset_peak_memory_stats()
-  with Capture(kernels, 'lift_topk_bwd', 0) as lift_bwd, \
-       Capture(kernels, 'patch_sample_2d_bwd', 0) as sample_bwd:
+  with contextlib.ExitStack() as stack:
+    captures = [stack.enter_context(Capture(kernels, kernel, 0))
+                for kernel in captured]
     kernels.reset_launch_counts()
-    result = train.train('train_full1chip_exhaustive', 3, 'cuda', seed=0,
-                         model=model, on_step=check_step)
+    result = train.train(name, 3, 'cuda', seed=0, model=model,
+                         on_step=check_step)
     launches = dict(kernels.LAUNCHES)
   peak = torch.cuda.max_memory_allocated()
   if not aerial_checked:
@@ -1017,7 +1108,7 @@ def training_main_path(smi: str):
   if result['generator_kind'] != 'device-torch':
     raise AssertionError(f'training data from {result["generator_kind"]}')
   ms = [1e3 * s for s in result['step_seconds']]
-  log(f'training main path (train_full1chip_exhaustive, batch 2, bf16): '
+  log(f'training main path ({name}, batch 2, bf16): '
       f'launches {launches}; ms per step {ms} (steps 2-3: '
       f'{sum(ms[1:]) / len(ms[1:]):.1f} ms), with the wait for its batch '
       f'{[1e3 * s for s in result["wall_seconds"]]}, data '
@@ -1028,7 +1119,7 @@ def training_main_path(smi: str):
       f'steps {aerial_checked}; {smi}')
   del model, params, before, result
   torch.cuda.empty_cache()
-  return launches, lift_bwd, sample_bwd
+  return (launches, *captures)
 
 
 def assert_close_scores(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -1075,15 +1166,16 @@ def check_pose_scoring(args, kwargs):
   return err, argmax_agrees('pose_scoring argmax', got, want, POSE_SCORE_TOL)
 
 
-def seeded_pose_scoring_inputs(device: str, mask: bool):
+def seeded_pose_scoring_inputs(device: str, mask: bool, p: int = 20_001):
   """B4 at the eval shape, batch 2: 4,652 query points (meters, in the
-  query frustum) on a 120 x 160 map of 0.2 m cells, 20,001 poses. A fifth
-  of the poses have angle 0 or pi / 2 and whole-cell translations, and a
-  fifth of the points lie on whole or half cells, so that transformed
-  points fall on cell centers (where floor and the upper tap jump) and on
-  the map's border; translations reach a cell or more off the map."""
+  query frustum) on a 120 x 160 map of 0.2 m cells, ``p`` poses. 4,000 of
+  the poses have angle 0 or pi / 2 and whole-cell translations, and 1,000
+  of the points lie on whole or half cells, so that transformed points
+  fall on cell centers (where floor and the upper tap jump) and on the
+  map's border; translations reach a cell or more off the map; a tenth of
+  the points are invalid."""
   g = torch.Generator(device=device).manual_seed(1)
-  b, n, h, w, p, cell = 2, 4652, 120, 160, 20_001, 0.2
+  b, n, h, w, cell = 2, 4652, 120, 160, 0.2
   angle = (torch.rand((b, p), generator=g, device=device) * 2 - 1) * math.pi
   extent = torch.tensor([h * cell, w * cell], device=device)
   t = torch.rand((b, p, 2), generator=g, device=device) * (extent + 4) - 2
@@ -1100,6 +1192,71 @@ def seeded_pose_scoring_inputs(device: str, mask: bool):
   valid_map = torch.rand((b, h, w), generator=g, device=device) < 0.95
   return ((angle, t, sim, xy, valid_points, valid_map),
           dict(cell_size=cell, mask_out_of_bounds=mask))
+
+
+def seeded_pose_scoring_bwd_inputs(device: str, mask: bool):
+  """B7 at the training shape: ``seeded_pose_scoring_inputs`` at 10,001
+  poses, the poses of ``IDENTICAL_RUN`` in example 0 all one pose, and a
+  seeded N(0, 1) cotangent on example 0, 0 on example 1."""
+  (angle, t, sim, xy, valid_points, valid_map), kw = (
+      seeded_pose_scoring_inputs(device, mask, p=10_001))
+  angle[0, IDENTICAL_RUN] = angle[0, IDENTICAL_RUN.start]
+  t[0, IDENTICAL_RUN] = t[0, IDENTICAL_RUN.start]
+  g = torch.randn(angle.shape, generator=torch.Generator(
+      device=device).manual_seed(2), device=device)
+  g[1] = 0.0
+  return ((g, angle, t, xy, valid_points, valid_map),
+          dict(kw, sim_shape=tuple(sim.shape)))
+
+
+def check_pose_scoring_bwd(args, kwargs) -> float:
+  """B7 against its plain version; ``args`` = (g, angle, t, xy,
+  valid_points, valid_map), and ``g`` is scaled by ``unit_cotangent``
+  first. Where every entry of ``g`` of an example is 0, its gradient must
+  be 0."""
+  args = (unit_cotangent(args[0]), *args[1:])
+  got = kernels.pose_scoring_bwd(*args, **kwargs)
+  want = pose_estimation.pose_scoring_bwd_plain(
+      *args, **kwargs, pose_chunk=PLAIN_POSE_CHUNK)
+  torch.cuda.synchronize()
+  silent = ~args[0].any(-1)
+  if got[silent].any():
+    raise AssertionError('pose_scoring_bwd: an example whose cotangent is 0 '
+                         'has a gradient')
+  return assert_close_bwd('pose_scoring_bwd d_sim', got, want)
+
+
+def check_identical_run(args, kwargs) -> float:
+  """B7 on the seeded inputs' run of R identical poses alone (g 1 there, 0
+  elsewhere): each tap of a point adds R equal values, so the kernel must
+  equal the plain version bit for bit, and lie within R ulps (relative
+  R 2^-24) of the closed form R v, v the one pose's gradient. Returns the
+  largest relative distance from the closed form."""
+  g, angle, t = args[:3]
+  run = torch.zeros_like(g)
+  run[0, IDENTICAL_RUN] = 1.0
+  got = kernels.pose_scoring_bwd(run, *args[1:], **kwargs)
+  want = pose_estimation.pose_scoring_bwd_plain(
+      run, *args[1:], **kwargs, pose_chunk=PLAIN_POSE_CHUNK)
+  pose = IDENTICAL_RUN.start
+  one = pose_estimation.pose_scoring_bwd_plain(
+      torch.ones_like(g[:, :1]), angle[:, pose:pose + 1],
+      t[:, pose:pose + 1], *args[3:], **kwargs)
+  torch.cuda.synchronize()
+  if not torch.equal(got, want):
+    raise AssertionError('pose_scoring_bwd: the identical run differs from '
+                         'the plain version')
+  r = IDENTICAL_RUN.stop - IDENTICAL_RUN.start
+  closed = one[0].double() * r
+  if not closed.abs().max() > 0:
+    raise AssertionError('the identical run reaches no cell')
+  rel = float(((got[0].double() - closed).abs()
+               / closed.abs().clamp(min=1e-30))[closed != 0].max())
+  if not (rel <= r * 2.0**-24 and not got[0][closed == 0].any()
+          and not got[1].any()):
+    raise AssertionError(f'pose_scoring_bwd: the identical run is {rel:.3g} '
+                         f'from its closed form (limit {r * 2.0**-24:.3g})')
+  return rel
 
 
 def check_gathers(device: str):
@@ -1397,6 +1554,86 @@ def pose_scoring_bound(args, out):
   return _bound(nbytes, angle.shape[-1] * valid * POSE_OPS_PER_PAIR)
 
 
+def pose_scoring_bwd_bound(args, out):
+  """B7: the cotangent, poses, points and masks read once, ``d sim``
+  written once; POSE_BWD_OPS_PER_PAIR f32 operations per (pose, valid
+  point)."""
+  g, angle, t, xy, valid_points, valid_map = args
+  nbytes = _nbytes(g, angle, t, xy, valid_points, valid_map, out)
+  return _bound(nbytes, angle.shape[-1] * int(valid_points.sum())
+                * POSE_BWD_OPS_PER_PAIR)
+
+
+def without_gt_pose(call):
+  """A captured B7 call with the GT pose's cotangent (pose 0) set to 0.
+  Beside the GT's, the loss's cotangent is a near-uniform softmax, about
+  1e-4 of it a pose once ``unit_cotangent`` scales the GT's to 1; alone,
+  the sampled poses' terms are scaled to stand well above atol."""
+  (g, *rest), kwargs = call
+  g = g.clone()
+  g[:, 0] = 0
+  return (g, *rest), kwargs
+
+
+def ransac_training_rows(launches, scoring, scoring_bwd):
+  """B7 and B4 on the RANSAC training run's own inputs: each checked
+  against its plain version on every captured call (B7's cotangent scaled
+  by ``unit_cotangent``, as captured and without the GT pose's), then
+  timed on the largest, B7 beside ``grid_sampler_2d_backward``."""
+  err_bwd = max(max(check_pose_scoring_bwd(*c),
+                    check_pose_scoring_bwd(*without_gt_pose(c)))
+                for c in scoring_bwd.calls.values())
+  checks = {shape: check_pose_scoring(*c) for shape, c in scoring.calls.items()}
+  log(f'pose_scoring_bwd on the RANSAC training run\'s inputs '
+      f'{list(scoring_bwd.calls)}: max abs err {err_bwd:.3g}; pose_scoring '
+      f'(max abs err, near ties of the argmax) per call {checks}')
+  args, kw = scoring_bwd.largest()
+  args = (unit_cotangent(args[0]), *args[1:])
+  out = kernels.pose_scoring_bwd(*args, **kw)
+  log_occupancy('pose_scoring_bwd', 'the training input')
+  library = pose_scoring_bwd_library_call(args, kw)
+  diff = (library().reshape(out.shape) - out).abs()
+  log(f'grid_sampler_2d_backward vs pose_scoring_bwd on the training '
+      f'input: max abs diff {float(diff.max()):.3g}, largest entry '
+      f'{float(out.abs().max()):.3g}')
+  del diff
+  rows = [report(
+      'pose_scoring_bwd', 'snap_tpu_torch/csrc/pose_scoring_bwd.cu',
+      launches['pose_scoring_bwd'], err_bwd,
+      time_ms(lambda: kernels.pose_scoring_bwd(*args, **kw)),
+      time_ms(lambda: pose_estimation.pose_scoring_bwd_plain(
+          *args, **kw, pose_chunk=PLAIN_POSE_CHUNK), iters=2),
+      pose_scoring_bwd_bound(args, out), time_ms(library),
+      replaces='snap_tpu/models/pose_estimation.py:95')]
+  spin = {'pose_scoring_bwd': time_ms(
+      lambda: kernels.pose_scoring_bwd(*args, **kw), spin=True)}
+  spin['grid_sampler_2d_backward'] = time_ms(library, spin=True)
+  del out, library
+  args, kw = scoring.largest()
+  out = kernels.pose_scoring(*args, **kw)
+  log_occupancy('pose_scoring', 'the training input')
+  rows.append(report(
+      'pose_scoring/train', 'snap_tpu_torch/csrc/pose_scoring.cu',
+      launches['pose_scoring'], max(e for e, _ in checks.values()),
+      time_ms(lambda: kernels.pose_scoring(*args, **kw)),
+      time_ms(lambda: pose_estimation.pose_scoring_plain(
+          *args, **kw, pose_chunk=PLAIN_POSE_CHUNK), iters=2),
+      pose_scoring_bound(args, out), None,
+      replaces='snap_tpu/models/pose_estimation.py:95'))
+  spin['pose_scoring'] = time_ms(lambda: kernels.pose_scoring(*args, **kw),
+                                 spin=True)
+  valid = int(args[4].sum())
+  log(f'RANSAC training inputs: {args[0].shape[-1]} poses x {valid} valid '
+      f'points ({args[2].shape[1]} points, {args[2].shape[0]} examples); ms '
+      f'per call queued behind a spin: {spin}')
+  for row, calls in ((rows[0], scoring_bwd), (rows[1], scoring)):
+    shape = max(calls.calls, key=lambda s: math.prod(s))
+    log(f'{row["name"]} at {shape}: {row["ms"]:.4f} ms (plain '
+        f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms by '
+        f'{row["bound_by"]}, library {row["library_ms"]})')
+  return rows
+
+
 def new_kernel_rows(ransac_launches, bench_launches, scoring, bench):
   """Rows of B4 (checked and timed on the RANSAC path's own inputs) and of
   B5 and B6 (from the gather bench)."""
@@ -1489,18 +1726,27 @@ def heldout_rows(launches, lift, sample):
   return [lift_row, sample_row]
 
 
+@functools.lru_cache(maxsize=1)
+def library_sass():
+  """``cuobjdump -sass`` of the kernel library (one call, ~10 s); None
+  where the toolkit has no ``cuobjdump``."""
+  tool = kernels._nvcc().replace('nvcc', 'cuobjdump')
+  try:
+    return subprocess.run([tool, '-sass', str(kernels.library_path())],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+  except (OSError, subprocess.SubprocessError):
+    return None
+
+
 def sass_loops(function: str):
   """The loops of the compiled kernel whose mangled name contains
   ``function`` (``cuobjdump -sass``): per loop (a predicated backward
   branch; an unpredicated one returns from out-of-line code), its
   instructions and those outside the loops nested in it, largest first;
   None where the toolkit has no ``cuobjdump``."""
-  tool = kernels._nvcc().replace('nvcc', 'cuobjdump')
-  try:
-    sass = subprocess.run([tool, '-sass', str(kernels.library_path())],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-  except (OSError, subprocess.SubprocessError):
+  sass = library_sass()
+  if sass is None:
     return None
   body, labels, pending, inside = [], {}, [], False
   for line in sass.splitlines():
@@ -1693,8 +1939,9 @@ def main() -> int:
       f'({kernels.library_path().name})')
   log(f'SASS loops (instructions, of them outside nested loops), largest '
       f'first: pose_scoring_kernel<false> '
-      f'{sass_loops("pose_scoring_kernelILb0E")}, lift_topk_fwd_kernel'
-      f'<bf16, 1, true> '
+      f'{sass_loops("pose_scoring_kernelILb0E")}, pose_scoring_bwd_kernel'
+      f'<false> {sass_loops("pose_scoring_bwd_kernelILb0E")}, '
+      f'lift_topk_fwd_kernel<bf16, 1, true> '
       f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb1E")}')
 
   # 3. Kernels against their plain versions on seeded flagship-shape inputs.
@@ -1711,19 +1958,32 @@ def main() -> int:
       f'the argmax) without / with the mask {scoring[False]} / '
       f'{scoring[True]}; over all {bench_gather.N} points, slice_gather '
       f'{check_gathers("cuda")}, table_gather exact')
+  scoring_bwd = {}
+  for mask in (False, True):
+    args, kw = seeded_pose_scoring_bwd_inputs('cuda', mask)
+    scoring_bwd[mask] = (check_pose_scoring_bwd(args, kw),
+                         check_identical_run(args, kw))
+    del args
+  log(f'kernels on seeded inputs: pose_scoring_bwd at the training shape '
+      f'(max abs err; the identical run\'s distance from its closed form, '
+      f'relative) without / with the mask {scoring_bwd[False]} / '
+      f'{scoring_bwd[True]}')
 
-  # 4-5b. References: the tiny localizer, trainer and RANSAC localizer,
-  # card against CPU.
+  # 4-5c. References: the tiny localizer, trainer, RANSAC localizer and
+  # RANSAC trainer, card against CPU.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   serving_reference()
   training_reference()
   ransac_reference()
+  training_reference('smoke_train_ransac')
 
   # 6-7e. Main paths, each with the launch counts reset just before it;
   # their batches made on the card by the dataset's iterators.
   serve_launches, lift, sample = serving_main_path()
   train_launches, lift_bwd, sample_bwd = training_main_path(smi)
+  ransac_train_launches, scoring_train, scoring_bwd = training_main_path(
+      smi, 'train_full1chip_ransac')
   torch.backends.cudnn.allow_tf32 = False  # the RANSAC config is f32
   ransac_launches, scoring, lift_f32 = ransac_main_path(smi)
   heldout_launches, heldout_lift, heldout_sample = heldout_main_path(smi)
@@ -1741,6 +2001,8 @@ def main() -> int:
                        lift_bwd, sample_bwd, lift_f32)
     rows += new_kernel_rows(ransac_launches, bench_launches, scoring,
                             gather_bench)
+    rows += ransac_training_rows(ransac_train_launches, scoring_train,
+                                 scoring_bwd)
     rows += heldout_rows(heldout_launches, heldout_lift, heldout_sample)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)

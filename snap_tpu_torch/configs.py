@@ -18,6 +18,12 @@ can hold the two side by side (tests/test_torch_localizer.py).
   schedule; no grid refinement.
 - ``smoke_train_exhaustive()``: ``smoke_exhaustive`` with the training
   settings of ``smoke_localization.py`` (constant lr 1e-3, clipping at 1).
+- ``train_full1chip_ransac()``: ``train_localization.py:scale=full1chip``
+  with its default backend, RANSAC: ``train_full1chip_exhaustive``'s model
+  and schedule with the in-FoV query points, clipped scores and 10,000
+  pose samples x 8 retries.
+- ``smoke_train_ransac()``: ``smoke_localization.py`` (RANSAC, its
+  default) with ``smoke_train_exhaustive``'s training setup.
 - ``smoke_eval_ransac()``: ``smoke_localization.py`` (RANSAC backend, the
   in-FoV query points, 64 pose samples x 2 retries) merged with
   ``smoke_eval_localization.py`` (grid refinement, batch 2, f32).
@@ -305,6 +311,30 @@ def smoke_train_exhaustive(batch_size: int = 2) -> Config:
                         num_training_steps=8))
 
 
+def train_full1chip_ransac(batch_size: int = 2) -> Config:
+  """``train_localization.py:scale=full1chip``, whose backend defaults to
+  RANSAC: ``train_full1chip_exhaustive`` with the model settings that
+  ``:94-97`` overrides only for the exhaustive backend left at the
+  reference's defaults (the in-FoV query points, clipped scores); 10,000
+  pose samples x 8 retries, no grid refinement. The JAX config's
+  ``point_tile=288_000`` is ignored, as in ``train_full1chip_exhaustive``.
+  """
+  flagship = train_full1chip_exhaustive(batch_size)
+  return dataclasses.replace(flagship, model=dataclasses.replace(
+      flagship.model, pose_backend='ransac', filter_points_in_fov=True,
+      clip_negative_scores=True))
+
+
+def smoke_train_ransac(batch_size: int = 2) -> Config:
+  """``smoke_localization.py`` with its default backend, RANSAC (the
+  in-FoV query points, 64 pose samples x 2 retries, the default 64
+  rotations), and ``smoke_train_exhaustive``'s training setup."""
+  smoke = smoke_train_exhaustive(batch_size)
+  return dataclasses.replace(smoke, model=dataclasses.replace(
+      smoke.model, pose_backend='ransac', filter_points_in_fov=True,
+      num_rotations=BEVLocalizerConfig().num_rotations))
+
+
 def smoke_eval_ransac(batch_size: int = 2) -> Config:
   """``smoke_localization.py`` (RANSAC) under ``smoke_eval_localization.py``:
   the in-FoV query points, 64 samples x 2 retries, grid refinement, f32,
@@ -318,18 +348,14 @@ def smoke_eval_ransac(batch_size: int = 2) -> Config:
 
 
 def eval_full1chip_ransac(batch_size: int = 4) -> Config:
-  """``train_localization.py:scale=full1chip`` (RANSAC, its default backend)
+  """``train_full1chip_ransac`` (``train_localization.py:scale=full1chip``)
   under ``eval_localization.py``: R50 street-view + aerial mapper, 20 views
   of 180x240, 0.2 m voxels, top-k 4 lift, 20,000 pose samples x 8 retries,
   grid refinement, batch 4, f32, evaluated on the first test city,
   'osaka-synthetic_eval'."""
-  train = train_full1chip_exhaustive()
-  experiment = dataclasses.replace(train, model=dataclasses.replace(
-      train.model, pose_backend='ransac', filter_points_in_fov=True,
-      clip_negative_scores=True))
   return merge_eval_config(
       eval_localization(evaluation_size=4096, batch_size=batch_size),
-      experiment, 'osaka-synthetic_eval')
+      train_full1chip_ransac(), 'osaka-synthetic_eval')
 
 
 def eval_full1chip_exhaustive(batch_size: int = 4) -> Config:
@@ -640,6 +666,8 @@ CONFIGS = {
     'smoke_exhaustive': smoke_exhaustive,
     'train_full1chip_exhaustive': train_full1chip_exhaustive,
     'smoke_train_exhaustive': smoke_train_exhaustive,
+    'train_full1chip_ransac': train_full1chip_ransac,
+    'smoke_train_ransac': smoke_train_ransac,
     'smoke_eval_ransac': smoke_eval_ransac,
     'eval_full1chip_ransac': eval_full1chip_ransac,
     'eval_full1chip_exhaustive': eval_full1chip_exhaustive,

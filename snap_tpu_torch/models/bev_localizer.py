@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from snap_tpu_torch import configs
 from snap_tpu_torch.models import bev_mapper
@@ -126,20 +127,23 @@ class BEVLocalizer(nn.Module):
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """The dense point-vs-map similarity ``sim_points [B, N, H, W]`` f32
     (clipped, scaled by the temperature, divided by the valid count), its
-    match PDF ``prob_points`` (softmax over the map, divided likewise) and
-    the query points' validity ``[B, N]``."""
+    match PDF ``prob_points`` (softmax over the map, divided likewise; no
+    gradient, as JAX's ``stop_gradient`` before the draws) and the query
+    points' validity ``[B, N]``."""
     b = plane_map.features.shape[0]
     valid_points = plane_q.valid.reshape(b, -1)
     f_p_q = plane_q.features.reshape(b, -1, plane_q.features.shape[-1])
     # A plain product, left to cuBLAS as the JAX package leaves it to XLA.
     sim = torch.einsum('bnd,bijd->bnij', f_p_q, plane_map.features)
     if self.config.clip_negative_scores:
-      sim = torch.relu(sim)
+      sim = F.relu(sim)
     sim = sim.float()
     if self.config.add_temperature:
       sim = sim * torch.exp(self.temperature)
-    prob = torch.softmax(sim.reshape(*sim.shape[:2], -1), -1).reshape(
-        sim.shape)
+    # Off the autograd graph: the softmax would keep its [B, N, H, W]
+    # output for a backward that nothing takes.
+    flat = sim.detach().reshape(*sim.shape[:2], -1)
+    prob = torch.softmax(flat, -1).reshape(sim.shape)
     num_valid = valid_points.sum(-1).clamp(min=1)[:, None, None, None]
     return sim / num_valid, prob / num_valid, valid_points
 
@@ -155,7 +159,7 @@ class BEVLocalizer(nn.Module):
         raise ValueError('the RANSAC backend needs a generator for its '
                          'pose samples, or pose_samples')
       pose_samples = pose_estimation.sample_transforms_ransac(
-          prob.detach(), q_xy_p, self.config.num_pose_samples,
+          prob, q_xy_p, self.config.num_pose_samples,
           self.config.num_pose_sampling_retries, self.grid_map, generator)
     del prob
     m_t_q = pose_samples

@@ -8,8 +8,11 @@ Port of ``snap_tpu/models/pose_estimation.py``, with its names:
 - ``pose_scoring_many``: for every pose and query point, a bilinear read of
   that point's own score map at the transformed point, summed over the
   points. On a CUDA tensor it launches **B4** (``csrc/pose_scoring.cu``,
-  the port of ``_pose_scoring_block``) once for all poses; on a CPU tensor
-  it runs ``pose_scoring_plain``, the same arithmetic in chunks of poses;
+  the port of ``_pose_scoring_block``) once for all poses, and its
+  gradient in the score maps is **B7** (``csrc/pose_scoring_bwd.cu``, the
+  port of JAX's autodiff of it); on a CPU tensor it runs
+  ``pose_scoring_plain`` and ``pose_scoring_bwd_plain``, the same
+  arithmetic in chunks of poses;
 - ``grid_refinement``: every offset of a dense 41 x 41 x 41 (rotation, x,
   y) lattice around a pose, scored the same way.
 
@@ -173,51 +176,60 @@ def sample_transforms_ransac(
   return j_t_i
 
 
-def _pose_scoring_block(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
-                        valid_points: Tensor, valid_map: Tensor,
-                        cell_size: float, mask_out_of_bounds: bool
-                        ) -> Tensor:
-  """``[B, P]`` scores of the poses ``(angle [B, P], t [B, P, 2])``: per
-  pose, the sum over points n of ``sim[b, n]`` read bilinearly at the
-  transformed point (``_pose_scoring_block`` of the JAX package, whose
-  arithmetic B4 repeats operation by operation)."""
-  h, w = sim.shape[-2:]
-  n = sim.shape[1]
+def _pose_taps(angle: Tensor, t: Tensor, xy: Tensor, valid_map: Tensor,
+               h: int, w: int, cell_size: float, mask_out_of_bounds: bool):
+  """The four bilinear taps of every (pose, point) of ``_pose_scoring_block``
+  of the JAX package, whose arithmetic B4 and B7 repeat operation by
+  operation: per tap (a, c) its row and column ``[B, P, N]`` and weight
+  ``w_u[a] * w_v[c]``, and whether the read counts beside the point's own
+  validity (the transformed point in bounds on four valid cells, with the
+  mask; else None)."""
   cos, sin = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
   x, y = xy[:, None, :, 0], xy[:, None, :, 1]  # [B, 1, N]
   # R @ p + t with R = [[cos, -sin], [sin, cos]], then / cell_size (a
   # device tensor: a CUDA division by a CPU scalar multiplies by its
   # reciprocal instead).
-  cell = torch.tensor(cell_size, dtype=torch.float32, device=sim.device)
+  cell = torch.tensor(cell_size, dtype=torch.float32, device=xy.device)
   u = (t[..., 0, None] + (cos * x + (-sin) * y)) / cell
   v = (t[..., 1, None] + (sin * x + cos * y)) / cell
-  in_bounds = (u >= 0) & (u < h) & (v >= 0) & (v < w)  # [B, P, N]
   pu = torch.clamp(u - 0.5, min=0, max=h - 1)
   pv = torch.clamp(v - 0.5, min=0, max=w - 1)
   lower_u, lower_v = torch.floor(pu).long(), torch.floor(pv).long()
   upper_u = torch.clamp(lower_u + 1, max=h - 1)
   upper_v = torch.clamp(lower_v + 1, max=w - 1)
   frac_u, frac_v = pu - lower_u, pv - lower_v
-  b, p = angle.shape
-  flat = sim.reshape(b, -1)
-  flat_valid = valid_map.reshape(b, -1)
-  point_ids = torch.arange(n, device=sim.device) * (h * w)
-
-  def read(table, offset, cu, cv):  # [B, P, N] reads of a flat table
-    idx = (offset + cu * w + cv).reshape(b, -1)
-    return torch.gather(table, 1, idx).reshape(b, p, n)
-
   w_u, w_v = (1 - frac_u, frac_u), (1 - frac_v, frac_v)
   coords_u, coords_v = (lower_u, upper_u), (lower_v, upper_v)
+  taps = [(coords_u[a], coords_v[c], w_u[a] * w_v[c])
+          for a in range(2) for c in range(2)]
+  if not mask_out_of_bounds:
+    return taps, None
+  valid = (u >= 0) & (u < h) & (v >= 0) & (v < w)  # [B, P, N]
+  b = angle.shape[0]
+  flat_valid = valid_map.reshape(b, -1)
+  for cu, cv, _ in taps:
+    idx = (cu * w + cv).reshape(b, -1)
+    valid = valid & torch.gather(flat_valid, 1, idx).reshape(cu.shape)
+  return taps, valid
+
+
+def _pose_scoring_block(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
+                        valid_points: Tensor, valid_map: Tensor,
+                        cell_size: float, mask_out_of_bounds: bool
+                        ) -> Tensor:
+  """``[B, P]`` scores of the poses ``(angle [B, P], t [B, P, 2])``: per
+  pose, the sum over points n of ``sim[b, n]`` read bilinearly at the
+  transformed point (``_pose_scoring_block`` of the JAX package)."""
+  b, n, h, w = sim.shape
+  taps, valid = _pose_taps(angle, t, xy, valid_map, h, w, cell_size,
+                           mask_out_of_bounds)
+  flat = sim.reshape(b, -1)
+  point_ids = torch.arange(n, device=sim.device) * (h * w)
   scores = None
-  valid = in_bounds
-  for a in range(2):
-    for c in range(2):
-      contrib = w_u[a] * w_v[c] * read(flat, point_ids, coords_u[a],
-                                       coords_v[c])
-      scores = contrib if scores is None else scores + contrib
-      if mask_out_of_bounds:
-        valid = valid & read(flat_valid, 0, coords_u[a], coords_v[c])
+  for cu, cv, weight in taps:
+    idx = (point_ids + cu * w + cv).reshape(b, -1)
+    contrib = weight * torch.gather(flat, 1, idx).reshape(cu.shape)
+    scores = contrib if scores is None else scores + contrib
   keep = valid_points[:, None, :]
   if mask_out_of_bounds:
     keep = keep & valid
@@ -237,6 +249,64 @@ def pose_scoring_plain(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
       for s in range(0, angle.shape[-1], pose_chunk)], -1)
 
 
+def pose_scoring_bwd_plain(g: Tensor, angle: Tensor, t: Tensor, xy: Tensor,
+                           valid_points: Tensor, valid_map: Tensor, *,
+                           sim_shape: Tuple[int, int, int, int],
+                           cell_size: float, mask_out_of_bounds: bool,
+                           pose_chunk: int = POSE_CHUNK) -> Tensor:
+  """B7's plain version: ``d sim [B, N, H, W]`` (``g``'s dtype) from ``g`` =
+  d scores ``[B, P]``, the VJP of ``pose_scoring_plain`` in ``sim``. Per
+  chunk of ``pose_chunk`` poses it recomputes the forward's taps and adds
+  ``(w_u w_v) * (g * keep)`` at each (the reference's product, as JAX's
+  autodiff forms it) into a flat buffer with ``index_add_``; nothing of
+  size ``[B, P, N]`` outlives its chunk."""
+  b, n, h, w = sim_shape
+  out = torch.zeros((b * n * h * w,), dtype=g.dtype, device=g.device)
+  point_ids = torch.arange(n, device=g.device) * (h * w)
+  base = torch.arange(b, device=g.device)[:, None, None] * (n * h * w)
+  for s in range(0, angle.shape[-1], pose_chunk):
+    taps, valid = _pose_taps(angle[:, s:s + pose_chunk],
+                             t[:, s:s + pose_chunk], xy, valid_map, h, w,
+                             cell_size, mask_out_of_bounds)
+    keep = valid_points[:, None, :]
+    if mask_out_of_bounds:
+      keep = keep & valid
+    g_keep = g[:, s:s + pose_chunk, None] * keep
+    for cu, cv, weight in taps:
+      idx = base + point_ids + cu * w + cv
+      out.index_add_(0, idx.reshape(-1), (weight * g_keep).reshape(-1))
+  return out.reshape(b, n, h, w)
+
+
+class _PoseScoring(torch.autograd.Function):
+  """B4 forward, B7 backward (their plain versions for CPU tensors); the
+  gradient reaches ``sim`` only. The scores are linear in ``sim``, so the
+  backward needs the poses, points and masks, never ``sim`` itself."""
+
+  @staticmethod
+  def forward(ctx, angle, t, sim, xy, valid_points, valid_map, kwargs,
+              pose_chunk):
+    args = (angle, t, sim, xy, valid_points, valid_map)
+    if kernels.on_card(sim, 'pose_scoring'):
+      scores = kernels.pose_scoring(*args, **kwargs)
+    else:
+      scores = pose_scoring_plain(*args, **kwargs, pose_chunk=pose_chunk)
+    ctx.save_for_backward(angle, t, xy, valid_points, valid_map)
+    ctx.kwargs = dict(kwargs, sim_shape=tuple(sim.shape))
+    ctx.pose_chunk = pose_chunk
+    return scores
+
+  @staticmethod
+  def backward(ctx, g):
+    args = (g.contiguous(), *ctx.saved_tensors)
+    if kernels.on_card(g, 'pose_scoring_bwd'):
+      d_sim = kernels.pose_scoring_bwd(*args, **ctx.kwargs)
+    else:
+      d_sim = pose_scoring_bwd_plain(*args, **ctx.kwargs,
+                                     pose_chunk=ctx.pose_chunk)
+    return None, None, d_sim, None, None, None, None, None
+
+
 def pose_scoring_many(
     j_t_i: geometry.Transform2D, scores_points_all: Tensor,
     i_xy_points: Tensor, valid_points: Tensor, valid_j: Tensor,
@@ -254,18 +324,22 @@ def pose_scoring_many(
       the map on four valid cells; otherwise reads clamp to the border and
       count.
 
-  B4 on a CUDA tensor (all poses in one launch; not differentiable: the
-  wrapper raises if ``scores_points_all`` needs a gradient), the plain
-  version on a CPU tensor, any other device raises.
+  Differentiable in ``scores_points_all`` only (the poses and points
+  raise if they need a gradient): on a CUDA tensor B4 scores all poses in
+  one launch and B7 takes the gradient; on a CPU tensor their plain
+  versions run, in chunks of ``pose_chunk`` poses; any other device
+  raises.
   """
   args = (j_t_i.angle.contiguous(), j_t_i.t.contiguous(),
           scores_points_all.contiguous(), i_xy_points.contiguous(),
           valid_points.contiguous(), valid_j.contiguous())
+  if torch.is_grad_enabled() and any(
+      a.requires_grad for a in (args[0], args[1], args[3])):
+    raise ValueError('pose_scoring_many differentiates in the score maps '
+                     'only; the poses and points need no gradient')
   kwargs = dict(cell_size=grid.cell_size,
                 mask_out_of_bounds=mask_out_of_bounds)
-  if kernels.on_card(scores_points_all, 'pose_scoring'):
-    return kernels.pose_scoring(*args, **kwargs)
-  return pose_scoring_plain(*args, **kwargs, pose_chunk=pose_chunk)
+  return _PoseScoring.apply(*args, kwargs, pose_chunk)
 
 
 def make_refinement_offsets(

@@ -37,8 +37,8 @@ BUILD_TIMEOUT_S = 180
 # Launches per kernel since the last reset_launch_counts(); each kernel's
 # source is csrc/<name>.cu and its C entry point carries the same name.
 LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0, 'lift_topk_bwd': 0,
-            'patch_sample_2d_bwd': 0, 'pose_scoring': 0, 'slice_gather': 0,
-            'table_gather': 0}
+            'patch_sample_2d_bwd': 0, 'pose_scoring': 0,
+            'pose_scoring_bwd': 0, 'slice_gather': 0, 'table_gather': 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -126,6 +126,7 @@ def load_library() -> ctypes.CDLL:
   lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 10 + [f32] * 3 + [vp]
   lib.patch_sample_2d_bwd.argtypes = [vp] * 8 + [i32] * 7 + [vp]
   lib.pose_scoring.argtypes = [vp] * 8 + [i32] * 5 + [f32] + [i32] * 3 + [vp]
+  lib.pose_scoring_bwd.argtypes = [vp] * 8 + [i32] * 5 + [f32, i32, i32, vp]
   lib.slice_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
   lib.table_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
   for name in LAUNCHES:
@@ -403,15 +404,11 @@ def pose_scoring(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
 
   Two launches from one call when the plan has more than one point group:
   the scoring into ``[B, G, P]`` partial sums (scratch allocated here), then
-  their sum per pose. Forward only: B4's backward (a scatter of
-  ``valid * w_tap`` into ``sim``) is not written yet, so this raises where
-  autograd would need it, rather than return a score with no gradient.
+  their sum per pose. The raw launcher: its gradient is B7
+  (``pose_scoring_bwd``), through ``models/pose_estimation.py:_PoseScoring``.
   """
   if sim.device.type != 'cuda':
     raise ValueError(f'pose_scoring needs CUDA tensors, got {sim.device}')
-  if torch.is_grad_enabled() and sim.requires_grad:
-    raise RuntimeError('pose_scoring has no backward kernel yet: score '
-                       'under torch.no_grad() or inference_mode()')
   b, n, h, w = sim.shape
   p = angle.shape[-1]
   dev = sim.device
@@ -444,6 +441,57 @@ def pose_scoring(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
   _raise_on_error(code, 'pose_scoring')
   LAUNCHES['pose_scoring'] += 1
   return out
+
+
+def pose_scoring_bwd_smem_bytes(h: int, w: int, mask: bool) -> int:
+  """B7's dynamic shared memory per block, which the wrapper passes to the
+  launch: one point's ``h x w`` f32 map and, with the mask, the example's
+  valid map (bytes, rounded up to 16)."""
+  cells = h * w
+  return 4 * cells + (((cells + 15) & ~15) if mask else 0)
+
+
+def pose_scoring_bwd(g: Tensor, angle: Tensor, t: Tensor, xy: Tensor,
+                     valid_points: Tensor, valid_map: Tensor, *,
+                     sim_shape: Tuple[int, int, int, int], cell_size: float,
+                     mask_out_of_bounds: bool) -> Tensor:
+  """B7 on the card: ``d sim`` ``[B, N, H, W]`` f32 from ``g`` = d scores
+  ``[B, P]``, every entry written.
+
+  Two launches from one call: each pose's (cos, sin, t) into ``[B, P, 4]``
+  scratch allocated here, then one block per (point, example) that sums the
+  point's gradient in shared memory.
+  """
+  if g.device.type != 'cuda':
+    raise ValueError(f'pose_scoring_bwd needs CUDA tensors, got {g.device}')
+  b, n, h, w = sim_shape
+  p = g.shape[-1]
+  dev = g.device
+  _check(g, 'g', torch.float32, (b, p), dev)
+  _check(angle, 'angle', torch.float32, (b, p), dev)
+  _check(t, 't', torch.float32, (b, p, 2), dev)
+  _check(xy, 'xy', torch.float32, (b, n, 2), dev)
+  _check(valid_points, 'valid_points', torch.bool, (b, n), dev)
+  _check(valid_map, 'valid_map', torch.bool, (b, h, w), dev)
+  if not 0 < h < 2**15 or not 0 < w < 2**15 or not 0 < b < 2**16:
+    raise ValueError(f'pose_scoring_bwd: {b} examples of {h} x {w} cells')
+  smem = pose_scoring_bwd_smem_bytes(h, w, mask_out_of_bounds)
+  if smem > MAX_DYNAMIC_SMEM:
+    raise ValueError(
+        f'pose_scoring_bwd: a {h} x {w} map does not fit in a block\'s '
+        f'shared memory ({smem} of {MAX_DYNAMIC_SMEM} bytes)')
+  d_sim = torch.empty((b, n, h, w), dtype=torch.float32, device=dev)
+  poses = torch.empty((b, p, 4), dtype=torch.float32, device=dev)
+  lib = load_library()
+  code = lib.pose_scoring_bwd(
+      g.data_ptr(), angle.data_ptr(), t.data_ptr(), xy.data_ptr(),
+      valid_points.data_ptr(), valid_map.data_ptr(), d_sim.data_ptr(),
+      poses.data_ptr(), b, p, n, h, w, float(cell_size),
+      int(mask_out_of_bounds), smem,
+      torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on_error(code, 'pose_scoring_bwd')
+  LAUNCHES['pose_scoring_bwd'] += 1
+  return d_sim
 
 
 def slice_gather(stack: Tensor, rid: Tensor, *, w: int) -> Tensor:

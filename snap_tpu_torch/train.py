@@ -1,9 +1,17 @@
-"""Train the port's exhaustive-backend localizer for a few steps.
+"""Train the port's localizer, either pose backend, for a few steps.
 
     python -m snap_tpu_torch.train --config=train_full1chip_exhaustive \\
         --num_steps=3
-    python -m snap_tpu_torch.train --config=smoke_train_exhaustive \\
+    python -m snap_tpu_torch.train --config=train_full1chip_ransac \\
+        --num_steps=3
+    python -m snap_tpu_torch.train --config=smoke_train_ransac \\
         --num_steps=3 --device=cpu
+
+``train_full1chip_exhaustive`` is the flagship run (dense pose volume);
+``train_full1chip_ransac`` is the reference's default backend, whose loss
+scores the step's sampled poses (B4) and backpropagates through their
+scores (B7); ``smoke_train_exhaustive`` and ``smoke_train_ransac`` are
+their tiny counterparts.
 
 Builds the localizer of the named config with weights drawn from
 ``--seed``, reads one batch of synthetic map/query pairs per step from the

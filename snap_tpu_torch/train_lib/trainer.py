@@ -2,10 +2,12 @@
 
 ``train_step`` runs the forward with ``train=True`` on a CPU generator
 seeded from (seed, ``global_step``) (the reference folds the step into its
-key), takes the mean loss over ``batch_mask``, backpropagates, clips and
-applies Adam. A step whose gradients are not all finite keeps the
-parameters and the optimizer state, while ``global_step`` still advances:
-the optimizer's count then lags, as optax's does. Metrics are reduced to
+key), which draws the mapper's z jitter and modality dropout and, on the
+RANSAC backend, the pose samples; takes the mean loss over
+``batch_mask``, backpropagates, clips and applies Adam. A step whose
+gradients are not all finite keeps the parameters and the optimizer
+state, while ``global_step`` still advances: the optimizer's count then
+lags, as optax's does. Metrics are reduced to
 ``(sum, count)`` pairs, masked by ``batch_mask`` and finiteness. There is
 no autocast: the modules cast to their compute dtype themselves.
 """
@@ -21,6 +23,7 @@ import torch
 from snap_tpu_torch.models import bev_localizer
 from snap_tpu_torch.models import bev_mapper
 from snap_tpu_torch.train_lib import optimizers
+from snap_tpu_torch.utils import geometry
 
 Tensor = torch.Tensor
 AggregatedMetrics = Dict[str, Tuple[Tensor, Tensor]]
@@ -39,6 +42,9 @@ class StepOutput(NamedTuple):
   logs: Dict[str, float]
   grads: Dict[str, Tensor]  # by parameter name, before clipping
   draws: bev_mapper.TrainDraws
+  # The RANSAC backend's sampled poses [B, num_pose_samples], without the
+  # GT pose; None on the exhaustive backend.
+  pose_samples: Optional[geometry.Transform2D] = None
 
 
 def create_train_state(model: bev_localizer.BEVLocalizer,
@@ -80,9 +86,11 @@ def summarize(accumulated: List[AggregatedMetrics]) -> Dict[str, float]:
 
 
 def loss_and_metrics(model: bev_localizer.BEVLocalizer, batch: Dict[str, Any],
-                     train: bool, generator=None, draws=None):
+                     train: bool, generator=None, draws=None,
+                     pose_samples=None):
   """(masked-mean loss, per-example losses, metrics, predictions)."""
-  pred = model(batch, train=train, generator=generator, draws=draws)
+  pred = model(batch, train=train, generator=generator, draws=draws,
+               pose_samples=pose_samples)
   losses, metrics = model.loss_metrics_function(pred, batch)
   mask = batch['batch_mask'] > 0
   loss = losses['total'][mask].mean()
@@ -116,24 +124,28 @@ def apply_gradients(params: List[Tensor], grads: List[Tensor],
 
 def train_step(state: TrainState, batch: Dict[str, Any],
                optimizer: optimizers.Adam,
-               draws: Optional[bev_mapper.TrainDraws] = None
+               draws: Optional[bev_mapper.TrainDraws] = None,
+               pose_samples: Optional[geometry.Transform2D] = None
                ) -> StepOutput:
   """One step: forward (train), backward, clip, Adam; updates ``state``.
 
-  ``draws`` injects the forward's random draws; by default they come from
-  the step's generator.
+  ``draws`` and ``pose_samples`` (the RANSAC backend's ``[B, P]`` sampled
+  poses, without the GT) inject the forward's random draws; by default
+  they come from the step's generator.
   """
   model = state.model
   names = [n for n, _ in model.named_parameters()]
   params = [p for _, p in model.named_parameters()]
   loss, losses, metrics, pred = loss_and_metrics(
-      model, batch, True, step_generator(state), draws)
+      model, batch, True, step_generator(state), draws, pose_samples)
   grads = torch.autograd.grad(loss, params, allow_unused=True)
   grads = [torch.zeros_like(p) if g is None else g
            for g, p in zip(grads, params)]
   logs = apply_gradients(params, grads, state, optimizer)
   for key, value in losses.items():
     metrics[f'loss/{key}'] = value
+  samples = pred.get('map_t_query_samples')
   return StepOutput(
       metrics=reduce_metrics(metrics, batch['batch_mask']), logs=logs,
-      grads=dict(zip(names, grads)), draws=pred['draws'])
+      grads=dict(zip(names, grads)), draws=pred['draws'],
+      pose_samples=None if samples is None else samples[:, 1:])

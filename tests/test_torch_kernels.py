@@ -1,6 +1,6 @@
 """The CUDA kernels K1/K3 (lift_topk_fwd/bwd), K2/K4 (patch_sample_2d
-and its backward), B4 (pose_scoring), B5 (slice_gather) and B6
-(table_gather).
+and its backward), B4/B7 (pose_scoring and its backward), B5
+(slice_gather) and B6 (table_gather).
 
 Tests that need a card take the ``cuda`` fixture and skip where there is
 none (a CUDA kernel has no CPU mode); on a card, run them with
@@ -153,7 +153,8 @@ def test_build_recipe():
   sources = sorted(p.name for p in kernels.CSRC.glob('*.cu'))
   assert sources == ['lift_topk_bwd.cu', 'lift_topk_fwd.cu',
                      'patch_sample_2d.cu', 'patch_sample_2d_bwd.cu',
-                     'pose_scoring.cu', 'slice_gather.cu', 'table_gather.cu']
+                     'pose_scoring.cu', 'pose_scoring_bwd.cu',
+                     'slice_gather.cu', 'table_gather.cu']
   assert sorted(f'{name}.cu' for name in kernels.LAUNCHES) == sources
   assert kernels.library_path() == path  # stable: keyed by the sources
 
@@ -480,13 +481,97 @@ def test_pose_scoring_matches_plain(cuda, mask):
   torch.testing.assert_close(got.cpu(), on_cpu, atol=1e-4, rtol=1e-5)
 
 
-def test_pose_scoring_raises_where_a_gradient_is_needed(cuda):
-  args, cell = _scoring_inputs(cuda, p=10)
-  args[2].requires_grad_()
-  with pytest.raises(RuntimeError, match='no backward kernel'):
-    kernels.pose_scoring(*args, cell_size=cell, mask_out_of_bounds=False)
-  with torch.no_grad():
-    kernels.pose_scoring(*args, cell_size=cell, mask_out_of_bounds=False)
+# B7 against its plain version: each added value is the plain version's
+# to the bit; a cell sums it over the poses that reach it, with
+# shared-memory atomics in an order that changes from run to run. The
+# off-map poses' clamped reads pile onto the border cells (a few hundred
+# N(0, 1) cotangents there), whose f32 sums differ by order by ~1e-5.
+BWD_SCORE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def _scoring_bwd_inputs(device, seed=0, **kw):
+  """``_scoring_inputs`` with a seeded N(0, 1) cotangent ``g [B, P]``, a run
+  of 500 identical poses in example 0 (every pose of a point adds into the
+  same four cells) and example 1's cotangent zero but for 100 poses."""
+  args, cell = _scoring_inputs('cpu', seed=seed, **kw)
+  angle, t = args[0], args[1]
+  angle[0, 1000:1500] = angle[0, 1000]
+  t[0, 1000:1500] = t[0, 1000]
+  g = torch.randn(angle.shape, generator=torch.Generator().manual_seed(seed))
+  g[1, 100:] = 0.0
+  return [x.to(device) for x in (g, *args)], cell
+
+
+@pytest.mark.parametrize('mask', [False, True])
+def test_pose_scoring_bwd_matches_plain(cuda, mask):
+  (g, angle, t, sim, xy, valid_points, valid_map), cell = (
+      _scoring_bwd_inputs(cuda))
+  kwargs = dict(sim_shape=tuple(sim.shape), cell_size=cell,
+                mask_out_of_bounds=mask)
+  args = (g, angle, t, xy, valid_points, valid_map)
+  before = kernels.LAUNCHES['pose_scoring_bwd']
+  got = kernels.pose_scoring_bwd(*args, **kwargs)
+  assert kernels.LAUNCHES['pose_scoring_bwd'] == before + 1
+  want = pose_estimation.pose_scoring_bwd_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, want, **BWD_SCORE_TOL)
+  assert not got[~valid_points].any()  # invalid points' maps are all 0
+  on_cpu = pose_estimation.pose_scoring_bwd_plain(
+      *(a.cpu() for a in args), **kwargs)
+  torch.testing.assert_close(got.cpu(), on_cpu, **BWD_SCORE_TOL)
+
+
+@pytest.mark.parametrize('mask', [False, True])
+@pytest.mark.parametrize('case', ['ragged', 'valid_counts', 'off_map',
+                                  'one_cell', 'odd_width'])
+def test_pose_scoring_bwd_cases_match_plain(cuda, case, mask):
+  """B7 on B4's edge cases ('one_cell': every pose the same, so every
+  lane adds into the same four cells of each point's map)."""
+  args, kwargs = _scoring_case(case, cuda, mask)
+  angle, t, sim, xy, valid_points, valid_map = args
+  g = torch.randn(angle.shape, generator=torch.Generator().manual_seed(3)
+                  ).to(cuda)
+  bwd_args = (g, angle, t, xy, valid_points, valid_map)
+  kwargs = dict(kwargs, sim_shape=tuple(sim.shape))
+  got = kernels.pose_scoring_bwd(*bwd_args, **kwargs)
+  want = pose_estimation.pose_scoring_bwd_plain(*bwd_args, **kwargs)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, want, **BWD_SCORE_TOL)
+  if case == 'off_map' and mask:
+    assert not got.any()
+
+
+def test_pose_scoring_autograd_launches_b4_and_b7(cuda):
+  """``pose_scoring_many`` on CUDA tensors: B4 forward, B7 backward, and
+  the gradient is B7's."""
+  (g, angle, t, sim, xy, valid_points, valid_map), cell = (
+      _scoring_bwd_inputs(cuda))
+  sim.requires_grad_()
+  before = dict(kernels.LAUNCHES)
+  scores = pose_estimation.pose_scoring_many(
+      geometry.Transform2D(angle=angle, t=t), sim, xy, valid_points,
+      valid_map, grids.Grid2D(tuple(sim.shape[-2:]), cell), False)
+  scores.backward(g)
+  torch.cuda.synchronize()
+  assert kernels.LAUNCHES['pose_scoring'] == before['pose_scoring'] + 1
+  assert (kernels.LAUNCHES['pose_scoring_bwd']
+          == before['pose_scoring_bwd'] + 1)
+  want = pose_estimation.pose_scoring_bwd_plain(
+      g, angle, t, xy, valid_points, valid_map, sim_shape=tuple(sim.shape),
+      cell_size=cell, mask_out_of_bounds=False)
+  torch.testing.assert_close(sim.grad, want, **BWD_SCORE_TOL)
+
+
+def test_pose_scoring_bwd_refuses_maps_too_large_for_shared_memory(cuda):
+  g = torch.zeros((1, 3), device=cuda)
+  with pytest.raises(ValueError, match='does not fit'):
+    kernels.pose_scoring_bwd(
+        g, torch.zeros((1, 3), device=cuda), torch.zeros((1, 3, 2),
+                                                         device=cuda),
+        torch.zeros((1, 1, 2), device=cuda),
+        torch.ones((1, 1), dtype=torch.bool, device=cuda),
+        torch.ones((1, 300, 200), dtype=torch.bool, device=cuda),
+        sim_shape=(1, 1, 300, 200), cell_size=0.2, mask_out_of_bounds=False)
 
 
 def test_slice_and_table_gather_match_plain(cuda):
@@ -512,6 +597,11 @@ def test_new_cuda_launchers_refuse_cpu_tensors():
   args, cell = _scoring_inputs('cpu', p=10)
   with pytest.raises(ValueError, match='needs CUDA'):
     kernels.pose_scoring(*args, cell_size=cell, mask_out_of_bounds=False)
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.pose_scoring_bwd(
+        torch.zeros(args[0].shape), *args[:2], *args[3:],
+        sim_shape=tuple(args[2].shape), cell_size=cell,
+        mask_out_of_bounds=False)
   with pytest.raises(ValueError, match='needs CUDA'):
     kernels.slice_gather(torch.zeros((200, 16), dtype=torch.bfloat16),
                          torch.zeros(5, dtype=torch.int32), w=9)
@@ -760,6 +850,16 @@ def test_occupancy_reports_each_launch_of_the_last_call(cuda):
   names = [o['name'] for o in kernels.occupancy('patch_sample_2d_bwd')]
   assert names == ['bin_points_kernel', 'scan_kernel', 'place_points_kernel',
                    'sum_runs_kernel', 'cast_grad_kernel']
+  (g, angle, t, sim, xy, valid_points, valid_map), cell = (
+      _scoring_bwd_inputs(cuda))
+  kernels.pose_scoring_bwd(g, angle, t, xy, valid_points, valid_map,
+                           sim_shape=tuple(sim.shape), cell_size=cell,
+                           mask_out_of_bounds=True)
+  prep, scatter = kernels.occupancy('pose_scoring_bwd')
+  assert prep['name'] == 'pose_prep_kernel'
+  assert scatter['name'] == 'pose_scoring_bwd_kernel'
+  assert scatter['dynamic_smem'] == kernels.pose_scoring_bwd_smem_bytes(
+      20, 24, True)
 
 
 @pytest.mark.parametrize('b,p,n', [(4, 20_001, 4652), (4, 68_921, 4652),
@@ -773,6 +873,16 @@ def test_pose_scoring_plan_covers_every_pose_and_point(b, p, n):
   assert group <= kernels.POSE_MAX_GROUP
   assert plan['blocks'] == tiles * groups * b
   assert kernels.pose_scoring_smem_bytes(120, 160, group, True) <= (
+      kernels.MAX_DYNAMIC_SMEM)
+
+
+def test_pose_scoring_bwd_keeps_two_blocks_per_sm_on_the_training_map():
+  """B7's block at the RANSAC path's 120 x 160 map: the point's f32 map
+  and the valid map fit twice in an SM's 228 KB of shared memory."""
+  for mask in (False, True):
+    assert 2 * (kernels.pose_scoring_bwd_smem_bytes(120, 160, mask)
+                + 1024) <= 228 * 1024
+  assert kernels.pose_scoring_bwd_smem_bytes(300, 200, False) > (
       kernels.MAX_DYNAMIC_SMEM)
 
 

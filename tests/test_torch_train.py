@@ -173,11 +173,16 @@ def _assert_fields_equal(port, ref, path=''):
 @pytest.mark.parametrize('name,ref_args', [
     ('train_full1chip_exhaustive', 'scale=full1chip,pose_backend=exhaustive'),
     ('smoke_train_exhaustive', None),
+    ('train_full1chip_ransac', 'scale=full1chip'),
+    ('smoke_train_ransac', None),
 ])
 def test_train_configs_equal_jax(name, ref_args):
+  """``ref_args`` None: ``smoke_localization.py``, with the backend in the
+  port config's name (RANSAC is its default)."""
   port = configs.get_config(name)
   if ref_args is None:
-    ref = smoke_localization.get_config('pose_backend=exhaustive')
+    ref = smoke_localization.get_config(
+        'pose_backend=exhaustive' if name.endswith('exhaustive') else None)
   else:
     ref = train_localization.get_config(ref_args)
   _assert_fields_equal(port.model, ref.model)
