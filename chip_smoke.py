@@ -1,10 +1,10 @@
-"""Drive the port's serving, training, RANSAC, held-out evaluation, bench and
-gather-bench paths on one NVIDIA GPU (H100).
+"""Drive the port's serving, training, RANSAC, held-out evaluation, bench,
+gather-bench and long-run trainer paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
 Phases, each printed with its elapsed seconds; any failure raises (exit != 0).
-The main paths (6-7d) read their batches from the dataset's iterators,
+The main paths (6-7d, 7g) read their batches from the dataset's iterators,
 made on the card (``generator_kind`` must be ``device-torch``) and log each
 batch's build time; the references (4-5c) give the card and the CPU the
 host generator's batch:
@@ -53,7 +53,10 @@ host generator's batch:
    gradients, non-zero gradients on the street-view trunk, the proj MLP,
    the temperature and (on a step whose draws keep it) the aerial trunk,
    the parameters move once the learning rate is above 0, and every kernel
-   launches each step (K1 >= 2, K2 >= 1, K3 >= 2, K4 >= 1);
+   launches each step (K1 >= 2, K2 >= 1, K3 >= 2, K4 >= 1); the trainer's
+   eval and checkpoint at the stop step follow (their launches logged
+   apart); each training phase has a workdir of its own under
+   ``workdirs/``, removed after it;
 7a. RANSAC training main path: ``snap_tpu_torch.train`` on
    ``train_full1chip_ransac`` (the same model with the in-FoV query points,
    clipped scores and 10,000 pose samples x 8 retries, batch 2), 3 steps,
@@ -80,6 +83,25 @@ host generator's batch:
    printed), on card-made batches, every figure finite, K1-K4 launching;
 7e. the gather bench: ``snap_tpu_torch.bench_gather`` at the tool's shapes
    (its JSON line printed), B5 and B6 launching;
+7g. the trainer of a long run: ``train_full1chip_exhaustive`` (a
+   checkpoint and a summary every 2 steps, an eval of 1 batch every 4, the
+   last 2 checkpoints kept) stopped at step 2; the checkpoint restored into
+   other weights equals the live state bit for bit (params, moments,
+   count, step, seed), and one step from each on the resumed run's batch of
+   step 3 agrees under phase 5's tolerances, in phase 5's f32 with TF32 off
+   (the bf16 pair's run-to-run spread is logged); a new ``train`` call resumes to
+   step 10 (the data-seed fold logged), traced over steps 6-10
+   (``torch.profiler``, its device-busy and idle split printed), K1 >= 2,
+   K2 >= 1, K3 >= 2, K4 >= 1 and finite losses and gradients each step,
+   summaries at 4, 6, 8, 10, evals at 4, 8, 10, checkpoints 8 and 10 left,
+   ``progress.json``, its own peak memory within 0.5 GiB of the first
+   chunk's (no second copy of the state); the
+   held-out protocol (8 examples a city, as 7c) on that workdir reads step
+   10; a continuation (``continue_step=12500``) warm-started from a seeded
+   JAX-format export: after the lr-0 first step every mapper parameter is
+   the export's and the rest the seeded init, bit for bit; and the smoke
+   trainer's loss over 300 steps on the card: the last 50 steps' mean below
+   the first 50's (each over its finite steps, at most 5 of 50 not);
 7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
@@ -127,9 +149,11 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -158,10 +182,23 @@ from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
+from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import optimizers
 from snap_tpu_torch.train_lib import trainer
+from snap_tpu_torch.utils import prng
 
 T0 = time.perf_counter()
+# Each phase that trains gets a workdir of its own here, removed after it:
+# with checkpoints on, a workdir left from an earlier run would resume.
+WORKDIRS = pathlib.Path(__file__).resolve().parent / 'workdirs'
+# The peak memory of each training main path's steps (phases 7, 7a).
+TRAIN_PEAK = {}
+
+
+def fresh_workdir(name: str) -> pathlib.Path:
+  path = WORKDIRS / f'chip_smoke_{name}'
+  shutil.rmtree(path, ignore_errors=True)
+  return path
 
 # Tolerances (atol, rtol), kernel against plain version: both accumulate in
 # f32 and differ by summation order (the backward kernels add with atomics,
@@ -1045,6 +1082,7 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
   """``name`` (a key of ``TRAIN_PATHS``), batch 2, 3 steps; returns
   launches and the captured inputs of the config's kernels to check."""
   least, never, captured = TRAIN_PATHS[name]
+  resident = torch.cuda.memory_allocated()  # earlier phases' tensors
   model = evaluate.build_localizer(configs.get_config(name), 'cuda', 0)
   params = dict(model.named_parameters())
   flat = lambda: torch.cat([p.detach().flatten() for p in params.values()])
@@ -1094,15 +1132,22 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
         f'{aerial:.3g}, temperature {float(out.grads["temperature"]):.3g}; '
         f'launches {launched}')
 
+  workdir = fresh_workdir(name)
   torch.cuda.reset_peak_memory_stats()
   with contextlib.ExitStack() as stack:
     captures = [stack.enter_context(Capture(kernels, kernel, 0))
                 for kernel in captured]
     kernels.reset_launch_counts()
     result = train.train(name, 3, 'cuda', seed=0, model=model,
-                         on_step=check_step)
-    launches = dict(kernels.LAUNCHES)
+                         on_step=check_step, workdir=workdir)
+  shutil.rmtree(workdir)
+  # The steps' launches; the eval and checkpoint at the stop step follow.
+  launches = per_step[-1][0]
+  after_steps = {k: v - launches[k] for k, v in kernels.LAUNCHES.items()
+                 if v - launches[k]}
   peak = torch.cuda.max_memory_allocated()
+  # The path's own footprint: its peak less what earlier phases still hold.
+  TRAIN_PEAK[name] = peak - resident
   if not aerial_checked:
     raise AssertionError('no step kept the aerial modality')
   if result['generator_kind'] != 'device-torch':
@@ -1115,8 +1160,11 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
       f'{result["generator_kind"]}, build ms per step (host) '
       f'{result["build_ms"]}, (card) {result["build_card_ms"]} (the '
       f'host generator\'s build {HOST_BUILD["train_full1chip_exhaustive"]}), '
-      f'peak memory {peak / 2**30:.2f} GiB, aerial gradient checked on '
-      f'steps {aerial_checked}; {smi}')
+      f'peak memory {peak / 2**30:.2f} GiB (of it '
+      f'{TRAIN_PEAK[name] / 2**30:.2f} GiB its own, beside the earlier '
+      f'phases\' tensors), aerial gradient checked on '
+      f'steps {aerial_checked}; the eval at the stop step launched '
+      f'{after_steps}, its checkpoint {result["checkpoints"]}; {smi}')
   del model, params, before, result
   torch.cuda.empty_cache()
   return (launches, *captures)
@@ -1541,6 +1589,348 @@ def gather_bench_phase():
     raise AssertionError(f'slice_gather off by '
                          f'{by_name["pallas_slice"]["max_abs_err"]}')
   return launches, by_name
+
+
+# Phase 7g: the trainer of a long run, in chunks, at full width.
+LOOP_CADENCE = dict(checkpoint_steps=2, log_summary_steps=2, log_eval_steps=4,
+                    steps_per_eval=1, max_checkpoints_to_keep=2)
+LOOP_FIRST_STOP, LOOP_STOP = 2, 10
+# The resumed chunk's own peak memory against the first chunk's (GiB): the
+# restore must not hold a second copy of the state. (Phase 7's is logged
+# beside them; its absolute peak holds tensors earlier phases keep, and
+# its own takes the workspaces a process allocates once.)
+LOOP_PEAK_SLACK_GIB = 0.5
+CONTINUE_STEP = 12_500
+# The smoke run whose loss must fall: steps, the window of each mean, and
+# the most steps of a window whose loss may be non-finite.
+FALL_STEPS, FALL_WINDOW, FALL_NONFINITE = 300, 50, 5
+
+
+def _with_train(config: configs.Config, **changes) -> configs.Config:
+  return dataclasses.replace(config, train=dataclasses.replace(
+      config.train, **changes))
+
+
+class _Records(logging.Handler):
+  def __init__(self):
+    super().__init__(logging.INFO)
+    self.messages = []
+
+  def emit(self, record):
+    self.messages.append(record.getMessage())
+
+
+def _states_equal(a: trainer.TrainState, b: trainer.TrainState) -> None:
+  """Bit for bit: params, the moments, the count, the step and the seed."""
+  for (name, p), (_, q) in zip(a.model.named_parameters(),
+                               b.model.named_parameters()):
+    if not torch.equal(p, q):
+      raise AssertionError(f'restored {name} differs from the saved one')
+  for key in ('mu', 'nu'):
+    for i, (x, y) in enumerate(zip(getattr(a.opt_state, key),
+                                   getattr(b.opt_state, key))):
+      if not torch.equal(x, y):
+        raise AssertionError(f'restored {key}[{i}] differs')
+  if (a.opt_state.count, a.global_step, a.seed) != (
+      b.opt_state.count, b.global_step, b.seed):
+    raise AssertionError('restored counters differ')
+
+
+def _steps_agree(live: trainer.StepOutput, restored: trainer.StepOutput,
+                 check: bool = True):
+  """Phase 5's tolerances: the loss, and each gradient leaf by its largest
+  entry and its norm (raises unless ``check`` is off). Returns the losses,
+  the worst leaf's errors and its name."""
+  loss = [trainer.summarize([o.metrics])['loss/total']
+          for o in (live, restored)]
+  if check and not math.isclose(loss[0], loss[1], rel_tol=TRAIN_LOSS_RTOL):
+    raise AssertionError(f'step 3: loss live {loss[0]}, restored {loss[1]}')
+  worst = worst_norm = 0.0
+  worst_leaf = ''
+  for name, want in live.grads.items():
+    want, got = want.float(), restored.grads[name].float()
+    scale, norm = float(want.abs().max()), float(want.norm())
+    err, err_norm = float((got - want).abs().max()), float((got - want).norm())
+    if not math.isfinite(scale) or (check and not (
+        err <= TRAIN_GRAD_RTOL * scale + 1e-7
+        and err_norm <= TRAIN_GRAD_NORM_RTOL * norm + 1e-7)):
+      raise AssertionError(f'step 3: gradient of {name} off by {err:.3g} '
+                           f'(largest {scale:.3g}), {err_norm:.3g} in norm')
+    if err / max(scale, 1e-30) > worst:
+      worst, worst_leaf = err / max(scale, 1e-30), name
+    worst_norm = max(worst_norm, err_norm / max(norm, 1e-30))
+  return loss, worst, worst_norm, worst_leaf
+
+
+def _in_f32(config: configs.Config, state: trainer.TrainState
+            ) -> trainer.TrainState:
+  """``state`` (its weights, moments, counters and transform) on a model
+  that computes in f32."""
+  model = evaluate.build_localizer(
+      dataclasses.replace(config, dtype_str='float32'), 'cuda', 2)
+  model.load_state_dict(state.model.state_dict())
+  return dataclasses.replace(state, model=model)
+
+
+def write_seeded_export(path: pathlib.Path, seed: int, step: int) -> None:
+  """A JAX-format experiment workdir of the flagship run: its config in the
+  reference's keys, weights drawn from ``seed`` as flat flax params, and
+  the step they stand for (``checkpoint.json``)."""
+  path.mkdir(parents=True, exist_ok=True)
+  config = configs.train_full1chip_exhaustive()
+  (path / evaluator.CONFIG_FILE).write_text(json.dumps(
+      configs.to_reference(config)))
+  model = evaluate.build_localizer(config, 'cpu', seed)
+  np.savez(path / evaluator.PARAMS_FILE, **convert.flax_from_torch(
+      dict(model.named_parameters()), model))
+  (path / evaluator.CHECKPOINT_FILE).write_text(json.dumps({'step': step}))
+
+
+def trainer_loop_phase(smi: str) -> dict:
+  """Phase 7g: ``train_full1chip_exhaustive`` in two chunks (steps 1-2,
+  then 3-10 resumed in a new ``train`` call, traced), the held-out
+  protocol on what it wrote, a warm-started continuation, and the smoke
+  run's falling loss. Returns the figures PERF.md records."""
+  config = _with_train(configs.train_full1chip_exhaustive(), **LOOP_CADENCE)
+  workdir = fresh_workdir('loop')
+  least = TRAIN_PATHS['train_full1chip_exhaustive'][0]
+  out = {}
+
+  # 1. The first chunk: steps 1-2, checkpoint 2.
+  resident = torch.cuda.memory_allocated()  # earlier phases' tensors
+  torch.cuda.reset_peak_memory_stats()
+  model = evaluate.build_localizer(config, 'cuda', 0)
+  first = train.train(config, None, 'cuda', 0, workdir=str(workdir),
+                      model=model, stop_at_step=LOOP_FIRST_STOP)
+  first_footprint = torch.cuda.max_memory_allocated() - resident
+  if (list(first['checkpoints']) != [2] or list(first['summaries']) != [2]
+      or list(first['evals']) != [2]):
+    raise AssertionError(f'first chunk: checkpoints {first["checkpoints"]}, '
+                         f'summaries {list(first["summaries"])}, evals '
+                         f'{list(first["evals"])}')
+  live = first['state']
+  out['save'] = first['checkpoints'][2]
+
+  # 2. The checkpoint restored into a fresh model (other seeded weights)
+  # equals the first chunk's live state, bit for bit; a step from each on
+  # the resumed run's batch of step 3 agrees.
+  restored_model = evaluate.build_localizer(config, 'cuda', 1)
+  restored = trainer.create_train_state(
+      restored_model, optimizers.get_optimizer(config.train, restored_model),
+      seed=1)
+  t0 = time.perf_counter()
+  checkpoints.restore_checkpoint(workdir, restored)
+  torch.cuda.synchronize()
+  out['restore_seconds'] = time.perf_counter() - t0
+  _states_equal(live, restored)
+  data = dataclasses.replace(config.data, shuffle_seed=prng.resume_shuffle_seed(
+      config.data.shuffle_seed, LOOP_FIRST_STOP))
+  with loader.get_dataset(data, config.batch_size, device='cuda',
+                          start_step=LOOP_FIRST_STOP) as dataset:
+    batch = next(dataset.train_iter)
+  batch.pop('_host')
+  # Phase 5's tolerances are f32's with TF32 off: in bf16 two steps from one
+  # state differ run to run by a few % of a leaf's largest entry (the
+  # atomics' order, amplified through 50 bf16 layers: ROADMAP C20), so
+  # the check runs both states' step in f32 and logs the bf16 pair's spread.
+  tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = (
+      False)
+  live32, restored32 = _in_f32(config, live), _in_f32(config, restored)
+  step3 = _steps_agree(trainer.train_step(live32, batch, live.tx),
+                       trainer.train_step(restored32, batch, restored.tx))
+  del live32, restored32
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+  step3_bf16 = _steps_agree(trainer.train_step(live, batch, live.tx),
+                            trainer.train_step(restored, batch, restored.tx),
+                            check=False)
+  del model, live, restored, restored_model, first, batch, dataset
+  torch.cuda.empty_cache()
+  log(f'trainer loop, first chunk (train_full1chip_exhaustive, batch 2, '
+      f'bf16, steps 1-2): checkpoint 2 saved in {out["save"]["seconds"]:.2f} '
+      f's, {out["save"]["bytes"]} bytes; restored into other weights in '
+      f'{out["restore_seconds"]:.2f} s, equal bit for bit; step 3 from the '
+      f'live and the restored state in f32 (TF32 off): losses {step3[0]}, '
+      f'worst gradient leaf {step3[1]:.3g} of its largest entry '
+      f'({step3[3]}), {step3[2]:.3g} of its norm; the same in bf16 (not '
+      f'held to a tolerance): losses {step3_bf16[0]}, {step3_bf16[1]:.3g} '
+      f'({step3_bf16[3]}), {step3_bf16[2]:.3g}; {smi}')
+
+  # 3. The second chunk, resumed in a new call: steps 3-10, traced.
+  per_step = []
+
+  def check_step(step: int, step_out: trainer.StepOutput) -> None:
+    counts = dict(kernels.LAUNCHES)
+    prev = per_step[-1] if per_step else {k: 0 for k in counts}
+    launched = {k: counts[k] - prev[k] for k in counts}
+    per_step.append(counts)
+    loss = trainer.summarize([step_out.metrics])['loss/total']
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in step_out.grads.values())
+    if not (math.isfinite(loss) and finite
+            and step_out.logs['is_finite'] == 1.0):
+      raise AssertionError(f'resumed step {step}: loss {loss}, finite '
+                           f'gradients {finite}')
+    for kernel, fewest in least.items():
+      if launched[kernel] < fewest:
+        raise AssertionError(f'resumed step {step}: {kernel} launched '
+                             f'{launched[kernel]} times')
+
+  records = _Records()
+  logging.getLogger('snap_tpu_torch').addHandler(records)
+  logging.getLogger('snap_tpu_torch').setLevel(logging.INFO)
+  resident = torch.cuda.memory_allocated()  # earlier phases' tensors
+  torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launch_counts()
+  try:
+    second = train.train(config, None, 'cuda', 0, workdir=str(workdir),
+                         on_step=check_step, stop_at_step=LOOP_STOP)
+  finally:
+    logging.getLogger('snap_tpu_torch').removeHandler(records)
+  peak = torch.cuda.max_memory_allocated()
+  fold = f'Folding global_step {LOOP_FIRST_STOP} into dataset seed.'
+  if fold not in records.messages or second['start_step'] != LOOP_FIRST_STOP:
+    raise AssertionError(f'no resume from step {LOOP_FIRST_STOP}: start '
+                         f'{second["start_step"]}')
+  trace = second['trace']
+  expected = {'summaries': [4, 6, 8, 10], 'evals': [4, 8, 10],
+              'checkpoints': [4, 6, 8, 10]}
+  for key, steps in expected.items():
+    if sorted(second[key]) != steps:
+      raise AssertionError(f'resumed run: {key} at {sorted(second[key])}')
+  if checkpoints.all_steps(workdir) != [8, 10]:
+    raise AssertionError(f'on disk: {checkpoints.all_steps(workdir)}')
+  progress = json.loads((workdir / 'progress.json').read_text())
+  if progress['step'] != LOOP_STOP:
+    raise AssertionError(f'progress.json: {progress}')
+  if trace is None or trace['steps'] != [6, 10] or not pathlib.Path(
+      trace['path']).exists() or not trace['device_events']:
+    raise AssertionError(f'trace: {trace}')
+  for step, summary in second['summaries'].items():
+    if not math.isfinite(summary['loss/total']):
+      raise AssertionError(f'summary {step}: {summary}')
+  footprint = peak - resident
+  slack = (footprint - first_footprint) / 2**30
+  ms = [1e3 * t for t in second['step_seconds']]
+  out.update(step3=step3, step3_bf16=step3_bf16, resumed_ms=ms, trace=trace,
+             peak_gib=footprint / 2**30,
+             checkpoints=second['checkpoints'],
+             resumed_restore_seconds=second['restore_seconds'])
+  log(f'trainer loop, the resumed call (steps 3-10, data seed '
+      f'{second["shuffle_seed"]}) restored in '
+      f'{second["restore_seconds"]:.2f} s, saved {second["checkpoints"]}, '
+      f'kept {checkpoints.all_steps(workdir)}; summaries at '
+      f'{sorted(second["summaries"])} (loss '
+      f'{[round(v["loss/total"], 4) for v in second["summaries"].values()]},'
+      f' steps/s {[v["steps_per_sec"] for v in second["summaries"].values()]}'
+      f'), evals at {sorted(second["evals"])}; ms per step {ms} (steps 3-5 '
+      f'before the trace, 6-10 traced); trace {trace}; peak '
+      f'{peak / 2**30:.2f} GiB, of it {footprint / 2**30:.2f} GiB its own '
+      f'({slack:+.3f} GiB from the first chunk\'s own '
+      f'{first_footprint / 2**30:.2f}; phase 7\'s own '
+      f'{TRAIN_PEAK["train_full1chip_exhaustive"] / 2**30:.2f}); '
+      f'launches {dict(kernels.LAUNCHES)}; {smi}')
+  if abs(slack) > LOOP_PEAK_SLACK_GIB:
+    raise AssertionError(f'the resumed steps\' own peak '
+                         f'{footprint / 2**30:.2f} GiB is {slack:+.2f} GiB '
+                         'from the first chunk\'s')
+  del second
+  torch.cuda.empty_cache()
+
+  # 4. The held-out protocol on the checkpoint the run wrote.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ec = dataclasses.replace(heldout_eval_config(overwrite=True),
+                           workdir=str(workdir))
+  kernels.reset_launch_counts()
+  evaluated = evaluator.run(ec, device='cuda')
+  for kernel in ('lift_topk_fwd', 'patch_sample_2d'):
+    if kernels.LAUNCHES[kernel] == 0:
+      raise AssertionError(f'the held-out run did not launch {kernel}')
+  for city, (results, record) in evaluated.items():
+    if record['eval_checkpoint_step'] != LOOP_STOP:
+      raise AssertionError(f'{city}: evaluated step '
+                           f'{record["eval_checkpoint_step"]}')
+    if not np.isfinite(results['error_max_meter']).all():
+      raise AssertionError(f'{city}: non-finite errors')
+    print(json.dumps(evaluate.city_summary(city, results, record)),
+          flush=True)
+  log(f'held-out protocol on the trained checkpoint: step '
+      f'{LOOP_STOP} of {workdir.name}, launches {dict(kernels.LAUNCHES)}')
+  shutil.rmtree(workdir)
+
+  # 5. The warm start of a continuation from a JAX-format export.
+  export = fresh_workdir('export')
+  write_seeded_export(export, seed=1, step=CONTINUE_STEP)
+  with np.load(export / evaluator.PARAMS_FILE) as npz:
+    exported = convert.params_from_flax(dict(npz))
+  warm = _with_train(configs.get_config(
+      f'train_full1chip_exhaustive:continue_step={CONTINUE_STEP},'
+      f'pretrained_mapper={export}'), checkpoint=False)
+  init = evaluate.build_localizer(warm, 'cpu', 0).state_dict()
+  seen = {}
+
+  def check_warm(step: int, step_out: trainer.StepOutput) -> None:
+    if step:
+      return
+    seen['lr'] = step_out.logs['learning_rate']
+    for name, p in seen['model'].named_parameters():
+      want = exported[name] if name.startswith('bev_mapper.') else init[name]
+      if not torch.equal(p.detach().cpu(), want):
+        raise AssertionError(f'warm start: {name} is not the expected '
+                             'weight after the lr-0 step')
+    seen['checked'] = len(init)
+
+  seen['model'] = evaluate.build_localizer(warm, 'cuda', 0)
+  kernels.reset_launch_counts()
+  warm_run = train.train(warm, None, 'cuda', 0, model=seen['model'],
+                         workdir=str(fresh_workdir('warm')), stop_at_step=2,
+                         on_step=check_warm)
+  if seen.get('lr') != 0.0 or not seen.get('checked'):
+    raise AssertionError(f'warm start: lr of step 0 {seen.get("lr")}')
+  if warm_run['shuffle_seed'] != configs.SHUFFLE_SEED + CONTINUE_STEP:
+    raise AssertionError(f'continuation data seed {warm_run["shuffle_seed"]}')
+  log(f'warm start (continue_step={CONTINUE_STEP} from a seeded JAX-format '
+      f'export): {seen["checked"]} parameters as expected after the lr-0 '
+      f'step (the mapper the export\'s, the rest the seeded init); lr '
+      f'{[l["learning_rate"] for l in warm_run["logs"]]}; losses '
+      f'{[round(v["loss/total"], 4) for v in warm_run["summaries"].values()]}'
+      f'; schedule of {warm.train.num_training_steps} steps; launches '
+      f'{dict(kernels.LAUNCHES)}')
+  del seen, init, exported, warm_run
+  shutil.rmtree(export)
+  shutil.rmtree(WORKDIRS / 'chip_smoke_warm')
+  torch.cuda.empty_cache()
+
+  # 6. The loss falls: the smoke trainer over FALL_STEPS steps.
+  smoke = _with_train(configs.smoke_train_exhaustive(), checkpoint=False,
+                      num_training_steps=FALL_STEPS, xprof=False,
+                      log_summary_steps=FALL_WINDOW, log_eval_steps=FALL_STEPS)
+  losses = []
+  fall_dir = fresh_workdir('fall')
+  train.train(smoke, None, 'cuda', 0, workdir=str(fall_dir),
+              on_step=lambda step, o: losses.append(
+                  trainer.summarize([o.metrics])['loss/total']))
+  shutil.rmtree(fall_dir)
+  # A step whose batch holds an example with a non-finite loss (its
+  # gradients finite, the step taken) sums to NaN, as the reference's
+  # reduce_metrics does (v * mask; ROADMAP C21): the means are over the
+  # window's finite steps, nearly all of them.
+  windows = [np.asarray(losses[:FALL_WINDOW]),
+             np.asarray(losses[-FALL_WINDOW:])]
+  finite = [w[np.isfinite(w)] for w in windows]
+  skipped = [i for i, loss in enumerate(losses) if not math.isfinite(loss)]
+  if min(len(f) for f in finite) < FALL_WINDOW - FALL_NONFINITE:
+    raise AssertionError(f'smoke run: non-finite losses at steps {skipped}')
+  head, tail = (float(f.mean()) for f in finite)
+  if not tail < head:
+    raise AssertionError(f'smoke loss did not fall: {head} -> {tail}')
+  out['fall'] = (head, tail, skipped)
+  log(f'loss falls (smoke_train_exhaustive, {FALL_STEPS} steps on the card): '
+      f'mean of steps 1-{FALL_WINDOW} {head}, of the last {FALL_WINDOW} '
+      f'{tail} (over their finite steps; the loss is not finite at steps '
+      f'{skipped}, counted from 0)')
+  return out
 
 
 def pose_scoring_bound(args, out):
@@ -1989,6 +2379,8 @@ def main() -> int:
   heldout_launches, heldout_lift, heldout_sample = heldout_main_path(smi)
   bench_phase(smi)
   bench_launches, gather_bench = gather_bench_phase()
+  # 7g. The trainer of a long run: chunks, resume, eval, warm start.
+  trainer_loop_phase(smi)
 
   # 7f. The device generator on the card. After the main paths: its
   # profile of one build is this script's first, and later launches on

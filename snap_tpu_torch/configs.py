@@ -49,6 +49,8 @@ reference's config dict (``to_reference`` writes one), and
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 import typing
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
@@ -68,12 +70,26 @@ TRAIN_LOCATIONS = ','.join(f'{c}-synthetic'
                            for c in DATA_SPLITS_CITIES['train'])
 
 
+def _warm_start_field():
+  """Where a module's initial weights are read from (``pretrained_path``).
+
+  Read by the trainer's init only (``trainer.update_pretrained_variables``);
+  an evaluation reads the trained weights. It is where a run started, not
+  part of what the config computes, so configs that differ only here
+  compare equal (an export that continued another run is its recipe's
+  config).
+  """
+  return dataclasses.field(default=None, compare=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
   width: int = 1
   depth: Union[int, Tuple[int, ...]] = 50
   limit_num_blocks: Optional[int] = 4
   skip_root_block: bool = False
+  # A big_vision BiT ``.npz`` (``models/resnet.py:load_pretrained_variables``).
+  pretrained_path: Optional[str] = _warm_start_field()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +145,9 @@ class BEVMapperConfig:
   # dropping each map modality with p = 0.5 (never all of an example's).
   scene_z_offset_range: Optional[Tuple[float, float]] = (-2.0, 2.0)
   apply_modality_dropout: bool = True
+  # An experiment workdir whose ``bev_mapper`` subtree warm-starts this one
+  # (``models/bev_mapper.py:load_pretrained_variables``).
+  pretrained_path: Optional[str] = _warm_start_field()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,19 +221,41 @@ class LrConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-  """``optimizer_configs`` of ``defaults.base()``."""
+  """``optimizer_configs`` of ``defaults.base()``: ``adam``, ``adamw`` or
+  ``sgd`` (momentum 0.9); parameters whose flax path
+  (``'/'.join(path) + '/'``) matches ``freeze_params_reg_exp`` are frozen,
+  with (``allocate_frozen_state``) or without Adam moments of their own."""
 
   optimizer: str = 'adam'
   weight_decay: float = 0.0
   freeze_params_reg_exp: Optional[str] = None
+  allocate_frozen_state: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+  """The schedule, the optimizer and the trainer's cadence
+  (``defaults.base()``): a checkpoint every ``checkpoint_steps`` (else every
+  ``log_eval_steps``), keeping the last ``max_checkpoints_to_keep``; a
+  summary every ``log_summary_steps`` (else every ``log_eval_steps``); an
+  eval over ``steps_per_eval`` batches (else the whole eval split) of
+  ``eval_batch_size`` (else ``batch_size``) every ``log_eval_steps``; all
+  three at the stop step, ``stop_at_step`` or ``num_training_steps``;
+  a trace of 5 steps after a (re)start when ``xprof``."""
+
   lr_configs: LrConfig = LrConfig()
   optimizer_configs: OptimizerConfig = OptimizerConfig()
   max_grad_norm: Optional[float] = None
   num_training_steps: int = 8
+  checkpoint: bool = True
+  checkpoint_steps: Optional[int] = None
+  max_checkpoints_to_keep: int = 10
+  log_summary_steps: Optional[int] = None
+  log_eval_steps: int = 1000
+  steps_per_eval: Optional[int] = None
+  eval_batch_size: Optional[int] = None
+  stop_at_step: Optional[int] = None
+  xprof: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,48 +319,125 @@ def smoke_exhaustive(batch_size: int = 2) -> Config:
                 batch_size=batch_size)
 
 
-def train_full1chip_exhaustive(batch_size: int = 2) -> Config:
+# ``train_localization.py``'s flagship recipe, which ``continue_step``
+# continues.
+FULL1CHIP_STEPS = 20_000
+
+
+def export_steps(workdir: str) -> Tuple[int, ...]:
+  """The steps an experiment workdir holds: its ``checkpoints/<step>``
+  directories, else the step of its ``checkpoint.json``."""
+  path = pathlib.Path(workdir)
+  ckdir = path / 'checkpoints'
+  if ckdir.is_dir():
+    return tuple(sorted(int(p.name) for p in ckdir.iterdir()
+                        if p.name.isdigit()))
+  record = path / 'checkpoint.json'
+  if record.exists():
+    step = json.loads(record.read_text()).get('step')
+    return () if step is None else (int(step),)
+  return ()
+
+
+def _check_continuation(continue_step: int, pretrained_mapper: str) -> None:
+  """Raise where ``train_localization.py:61-87`` raises."""
+  if not pretrained_mapper:
+    raise ValueError('continue_step requires pretrained_mapper=<export>')
+  if not 0 < continue_step < FULL1CHIP_STEPS:
+    raise ValueError(f'continue_step must be in (0, {FULL1CHIP_STEPS}), '
+                     f'got {continue_step}')
+  steps = export_steps(pretrained_mapper)
+  if steps and continue_step not in steps:
+    raise ValueError(
+        f'continue_step={continue_step} does not match the export checkpoint '
+        f'step(s) {list(steps)} in {pretrained_mapper}; pass the matching '
+        'step or re-export with tools/export_pretrained.py --effective-step')
+
+
+def train_full1chip_exhaustive(batch_size: int = 2,
+                               pretrained_mapper: str = '',
+                               pretrained_resnet: str = '',
+                               continue_step: int = 0) -> Config:
   """``train_localization.py:scale=full1chip,pose_backend=exhaustive``.
+
+  ``pretrained_mapper`` (an experiment workdir) warm-starts the mapper and
+  ``pretrained_resnet`` (a BiT ``.npz``) the street-view trunk. A
+  ``continue_step`` continues the 20k recipe from that step of
+  ``pretrained_mapper`` (``:173-186``): a 100-step re-warmup, then the
+  recipe's cosine tail, over the ``20000 - continue_step`` steps left, on
+  a data seed moved by the step.
 
   The JAX config also sets ``point_tile=288_000``: a memory device of the
   XLA program (rematerialized point tiles), numerically neutral, that the
   port's lift backward does without.
   """
+  cs = int(continue_step)
+  if cs:
+    _check_continuation(cs, pretrained_mapper)
   serve = bench_full(batch_size)
   lr = LrConfig(factors='constant * linear_warmup * cosine_decay',
                 base_learning_rate=2e-4, warmup_steps=1_000,
                 start_decay_step=4_000, steps_per_cycle=16_000)
   train = TrainConfig(lr_configs=lr, max_grad_norm=1.0,
-                      num_training_steps=20_000)
+                      num_training_steps=FULL1CHIP_STEPS,
+                      checkpoint_steps=500, log_summary_steps=100,
+                      log_eval_steps=2_000, steps_per_eval=8)
+  shuffle_seed = SHUFFLE_SEED
+  if cs:
+    train = dataclasses.replace(
+        train, num_training_steps=FULL1CHIP_STEPS - cs,
+        lr_configs=dataclasses.replace(lr, warmup_steps=100,
+                                       start_decay_step=4_000 - cs,
+                                       steps_per_cycle=16_000))
+    shuffle_seed = SHUFFLE_SEED + cs
   data = dataclasses.replace(
-      serve.data, shuffle_seed=SHUFFLE_SEED, evaluation_size=32,
+      serve.data, shuffle_seed=shuffle_seed, evaluation_size=32,
       locations=LocationsConfig(training=TRAIN_LOCATIONS))
+  mapper = serve.model.bev_mapper
+  if pretrained_resnet:
+    streetview = mapper.streetview_encoder
+    encoder = dataclasses.replace(streetview.image_encoder.encoder,
+                                  pretrained_path=str(pretrained_resnet))
+    mapper = dataclasses.replace(mapper, streetview_encoder=merge(
+        streetview, {'image_encoder': {'encoder': encoder}}))
+  if pretrained_mapper:
+    mapper = dataclasses.replace(mapper,
+                                 pretrained_path=str(pretrained_mapper))
   return dataclasses.replace(
       serve,
       model=dataclasses.replace(serve.model, do_grid_refinement=False,
                                 num_pose_samples=10_000,
-                                num_pose_sampling_retries=8),
+                                num_pose_sampling_retries=8,
+                                bev_mapper=mapper),
       data=data, train=train)
 
 
 def smoke_train_exhaustive(batch_size: int = 2) -> Config:
-  """``smoke_exhaustive`` with ``smoke_localization.py``'s training setup."""
+  """``smoke_exhaustive`` with ``smoke_localization.py``'s training setup:
+  8 steps, a summary every 2, a checkpoint every 4, an eval of 1 batch at
+  step 8."""
   lr = LrConfig(factors='constant', base_learning_rate=1e-3)
   return dataclasses.replace(
       smoke_exhaustive(batch_size),
       train=TrainConfig(lr_configs=lr, max_grad_norm=1.0,
-                        num_training_steps=8))
+                        num_training_steps=8, log_summary_steps=2,
+                        log_eval_steps=8, checkpoint_steps=4,
+                        steps_per_eval=1))
 
 
-def train_full1chip_ransac(batch_size: int = 2) -> Config:
+def train_full1chip_ransac(batch_size: int = 2, pretrained_mapper: str = '',
+                           pretrained_resnet: str = '',
+                           continue_step: int = 0) -> Config:
   """``train_localization.py:scale=full1chip``, whose backend defaults to
-  RANSAC: ``train_full1chip_exhaustive`` with the model settings that
-  ``:94-97`` overrides only for the exhaustive backend left at the
-  reference's defaults (the in-FoV query points, clipped scores); 10,000
-  pose samples x 8 retries, no grid refinement. The JAX config's
-  ``point_tile=288_000`` is ignored, as in ``train_full1chip_exhaustive``.
+  RANSAC: ``train_full1chip_exhaustive`` (its warm starts and continuation
+  included) with the model settings that ``:94-97`` overrides only for the
+  exhaustive backend left at the reference's defaults (the in-FoV query
+  points, clipped scores); 10,000 pose samples x 8 retries, no grid
+  refinement. The JAX config's ``point_tile=288_000`` is ignored, as in
+  ``train_full1chip_exhaustive``.
   """
-  flagship = train_full1chip_exhaustive(batch_size)
+  flagship = train_full1chip_exhaustive(batch_size, pretrained_mapper,
+                                        pretrained_resnet, continue_step)
   return dataclasses.replace(flagship, model=dataclasses.replace(
       flagship.model, pose_backend='ransac', filter_points_in_fov=True,
       clip_negative_scores=True))
@@ -502,19 +620,16 @@ def merge_eval_config(eval_config: EvalConfig, experiment: Config,
 
 # Keys the port reads and ignores, by the dataclass of their section.
 _IGNORED_KEYS = {
-    ResNetConfig: (
-        # Rematerialized blocks and units: memory devices of the XLA
-        # program, numerically neutral.
-        'checkpoint_blocks', 'checkpoint_units',
-        # A warm start of the initial weights: an evaluation reads the
-        # trained ones, and the port's trainer draws its own (A7).
-        'pretrained_path'),
+    # Rematerialized blocks and units: memory devices of the XLA program,
+    # numerically neutral.
+    ResNetConfig: ('checkpoint_blocks', 'checkpoint_units'),
     StreetViewEncoderConfig: (
         # The lift's point tiles in training and at eval: memory devices of
         # the XLA program (rematerialized tiles), numerically neutral.
         'point_tile', 'point_tile_eval',
-        'pretrained_path'),  # a warm start, as above
-    BEVMapperConfig: ('pretrained_path',),  # a warm start, as above
+        # The street-view encoder's own warm start, with its config merge
+        # (``streetview_encoder.py:41-61``): it comes with the heads (A10).
+        'pretrained_path'),
     # The MLP of ``pooling='mlp'``, on which the port's mapper raises (A14).
     VerticalPoolingConfig: ('mlp',),
     DataConfig: (
@@ -522,8 +637,6 @@ _IGNORED_KEYS = {
         'version', 'data_dir', 'dirname',
         # Read by the reference only as metadata, and not at all.
         'training_size_per_builder', 'raster_size'),
-    # Whether frozen params get Adam moments: a memory device.
-    OptimizerConfig: ('allocate_frozen_state',),
 }
 # Keys whose value the port checks: the one value it runs.
 _CHECKED_KEYS = {
@@ -538,20 +651,23 @@ _UNPORTED_KEYS = {
                       'bev_net': 'the residual BEV stage (A14)'},
     StreetViewEncoderConfig: {'depth_mlp': 'a depth MLP (A14)'},
 }
-# Top-level keys read and ignored: the JAX trainer's bookkeeping
-# (checkpoints, summaries, profiling, eval cadence, where its init runs,
+# Top-level keys read and ignored: the JAX trainer's bookkeeping that the
+# port's has no use for (summary writers, debug flags, where its init runs,
 # the tensor-parallel threshold), the seed of its flax init (the port draws
 # its own weights) and the records an evaluation adds to its dump.
 _IGNORED_TOP = (
-    'checkpoint', 'checkpoint_steps', 'max_checkpoints_to_keep',
-    'log_eval_steps', 'steps_per_eval', 'write_summary', 'log_summary_steps',
-    'xprof', 'debug_train', 'debug_eval', 'eval_batch_size', 'init_backend',
+    'write_summary', 'debug_train', 'debug_eval', 'init_backend',
     'tp_min_dim', 'rng_seed', 'eval_checkpoint_step', 'data_generator_kind',
     'eval_seconds', 'build_ms', 'build_card_ms', 'cudnn_allow_tf32',
     'matmul_allow_tf32')
 _TOP_KEYS = ('model', 'data', 'batch_size', 'dtype_str', 'shuffle_seed',
              'lr_configs', 'optimizer_configs', 'max_grad_norm',
              'num_training_steps')
+# The trainer's cadence (``TrainConfig``), each read when the reference
+# config has it (``stop_at_step`` only a run's own does).
+_TRAINER_TOP = ('checkpoint', 'checkpoint_steps', 'max_checkpoints_to_keep',
+                'log_summary_steps', 'log_eval_steps', 'steps_per_eval',
+                'eval_batch_size', 'stop_at_step', 'xprof')
 _CHECKED_TOP = {'model_name': 'bev_localizer', 'data_dtype_str': 'float32',
                 'num_training_epochs': None}
 
@@ -613,7 +729,7 @@ def from_reference(d: Mapping[str, Any]) -> Config:
   for key, want in _CHECKED_TOP.items():
     _check(key, d.get(key), want)
   _check('mesh.model', d.get('mesh', {}).get('model', 1), 1)
-  known = {*_TOP_KEYS, *_IGNORED_TOP, *_CHECKED_TOP, 'mesh'}
+  known = {*_TOP_KEYS, *_TRAINER_TOP, *_IGNORED_TOP, *_CHECKED_TOP, 'mesh'}
   unknown = sorted(set(d) - known)
   missing = sorted(set(_TOP_KEYS) - set(d))
   if unknown or missing:
@@ -624,7 +740,8 @@ def from_reference(d: Mapping[str, Any]) -> Config:
       optimizer_configs=_from_dict(OptimizerConfig, d['optimizer_configs'],
                                    'optimizer_configs'),
       max_grad_norm=d['max_grad_norm'],
-      num_training_steps=d['num_training_steps'])
+      num_training_steps=d['num_training_steps'],
+      **{key: d[key] for key in _TRAINER_TOP if key in d})
   return Config(
       model=_from_dict(BEVLocalizerConfig, d['model'], 'model'),
       data=_from_dict(DataConfig, d['data'], 'data',
@@ -650,6 +767,9 @@ def to_reference(config: Config) -> Dict[str, Any]:
   data = plain(config.data)
   shuffle_seed = data.pop('shuffle_seed')
   train = config.train
+  trainer = {key: getattr(train, key) for key in _TRAINER_TOP}
+  if trainer['stop_at_step'] is None:
+    del trainer['stop_at_step']
   return {
       **_CHECKED_TOP, 'model': plain(config.model),
       'data': {**data, **_CHECKED_KEYS[DataConfig]},
@@ -659,6 +779,7 @@ def to_reference(config: Config) -> Dict[str, Any]:
       'optimizer_configs': plain(train.optimizer_configs),
       'max_grad_norm': train.max_grad_norm,
       'num_training_steps': train.num_training_steps,
+      **trainer,
   }
 
 CONFIGS = {
@@ -674,7 +795,23 @@ CONFIGS = {
 }
 
 
+def parse_config_name(spec: str) -> Tuple[str, Dict[str, Any]]:
+  """``'name:key=value,...'`` (the reference's ``--config`` argument string)
+  -> the name and its keyword arguments (integers where they parse)."""
+  name, _, args = spec.partition(':')
+  kwargs = {}
+  for item in filter(None, args.split(',')):
+    key, sep, value = item.partition('=')
+    if not sep:
+      raise ValueError(f'config argument {item!r} is not key=value')
+    kwargs[key] = int(value) if value.lstrip('-').isdigit() else value
+  return name, kwargs
+
+
 def get_config(name: str, **kwargs) -> Config:
+  """The named config; ``name`` may carry arguments, as in
+  ``'train_full1chip_exhaustive:continue_step=12500,pretrained_mapper=D'``."""
+  name, args = parse_config_name(name)
   if name not in CONFIGS:
     raise ValueError(f'Unknown config {name!r}; choose from {sorted(CONFIGS)}')
-  return CONFIGS[name](**kwargs)
+  return CONFIGS[name](**args, **kwargs)

@@ -78,6 +78,14 @@ def params_from_flax(params: Mapping[str, Any],
   return state
 
 
+def flax_path(name: str) -> str:
+  """The '/'-joined flax path of the port's parameter ``name`` (a conv's
+  or dense layer's ``weight`` is flax's ``kernel``)."""
+  owner, _, leaf = name.rpartition('.')
+  leaf = 'kernel' if leaf == 'weight' else leaf
+  return '/'.join(owner.split('.') + [leaf]) if owner else leaf
+
+
 def flax_from_torch(named: Mapping[str, torch.Tensor], module: nn.Module
                     ) -> Dict[str, np.ndarray]:
   """Tensors named like ``module``'s parameters (its weights, or their

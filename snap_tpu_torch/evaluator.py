@@ -4,9 +4,11 @@ The port of ``snap_tpu/evaluator.py``. ``run`` evaluates the cities of a
 split one by one (``run_for_location``): the experiment's config
 (``<workdir>/config.json``, the reference's keys, read by
 ``configs.from_reference``) merged with the eval config
-(``configs.merge_eval_config``), its weights (``<workdir>/params.npz``:
-flax params keyed by '/'-joined paths, converted by
-``convert.params_from_flax``; the step they were taken at in
+(``configs.merge_eval_config``), its weights (the port's
+``<workdir>/checkpoints/<step>/`` as ``train`` writes them, at the eval
+config's ``checkpoint_step`` or the latest; else a JAX export's
+``<workdir>/params.npz``: flax params keyed by '/'-joined paths, converted
+by ``convert.params_from_flax``, with the step they were taken at in
 ``<workdir>/checkpoint.json``), the localizer run over the eval iterator
 (``eval_on_dataset``, per-example metrics packed by
 ``pack_localization_metrics``, with the reference's one-batch lag: batch
@@ -14,9 +16,7 @@ k + 1 is dispatched before batch k's metrics are read back), and the
 metrics dumped to ``<workdir>/evaluation/<location><tag>/results.npz``
 beside the merged config as ``config.json`` (``write_eval_dump``), which a
 later run of the same protocol reads back instead. ``compute_recall``
-gives the recall curve. Not ported: reading a workdir that the port's
-``train`` writes (``params.pt``, ROADMAP A7) and the semantic models'
-packing (A10).
+gives the recall curve. Not ported: the semantic models' packing (A10).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from snap_tpu_torch import configs
 from snap_tpu_torch import convert
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.utils import geometry
 
 ResultDict = Dict[str, np.ndarray]
@@ -52,19 +53,21 @@ _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
 def build_localizer(config: configs.Config, device: str = 'cuda',
                     seed: int = 0,
-                    params_npz: Optional[str] = None
+                    params_npz: Optional[str] = None,
+                    state_dict: Optional[Dict[str, torch.Tensor]] = None
                     ) -> bev_localizer.BEVLocalizer:
-  """The localizer of ``config`` with seeded weights, or those of a flat
-  ``.npz`` of flax params."""
+  """The localizer of ``config`` with seeded weights, those of a flat
+  ``.npz`` of flax params, or a ``state_dict`` (a port checkpoint's)."""
   model = bev_localizer.BEVLocalizer(
       config.model, loader.map_grid(config.data).bev(),
       dtype=_DTYPES[config.dtype_str])
-  if params_npz is None:
+  if params_npz is not None:
+    with np.load(params_npz) as npz:
+      state_dict = convert.params_from_flax(dict(npz), model)
+  if state_dict is None:
     convert.init_params(model, seed, config.model.init_temperature)
   else:
-    with np.load(params_npz) as npz:
-      state = convert.params_from_flax(dict(npz), model)
-    model.load_state_dict(state)
+    model.load_state_dict(state_dict)
   return model.to(device).eval()
 
 
@@ -198,8 +201,17 @@ def compute_recall(errors: np.ndarray,
   return thresholds, recall * 100
 
 
-def read_checkpoint_step(workdir: pathlib.Path) -> Optional[int]:
-  """The step of the workdir's weights (None when it does not say)."""
+def read_checkpoint_step(workdir: pathlib.Path,
+                         step: Optional[int] = None) -> Optional[int]:
+  """The step of the weights an evaluation of ``workdir`` reads: its port
+  checkpoint ``step`` (the latest when None; raises when it holds no such
+  step), else the step of its ``checkpoint.json`` (None when it does not
+  say)."""
+  steps = checkpoints.all_steps(workdir)
+  if steps:
+    if step is not None and step not in steps:
+      raise ValueError(f'{workdir} holds checkpoints {steps}, not step {step}')
+    return steps[-1] if step is None else step
   path = pathlib.Path(workdir) / CHECKPOINT_FILE
   if not path.exists():
     return None
@@ -215,12 +227,16 @@ def get_model_and_dataset(eval_config: configs.EvalConfig,
   (``snap_tpu/evaluator.py:get_model_and_dataset``)."""
   config = configs.merge_eval_config(
       eval_config, configs.from_reference(experiment), location)
-  step = read_checkpoint_step(workdir)
+  step = read_checkpoint_step(workdir, eval_config.checkpoint_step)
   if eval_config.checkpoint_step not in (None, step):
     raise ValueError(f'{workdir} holds the weights of step {step}, not of '
                      f'step {eval_config.checkpoint_step}')
-  model = build_localizer(config, device,
-                          params_npz=pathlib.Path(workdir) / PARAMS_FILE)
+  if checkpoints.all_steps(workdir):
+    model = build_localizer(
+        config, device, state_dict=checkpoints.restore_params(workdir, step))
+  else:
+    model = build_localizer(config, device,
+                            params_npz=pathlib.Path(workdir) / PARAMS_FILE)
   dataset = loader.get_dataset(config.data, config.batch_size, device=device)
   log.info('Loaded experiment %s at step %s.', workdir, step)
   record = configs.to_reference(config)

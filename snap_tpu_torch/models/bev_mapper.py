@@ -11,13 +11,19 @@ a run on the card and one on the CPU draw the same numbers.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
 import math
+import pathlib
 from typing import Any, Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from snap_tpu_torch import configs
+from snap_tpu_torch import convert
 from snap_tpu_torch.models import image_encoder
 from snap_tpu_torch.models import layers
 from snap_tpu_torch.models import streetview_encoder
@@ -25,6 +31,7 @@ from snap_tpu_torch.models import types
 from snap_tpu_torch.utils import grids
 
 Tensor = torch.Tensor
+log = logging.getLogger(__name__)
 
 
 def median(x: Tensor, dim: int = -1) -> Tensor:
@@ -206,3 +213,68 @@ class BEVMapper(nn.Module):
       f = torch.where(plane.valid[..., None], f, 0)
       pred['bev_matching'] = types.FeaturePlane(features=f, valid=plane.valid)
     return pred
+
+  def load_pretrained_variables(self) -> Optional[Dict[str, Tensor]]:
+    """The ``bev_mapper`` parameters of the experiment workdir
+    ``config.pretrained_path`` (``snap_tpu/models/bev_mapper.py:340-350``),
+    named relative to this module: from its latest checkpoint
+    (``train_lib/checkpoints.py``), else from a JAX export's flat
+    ``params.npz``. None without a path. Warns where the workdir's
+    ``config.json`` gives the mapper another config (``:112-119``)."""
+    path = self.config.pretrained_path
+    if path is None:
+      return None
+    from snap_tpu_torch.train_lib import checkpoints  # pylint: disable=g-import-not-at-top
+    workdir = pathlib.Path(path)
+    warn_config_diff(self.config, workdir)
+    if checkpoints.latest_step(workdir) is not None:
+      params = checkpoints.restore_params(workdir)
+    elif (workdir / 'params.npz').exists():
+      with np.load(workdir / 'params.npz') as npz:
+        params = convert.params_from_flax(dict(npz))
+    else:
+      params = {}
+    params = subtree(params, 'bev_mapper')
+    if not params:
+      raise ValueError(f'No parameters for {type(self).__name__} in {path}')
+    log.info('Loaded pretrained weights for %s from %s.',
+             type(self).__name__, path)
+    return params
+
+
+def subtree(params: Dict[str, Tensor], name: str) -> Dict[str, Tensor]:
+  """The entries under the first module called ``name`` (the shortest
+  prefix ending in it), named relative to it (``misc.find_nested_dict``)."""
+  prefixes = sorted({tuple(k.split('.')[:k.split('.').index(name) + 1])
+                     for k in params if name in k.split('.')[:-1]}, key=len)
+  if not prefixes:
+    return {}
+  prefix = '.'.join(prefixes[0]) + '.'
+  return {k[len(prefix):]: v for k, v in params.items()
+          if k.startswith(prefix)}
+
+
+def _config_diff(ours, theirs, path: str = '') -> Dict[str, Any]:
+  diff = {}
+  for field in dataclasses.fields(ours):
+    a, b = getattr(ours, field.name), getattr(theirs, field.name)
+    if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+      diff.update(_config_diff(a, b, f'{path}{field.name}.'))
+    elif a != b:
+      diff[path + field.name] = (a, b)
+  return diff
+
+
+def warn_config_diff(config: configs.BEVMapperConfig,
+                     workdir: pathlib.Path) -> None:
+  """Log the fields where ``workdir``'s mapper config differs from
+  ``config`` (its ``config.json`` in the reference's keys)."""
+  record = pathlib.Path(workdir) / 'config.json'
+  if not record.exists():
+    log.info('No config.json in %s to compare the mapper with.', workdir)
+    return
+  theirs = configs.from_reference(json.loads(record.read_text()))
+  diff = _config_diff(config, theirs.model.bev_mapper)
+  if diff:
+    log.warning('Found differences between configs (ours, pretrained):\n%s',
+                '\n'.join(f'{k}: {v}' for k, v in sorted(diff.items())))

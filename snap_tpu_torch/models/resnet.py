@@ -14,8 +14,9 @@ to change layouts. Numerics kept from the reference:
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -156,6 +157,7 @@ class ResNetV2(nn.Module):
     if config.limit_num_blocks is not None:
       blocks = blocks[:config.limit_num_blocks]
     self.blocks = blocks
+    self.pretrained_path = config.pretrained_path
     self.level_names = [f'stage{i + 1}' for i in range(len(blocks))]
     self.skip_root_block = config.skip_root_block
     width = int(64 * config.width)
@@ -180,4 +182,22 @@ class ResNetV2(nn.Module):
     for i, name in enumerate(self.level_names):
       x = out[name] = getattr(self, f'block{i + 1}')(x)
     return out
+
+  def load_pretrained_variables(self) -> Optional[Dict[str, Tensor]]:
+    """BiT weights from the big_vision ``.npz`` at ``pretrained_path``
+    (``snap_tpu/models/resnet.py:211-233``), named relative to this module:
+    flat keys such as ``'resnet/block1/unit01/conv1/standardized_conv2d/
+    kernel'``, whose ``standardized_conv2d`` is the kernel and whose ''
+    and ``resnet`` parts are dropped. None without a path."""
+    if self.pretrained_path is None:
+      return None
+    from snap_tpu_torch import convert  # pylint: disable=g-import-not-at-top
+    with open(self.pretrained_path, 'rb') as f:
+      flat = dict(np.load(f, allow_pickle=False))
+    params = {}
+    for key, value in flat.items():
+      parts = key.replace('standardized_conv2d', 'kernel').split('/')
+      parts = [p for p in parts if p not in ('', 'resnet')]
+      params['/'.join(parts)] = value
+    return convert.params_from_flax(params)
 

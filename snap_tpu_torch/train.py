@@ -1,144 +1,151 @@
-"""Train the port's localizer, either pose backend, for a few steps.
+"""Train the port's localizer, either pose backend, in resumable chunks.
 
     python -m snap_tpu_torch.train --config=train_full1chip_exhaustive \\
-        --num_steps=3
+        --workdir=workdirs/flagship --stop_at_step=500
     python -m snap_tpu_torch.train --config=train_full1chip_ransac \\
         --num_steps=3
-    python -m snap_tpu_torch.train --config=smoke_train_ransac \\
-        --num_steps=3 --device=cpu
+    python -m snap_tpu_torch.train \\
+        --config=train_full1chip_exhaustive:continue_step=12500,pretrained_mapper=weights/loc_full1chip_r5 \\
+        --workdir=workdirs/continued
+    python -m snap_tpu_torch.train --config=smoke_train_exhaustive \\
+        --workdir=/tmp/smoke --stop_at_step=2 --device=cpu
 
 ``train_full1chip_exhaustive`` is the flagship run (dense pose volume);
 ``train_full1chip_ransac`` is the reference's default backend, whose loss
 scores the step's sampled poses (B4) and backpropagates through their
 scores (B7); ``smoke_train_exhaustive`` and ``smoke_train_ransac`` are
-their tiny counterparts.
+their tiny counterparts. ``--config`` takes the config function's
+arguments after a colon, as the reference's does: ``continue_step``,
+``pretrained_mapper`` (an experiment workdir: the port's checkpoints, or a
+JAX export's ``params.npz`` + ``checkpoint.json``), ``pretrained_resnet``
+(a BiT ``.npz``) and ``batch_size``.
 
-Builds the localizer of the named config with weights drawn from
-``--seed``, reads one batch of synthetic map/query pairs per step from the
-dataset's train iterator (the config's training split, seeded as the JAX
-loader seeds it; examples ``step * batch + k``), and takes ``num_steps``
-Adam steps (``train_lib.trainer.train_step``). The batches are made on the
-card when ``--device`` is a CUDA card, unless
-``--on_device_generation=false``; ``--on_device_generation=true
---device=cpu`` runs the device generator on the CPU. Prints one JSON line
-per step (loss, gradient and update norms, learning rate) and, at the end,
-one with the data path (``generator_kind``), the step times and each
-batch's build time, and writes the model's ``state_dict`` to
-``<workdir>/params.pt``.
+As ``snap_tpu/train.py`` does: writes ``<workdir>/config.json`` (the
+reference's keys, with the data path the run takes); when the workdir
+holds a checkpoint, folds its step into the data seed
+(``utils/prng.resume_shuffle_seed``, the reference's threefry fold) and
+starts the train iterator at that step; then hands off to
+``train_lib.trainer.train``, which restores the checkpoint (or warm-starts
+the pretrained modules), takes the steps, logs a summary and an eval at
+the config's cadence and writes ``<workdir>/checkpoints/<step>/``.
+``--stop_at_step`` ends the run at that absolute step without changing the
+schedule; ``--num_steps`` takes at most that many steps in this call.
+Weights are drawn from ``--seed`` on a fresh run. The batches are made on
+the card when ``--device`` is a CUDA card, unless
+``--on_device_generation=false``.
+
+Prints one JSON line per step (loss, gradient and update norms, learning
+rate; ``step`` counted from 0) and, at the end, one with the data path
+(``generator_kind``), the step times, each batch's build time, the last
+summary and eval, the checkpoints written (seconds, bytes), the restore's
+seconds and the trace's split. Summaries and evals go to the log.
 ``--profile`` runs the last step under ``torch.profiler`` and prints its
 per-op table, sorted by device time. The default device is ``cuda``; there
-is no fallback to the CPU when no card is found. Checkpoint resume, the
-eval loop and parameter freezing are not ported yet.
+is no fallback to the CPU when no card is found.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
+import logging
 import pathlib
-import time
-from typing import Any, Callable, Dict, Optional
-
-import torch
+from typing import Any, Callable, Dict, Optional, Union
 
 from snap_tpu_torch import configs
 from snap_tpu_torch import evaluate
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
-from snap_tpu_torch.train_lib import optimizers
+from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import trainer
+from snap_tpu_torch.utils import prng
 
 WORKDIRS = pathlib.Path(__file__).resolve().parents[1] / 'workdirs'
+log = logging.getLogger(__name__)
 
 
-def train(config_name: str = 'train_full1chip_exhaustive', num_steps: int = 3,
-          device: str = 'cuda', seed: int = 0,
-          workdir: Optional[str] = None,
+def config_save(workdir: pathlib.Path, record: Dict[str, Any]) -> None:
+  (pathlib.Path(workdir) / 'config.json').write_text(
+      json.dumps(record, indent=2, sort_keys=True) + '\n')
+
+
+def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
+          num_steps: Optional[int] = None, device: str = 'cuda',
+          seed: int = 0, workdir: Optional[str] = None,
           model: Optional[bev_localizer.BEVLocalizer] = None,
           on_step: Optional[Callable[[int, trainer.StepOutput], None]] = None,
           profile: bool = False,
-          on_device_generation: Optional[bool] = None) -> Dict[str, Any]:
-  """Take ``num_steps`` training steps; returns the logs and timings.
+          on_device_generation: Optional[bool] = None,
+          stop_at_step: Optional[int] = None) -> Dict[str, Any]:
+  """Train ``config`` (a config, or its name with arguments) in
+  ``workdir`` (``workdirs/torch_<name>`` by default); returns the trainer's
+  result with the data path and times.
 
   Batches come from the dataset's train iterator (``loader.get_dataset``),
   made on the card or on the host as ``on_device_generation`` says (None:
-  on the card iff ``device`` is CUDA). The result holds per-step ``logs``
-  and metric means (``metrics``), the wall time of each step
-  (``step_seconds``, ending in a device synchronize; on the device path
-  the card may still be making the batch when the step starts, and that
-  tail counts in the step) and of each step with the wait for its batch
-  (``wall_seconds``), each batch's build time (``build_ms``: the host's
-  ms in the build; ``build_card_ms``: the card's ms from CUDA events, None
-  off the card), ``generator_kind`` and the final ``TrainState``.
-  ``on_step(i, out)`` sees each step's output (gradients included) before
-  it is dropped. With ``profile``, ``profile`` holds the last step's
-  per-op table.
+  on the card iff ``device`` is CUDA). The result holds per-step ``logs``,
+  the wall time of each step (``step_seconds``, ending in a device
+  synchronize) and of each step with the wait for its batch
+  (``wall_seconds``), each batch's build time (``build_ms``: the host's ms
+  in the build; ``build_card_ms``: the card's ms from CUDA events, None
+  off the card), ``generator_kind``, the data seed (``shuffle_seed``,
+  folded on a resume), the summaries, evals and checkpoints by step and
+  the final ``TrainState``.
   """
-  config = configs.get_config(config_name)
+  name = config if isinstance(config, str) else 'config'
+  if isinstance(config, str):
+    config = configs.get_config(config)
+  if workdir is None:
+    workdir = WORKDIRS / f'torch_{configs.parse_config_name(name)[0]}'
+  workdir = pathlib.Path(workdir)
+  workdir.mkdir(parents=True, exist_ok=True)
+  record = configs.to_reference(config)
+  config_save(workdir, record)
   data = dataclasses.replace(config.data,
                              on_device_generation=on_device_generation)
+  start_step = (checkpoints.latest_step(workdir) if config.train.checkpoint
+                else None) or 0
+  if start_step:
+    # A resumed run reads new examples, not the start of the stream again
+    # (``snap_tpu/train.py:68-76``).
+    log.info('Folding global_step %s into dataset seed.', start_step)
+    data = dataclasses.replace(data, shuffle_seed=prng.resume_shuffle_seed(
+        data.shuffle_seed, start_step))
   if model is None:
     model = evaluate.build_localizer(config, device, seed)
   model.train()
-  optimizer = optimizers.Adam(config.train)
-  state = trainer.create_train_state(model, optimizer, seed)
-  cuda = torch.device(device).type == 'cuda'
-  logs, metrics, step_seconds, wall_seconds, builds = [], [], [], [], []
-  with loader.get_dataset(data, config.batch_size, device=device) as dataset:
-    for step in range(num_steps):
-      t_batch = time.perf_counter()
-      batch = next(dataset.train_iter)
-      del batch['_host']
-      builds.append(dataset.train_iter.last_build)
-      with contextlib.ExitStack() as stack:
-        if profile and step == num_steps - 1:
-          prof = stack.enter_context(torch.profiler.profile(activities=[
-              torch.profiler.ProfilerActivity.CPU,
-              torch.profiler.ProfilerActivity.CUDA]))
-        t0 = time.perf_counter()
-        out = trainer.train_step(state, batch, optimizer)
-        if cuda:
-          torch.cuda.synchronize(device)
-        step_seconds.append(time.perf_counter() - t0)
-        wall_seconds.append(time.perf_counter() - t_batch)
-      logs.append(out.logs)
-      metrics.append(trainer.summarize([out.metrics]))
-      if on_step is not None:
-        on_step(step, out)
-      del out, batch
-  if workdir is None:
-    workdir = WORKDIRS / f'torch_{config_name}'
-  workdir = pathlib.Path(workdir)
-  workdir.mkdir(parents=True, exist_ok=True)
-  torch.save(model.state_dict(), workdir / 'params.pt')
-  table = None
-  if profile:
-    table = prof.key_averages().table(
-        sort_by='cuda_time_total' if cuda else 'cpu_time_total',
-        row_limit=40)
+  with loader.get_dataset(data, config.batch_size,
+                          eval_batch_size=config.train.eval_batch_size,
+                          device=device, start_step=start_step) as dataset:
+    record['data_generator_kind'] = dataset.meta_data['generator_kind']
+    config_save(workdir, record)
+    result = trainer.train(config, model, dataset, workdir, seed=seed,
+                           stop_at_step=stop_at_step, num_steps=num_steps,
+                           on_step=on_step, profile=profile)
+  builds = result.pop('builds')
   return {
-      'config': config_name,
+      **result,
+      'config': name,
       'device': str(device),
       'generator_kind': dataset.meta_data['generator_kind'],
-      'logs': logs,
-      'metrics': metrics,
-      'step_seconds': step_seconds,
-      'wall_seconds': wall_seconds,
+      'shuffle_seed': data.shuffle_seed,
       'build_ms': [build.wall_ms for build in builds],
       'build_card_ms': [build.card_ms for build in builds],
       'workdir': str(workdir),
-      'state': state,
-      'profile': table,
   }
 
 
 def main(argv=None) -> None:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--config', default='train_full1chip_exhaustive',
-                      choices=sorted(configs.CONFIGS))
-  parser.add_argument('--num_steps', type=int, default=3)
+                      help='a config of snap_tpu_torch.configs.CONFIGS, '
+                      'with its arguments after a colon (name:key=value,...)')
+  parser.add_argument('--num_steps', type=int, default=None,
+                      help='take at most this many steps in this call')
+  parser.add_argument('--stop_at_step', type=int, default=None,
+                      help='stop at this step (absolute), with a summary, '
+                      'an eval and a checkpoint, keeping the schedule')
   parser.add_argument('--device', default='cuda')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--workdir', default=None)
@@ -149,6 +156,7 @@ def main(argv=None) -> None:
   parser.add_argument('--profile', action='store_true',
                       help="print the last step's per-op profile")
   args = parser.parse_args(argv)
+  logging.basicConfig(level=logging.INFO)
 
   def print_step(step: int, out: trainer.StepOutput) -> None:
     line = {'step': step, **out.logs,
@@ -159,13 +167,16 @@ def main(argv=None) -> None:
   result = train(args.config, args.num_steps, args.device, args.seed,
                  args.workdir, on_step=print_step, profile=args.profile,
                  on_device_generation=evaluate.on_device_flag(
-                     args.on_device_generation))
+                     args.on_device_generation),
+                 stop_at_step=args.stop_at_step)
   if result['profile'] is not None:
     print(result['profile'])
   print(json.dumps({
       key: result[key] for key in (
-          'config', 'device', 'generator_kind', 'step_seconds',
-          'wall_seconds', 'build_ms', 'build_card_ms', 'workdir')}))
+          'config', 'device', 'generator_kind', 'start_step', 'stop_step',
+          'shuffle_seed', 'step_seconds', 'wall_seconds', 'build_ms',
+          'build_card_ms', 'train_summary', 'eval_summary', 'checkpoints',
+          'restore_seconds', 'trace', 'workdir')}))
 
 
 if __name__ == '__main__':

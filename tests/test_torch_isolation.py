@@ -45,7 +45,9 @@ def test_port_imports_without_jax_or_snap_tpu():
   names = proc.stdout.split()
   assert len(names) >= 20  # every module of the port
   for name in ('snap_tpu_torch.bench', 'snap_tpu_torch.configs',
-               'snap_tpu_torch.evaluator', 'snap_tpu_torch.evaluate'):
+               'snap_tpu_torch.evaluator', 'snap_tpu_torch.evaluate',
+               'snap_tpu_torch.train_lib.checkpoints',
+               'snap_tpu_torch.utils.prng'):
     assert name in names
 
 

@@ -205,7 +205,8 @@ def test_train_ransac_cli_on_cpu(capsys, tmp_path):
     assert math.isfinite(s['loss/total']) and s['is_finite'] == 1.0
     assert math.isfinite(s['l2_grads']) and s['l2_grads'] > 0
   assert lines[-1]['config'] == 'smoke_train_ransac'
-  assert 'temperature' in torch.load(tmp_path / 'params.pt')
+  assert 'temperature' in torch.load(
+      tmp_path / 'checkpoints' / '2' / 'params.pt', weights_only=True)
 
 
 def test_from_reference_reads_the_ransac_training_config():
