@@ -1,5 +1,5 @@
 """Drive the port's serving, training, RANSAC, held-out evaluation, bench,
-gather-bench and long-run trainer paths on one NVIDIA GPU (H100).
+gather-bench, long-run trainer and head paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -43,6 +43,13 @@ host generator's batch:
    replaying its max choices (the score clip's relu included); the loss
    and every gradient leaf agree under the same tolerances, and B4 and B7
    launch at least once each card step;
+5d. heads reference: as phase 5 (each card step's kernels checked), the
+   tiny semantic head (``smoke_semantics``, its flips and modality
+   dropout, trained whole: K1 and K3 each card step), the tiny occupancy
+   head on a frozen street-view encoder (``stop_encoder_gradients`` and
+   the freeze of ``train_occupancy``: K1 each card step, K2-K4 never; the
+   frozen leaves' gradients 0 on both devices) and the tiny localizer with
+   the semantic modality (K1-K4 each card step);
 6. serving main path: ``snap_tpu_torch.evaluate`` on ``bench_full`` (R50,
    20 views of 180x240, 120x160x60 voxels, 64 rotations + refinement,
    bf16, random seeded weights), batch 1, 2 synthetic queries; K1 and K2
@@ -102,6 +109,21 @@ host generator's batch:
    the export's and the rest the seeded init, bit for bit; and the smoke
    trainer's loss over 300 steps on the card: the last 50 steps' mean below
    the first 50's (each over its finite steps, at most 5 of 50 not);
+7h. the heads at full width, warm-started from a seeded JAX-format export
+   of the flagship run: ``train_semantics`` (the frozen R50 street-view +
+   aerial mapper, 20 views of 180x240, 0.2 m, bf16, batch 1, a
+   ``resnet_stage`` decoder of width 256 with 2 units) and
+   ``train_occupancy`` (the frozen street-view encoder, 10,000 rays x 100
+   samples read from the [1, 120, 160, 60, 128] volume), 3 steps each with
+   the trainer's eval (1 batch) and checkpoint at the last: finite losses,
+   K1 at least once a step and K2-K4 never, every adopted parameter the
+   export's bit for bit after step 3 and every head parameter moved; then
+   ``evaluator.run`` of ``eval_semantics`` on 2 examples of the semantic
+   head's checkpoint (finite ``semantics/*`` and ``gt_counts/*``); then
+   phase 7's path and checks on
+   ``train_full1chip_exhaustive:modalities=streetview+aerial+semantic``,
+   the semantic trunk's gradient on a step whose draws keep it; each run's
+   step ms and own peak memory logged;
 7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
@@ -272,6 +294,10 @@ MAX_FLIPS_PER_STEP = 100
 STREET_ROOT = 'bev_mapper.streetview_encoder.image_encoder.encoder.root_block.conv_root.weight'
 PROJ_MLP = 'bev_mapper.streetview_encoder.proj_mlp.Dense_0.weight'
 AERIAL_TRUNK = 'bev_mapper.aerial_encoder.encoder.'
+SEMANTIC_TRUNK = 'bev_mapper.semantic_encoder.encoder.encoder.'
+# The map's raster modalities: the row of the modality keep and the trunk.
+RASTER_TRUNKS = {'aerial': (1, AERIAL_TRUNK), 'semantic': (2, SEMANTIC_TRUNK)}
+THREE_MODALITIES = 'streetview+aerial+semantic'
 
 
 def log(msg: str) -> None:
@@ -703,6 +729,7 @@ class MaxChoices:
 
   def __init__(self, model: torch.nn.Module, replay=None):
     self.calls, self.flips, self.replay = [], [], replay
+    self.sites = []  # the site of each recorded call
     self._stashed = {}
     self._handles = []
     for name, module in model.named_modules():
@@ -733,6 +760,7 @@ class MaxChoices:
   def _choose(self, name: str, own: torch.Tensor, flips_of) -> torch.Tensor:
     if self.replay is None:
       self.calls.append(own)
+      self.sites.append(name)
       return own
     recorded = self.replay[len(self.flips)].to(own.device)
     if recorded.shape != own.shape:
@@ -804,24 +832,42 @@ class MaxChoices:
     return hook
 
 
-def training_reference(config_name: str = 'smoke_train_exhaustive'):
-  """2 steps of the tiny trainer ``config_name`` on the card and on the CPU in
-  lockstep: each step starts both from the CPU's weights, with the same
-  batch and draws (the card's, injected on the CPU; on the RANSAC backend
-  also its pose samples, which the two devices' f64 prefix sums may round
-  to a neighbouring category), and the CPU's maxima pick the entries the
-  card's picked (``MaxChoices``); the loss and every gradient leaf agree.
-  (Comparing after separate updates would not work: Adam's first update is
-  ~lr * sign(g), so a gradient entry near 0 that differs in sign moves its
-  weight by 2 lr.) On the RANSAC backend B4 and B7 launch each card step.
+def reference_batch(cfg: configs.Config, generator, step: int, device: str):
+  """The host generator's training batch ``step`` of ``cfg`` (its mode) on
+  ``device``, without the strings."""
+  mode = data_types.DataMode(cfg.data.mode or 'pair_scene_view')
+  bs = cfg.batch_size
+  examples = loader.make_examples(generator, range(step * bs, (step + 1) * bs),
+                                  cfg.data, mode)
+  examples['batch_mask'] = np.ones(bs, np.float32)
+  batch = loader.process_batch(examples, mode, device)
+  batch.pop('_host')
+  return batch
+
+
+def training_reference(config_name: str = 'smoke_train_exhaustive',
+                       cfg: configs.Config = None, least=(), never=()):
+  """2 steps of the tiny trainer ``config_name`` (or ``cfg``) on the card and
+  on the CPU in lockstep: each step starts both from the CPU's weights, with
+  the same batch and draws (the card's, injected on the CPU; on the RANSAC
+  backend also its pose samples, which the two devices' f64 prefix sums may
+  round to a neighbouring category), and the CPU's maxima pick the entries
+  the card's picked (``MaxChoices``); the loss and every gradient leaf
+  agree, and the frozen leaves' gradients are 0 on both. (Comparing after
+  separate updates would not work: Adam's first update is ~lr * sign(g), so
+  a gradient entry near 0 that differs in sign moves its weight by 2 lr.)
+  On the RANSAC backend B4 and B7 launch each card step; each kernel of
+  ``least`` launches on each card step, each of ``never`` on none.
   Returns per step the worst leaf error relative to its largest entry and
   to its norm, and the flips per max site."""
-  cfg = configs.get_config(config_name)
-  ransac = cfg.model.pose_backend == 'ransac'
+  cfg = cfg or configs.get_config(config_name)
+  ransac = getattr(cfg.model, 'pose_backend', None) == 'ransac'
   card_launches = []
-  models = {dev: evaluate.build_localizer(cfg, dev, 0).train()
+  models = {dev: evaluate.build_model(cfg, dev, 0).train()
             for dev in ('cpu', 'cuda')}
-  adam = optimizers.Adam(cfg.train)
+  adam = optimizers.get_optimizer(cfg.train, models['cpu'])
+  frozen = [n for n, f in zip(dict(models['cpu'].named_parameters()),
+                              adam.frozen or []) if f]
   states = {dev: trainer.create_train_state(m, adam, seed=0)
             for dev, m in models.items()}
   generator = loader.make_generator(cfg.data, 0)
@@ -829,25 +875,29 @@ def training_reference(config_name: str = 'smoke_train_exhaustive'):
   worst_leaf = ['', '']
   for i in range(2):
     models['cuda'].load_state_dict(models['cpu'].state_dict())
-    examples = loader.make_train_examples(generator, i, cfg.batch_size,
-                                          cfg.data)
     before = dict(kernels.LAUNCHES)
     with MaxChoices(models['cuda']) as on_card:
       card = trainer.train_step(states['cuda'],
-                                loader.pair_batch_to_torch(examples, 'cuda'),
+                                reference_batch(cfg, generator, i, 'cuda'),
                                 adam)
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
     card_launches.append(launched)
     samples = None
     if ransac:
-      if launched['pose_scoring'] < 1 or launched['pose_scoring_bwd'] < 1:
-        raise AssertionError(f'step {i}: card step launched {launched}')
+      least = ('pose_scoring', 'pose_scoring_bwd')
       samples = geometry.Transform2D(angle=card.pose_samples.angle.cpu(),
                                      t=card.pose_samples.t.cpu())
+    if (any(launched[k] < 1 for k in least)
+        or any(launched[k] for k in never)):
+      raise AssertionError(f'step {i}: card step launched {launched}')
     with MaxChoices(models['cpu'], replay=on_card.calls) as replayed:
       cpu = trainer.train_step(states['cpu'],
-                               loader.pair_batch_to_torch(examples, 'cpu'),
+                               reference_batch(cfg, generator, i, 'cpu'),
                                adam, draws=card.draws, pose_samples=samples)
+    for name in frozen:
+      for out in (cpu, card):
+        if out.grads[name].abs().max() > 0:
+          raise AssertionError(f'step {i}: frozen {name} has a gradient')
     flips.append({name: f'{n} of {total}, gap {gap:.3g}' for name, (
         n, total, gap) in flips_per_site(replayed.flips).items() if n})
     loss = [trainer.summarize([o.metrics])['loss/total'] for o in (cpu, card)]
@@ -872,7 +922,7 @@ def training_reference(config_name: str = 'smoke_train_exhaustive'):
   log(f'training reference ({config_name}, f32): losses [cpu, '
       f'card] per step {losses}; every gradient leaf within {worst} of '
       f'its largest entry (worst: {worst_leaf}) and within {worst_norm} of '
-      f'its norm (per step); '
+      f'its norm (per step); {len(frozen)} frozen leaves 0 on both; '
       f'max choices the card flipped against the CPU\'s own, replayed on '
       f'the CPU (site: outputs over its calls, the largest gap from a tie '
       f'relative to the site\'s largest magnitude), per step {flips}; card '
@@ -1033,7 +1083,7 @@ def serving_main_path():
   # The matmuls run in bf16; the f32 refinement conv of bf16 values is
   # exact in TF32.
   torch.backends.cudnn.allow_tf32 = True
-  model = evaluate.build_localizer(configs.bench_full(), 'cuda', 0)
+  model = evaluate.build_model(configs.bench_full(), 'cuda', 0)
   with Capture(view_scan, 'lift_topk', 0) as lift, \
        Capture(view_scan, 'patch_sample_2d', 1) as sample:
     kernels.reset_launch_counts()
@@ -1075,6 +1125,9 @@ TRAIN_PATHS = {
         {'lift_topk_fwd': 2, 'lift_topk_bwd': 2, 'pose_scoring': 1,
          'pose_scoring_bwd': 1}, ('patch_sample_2d', 'patch_sample_2d_bwd'),
         ('pose_scoring', 'pose_scoring_bwd')),
+    f'train_full1chip_exhaustive:modalities={THREE_MODALITIES}': (
+        {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
+         'patch_sample_2d_bwd': 1}, (), ()),
 }
 
 
@@ -1083,11 +1136,14 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
   launches and the captured inputs of the config's kernels to check."""
   least, never, captured = TRAIN_PATHS[name]
   resident = torch.cuda.memory_allocated()  # earlier phases' tensors
-  model = evaluate.build_localizer(configs.get_config(name), 'cuda', 0)
+  config = configs.get_config(name)
+  model = evaluate.build_model(config, 'cuda', 0)
   params = dict(model.named_parameters())
   flat = lambda: torch.cat([p.detach().flatten() for p in params.values()])
   before = [flat()]
-  per_step, aerial_checked = [], []
+  rasters = [m for m in RASTER_TRUNKS
+             if getattr(config.model.bev_mapper, f'{m}_encoder') is not None]
+  per_step, raster_checked = [], {m: [] for m in rasters}
 
   def check_step(step: int, out: trainer.StepOutput) -> None:
     counts = dict(kernels.LAUNCHES)
@@ -1101,13 +1157,17 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
       if not out.grads[leaf].abs().max() > 0:
         raise AssertionError(f'step {step}: no gradient reaches {leaf}')
     keep = out.draws.modality_keep.cpu()
-    aerial = max(float(g.abs().max()) for n, g in out.grads.items()
-                 if n.startswith(AERIAL_TRUNK))
-    if bool(keep[1].any()):
-      if not aerial > 0:
-        raise AssertionError(f'step {step}: aerial kept {keep[1].tolist()} '
-                             'but its trunk has no gradient')
-      aerial_checked.append(step)
+    trunk_grads = {}
+    for modality in rasters:
+      row, trunk = RASTER_TRUNKS[modality]
+      trunk_grads[modality] = max(float(g.abs().max()) for n, g in
+                                  out.grads.items() if n.startswith(trunk))
+      if bool(keep[row].any()):
+        if not trunk_grads[modality] > 0:
+          raise AssertionError(f'step {step}: {modality} kept '
+                               f'{keep[row].tolist()} but its trunk has no '
+                               'gradient')
+        raster_checked[modality].append(step)
     for kernel, fewest in least.items():
       if launched[kernel] < fewest:
         raise AssertionError(f'step {step}: {kernel} launched '
@@ -1126,11 +1186,11 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
     log(f'train step {step} ({name}): loss {loss:.4f}, l2_grads '
         f'{out.logs["l2_grads"]:.4g}, lr {lr:.3g}, params moved {moved:.3g}, '
         f'draws: z jitter {out.draws.z_jitter.tolist()}, modality keep '
-        f'[street, aerial] x example {keep.tolist()}; |grad| street root '
-        f'{float(out.grads[STREET_ROOT].abs().max()):.3g}, proj '
-        f'{float(out.grads[PROJ_MLP].abs().max()):.3g}, aerial trunk '
-        f'{aerial:.3g}, temperature {float(out.grads["temperature"]):.3g}; '
-        f'launches {launched}')
+        f'[street, {", ".join(rasters)}] x example {keep.tolist()}; |grad| '
+        f'street root {float(out.grads[STREET_ROOT].abs().max()):.3g}, proj '
+        f'{float(out.grads[PROJ_MLP].abs().max()):.3g}, trunks '
+        f'{trunk_grads}, temperature '
+        f'{float(out.grads["temperature"]):.3g}; launches {launched}')
 
   workdir = fresh_workdir(name)
   torch.cuda.reset_peak_memory_stats()
@@ -1148,8 +1208,9 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
   peak = torch.cuda.max_memory_allocated()
   # The path's own footprint: its peak less what earlier phases still hold.
   TRAIN_PEAK[name] = peak - resident
-  if not aerial_checked:
-    raise AssertionError('no step kept the aerial modality')
+  for modality, steps in raster_checked.items():
+    if not steps:
+      raise AssertionError(f'no step kept the {modality} modality')
   if result['generator_kind'] != 'device-torch':
     raise AssertionError(f'training data from {result["generator_kind"]}')
   ms = [1e3 * s for s in result['step_seconds']]
@@ -1162,8 +1223,8 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
       f'host generator\'s build {HOST_BUILD["train_full1chip_exhaustive"]}), '
       f'peak memory {peak / 2**30:.2f} GiB (of it '
       f'{TRAIN_PEAK[name] / 2**30:.2f} GiB its own, beside the earlier '
-      f'phases\' tensors), aerial gradient checked on '
-      f'steps {aerial_checked}; the eval at the stop step launched '
+      f'phases\' tensors), raster trunks\' gradients checked on steps '
+      f'{raster_checked}; the eval at the stop step launched '
       f'{after_steps}, its checkpoint {result["checkpoints"]}; {smi}')
   del model, params, before, result
   torch.cuda.empty_cache()
@@ -1331,7 +1392,7 @@ def ransac_reference() -> None:
   """The tiny RANSAC localizer on the card against the CPU (f32, TF32 off),
   same weights and batch, the CPU's pose samples injected on the card."""
   cfg = configs.smoke_eval_ransac()
-  models = {dev: evaluate.build_localizer(cfg, dev, 0)
+  models = {dev: evaluate.build_model(cfg, dev, 0)
             for dev in ('cpu', 'cuda')}
   examples = loader.make_pair_examples(
       loader.split_generator(cfg.data, 'eval'), range(cfg.batch_size),
@@ -1394,7 +1455,7 @@ def f32_prefix_sum_blind_share(probs: torch.Tensor):
 def ransac_main_path(smi: str):
   """eval_full1chip_ransac at batch 4: a warm batch and a timed one;
   returns launches and the captured inputs of B4, K1 and the draws."""
-  model = evaluate.build_localizer(configs.eval_full1chip_ransac(), 'cuda', 0)
+  model = evaluate.build_model(configs.eval_full1chip_ransac(), 'cuda', 0)
   per_batch = []
 
   def check_batch(i: int, pred) -> None:
@@ -1477,7 +1538,7 @@ def write_heldout_workdir() -> None:
   HELDOUT_DIR.mkdir(parents=True, exist_ok=True)
   (HELDOUT_DIR / evaluator.CONFIG_FILE).write_text(json.dumps(
       configs.to_reference(configs.train_full1chip_exhaustive())))
-  model = evaluate.build_localizer(configs.eval_full1chip_exhaustive(), 'cpu',
+  model = evaluate.build_model(configs.eval_full1chip_exhaustive(), 'cpu',
                                    0)
   np.savez(HELDOUT_DIR / evaluator.PARAMS_FILE, **convert.flax_from_torch(
       dict(model.named_parameters()), model))
@@ -1666,7 +1727,7 @@ def _in_f32(config: configs.Config, state: trainer.TrainState
             ) -> trainer.TrainState:
   """``state`` (its weights, moments, counters and transform) on a model
   that computes in f32."""
-  model = evaluate.build_localizer(
+  model = evaluate.build_model(
       dataclasses.replace(config, dtype_str='float32'), 'cuda', 2)
   model.load_state_dict(state.model.state_dict())
   return dataclasses.replace(state, model=model)
@@ -1680,7 +1741,7 @@ def write_seeded_export(path: pathlib.Path, seed: int, step: int) -> None:
   config = configs.train_full1chip_exhaustive()
   (path / evaluator.CONFIG_FILE).write_text(json.dumps(
       configs.to_reference(config)))
-  model = evaluate.build_localizer(config, 'cpu', seed)
+  model = evaluate.build_model(config, 'cpu', seed)
   np.savez(path / evaluator.PARAMS_FILE, **convert.flax_from_torch(
       dict(model.named_parameters()), model))
   (path / evaluator.CHECKPOINT_FILE).write_text(json.dumps({'step': step}))
@@ -1699,7 +1760,7 @@ def trainer_loop_phase(smi: str) -> dict:
   # 1. The first chunk: steps 1-2, checkpoint 2.
   resident = torch.cuda.memory_allocated()  # earlier phases' tensors
   torch.cuda.reset_peak_memory_stats()
-  model = evaluate.build_localizer(config, 'cuda', 0)
+  model = evaluate.build_model(config, 'cuda', 0)
   first = train.train(config, None, 'cuda', 0, workdir=str(workdir),
                       model=model, stop_at_step=LOOP_FIRST_STOP)
   first_footprint = torch.cuda.max_memory_allocated() - resident
@@ -1714,7 +1775,7 @@ def trainer_loop_phase(smi: str) -> dict:
   # 2. The checkpoint restored into a fresh model (other seeded weights)
   # equals the first chunk's live state, bit for bit; a step from each on
   # the resumed run's batch of step 3 agrees.
-  restored_model = evaluate.build_localizer(config, 'cuda', 1)
+  restored_model = evaluate.build_model(config, 'cuda', 1)
   restored = trainer.create_train_state(
       restored_model, optimizers.get_optimizer(config.train, restored_model),
       seed=1)
@@ -1867,7 +1928,7 @@ def trainer_loop_phase(smi: str) -> dict:
   warm = _with_train(configs.get_config(
       f'train_full1chip_exhaustive:continue_step={CONTINUE_STEP},'
       f'pretrained_mapper={export}'), checkpoint=False)
-  init = evaluate.build_localizer(warm, 'cpu', 0).state_dict()
+  init = evaluate.build_model(warm, 'cpu', 0).state_dict()
   seen = {}
 
   def check_warm(step: int, step_out: trainer.StepOutput) -> None:
@@ -1881,7 +1942,7 @@ def trainer_loop_phase(smi: str) -> dict:
                              'weight after the lr-0 step')
     seen['checked'] = len(init)
 
-  seen['model'] = evaluate.build_localizer(warm, 'cuda', 0)
+  seen['model'] = evaluate.build_model(warm, 'cuda', 0)
   kernels.reset_launch_counts()
   warm_run = train.train(warm, None, 'cuda', 0, model=seen['model'],
                          workdir=str(fresh_workdir('warm')), stop_at_step=2,
@@ -1931,6 +1992,164 @@ def trainer_loop_phase(smi: str) -> dict:
       f'{tail} (over their finite steps; the loss is not finite at steps '
       f'{skipped}, counted from 0)')
   return out
+
+
+def heads_reference() -> None:
+  """Phase 5d: the heads and the three-modality localizer, card against
+  CPU as phase 5 (f32, TF32 off, lockstep, the card's draws injected): the
+  semantic head with its flips and modality dropout, trained whole (K1 and
+  K3 each card step); the occupancy head on a frozen street-view encoder,
+  as ``train_occupancy`` freezes it (K1 each card step, K3 never); the
+  localizer on street views, the aerial and the semantic rasters."""
+  occupancy = configs.merge(configs.smoke_occupancy(), {
+      'model': {'stop_encoder_gradients': True},
+      'train': {'optimizer_configs': configs.OptimizerConfig(
+          freeze_params_reg_exp=r'streetview_encoder/',
+          allocate_frozen_state=False)}})
+  lift = ('lift_topk_fwd', 'lift_topk_bwd')
+  training_reference('smoke_semantics', least=lift)
+  training_reference('smoke_occupancy, frozen street-view encoder',
+                     occupancy, least=lift[:1],
+                     never=('lift_topk_bwd', 'patch_sample_2d',
+                            'patch_sample_2d_bwd'))
+  training_reference(f'smoke_train_exhaustive:modalities={THREE_MODALITIES}',
+                     least=tuple(TRAIN_PATHS['train_full1chip_exhaustive'][0]))
+
+
+# Phase 7h: each head's steps from a seeded export, and the kernels a head
+# step may launch (K1 for the frozen part's forward) and may not.
+HEAD_STEPS = 3
+HEAD_NEVER = ('patch_sample_2d', 'lift_topk_bwd', 'patch_sample_2d_bwd')
+HEAD_EVAL_EXAMPLES = 2
+
+
+def _head_run(smi: str, name: str, config: configs.Config,
+              exported: dict, adopted: str, exported_prefix: str, head: str):
+  """``config`` (a head warm-started from the seeded export), HEAD_STEPS
+  steps and the trainer's eval and checkpoint at the last: finite losses,
+  K1 at least once a step and none of HEAD_NEVER; after the last step every
+  parameter under ``adopted`` is the export's (under ``exported_prefix``)
+  bit for bit, and every one under ``head`` has moved. Returns the run's
+  result and its workdir."""
+  resident = torch.cuda.memory_allocated()  # earlier phases' tensors
+  torch.cuda.reset_peak_memory_stats()
+  model = evaluate.build_model(config, 'cuda', 0)
+  params = dict(model.named_parameters())
+  start = {n: p.detach().clone() for n, p in params.items()
+           if n.startswith(head)}
+  per_step = []
+
+  def check_step(step: int, out: trainer.StepOutput) -> None:
+    counts = dict(kernels.LAUNCHES)
+    prev = per_step[-1] if per_step else {k: 0 for k in counts}
+    launched = {k: counts[k] - prev[k] for k in counts}
+    per_step.append(counts)
+    loss = trainer.summarize([out.metrics])['loss/total']
+    if not (math.isfinite(loss) and out.logs['is_finite'] == 1.0):
+      raise AssertionError(f'{name} step {step}: loss {loss}, logs '
+                           f'{out.logs}')
+    if launched['lift_topk_fwd'] < 1 or any(launched[k] for k in HEAD_NEVER):
+      raise AssertionError(f'{name} step {step}: launched {launched}')
+    log(f'{name} step {step}: loss {loss:.4f}, l2_grads '
+        f'{out.logs["l2_grads"]:.4g}, lr {out.logs["learning_rate"]:.3g}; '
+        f'launches {launched}')
+
+  workdir = fresh_workdir(name)
+  kernels.reset_launch_counts()
+  result = train.train(config, None, 'cuda', 0, model=model,
+                       workdir=str(workdir), on_step=check_step,
+                       stop_at_step=HEAD_STEPS)
+  footprint = torch.cuda.max_memory_allocated() - resident
+  adopted_names = [n for n in params if n.startswith(adopted)]
+  if not adopted_names:
+    raise AssertionError(f'{name}: no parameter under {adopted}')
+  for n in adopted_names:
+    want = exported[exported_prefix + n[len(adopted):]]
+    if not torch.equal(params[n].detach().cpu(), want):
+      raise AssertionError(f'{name}: {n} is not the export\'s after '
+                           f'{HEAD_STEPS} steps')
+  still = [n for n, p in start.items() if torch.equal(params[n].detach(), p)]
+  if not start or still:
+    raise AssertionError(f'{name}: head parameters that did not move: '
+                         f'{still}')
+  ms = [1e3 * t for t in result['step_seconds']]
+  log(f'{name} ({config.batch_size} a step, {config.dtype_str}): '
+      f'{len(adopted_names)} adopted parameters the export\'s, bit for bit, '
+      f'after step {HEAD_STEPS}; {len(start)} head parameters moved; ms per '
+      f'step {ms}, with the wait for its batch '
+      f'{[1e3 * t for t in result["wall_seconds"]]}, build ms (host) '
+      f'{result["build_ms"]}, (card) {result["build_card_ms"]}, data '
+      f'{result["generator_kind"]}; the eval at step {HEAD_STEPS} '
+      f'{result["eval_summary"]}, checkpoint {result["checkpoints"]}; own '
+      f'peak memory {footprint / 2**30:.2f} GiB (the card\'s '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.2f}); {smi}')
+  if result['generator_kind'] != 'device-torch':
+    raise AssertionError(f'{name}: data from {result["generator_kind"]}')
+  del model, params, start
+  torch.cuda.empty_cache()
+  return result, workdir
+
+
+def heads_main_path(smi: str) -> None:
+  """Phase 7h: the heads at full width on a seeded JAX-format export of
+  the flagship run. ``train_semantics`` (R50 street-view + aerial mapper,
+  20 views of 180x240, 0.2 m, bf16, batch 1, a ``resnet_stage`` decoder of
+  width 256 with 2 units) and then ``evaluator.run`` of ``eval_semantics``
+  on 2 examples; ``train_occupancy`` (10,000 rays x 100 samples into the
+  [1, 120, 160, 60, 128] volume, batch 1) with an in-loop eval of 1 batch
+  at eval batch 2; the localizer with the semantic modality (phase 7's
+  path and checks, its semantic trunk's gradient)."""
+  export = fresh_workdir('heads_export')
+  write_seeded_export(export, seed=1, step=CONTINUE_STEP)
+  with np.load(export / evaluator.PARAMS_FILE) as npz:
+    exported = convert.params_from_flax(dict(npz))
+
+  semantics = _with_train(configs.get_config(
+      f'train_semantics:pretrained_mapper={export}'), steps_per_eval=1)
+  _, workdir = _head_run(smi, 'train_semantics', semantics, exported,
+                         'bev_mapper.', 'bev_mapper.', 'decoder.')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ec = dataclasses.replace(
+      configs.eval_semantics(evaluation_size=HEAD_EVAL_EXAMPLES,
+                             batch_size=HEAD_EVAL_EXAMPLES),
+      workdir=str(workdir))
+  kernels.reset_launch_counts()
+  t0 = time.perf_counter()
+  (city, (results, record)), = evaluator.run(ec, device='cuda').items()
+  seconds = time.perf_counter() - t0
+  if kernels.LAUNCHES['lift_topk_fwd'] < 1:
+    raise AssertionError(f'eval_semantics launched {dict(kernels.LAUNCHES)}')
+  if record['eval_checkpoint_step'] != HEAD_STEPS:
+    raise AssertionError(f'eval_semantics read step '
+                         f'{record["eval_checkpoint_step"]}')
+  keys = [k for k in results if k.startswith(('semantics/', 'gt_counts/'))]
+  if not any(k.startswith('gt_counts/') for k in keys):
+    raise AssertionError(f'eval_semantics dump: {sorted(results)}')
+  for key in keys:
+    if results[key].shape != (HEAD_EVAL_EXAMPLES,) or not np.isfinite(
+        results[key]).all():
+      raise AssertionError(f'eval_semantics: {key} {results[key]}')
+  print(json.dumps(evaluate.city_summary(city, results, record)), flush=True)
+  log(f'eval_semantics on {city} ({HEAD_EVAL_EXAMPLES} examples, f32, TF32 '
+      f'off) of step {HEAD_STEPS}: {len(keys)} finite semantics/ and '
+      f'gt_counts/ columns; {seconds:.2f} s; launches '
+      f'{dict(kernels.LAUNCHES)}; {smi}')
+  shutil.rmtree(workdir)
+
+  occupancy = _with_train(configs.get_config(
+      f'train_occupancy:pretrained_mapper={export}'), steps_per_eval=1)
+  result, workdir = _head_run(
+      smi, 'train_occupancy', occupancy, exported, 'streetview_encoder.',
+      'bev_mapper.streetview_encoder.', 'mlp_out.')
+  if not math.isfinite(result['evals'][HEAD_STEPS]['loss/total']):
+    raise AssertionError(f'train_occupancy eval: {result["evals"]}')
+  shutil.rmtree(workdir)
+  shutil.rmtree(export)
+  del exported
+
+  training_main_path(
+      smi, f'train_full1chip_exhaustive:modalities={THREE_MODALITIES}')
 
 
 def pose_scoring_bound(args, out):
@@ -2367,6 +2586,8 @@ def main() -> int:
   training_reference()
   ransac_reference()
   training_reference('smoke_train_ransac')
+  # 5d. The heads and the semantic modality, card against CPU.
+  heads_reference()
 
   # 6-7e. Main paths, each with the launch counts reset just before it;
   # their batches made on the card by the dataset's iterators.
@@ -2381,6 +2602,8 @@ def main() -> int:
   bench_launches, gather_bench = gather_bench_phase()
   # 7g. The trainer of a long run: chunks, resume, eval, warm start.
   trainer_loop_phase(smi)
+  # 7h. The heads on a frozen mapper, and the semantic modality.
+  heads_main_path(smi)
 
   # 7f. The device generator on the card. After the main paths: its
   # profile of one build is this script's first, and later launches on

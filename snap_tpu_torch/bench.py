@@ -76,7 +76,7 @@ def bench_eval(device: str = 'cuda', config_name: str = 'bench_full'
   """Queries and maps per second at eval scale."""
   config = configs.get_config(config_name, batch_size=EVAL_BATCH)
   data = dataclasses.replace(config.data, evaluation_size=EVAL_BATCH)
-  model = evaluator.build_localizer(config, device, seed=0)
+  model = evaluator.build_model(config, device, seed=0)
   # bench.py times the loader's dummy batch: the training split's first.
   batch, build, kind = one_batch(data, EVAL_BATCH, device, 'train')
   generator = torch.Generator().manual_seed(2)
@@ -104,7 +104,7 @@ def bench_train_step(device: str = 'cuda',
   config = configs.get_config(config_name, batch_size=TRAIN_BATCH)
   train = dataclasses.replace(config.train, lr_configs=configs.LrConfig(
       factors='constant', base_learning_rate=TRAIN_LR))
-  model = evaluator.build_localizer(config, device, seed=0).train()
+  model = evaluator.build_model(config, device, seed=0).train()
   optimizer = optimizers.Adam(train)
   state = trainer.create_train_state(model, optimizer, seed=0)
   batch, build, kind = one_batch(config.data, TRAIN_BATCH, device, 'train')

@@ -35,12 +35,20 @@ can hold the two side by side (tests/test_torch_localizer.py).
 - ``eval_full1chip_exhaustive()``: the held-out protocol, the flagship
   run (``train_full1chip_exhaustive``) under ``eval_localization.py:
   evaluation_size=256,batch_size=4``: dense refinement, f32, batch 4.
+- ``train_semantics()`` / ``train_occupancy()``: the semantic BEV head and
+  the lidar-supervised occupancy head (``model_name`` ``semantic_net`` /
+  ``occupancy_net``) on a frozen mapper / street-view encoder,
+  ``configs/train_semantics.py`` and ``train_occupancy.py``;
+  ``smoke_semantics()`` / ``smoke_occupancy()`` their tiny counterparts,
+  trained whole. The localizer configs take ``modalities`` (the semantic
+  rasters as a third map modality).
 
 ``DataConfig.locations`` and ``shuffle_seed`` seed the scene generator as
 ``snap_tpu/data/loader.py:get_dataset`` does (``data/loader.py``).
 
 An evaluation of an experiment (``snap_tpu/evaluator.py``) takes an
-``EvalConfig`` (``eval_localization()``, ``smoke_eval_localization()``)
+``EvalConfig`` (``eval_localization()``, ``smoke_eval_localization()``,
+``eval_semantics()``)
 and the experiment's ``Config``, which ``from_reference`` reads from the
 reference's config dict (``to_reference`` writes one), and
 ``merge_eval_config`` gives the config it runs.
@@ -121,6 +129,20 @@ class StreetViewEncoderConfig:
   fusion_use_variance: bool = True
   max_view_distance: Optional[float] = None
   pooling_impl: str = 'stream'
+  # An experiment workdir whose ``streetview_encoder`` subtree warm-starts
+  # this one, after its config is merged in ("export wins",
+  # ``models/streetview_encoder.py:merged_config``).
+  pretrained_path: Optional[str] = _warm_start_field()
+
+
+@dataclasses.dataclass(frozen=True)
+class SemanticRasterEncoderConfig:
+  """``defaults.semantic_raster_encoder()``: an R26 x2 trunk with a
+  stride-1 stem over ``embedding_dim``-wide class embeddings."""
+
+  encoder: ImageEncoderConfig = ImageEncoderConfig(encoder=ResNetConfig(
+      width=2, depth=26, skip_root_block=True))
+  embedding_dim: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +156,7 @@ class BEVMapperConfig:
       StreetViewEncoderConfig())
   aerial_encoder: Optional[ImageEncoderConfig] = ImageEncoderConfig(
       encoder=ResNetConfig(skip_root_block=True))
+  semantic_encoder: Optional[SemanticRasterEncoderConfig] = None
   scene_z_offset: float = 4.0
   scene_z_height: float = 12.0
   pooling: VerticalPoolingConfig = VerticalPoolingConfig()
@@ -169,6 +192,62 @@ class BEVLocalizerConfig:
   num_rotations: int = 64
   dense_refinement_stages: Tuple[Tuple[float, float], ...] = ((5.0, 0.25),)
   subcell_refinement: bool = False
+
+
+# ``defaults.semantic_net()``: the head's classes and their frequencies.
+AREA_CLASSES = ('crosswalk', 'sidewalk', 'road', 'terrain', 'building')
+AREA_FREQUENCIES = (('crosswalk', 0.036434), ('sidewalk', 0.226553),
+                    ('road', 0.446990), ('terrain', 0.085374),
+                    ('building', 0.204649))
+OBJECT_FREQUENCIES = (('fence', 0.006257), ('pole', 0.001172),
+                      ('tree', 0.001924), ('traffic_sign', 0.000960),
+                      ('traffic_light', 0.000559),
+                      ('street_light', 0.000738), ('void', 0.988391))
+
+
+@dataclasses.dataclass(frozen=True)
+class SemanticNetConfig:
+  """``defaults.semantic_net()``: a decoder over the mapper's fused plane
+  (``'mlp'``: ``mlp_num_layers`` x ``decoder_dim``; ``'resnet_stage'``: a
+  dense layer, ``resnet_num_units`` bottleneck units and a two-layer MLP),
+  class-balanced by the frequencies. ``stop_mapper_gradients`` cuts the
+  backward at the mapper's output (exact when the mapper is frozen)."""
+
+  bev_mapper: BEVMapperConfig = BEVMapperConfig()
+  decoder_type: str = 'mlp'
+  decoder_dim: int = 128
+  mlp_num_layers: int = 2
+  resnet_num_units: int = 8
+  apply_random_flip: bool = False
+  stop_mapper_gradients: bool = False
+  area_classes: Tuple[str, ...] = AREA_CLASSES
+  area_frequencies: Optional[Tuple[Tuple[str, float], ...]] = AREA_FREQUENCIES
+  object_classes_exclusive: Tuple[str, ...] = ('fence', 'pole', 'tree')
+  object_classes_independent: Tuple[str, ...] = (
+      'traffic_sign', 'traffic_light', 'street_light')
+  object_frequencies: Optional[Tuple[Tuple[str, float], ...]] = (
+      OBJECT_FREQUENCIES)
+
+
+@dataclasses.dataclass(frozen=True)
+class OccupancyNetConfig:
+  """``defaults.occupancy_net()``: the street-view volume read at
+  ``num_samples_per_ray`` points of each lidar ray (the hit and points in
+  front of it) and decoded by ``occupancy_mlp``. ``stop_encoder_gradients``
+  cuts the backward at the encoder's output (exact when it is frozen)."""
+
+  num_samples_per_ray: int = 100
+  ray_margin: float = 0.2
+  streetview_encoder: StreetViewEncoderConfig = StreetViewEncoderConfig()
+  occupancy_mlp: MLPConfig = MLPConfig(layers=(128, 1))
+  stop_encoder_gradients: bool = False
+
+
+ModelConfig = Union[BEVLocalizerConfig, SemanticNetConfig, OccupancyNetConfig]
+# The model registry's names (``models.get_model``) and their configs.
+MODEL_CONFIGS = {'bev_localizer': BEVLocalizerConfig,
+                 'semantic_net': SemanticNetConfig,
+                 'occupancy_net': OccupancyNetConfig}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,11 +339,15 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-  model: BEVLocalizerConfig
+  """An experiment: ``model`` is the config of the registry's
+  ``model_name``."""
+
+  model: ModelConfig
   data: DataConfig
   dtype_str: str = 'bfloat16'
   batch_size: int = 1
   train: TrainConfig = TrainConfig()
+  model_name: str = 'bev_localizer'
 
 
 def bench_full(batch_size: int = 1) -> Config:
@@ -354,12 +437,62 @@ def _check_continuation(continue_step: int, pretrained_mapper: str) -> None:
         'step or re-export with tools/export_pretrained.py --effective-step')
 
 
+# ``defaults.MapModalities``: the map encoders a mapper may have.
+MODALITIES = ('streetview', 'aerial', 'semantic')
+
+
+def parse_modalities(modalities: str) -> Tuple[str, ...]:
+  """``'streetview+aerial[+semantic]'`` (the reference's argument) -> the
+  names. A map without street views needs a query mapper of its own, which
+  the port does not run (A14)."""
+  names = tuple(modalities.split('+'))
+  unknown = sorted(set(names) - set(MODALITIES))
+  if unknown:
+    raise ValueError(f'Unknown map modalities {unknown}; choose from '
+                     f'{MODALITIES}')
+  if 'streetview' not in names:
+    raise NotImplementedError('a map without street views needs a query '
+                              'mapper of its own (bev_mapper_query, A14)')
+  return names
+
+
+def mapper_of(mapper: BEVMapperConfig, modalities: str,
+              semantic: SemanticRasterEncoderConfig) -> BEVMapperConfig:
+  """``mapper`` with the map encoders of ``modalities``
+  (``defaults.bev_mapper(modalities)``): its own street-view and aerial
+  encoders, and ``semantic`` as the semantic raster encoder."""
+  names = parse_modalities(modalities)
+  return dataclasses.replace(
+      mapper,
+      aerial_encoder=mapper.aerial_encoder if 'aerial' in names else None,
+      semantic_encoder=semantic if 'semantic' in names else None)
+
+
+def with_modalities(config: Config, modalities: str,
+                    semantic: SemanticRasterEncoderConfig) -> Config:
+  """The localizer ``config`` with the map encoders of ``modalities``
+  (``train_localization.py:99-100``) and the data layers they read
+  (``:135-138``)."""
+  mapper = mapper_of(config.model.bev_mapper, modalities, semantic)
+  data = dataclasses.replace(
+      config.data, add_images=True,
+      add_rasters=bool(mapper.aerial_encoder or mapper.semantic_encoder))
+  return dataclasses.replace(
+      config, model=dataclasses.replace(config.model, bev_mapper=mapper),
+      data=data)
+
+
 def train_full1chip_exhaustive(batch_size: int = 2,
                                pretrained_mapper: str = '',
                                pretrained_resnet: str = '',
-                               continue_step: int = 0) -> Config:
+                               continue_step: int = 0,
+                               modalities: str = 'streetview+aerial'
+                               ) -> Config:
   """``train_localization.py:scale=full1chip,pose_backend=exhaustive``.
 
+  ``modalities`` (``'streetview+aerial[+semantic]'``) picks the map
+  encoders at full width; the semantic one is an R26 x2 over the class
+  embeddings (56.7M parameters).
   ``pretrained_mapper`` (an experiment workdir) warm-starts the mapper and
   ``pretrained_resnet`` (a BiT ``.npz``) the street-view trunk. A
   ``continue_step`` continues the 20k recipe from that step of
@@ -403,26 +536,38 @@ def train_full1chip_exhaustive(batch_size: int = 2,
   if pretrained_mapper:
     mapper = dataclasses.replace(mapper,
                                  pretrained_path=str(pretrained_mapper))
-  return dataclasses.replace(
+  flagship = dataclasses.replace(
       serve,
       model=dataclasses.replace(serve.model, do_grid_refinement=False,
                                 num_pose_samples=10_000,
                                 num_pose_sampling_retries=8,
                                 bev_mapper=mapper),
       data=data, train=train)
+  return with_modalities(flagship, modalities, SemanticRasterEncoderConfig())
 
 
-def smoke_train_exhaustive(batch_size: int = 2) -> Config:
+def _tiny_semantic_encoder(dim: int = 32) -> SemanticRasterEncoderConfig:
+  """The tests' tiny semantic raster encoder (``tests/helpers.py:41-43``)."""
+  return SemanticRasterEncoderConfig(
+      encoder=ImageEncoderConfig(encoder=_tiny_resnet(skip_root_block=True),
+                                 output_dim=dim),
+      embedding_dim=4)
+
+
+def smoke_train_exhaustive(batch_size: int = 2,
+                           modalities: str = 'streetview+aerial') -> Config:
   """``smoke_exhaustive`` with ``smoke_localization.py``'s training setup:
   8 steps, a summary every 2, a checkpoint every 4, an eval of 1 batch at
-  step 8."""
+  step 8. ``modalities`` as ``train_full1chip_exhaustive``'s, the encoders
+  tiny."""
   lr = LrConfig(factors='constant', base_learning_rate=1e-3)
-  return dataclasses.replace(
+  smoke = dataclasses.replace(
       smoke_exhaustive(batch_size),
       train=TrainConfig(lr_configs=lr, max_grad_norm=1.0,
                         num_training_steps=8, log_summary_steps=2,
                         log_eval_steps=8, checkpoint_steps=4,
                         steps_per_eval=1))
+  return with_modalities(smoke, modalities, _tiny_semantic_encoder())
 
 
 def train_full1chip_ransac(batch_size: int = 2, pretrained_mapper: str = '',
@@ -485,6 +630,172 @@ def eval_full1chip_exhaustive(batch_size: int = 4) -> Config:
   return merge_eval_config(
       eval_localization(evaluation_size=256, batch_size=batch_size),
       train_full1chip_exhaustive(), 'zurich-synthetic_eval')
+
+
+# The downstream heads on a (frozen) mapper.
+
+
+def read_experiment(workdir: str) -> Config:
+  """The ``Config`` of the experiment in ``workdir`` (its ``config.json``,
+  the reference's keys)."""
+  path = pathlib.Path(workdir) / 'config.json'
+  return from_reference(json.loads(path.read_text()))
+
+
+def _head_schedule(config: Config, small: bool, batch_size: int) -> Config:
+  """``train_semantics.py`` / ``train_occupancy.py``'s schedules:
+  ``scale=small`` a short one (128 eval examples) at the config's batch
+  size, else the reference's 50k steps at batch 1; a ``batch_size`` > 0
+  wins."""
+  if small:
+    lr, steps, cadence = 2e-4, 3_000, dict(
+        checkpoint_steps=500, log_summary_steps=100, log_eval_steps=500,
+        steps_per_eval=8)
+    config = dataclasses.replace(config, data=dataclasses.replace(
+        config.data, evaluation_size=128))
+  else:
+    lr, steps, cadence = 5e-5, 50_000, dict(
+        checkpoint_steps=10_000, log_summary_steps=1_000,
+        log_eval_steps=5_000)
+    config = dataclasses.replace(config, batch_size=1)
+  train = dataclasses.replace(
+      config.train, lr_configs=LrConfig(base_learning_rate=lr),
+      num_training_steps=steps, **cadence)
+  if int(batch_size):
+    config = dataclasses.replace(config, batch_size=int(batch_size))
+  return dataclasses.replace(config, train=train, dtype_str='bfloat16')
+
+
+def _frozen(regex: str) -> TrainConfig:
+  """The heads' optimizer: ``regex`` frozen, without Adam moments of its
+  own (``allocate_frozen_state=False``)."""
+  return TrainConfig(optimizer_configs=OptimizerConfig(
+      freeze_params_reg_exp=regex, allocate_frozen_state=False))
+
+
+def _scene_of(data: DataConfig, pretrained: Config) -> DataConfig:
+  """``data`` with the scene geometry a pretrained mapper was trained on."""
+  return dataclasses.replace(
+      data, voxel_size=float(pretrained.data.voxel_size),
+      num_views=int(pretrained.data.num_views),
+      image_size=tuple(pretrained.data.image_size))
+
+
+def train_semantics(scale: str = 'full', pretrained_mapper: str = '',
+                    modalities: str = 'streetview+aerial',
+                    batch_size: int = 0) -> Config:
+  """``configs/train_semantics.py``: the semantic BEV head (a
+  ``resnet_stage`` decoder of width 256 with 2 units, random flips) on a
+  frozen mapper of ``modalities`` (the backward cut at its output), on
+  single scenes of 20 views at 0.2 m with their rasters.
+
+  ``pretrained_mapper`` (an experiment workdir) gives the mapper: its
+  config as the workdir has it, warm-started from its weights, and the
+  scene geometry it was trained on. ``scale='small'``: 3,000 steps at
+  batch 8 and lr 2e-4; else the reference's 50,000 at batch 1 and 5e-5.
+  """
+  mapper = mapper_of(BEVMapperConfig(), modalities,
+                     SemanticRasterEncoderConfig())
+  mapper = dataclasses.replace(mapper, streetview_encoder=dataclasses.replace(
+      mapper.streetview_encoder, max_view_distance=20.0))
+  data = DataConfig(
+      num_views=20, voxel_size=0.2, add_images=True, add_rasters=True,
+      mode='single_scene', evaluation_size=1_024,
+      locations=LocationsConfig(training='train-synthetic-semantics',
+                                evaluation='val-synthetic-semantics'),
+      shuffle_seed=SHUFFLE_SEED)
+  if pretrained_mapper:
+    pretrained = read_experiment(pretrained_mapper)
+    mapper = dataclasses.replace(pretrained.model.bev_mapper,
+                                 pretrained_path=str(pretrained_mapper))
+    data = _scene_of(data, pretrained)
+  model = SemanticNetConfig(
+      bev_mapper=mapper, decoder_type='resnet_stage', decoder_dim=256,
+      resnet_num_units=2, apply_random_flip=True, stop_mapper_gradients=True)
+  config = Config(model=model, data=data, model_name='semantic_net',
+                  train=_frozen(r'bev_mapper/'), batch_size=8)
+  return _head_schedule(config, scale == 'small', batch_size)
+
+
+def train_occupancy(scale: str = 'full', pretrained_mapper: str = '',
+                    batch_size: int = 0) -> Config:
+  """``configs/train_occupancy.py``: the occupancy head (an MLP 128-256-1)
+  on a frozen street-view encoder (the backward cut at its output),
+  supervised by 10,000 lidar rays a scene (4,000 at ``scale='small'``) of
+  100 samples each, on single scenes of 20 views at 0.2 m from the 12
+  training cities.
+
+  ``pretrained_mapper`` (an experiment workdir) gives the encoder: its
+  config as the workdir's mapper has it, warm-started from its weights,
+  the scene geometry it was trained on, and an eval batch of 2.
+  ``scale`` as ``train_semantics``'s, at batch 4 when small.
+  """
+  data = DataConfig(
+      num_views=20, voxel_size=0.2, add_images=True, add_rasters=False,
+      add_lidar_rays=True, num_rays=10_000, mode='single_scene',
+      evaluation_size=4_096, locations=LocationsConfig(
+          training=TRAIN_LOCATIONS), shuffle_seed=SHUFFLE_SEED)
+  streetview = StreetViewEncoderConfig()
+  train = _frozen(r'streetview_encoder/')
+  if pretrained_mapper:
+    pretrained = read_experiment(pretrained_mapper)
+    streetview = dataclasses.replace(
+        pretrained.model.bev_mapper.streetview_encoder,
+        pretrained_path=str(pretrained_mapper))
+    data = _scene_of(data, pretrained)
+    train = dataclasses.replace(train, eval_batch_size=2)
+  small = scale == 'small'
+  if small:
+    data = dataclasses.replace(data, num_rays=4_000)
+  model = OccupancyNetConfig(
+      streetview_encoder=streetview,
+      occupancy_mlp=MLPConfig(layers=(128, 256, 1)),
+      stop_encoder_gradients=True)
+  config = Config(model=model, data=data, model_name='occupancy_net',
+                  train=train, batch_size=4)
+  return _head_schedule(config, small, batch_size)
+
+
+def _smoke_head_data(**changes) -> DataConfig:
+  """``smoke_semantics.py`` / ``smoke_occupancy.py``'s scenes: 3 views of
+  36x48 at 1 m, single scenes of 'smoke-city'."""
+  return DataConfig(num_views=3, image_size=(36, 48), voxel_size=1.0,
+                    mode='single_scene', evaluation_size=4,
+                    locations=LocationsConfig(training='smoke-city'),
+                    shuffle_seed=SHUFFLE_SEED, **changes)
+
+
+def _smoke_head_train() -> TrainConfig:
+  return TrainConfig(lr_configs=LrConfig(base_learning_rate=1e-3),
+                     num_training_steps=4, log_summary_steps=2,
+                     log_eval_steps=4, checkpoint_steps=4, steps_per_eval=1)
+
+
+def smoke_semantics(batch_size: int = 2) -> Config:
+  """``configs/smoke_semantics.py``: the semantic head (an MLP decoder of
+  width 16, random flips) on the tiny street-view + aerial mapper of
+  ``smoke_exhaustive``, trained whole (nothing frozen), f32."""
+  model = SemanticNetConfig(bev_mapper=smoke_exhaustive().model.bev_mapper,
+                            decoder_dim=16, apply_random_flip=True)
+  return Config(model=model, data=_smoke_head_data(add_rasters=True),
+                model_name='semantic_net', dtype_str='float32',
+                batch_size=batch_size, train=_smoke_head_train())
+
+
+def smoke_occupancy(batch_size: int = 2) -> Config:
+  """``configs/smoke_occupancy.py``: the occupancy head (an MLP 16-1, 16
+  samples on each of 512 rays) on the tiny street-view encoder of
+  ``smoke_exhaustive``, trained whole, f32."""
+  model = OccupancyNetConfig(
+      num_samples_per_ray=16,
+      streetview_encoder=smoke_exhaustive().model.bev_mapper
+      .streetview_encoder,
+      occupancy_mlp=MLPConfig(layers=(16, 1)))
+  data = _smoke_head_data(add_rasters=False, add_lidar_rays=True,
+                          num_rays=512)
+  return Config(model=model, data=data, model_name='occupancy_net',
+                dtype_str='float32', batch_size=batch_size,
+                train=_smoke_head_train())
 
 
 # Offline evaluation of an experiment (``snap_tpu/evaluator.py``).
@@ -570,9 +881,23 @@ def smoke_eval_localization() -> EvalConfig:
                  do_grid_refinement=True))
 
 
+def eval_semantics(evaluation_size: int = 10_000, batch_size: int = 4,
+                   tag: str = '') -> EvalConfig:
+  """``configs/eval_semantics.py``: the semantic head's experiment on
+  'val-synthetic' (location 'val-synthetic_semantics_eval'), f32, its
+  model as trained."""
+  loader = dataclasses.replace(streetview_singlescene(),
+                               evaluation_size=int(evaluation_size))
+  return EvalConfig(
+      batch_size=int(batch_size), tag=tag, model={},
+      data=EvalDataConfig(split='val-synthetic',
+                          name_pattern='{}_semantics_eval', loader=loader))
+
+
 EVAL_CONFIGS = {
     'eval_localization': eval_localization,
     'smoke_eval_localization': smoke_eval_localization,
+    'eval_semantics': eval_semantics,
 }
 
 
@@ -623,13 +948,9 @@ _IGNORED_KEYS = {
     # Rematerialized blocks and units: memory devices of the XLA program,
     # numerically neutral.
     ResNetConfig: ('checkpoint_blocks', 'checkpoint_units'),
-    StreetViewEncoderConfig: (
-        # The lift's point tiles in training and at eval: memory devices of
-        # the XLA program (rematerialized tiles), numerically neutral.
-        'point_tile', 'point_tile_eval',
-        # The street-view encoder's own warm start, with its config merge
-        # (``streetview_encoder.py:41-61``): it comes with the heads (A10).
-        'pretrained_path'),
+    # The lift's point tiles in training and at eval: memory devices of
+    # the XLA program (rematerialized tiles), numerically neutral.
+    StreetViewEncoderConfig: ('point_tile', 'point_tile_eval'),
     # The MLP of ``pooling='mlp'``, on which the port's mapper raises (A14).
     VerticalPoolingConfig: ('mlp',),
     DataConfig: (
@@ -647,8 +968,7 @@ _CHECKED_KEYS = {
 _UNPORTED_KEYS = {
     BEVLocalizerConfig: {'bev_mapper_query': 'a query mapper of its own '
                                              '(A14)'},
-    BEVMapperConfig: {'semantic_encoder': 'the semantic modality (A10)',
-                      'bev_net': 'the residual BEV stage (A14)'},
+    BEVMapperConfig: {'bev_net': 'the residual BEV stage (A14)'},
     StreetViewEncoderConfig: {'depth_mlp': 'a depth MLP (A14)'},
 }
 # Top-level keys read and ignored: the JAX trainer's bookkeeping that the
@@ -668,8 +988,7 @@ _TOP_KEYS = ('model', 'data', 'batch_size', 'dtype_str', 'shuffle_seed',
 _TRAINER_TOP = ('checkpoint', 'checkpoint_steps', 'max_checkpoints_to_keep',
                 'log_summary_steps', 'log_eval_steps', 'steps_per_eval',
                 'eval_batch_size', 'stop_at_step', 'xprof')
-_CHECKED_TOP = {'model_name': 'bev_localizer', 'data_dtype_str': 'float32',
-                'num_training_epochs': None}
+_CHECKED_TOP = {'data_dtype_str': 'float32', 'num_training_epochs': None}
 
 
 def _check(where: str, value, want) -> None:
@@ -717,6 +1036,13 @@ def _from_dict(cls, d: Mapping[str, Any], where: str, **given):
   return cls(**kwargs)
 
 
+def streetview_encoder_from_reference(d: Mapping[str, Any]
+                                      ) -> StreetViewEncoderConfig:
+  """The street-view encoder's config of a reference dict's subtree."""
+  return _from_dict(StreetViewEncoderConfig, d,
+                    'model.bev_mapper.streetview_encoder')
+
+
 def from_reference(d: Mapping[str, Any]) -> Config:
   """The port's ``Config`` of a JAX experiment config given as a plain dict
   (``ConfigDict.to_dict()``, as JSON: tuples as lists).
@@ -729,7 +1055,12 @@ def from_reference(d: Mapping[str, Any]) -> Config:
   for key, want in _CHECKED_TOP.items():
     _check(key, d.get(key), want)
   _check('mesh.model', d.get('mesh', {}).get('model', 1), 1)
-  known = {*_TOP_KEYS, *_TRAINER_TOP, *_IGNORED_TOP, *_CHECKED_TOP, 'mesh'}
+  model_name = d.get('model_name')
+  if model_name not in MODEL_CONFIGS:
+    raise ValueError(f'from_reference: model_name = {model_name!r}; the '
+                     f'port runs {sorted(MODEL_CONFIGS)}')
+  known = {*_TOP_KEYS, *_TRAINER_TOP, *_IGNORED_TOP, *_CHECKED_TOP, 'mesh',
+           'model_name'}
   unknown = sorted(set(d) - known)
   missing = sorted(set(_TOP_KEYS) - set(d))
   if unknown or missing:
@@ -743,10 +1074,11 @@ def from_reference(d: Mapping[str, Any]) -> Config:
       num_training_steps=d['num_training_steps'],
       **{key: d[key] for key in _TRAINER_TOP if key in d})
   return Config(
-      model=_from_dict(BEVLocalizerConfig, d['model'], 'model'),
+      model=_from_dict(MODEL_CONFIGS[model_name], d['model'], 'model'),
       data=_from_dict(DataConfig, d['data'], 'data',
                       shuffle_seed=d['shuffle_seed']),
-      dtype_str=d['dtype_str'], batch_size=d['batch_size'], train=train)
+      dtype_str=d['dtype_str'], batch_size=d['batch_size'], train=train,
+      model_name=model_name)
 
 
 def plain(value):
@@ -771,7 +1103,8 @@ def to_reference(config: Config) -> Dict[str, Any]:
   if trainer['stop_at_step'] is None:
     del trainer['stop_at_step']
   return {
-      **_CHECKED_TOP, 'model': plain(config.model),
+      **_CHECKED_TOP, 'model_name': config.model_name,
+      'model': plain(config.model),
       'data': {**data, **_CHECKED_KEYS[DataConfig]},
       'batch_size': config.batch_size, 'dtype_str': config.dtype_str,
       'shuffle_seed': shuffle_seed,
@@ -792,6 +1125,10 @@ CONFIGS = {
     'smoke_eval_ransac': smoke_eval_ransac,
     'eval_full1chip_ransac': eval_full1chip_ransac,
     'eval_full1chip_exhaustive': eval_full1chip_exhaustive,
+    'train_semantics': train_semantics,
+    'train_occupancy': train_occupancy,
+    'smoke_semantics': smoke_semantics,
+    'smoke_occupancy': smoke_occupancy,
 }
 
 

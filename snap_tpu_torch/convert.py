@@ -8,7 +8,12 @@ it with dots and renaming the leaf:
 - conv ``kernel`` ``[h, w, in, out]`` (HWIO) -> ``weight`` ``[out, in, h, w]``;
 - dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
 - GroupNorm ``scale`` / ``bias`` ``[1, 1, 1, C]`` -> ``[C]``;
+- ``nn.Embed``'s ``embedding`` ``[num, dim]`` -> ``nn.Embedding``'s
+  ``weight``, the same layout;
 - dense ``bias`` and the scalar ``temperature`` as they are.
+
+A flax ``nn.Sequential`` names its children ``layers_<i>``, as the port's
+``semantic_net.ResNetStageDecoder`` does.
 
 ``flax_from_torch`` is the inverse map (tensors named as the module's
 parameters -> '/'-joined flax paths in flax layout), so that gradients can
@@ -60,6 +65,8 @@ def params_from_flax(params: Mapping[str, Any],
       leaf, value = 'weight', value.T
     elif leaf in ('scale', 'bias') and value.ndim > 1:
       value = value.reshape(-1)
+    elif leaf == 'embedding':
+      leaf = 'weight'
     elif leaf == 'kernel':
       raise ValueError(f'{path}: unexpected kernel shape {value.shape}')
     state['.'.join(parts[:-1] + [leaf])] = torch.tensor(value)
@@ -80,7 +87,9 @@ def params_from_flax(params: Mapping[str, Any],
 
 def flax_path(name: str) -> str:
   """The '/'-joined flax path of the port's parameter ``name`` (a conv's
-  or dense layer's ``weight`` is flax's ``kernel``)."""
+  or dense layer's ``weight`` is flax's ``kernel``; an embedding's, flax's
+  ``embedding``, also comes out as ``kernel``: the freeze regexes match
+  the module path)."""
   owner, _, leaf = name.rpartition('.')
   leaf = 'kernel' if leaf == 'weight' else leaf
   return '/'.join(owner.split('.') + [leaf]) if owner else leaf
@@ -95,7 +104,9 @@ def flax_from_torch(named: Mapping[str, torch.Tensor], module: nn.Module
   for name, tensor in named.items():
     value = tensor.detach().float().cpu().numpy()
     owner, _, leaf = name.rpartition('.')
-    if leaf == 'weight' and value.ndim == 4:
+    if leaf == 'weight' and isinstance(modules[owner], nn.Embedding):
+      leaf = 'embedding'
+    elif leaf == 'weight' and value.ndim == 4:
       leaf, value = 'kernel', value.transpose(2, 3, 1, 0)
     elif leaf == 'weight' and value.ndim == 2:
       leaf, value = 'kernel', value.T

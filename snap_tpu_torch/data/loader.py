@@ -130,6 +130,17 @@ def map_grid(data_config: configs.DataConfig) -> grids.Grid3D:
                                          data_config.voxel_size)
 
 
+def scene_meta_data(data_config: configs.DataConfig) -> Dict[str, Any]:
+  """What a model is built from (``snap_tpu/data/loader.py:460-468``): the
+  scene ``grid`` (the ``grid_size`` of 24 x 32 x 12 m at the voxel size),
+  the semantic raster's classes (``semantic_map_classes``) and the GT
+  layers' (``semantic_classes_gt``)."""
+  rasters = types.RastersConfig()
+  return {'grid': map_grid(data_config),
+          'semantic_map_classes': rasters.semantic_classes,
+          'semantic_classes_gt': rasters.gt_semantic_classes}
+
+
 def stack_examples(examples: Sequence[DataDict]) -> DataDict:
   """Stack a list of nested example dicts leaf by leaf (numpy)."""
   first = examples[0]
@@ -493,6 +504,7 @@ def get_dataset(data_config: configs.DataConfig, batch_size: int,
       batch_fn('eval', eval_batch_size, evaluation_size), num_eval_batches,
       **workers)
   meta_data = {
+      **scene_meta_data(data_config),
       'num_eval_examples': evaluation_size,
       'generator_kind': 'device-torch' if on_device else 'host-numpy',
   }

@@ -6,6 +6,8 @@ experiment over held-out cities.
         --workdir=weights/loc_full1chip_r5 --split=zurich,oslo
     python -m snap_tpu_torch.evaluate --eval_config=smoke_eval_localization \
         --workdir=<experiment> --split=smokeville --device=cpu
+    python -m snap_tpu_torch.evaluate --eval_config=eval_semantics \
+        --evaluation_size=64 --workdir=<semantic head experiment>
     python -m snap_tpu_torch.evaluate --config=bench_full --num_queries=4
     python -m snap_tpu_torch.evaluate --config=eval_full1chip_ransac \\
         --num_queries=8 --batch_size=4
@@ -38,8 +40,9 @@ keys, ``params.npz`` and ``checkpoint.json``; ``tests/test_torch_recall.py
 --export`` writes one from a JAX export) is evaluated under the named eval
 config on each city of ``--split`` (``evaluator.run``): the dump of each
 lands in ``<workdir>/evaluation/<location><tag>/``, or an earlier dump of
-the same protocol is read back. One JSON line per city gives the dump's
-summary (``evaluator.summarize_dump``), its data path, step, wall time,
+the same protocol is read back (``--eval_config=eval_semantics`` evaluates
+a semantic head's experiment on 'val-synthetic'). One JSON line per city
+gives the dump's summary (``evaluator.summarize_dump``), its data path, step, wall time,
 build ms and TF32 settings. An f32 eval config runs with TF32 off in
 cuDNN and in matmuls.
 """
@@ -60,7 +63,7 @@ import torch
 
 from snap_tpu_torch import configs
 from snap_tpu_torch import evaluator
-from snap_tpu_torch.evaluator import build_localizer
+from snap_tpu_torch.evaluator import build_model
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
 
@@ -106,7 +109,7 @@ def evaluate(config_name: str = 'bench_full', num_queries: int = 4,
   data = dataclasses.replace(config.data, evaluation_size=num_queries,
                              on_device_generation=on_device_generation)
   if model is None:
-    model = build_localizer(config, device, seed, params_npz)
+    model = build_model(config, device, seed, params_npz)
   pose_generator = torch.Generator().manual_seed(seed)
   cuda = torch.device(device).type == 'cuda'
   num_batches = -(-num_queries // batch_size)

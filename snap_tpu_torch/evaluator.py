@@ -4,19 +4,23 @@ The port of ``snap_tpu/evaluator.py``. ``run`` evaluates the cities of a
 split one by one (``run_for_location``): the experiment's config
 (``<workdir>/config.json``, the reference's keys, read by
 ``configs.from_reference``) merged with the eval config
-(``configs.merge_eval_config``), its weights (the port's
+(``configs.merge_eval_config``), its model (``config.model_name``), its
+weights (the port's
 ``<workdir>/checkpoints/<step>/`` as ``train`` writes them, at the eval
 config's ``checkpoint_step`` or the latest; else a JAX export's
 ``<workdir>/params.npz``: flax params keyed by '/'-joined paths, converted
 by ``convert.params_from_flax``, with the step they were taken at in
-``<workdir>/checkpoint.json``), the localizer run over the eval iterator
-(``eval_on_dataset``, per-example metrics packed by
-``pack_localization_metrics``, with the reference's one-batch lag: batch
-k + 1 is dispatched before batch k's metrics are read back), and the
+``<workdir>/checkpoint.json``), the model run over the eval iterator
+(``eval_on_dataset``, per-example metrics packed by ``pack_metrics``, with
+the reference's one-batch lag: batch k + 1 is dispatched before batch k's
+metrics are read back), and the
 metrics dumped to ``<workdir>/evaluation/<location><tag>/results.npz``
 beside the merged config as ``config.json`` (``write_eval_dump``), which a
-later run of the same protocol reads back instead. ``compute_recall``
-gives the recall curve. Not ported: the semantic models' packing (A10).
+later run of the same protocol reads back instead. The localizer's metrics
+are packed by ``pack_localization_metrics``, the semantic head's by its
+own ``pack_evaluation_metrics``; the occupancy head has no packing, as in
+the reference (it is evaluated in the trainer's loop). ``compute_recall``
+gives the recall curve.
 """
 
 from __future__ import annotations
@@ -34,8 +38,11 @@ import torch
 
 from snap_tpu_torch import configs
 from snap_tpu_torch import convert
+from snap_tpu_torch import models
 from snap_tpu_torch.data import loader
+from snap_tpu_torch.models import base
 from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.models import semantic_net
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.utils import geometry
 
@@ -51,21 +58,23 @@ CHECKPOINT_FILE = 'checkpoint.json'
 _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
 
-def build_localizer(config: configs.Config, device: str = 'cuda',
-                    seed: int = 0,
-                    params_npz: Optional[str] = None,
-                    state_dict: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> bev_localizer.BEVLocalizer:
-  """The localizer of ``config`` with seeded weights, those of a flat
-  ``.npz`` of flax params, or a ``state_dict`` (a port checkpoint's)."""
-  model = bev_localizer.BEVLocalizer(
-      config.model, loader.map_grid(config.data).bev(),
-      dtype=_DTYPES[config.dtype_str])
+def build_model(config: configs.Config, device: str = 'cuda',
+                seed: int = 0,
+                params_npz: Optional[str] = None,
+                state_dict: Optional[Dict[str, torch.Tensor]] = None
+                ) -> base.Model:
+  """The model of ``config`` (the registry's ``config.model_name``) with
+  seeded weights, those of a flat ``.npz`` of flax params, or a
+  ``state_dict`` (a port checkpoint's)."""
+  model = models.get_model(config.model_name)(
+      config.model, loader.scene_meta_data(config.data),
+      _DTYPES[config.dtype_str])
   if params_npz is not None:
     with np.load(params_npz) as npz:
       state_dict = convert.params_from_flax(dict(npz), model)
   if state_dict is None:
-    convert.init_params(model, seed, config.model.init_temperature)
+    convert.init_params(model, seed, getattr(config.model,
+                                             'init_temperature', 2.0))
   else:
     model.load_state_dict(state_dict)
   return model.to(device).eval()
@@ -103,6 +112,18 @@ def pack_localization_metrics(metrics: Dict[str, torch.Tensor],
       closest_map_view_deg=dr_closest,
       loss=losses['total'],
   )
+
+
+def pack_metrics(model: base.Model, metrics: Dict[str, torch.Tensor],
+                 losses: Dict[str, torch.Tensor], data: Dict[str, Any],
+                 pred: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+  """An evaluation's per-example metrics of a batch, by model
+  (``snap_tpu/evaluator.py:91-97``)."""
+  if isinstance(model, bev_localizer.BEVLocalizer):
+    return pack_localization_metrics(metrics, losses, data, pred)
+  if isinstance(model, semantic_net.SemanticNet):
+    return model.pack_evaluation_metrics(metrics, losses, data, pred)
+  raise ValueError(f'No packing function for model {type(model).__name__}.')
 
 
 def _fetch(tensors: Dict[str, torch.Tensor]):
@@ -161,7 +182,7 @@ def eval_on_dataset(model, dataset: loader.Dataset, batch_size: int,
       with step_context(step):
         pred = model(batch, generator=generator)
       losses, metrics = model.loss_metrics_function(pred, batch)
-      packed = pack_localization_metrics(metrics, losses, batch, pred)
+      packed = pack_metrics(model, metrics, losses, batch, pred)
     fetched, done = _fetch({**packed, 'batch_mask': batch['batch_mask']})
     if on_batch is not None:
       on_batch(step, batch, pred, metrics)
@@ -222,7 +243,7 @@ def get_model_and_dataset(eval_config: configs.EvalConfig,
                           experiment: Mapping[str, Any],
                           workdir: pathlib.Path, location: str,
                           device: str = 'cuda'):
-  """The localizer and dataset of one location, and the merged config as a
+  """The model and dataset of one location, and the merged config as a
   reference dict with the step and the data path it records
   (``snap_tpu/evaluator.py:get_model_and_dataset``)."""
   config = configs.merge_eval_config(
@@ -232,11 +253,11 @@ def get_model_and_dataset(eval_config: configs.EvalConfig,
     raise ValueError(f'{workdir} holds the weights of step {step}, not of '
                      f'step {eval_config.checkpoint_step}')
   if checkpoints.all_steps(workdir):
-    model = build_localizer(
+    model = build_model(
         config, device, state_dict=checkpoints.restore_params(workdir, step))
   else:
-    model = build_localizer(config, device,
-                            params_npz=pathlib.Path(workdir) / PARAMS_FILE)
+    model = build_model(config, device,
+                        params_npz=pathlib.Path(workdir) / PARAMS_FILE)
   dataset = loader.get_dataset(config.data, config.batch_size, device=device)
   log.info('Loaded experiment %s at step %s.', workdir, step)
   record = configs.to_reference(config)
@@ -328,7 +349,7 @@ def summarize_dump(results: ResultDict) -> Dict[str, Any]:
   """A dump's summary (``tools/run_supervisor.py:summarize_dump``): the
   number of examples, the median and mean errors in m and deg, the recall
   at 0.5, 1, 2 and 5 of each (errors <= the threshold) and the top-1
-  recall."""
+  recall; for the semantic head the mean of each ``semantics/`` metric."""
   out = {'num_examples': int(next(iter(results.values())).shape[0])}
   for key, unit in (('error_max_meter', 'm'), ('error_max_deg', 'deg')):
     if key in results:
@@ -339,4 +360,7 @@ def summarize_dump(results: ResultDict) -> Dict[str, Any]:
         out[f'recall_{t}{unit}'] = float(np.mean(err <= t))
   if 'recall_top1' in results:
     out['recall_top1'] = float(np.mean(results['recall_top1']))
+  for key, value in sorted(results.items()):
+    if key.startswith('semantics/'):
+      out[key] = float(np.mean(value))
   return out

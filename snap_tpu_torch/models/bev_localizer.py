@@ -20,7 +20,7 @@ metrics.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,7 +69,8 @@ class BEVLocalizer(nn.Module):
 
   def __init__(self, config: configs.BEVLocalizerConfig,
                grid_map: grids.Grid2D, streetview_hfov_deg: float = 72.0,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32,
+               semantic_map_classes: Optional[Sequence[str]] = None):
     super().__init__()
     if config.pose_backend not in ('exhaustive', 'ransac'):
       raise ValueError(f'Unknown pose_backend {config.pose_backend!r}')
@@ -83,10 +84,15 @@ class BEVLocalizer(nn.Module):
     self.grid_query, self.qgrid_p_q, self.q_xy_p = build_query_frustum_grid(
         grid_map.cell_size, config.query_frustum_depth,
         config.filter_points_in_fov, streetview_hfov_deg)
-    self.bev_mapper = bev_mapper.BEVMapper(config.bev_mapper, grid_map, dtype)
+    self.bev_mapper = bev_mapper.BEVMapper(config.bev_mapper, grid_map, dtype,
+                                           semantic_map_classes)
     if config.add_temperature:
       self.temperature = nn.Parameter(
           torch.tensor(config.init_temperature, dtype=torch.float32))
+
+  def sample_draws(self, batch_size: int, generator: torch.Generator,
+                   device: torch.device) -> bev_mapper.TrainDraws:
+    return self.bev_mapper.sample_draws(batch_size, generator, device)
 
   def forward(self, data: Dict[str, Any], train: bool = False,
               generator: Optional[torch.Generator] = None,
@@ -105,7 +111,7 @@ class BEVLocalizer(nn.Module):
     if train and draws is None:
       if generator is None:
         raise ValueError('train=True needs a generator or draws')
-      draws = self.bev_mapper.sample_draws(batch, generator, device)
+      draws = self.sample_draws(batch, generator, device)
     pred: Dict[str, Any] = {'draws': draws}
     pred['map'] = self.bev_mapper(data['map'], train=train, draws=draws)
     pred['query'] = self.bev_mapper(
@@ -288,3 +294,10 @@ class BEVLocalizer(nn.Module):
         metrics[f'loc/recall_samples_{dt_thresh}m_{dr_thresh}deg'] = (
             recall[..., 1:].float().mean(-1))  # exclude the GT pose
     return losses, metrics
+
+
+def build(config: configs.BEVLocalizerConfig, meta_data: Dict[str, Any],
+          dtype: torch.dtype) -> BEVLocalizer:
+  """The registry's builder (``BEVLocalizerModel.build_flax_model``)."""
+  return BEVLocalizer(config, meta_data['grid'].bev(), dtype=dtype,
+                      semantic_map_classes=meta_data['semantic_map_classes'])

@@ -1,12 +1,13 @@
 """Multi-modal Bird's-Eye-View neural map builder.
 
 Port of ``snap_tpu/models/bev_mapper.py``: street-view volumes are pooled
-vertically into a plane, the aerial raster is encoded directly, the
-modalities are fused by a masked max over a pseudo-z axis, and a linear
-matching head gives L2-normalized features. In training the query's z
-column floor is jittered and map modalities are dropped at random; the
-draws come from an explicit CPU ``torch.Generator`` (``sample_draws``), so
-a run on the card and one on the CPU draw the same numbers.
+vertically into a plane, the aerial raster and the semantic rasters are
+encoded directly, the modalities are fused by a masked max over a pseudo-z
+axis, and a linear matching head gives L2-normalized features. In training
+the query's z column floor is jittered and map modalities are dropped at
+random; the draws come from an explicit CPU ``torch.Generator``
+(``sample_draws``), so a run on the card and one on the CPU draw the same
+numbers.
 """
 
 from __future__ import annotations
@@ -16,18 +17,18 @@ import json
 import logging
 import math
 import pathlib
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
 from snap_tpu_torch import configs
-from snap_tpu_torch import convert
 from snap_tpu_torch.models import image_encoder
 from snap_tpu_torch.models import layers
+from snap_tpu_torch.models import semantic_raster_encoder
 from snap_tpu_torch.models import streetview_encoder
 from snap_tpu_torch.models import types
+from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.utils import grids
 
 Tensor = torch.Tensor
@@ -49,6 +50,9 @@ class TrainDraws(NamedTuple):
 
   z_jitter: Optional[Tensor]  # [B] f32 offset of the query's z floor
   modality_keep: Optional[Tensor]  # [M, B] bool, per map modality
+  # [B, 2] bool: the semantic head flips each example's plane along
+  # each spatial axis where set.
+  flips: Optional[Tensor] = None
 
 
 class VerticalPooling(nn.Module):
@@ -77,10 +81,12 @@ class VerticalPooling(nn.Module):
 
 
 class BEVMapper(nn.Module):
-  """Encode a scene (street views + optional aerial raster) into a plane."""
+  """Encode a scene (street views, an aerial raster, semantic rasters of
+  ``semantic_map_classes``) into a plane."""
 
   def __init__(self, config: configs.BEVMapperConfig, grid: grids.Grid2D,
-               dtype: torch.dtype):
+               dtype: torch.dtype,
+               semantic_map_classes: Optional[Sequence[str]] = None):
     super().__init__()
     if config.add_confidence:
       raise NotImplementedError('Map confidence heads are not ported yet.')
@@ -90,6 +96,7 @@ class BEVMapper(nn.Module):
     dims = []
     self.streetview_encoder = None
     self.aerial_encoder = None
+    self.semantic_encoder = None
     if config.streetview_encoder is not None:
       self.streetview_encoder = streetview_encoder.StreetViewEncoder(
           config.streetview_encoder, dtype)
@@ -99,11 +106,19 @@ class BEVMapper(nn.Module):
       self.aerial_encoder = image_encoder.ImageEncoder(
           config.aerial_encoder, dtype)
       dims.append(config.aerial_encoder.output_dim)
+    if config.semantic_encoder is not None:
+      if semantic_map_classes is None:
+        raise ValueError('The semantic modality needs the rasters\' classes '
+                         '(semantic_map_classes).')
+      self.semantic_encoder = semantic_raster_encoder.SemanticRasterEncoder(
+          config.semantic_encoder, semantic_map_classes, dtype)
+      dims.append(config.semantic_encoder.encoder.output_dim)
     if not dims:
       raise ValueError('Need to create at least one input encoder.')
     if len(set(dims)) > 1:
       raise ValueError(f'Encoders have different output dimensions: {dims}')
     self.num_map_modalities = len(dims)
+    self.feature_dim = dims[0]  # the fused plane's width
     self.modality_fusion = VerticalPooling(config.modality_fusion)
     self.matching_proj = None
     if config.matching_dim is not None:
@@ -160,11 +175,18 @@ class BEVMapper(nn.Module):
     pred['feature_plane'] = self.vertical_pooling(pred['feature_volume'])
     return pred
 
-  def encode_aerial(self, aerial_rgb: Tensor) -> Dict[str, Any]:
-    features = self.aerial_encoder(aerial_rgb).features[-1]
+  @staticmethod
+  def _raster_plane(pyramid: types.FeatureImagePyramid) -> Dict[str, Any]:
+    features = pyramid.features[-1]
     valid = torch.ones(features.shape[:-1], dtype=torch.bool,
                        device=features.device)
     return {'feature_plane': types.FeaturePlane(features=features, valid=valid)}
+
+  def encode_aerial(self, aerial_rgb: Tensor) -> Dict[str, Any]:
+    return self._raster_plane(self.aerial_encoder(aerial_rgb))
+
+  def encode_semantics(self, semantic_raster: Tensor) -> Dict[str, Any]:
+    return self._raster_plane(self.semantic_encoder(semantic_raster))
 
   def fuse_neural_maps(self, planes: List[types.FeaturePlane],
                        keep: Optional[Tensor] = None) -> types.FeaturePlane:
@@ -203,6 +225,9 @@ class BEVMapper(nn.Module):
       # There is no aerial raster for query scenes.
       pred['aerial'] = self.encode_aerial(data['rasters']['rgb'])
       planes.append(pred['aerial']['feature_plane'])
+    if self.semantic_encoder is not None and 'rasters' in data:
+      pred['semantic'] = self.encode_semantics(data['rasters']['semantics'])
+      planes.append(pred['semantic']['feature_plane'])
     if not planes:
       raise ValueError('No map encoder given.')
     pred['bev_features'] = plane = self.fuse_neural_maps(planes, keep)
@@ -224,34 +249,8 @@ class BEVMapper(nn.Module):
     path = self.config.pretrained_path
     if path is None:
       return None
-    from snap_tpu_torch.train_lib import checkpoints  # pylint: disable=g-import-not-at-top
-    workdir = pathlib.Path(path)
-    warn_config_diff(self.config, workdir)
-    if checkpoints.latest_step(workdir) is not None:
-      params = checkpoints.restore_params(workdir)
-    elif (workdir / 'params.npz').exists():
-      with np.load(workdir / 'params.npz') as npz:
-        params = convert.params_from_flax(dict(npz))
-    else:
-      params = {}
-    params = subtree(params, 'bev_mapper')
-    if not params:
-      raise ValueError(f'No parameters for {type(self).__name__} in {path}')
-    log.info('Loaded pretrained weights for %s from %s.',
-             type(self).__name__, path)
-    return params
-
-
-def subtree(params: Dict[str, Tensor], name: str) -> Dict[str, Tensor]:
-  """The entries under the first module called ``name`` (the shortest
-  prefix ending in it), named relative to it (``misc.find_nested_dict``)."""
-  prefixes = sorted({tuple(k.split('.')[:k.split('.').index(name) + 1])
-                     for k in params if name in k.split('.')[:-1]}, key=len)
-  if not prefixes:
-    return {}
-  prefix = '.'.join(prefixes[0]) + '.'
-  return {k[len(prefix):]: v for k, v in params.items()
-          if k.startswith(prefix)}
+    warn_config_diff(self.config, pathlib.Path(path))
+    return checkpoints.load_subtree(self, path, 'bev_mapper')
 
 
 def _config_diff(ours, theirs, path: str = '') -> Dict[str, Any]:

@@ -68,13 +68,14 @@ class FPNDecoder(nn.Module):
 class ImageEncoder(nn.Module):
   """Trunk + FPNDecoder, returning a FeatureImagePyramid with strides."""
 
-  def __init__(self, config: configs.ImageEncoderConfig, dtype: torch.dtype):
+  def __init__(self, config: configs.ImageEncoderConfig, dtype: torch.dtype,
+               in_channels: int = 3):
     super().__init__()
     if config.encoder_name != 'resnet':
       raise ValueError(f'Unknown trunk: {config.encoder_name!r}')
     self.config = config
     self.dtype = dtype
-    self.encoder = resnet.ResNetV2(config.encoder, dtype)
+    self.encoder = resnet.ResNetV2(config.encoder, dtype, in_channels)
     self.num_levels = config.num_pyr_levels or len(self.encoder.level_names)
     root_octaves = 0 if config.encoder.skip_root_block else 2
     self.max_stride = 2 ** (root_octaves + self.num_levels - 1)
@@ -82,7 +83,8 @@ class ImageEncoder(nn.Module):
     self.decoder = FPNDecoder(config.output_dim, channels, dtype)
 
   def forward(self, image: Tensor) -> types.FeatureImagePyramid:
-    """``image``: ``[N, H, W, 3]`` in [0, 1]; features are NHWC."""
+    """``image``: ``[N, H, W, in_channels]``, an image in [0, 1] or
+    embedded rasters; features are NHWC."""
     image = image.to(self.dtype)
     input_hw = np.array(image.shape[-3:-1])
     padded = pad_to_multiple(image, self.max_stride)

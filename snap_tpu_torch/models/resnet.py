@@ -9,7 +9,8 @@ to change layouts. Numerics kept from the reference:
   variance and eps 1e-5, then scales in the compute dtype;
 - the padding is explicit: (3, 3) for the 7x7-s2 root conv, (1, 1) for the
   3x3 convs and the 3x3-s2 max pool (padded with -inf), none for 1x1 convs;
-- inputs are rescaled from [0, 1] to [-1, 1].
+- inputs are rescaled from [0, 1] to [-1, 1] (embedded rasters too, as the
+  reference rescales every input).
 """
 
 from __future__ import annotations
@@ -79,9 +80,10 @@ class StdConv(nn.Module):
 class RootBlock(nn.Module):
   """7x7-s2 conv + 3x3-s2 max-pool stem."""
 
-  def __init__(self, width: int, dtype: torch.dtype):
+  def __init__(self, width: int, dtype: torch.dtype, in_channels: int = 3):
     super().__init__()
-    self.conv_root = StdConv(3, width, 7, dtype, stride=2, padding=3)
+    self.conv_root = StdConv(in_channels, width, 7, dtype, stride=2,
+                             padding=3)
 
   def forward(self, x: Tensor) -> Tensor:
     x = self.conv_root(x)
@@ -148,9 +150,11 @@ def get_block_desc(depth) -> List[int]:
 
 
 class ResNetV2(nn.Module):
-  """BiT-variant ResNet returning each stage's last unit output."""
+  """BiT-variant ResNet returning each stage's last unit output, over
+  ``in_channels`` input channels (an image's 3, or embedded rasters')."""
 
-  def __init__(self, config: configs.ResNetConfig, dtype: torch.dtype):
+  def __init__(self, config: configs.ResNetConfig, dtype: torch.dtype,
+               in_channels: int = 3):
     super().__init__()
     self.dtype = dtype
     blocks = get_block_desc(config.depth)
@@ -162,10 +166,10 @@ class ResNetV2(nn.Module):
     self.skip_root_block = config.skip_root_block
     width = int(64 * config.width)
     if config.skip_root_block:
-      # Stride-1 stem for BEV-aligned rasters (the aerial encoder).
-      self.conv_root = StdConv(3, width, 3, dtype, padding=1)
+      # Stride-1 stem for BEV-aligned rasters (aerial, semantic).
+      self.conv_root = StdConv(in_channels, width, 3, dtype, padding=1)
     else:
-      self.root_block = RootBlock(width, dtype)
+      self.root_block = RootBlock(width, dtype, in_channels)
     nin = width
     self.out_channels: List[int] = []
     for i, block_size in enumerate(blocks):

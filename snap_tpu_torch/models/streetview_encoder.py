@@ -5,12 +5,19 @@ Port of ``snap_tpu/models/streetview_encoder.py`` on its streamed path
 the batch for the image encoder, one linear layer emitting 128 features +
 32 log-depth-bin scores (``proj_mlp``), the top-k streamed lift (K1), and
 the fusion MLP over the pooled statistics.
+
+Its own warm start (the occupancy head's adoption path): with a
+``pretrained_path``, the encoder takes the config of the experiment there
+("export wins", ``merged_config``) and ``load_pretrained_variables`` gives
+its ``streetview_encoder`` subtree.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import json
+import pathlib
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -20,8 +27,26 @@ from snap_tpu_torch.models import image_encoder
 from snap_tpu_torch.models import layers
 from snap_tpu_torch.models import types
 from snap_tpu_torch.ops import view_scan
+from snap_tpu_torch.train_lib import checkpoints
 
 Tensor = torch.Tensor
+
+
+def merged_config(config: configs.StreetViewEncoderConfig
+                  ) -> configs.StreetViewEncoderConfig:
+  """``config``, or with a ``pretrained_path`` the street-view encoder's
+  config of the experiment there (its ``config.json``, under
+  ``model.bev_mapper``): "export wins", so the adopted weights fit
+  (``snap_tpu/models/streetview_encoder.py:41-61``). ``pretrained_path``
+  stays this config's: the export's own is None (its run warm-started the
+  whole mapper), and taking it would silently skip the adoption."""
+  workdir = config.pretrained_path
+  if workdir is None:
+    return config
+  record = json.loads((pathlib.Path(workdir) / 'config.json').read_text())
+  exported = configs.streetview_encoder_from_reference(
+      record['model']['bev_mapper']['streetview_encoder'])
+  return dataclasses.replace(exported, pretrained_path=workdir)
 
 
 class StreetViewEncoder(nn.Module):
@@ -30,6 +55,7 @@ class StreetViewEncoder(nn.Module):
   def __init__(self, config: configs.StreetViewEncoderConfig,
                dtype: torch.dtype):
     super().__init__()
+    config = merged_config(config)
     if config.pooling_impl != 'stream' or not config.do_weighted_fusion:
       raise NotImplementedError(
           'The port implements the streamed, score-weighted lift only '
@@ -85,3 +111,12 @@ class StreetViewEncoder(nn.Module):
             features=f_grid.reshape(*grid_shape, f_grid.shape[-1]),
             valid=valid.reshape(grid_shape)),
     }
+
+  def load_pretrained_variables(self) -> Optional[Dict[str, Tensor]]:
+    """The ``streetview_encoder`` parameters of the experiment workdir
+    ``config.pretrained_path`` (``:227-237``), named relative to this
+    module. None without a path."""
+    path = self.config.pretrained_path
+    if path is None:
+      return None
+    return checkpoints.load_subtree(self, path, 'streetview_encoder')

@@ -32,3 +32,22 @@ class FeatureImagePyramid:
 
   features: List[Tensor]
   strides: Sequence[Tuple[int, int]]
+
+
+@dataclasses.dataclass
+class LidarRaySamples:
+  """Points sampled along lidar rays ([..., K, 3]), their occupancy labels
+  (the hit True, the free space in front of it False) and validity."""
+
+  points: Tensor
+  labels: Tensor
+  valid: Tensor
+
+
+@dataclasses.dataclass
+class OccupancySamples:
+  """Occupancy probabilities at sample points, their validity and logits."""
+
+  values: Tensor
+  valid: Tensor
+  logits: Tensor

@@ -1,4 +1,5 @@
-"""Train the port's localizer, either pose backend, in resumable chunks.
+"""Train the port's localizer (either pose backend) or a head on a frozen
+mapper, in resumable chunks.
 
     python -m snap_tpu_torch.train --config=train_full1chip_exhaustive \\
         --workdir=workdirs/flagship --stop_at_step=500
@@ -9,16 +10,27 @@
         --workdir=workdirs/continued
     python -m snap_tpu_torch.train --config=smoke_train_exhaustive \\
         --workdir=/tmp/smoke --stop_at_step=2 --device=cpu
+    python -m snap_tpu_torch.train \\
+        --config=train_occupancy:scale=small,pretrained_mapper=weights/loc_full1chip_r5 \\
+        --workdir=workdirs/occupancy --stop_at_step=1000
+    python -m snap_tpu_torch.train --config=smoke_semantics --num_steps=3 \\
+        --device=cpu
 
 ``train_full1chip_exhaustive`` is the flagship run (dense pose volume);
 ``train_full1chip_ransac`` is the reference's default backend, whose loss
 scores the step's sampled poses (B4) and backpropagates through their
 scores (B7); ``smoke_train_exhaustive`` and ``smoke_train_ransac`` are
-their tiny counterparts. ``--config`` takes the config function's
-arguments after a colon, as the reference's does: ``continue_step``,
-``pretrained_mapper`` (an experiment workdir: the port's checkpoints, or a
-JAX export's ``params.npz`` + ``checkpoint.json``), ``pretrained_resnet``
-(a BiT ``.npz``) and ``batch_size``.
+their tiny counterparts. ``train_semantics`` trains the semantic BEV head
+and ``train_occupancy`` the lidar-supervised occupancy head on a frozen
+mapper (``smoke_semantics``, ``smoke_occupancy``: tiny, nothing frozen);
+the model is the registry's ``config.model_name``. ``--config`` takes the
+config function's arguments after a colon, as the reference's does:
+``continue_step``, ``pretrained_mapper`` (an experiment workdir: the
+port's checkpoints, or a JAX export's ``params.npz`` + ``checkpoint.json``;
+the heads adopt its mapper or street-view encoder), ``pretrained_resnet``
+(a BiT ``.npz``), ``modalities`` (``streetview+aerial+semantic`` adds the
+semantic rasters to the localizer's map), ``scale`` (the heads'
+``small`` or ``full``) and ``batch_size``.
 
 As ``snap_tpu/train.py`` does: writes ``<workdir>/config.json`` (the
 reference's keys, with the data path the run takes); when the workdir
@@ -56,7 +68,7 @@ from typing import Any, Callable, Dict, Optional, Union
 from snap_tpu_torch import configs
 from snap_tpu_torch import evaluate
 from snap_tpu_torch.data import loader
-from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.models import base
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import trainer
 from snap_tpu_torch.utils import prng
@@ -73,7 +85,7 @@ def config_save(workdir: pathlib.Path, record: Dict[str, Any]) -> None:
 def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
           num_steps: Optional[int] = None, device: str = 'cuda',
           seed: int = 0, workdir: Optional[str] = None,
-          model: Optional[bev_localizer.BEVLocalizer] = None,
+          model: Optional[base.Model] = None,
           on_step: Optional[Callable[[int, trainer.StepOutput], None]] = None,
           profile: bool = False,
           on_device_generation: Optional[bool] = None,
@@ -113,7 +125,7 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
     data = dataclasses.replace(data, shuffle_seed=prng.resume_shuffle_seed(
         data.shuffle_seed, start_step))
   if model is None:
-    model = evaluate.build_localizer(config, device, seed)
+    model = evaluate.build_model(config, device, seed)
   model.train()
   with loader.get_dataset(data, config.batch_size,
                           eval_batch_size=config.train.eval_batch_size,

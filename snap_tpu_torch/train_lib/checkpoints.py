@@ -14,22 +14,30 @@ the last ``max_to_keep`` stay. Tensors go to the host one at a time and are
 read back with ``torch.load(..., weights_only=True)``. ``restore_checkpoint``
 copies a step into the live model's and optimizer's tensors, so the device
 holds one copy of the state; ``restore_params`` gives a step's parameters
-alone (a warm start, an evaluation).
+alone (a warm start, an evaluation); ``experiment_params`` those of an
+experiment workdir, its latest checkpoint or a JAX export's flat
+``params.npz``, and ``load_subtree`` a module's subtree of them (a warm
+start's hook).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import pathlib
 import shutil
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
+
+from snap_tpu_torch import convert
 
 PathLike = Union[str, pathlib.Path]
 PARAMS, OPT_STATE, META = 'params.pt', 'opt_state.pt', 'meta.json'
 _TMP = '.tmp-'
+log = logging.getLogger(__name__)
 
 
 def checkpoint_dir(workdir: PathLike) -> pathlib.Path:
@@ -137,3 +145,40 @@ def restore_params(workdir: PathLike, step: Optional[int] = None
   """The parameters of checkpoint ``step`` (the latest when None), by name,
   on the host."""
   return _load(_step_dir(workdir, step) / PARAMS)
+
+
+def experiment_params(workdir: pathlib.Path) -> Dict[str, torch.Tensor]:
+  """The parameters of the experiment in ``workdir``, by state-dict name:
+  its latest checkpoint, else a JAX export's flat ``params.npz``; empty
+  when it holds neither."""
+  if latest_step(workdir) is not None:
+    return restore_params(workdir)
+  if (workdir / 'params.npz').exists():
+    with np.load(workdir / 'params.npz') as npz:
+      return convert.params_from_flax(dict(npz))
+  return {}
+
+
+def load_subtree(module: torch.nn.Module, path: str,
+                 name: str) -> Dict[str, torch.Tensor]:
+  """The ``name`` subtree of the experiment at ``path``, for ``module``'s
+  warm start; raises when the experiment has none."""
+  params = subtree(experiment_params(pathlib.Path(path)), name)
+  if not params:
+    raise ValueError(f'No parameters for {type(module).__name__} in {path}')
+  log.info('Loaded pretrained weights for %s from %s.',
+           type(module).__name__, path)
+  return params
+
+
+def subtree(params: Dict[str, torch.Tensor], name: str
+            ) -> Dict[str, torch.Tensor]:
+  """The entries under the first module called ``name`` (the shortest
+  prefix ending in it), named relative to it (``misc.find_nested_dict``)."""
+  prefixes = sorted({tuple(k.split('.')[:k.split('.').index(name) + 1])
+                     for k in params if name in k.split('.')[:-1]}, key=len)
+  if not prefixes:
+    return {}
+  prefix = '.'.join(prefixes[0]) + '.'
+  return {k[len(prefix):]: v for k, v in params.items()
+          if k.startswith(prefix)}

@@ -1,4 +1,5 @@
-"""The training loop of the localizer (``snap_tpu/train_lib/trainer.py``).
+"""The training loop of every model of the registry
+(``snap_tpu/train_lib/trainer.py``): the localizer and the heads.
 
 ``train`` runs a run, or a chunk of one, from a fresh state or the
 workdir's latest checkpoint: the warm start of ``pretrained_path`` modules
@@ -7,8 +8,10 @@ eval every ``log_eval_steps`` and a checkpoint every ``checkpoint_steps``
 (each also at the stop step), and a trace of 5 steps after the (re)start.
 ``train_step`` runs the forward with ``train=True`` on a CPU generator
 seeded from (seed, ``global_step``) (the reference folds the step into its
-key), which draws the mapper's z jitter and modality dropout and, on the
-RANSAC backend, the pose samples; takes the mean loss over
+key), which draws the mapper's z jitter and modality dropout, the semantic
+head's flips and, on the RANSAC backend, the pose samples (a head under
+``stop_*_gradients`` runs its frozen part without autograd); takes the
+mean loss over
 ``batch_mask``, backpropagates, clips and applies Adam. A step whose
 gradients are not all finite keeps the parameters and the optimizer
 state, while ``global_step`` still advances: the optimizer's count then
@@ -33,7 +36,7 @@ import torch
 
 from snap_tpu_torch import configs
 from snap_tpu_torch.data import loader
-from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.models import base
 from snap_tpu_torch.models import bev_mapper
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import optimizers
@@ -46,7 +49,7 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class TrainState:
-  model: bev_localizer.BEVLocalizer
+  model: base.Model
   opt_state: optimizers.AdamState
   global_step: int
   seed: int
@@ -63,7 +66,7 @@ class StepOutput(NamedTuple):
   pose_samples: Optional[geometry.Transform2D] = None
 
 
-def create_train_state(model: bev_localizer.BEVLocalizer,
+def create_train_state(model: base.Model,
                        optimizer: optimizers.Adam, seed: int) -> TrainState:
   params = [p for _, p in model.named_parameters()]
   return TrainState(model=model, opt_state=optimizer.init(params),
@@ -106,12 +109,14 @@ def summarize(accumulated: List[AggregatedMetrics]) -> Dict[str, float]:
           for key in accumulated[0]}
 
 
-def loss_and_metrics(model: bev_localizer.BEVLocalizer, batch: Dict[str, Any],
+def loss_and_metrics(model: base.Model, batch: Dict[str, Any],
                      train: bool, generator=None, draws=None,
                      pose_samples=None):
-  """(masked-mean loss, per-example losses, metrics, predictions)."""
+  """(masked-mean loss, per-example losses, metrics, predictions).
+  ``pose_samples`` goes to the localizer's RANSAC backend alone."""
+  kwargs = {} if pose_samples is None else {'pose_samples': pose_samples}
   pred = model(batch, train=train, generator=generator, draws=draws,
-               pose_samples=pose_samples)
+               **kwargs)
   losses, metrics = model.loss_metrics_function(pred, batch)
   mask = batch['batch_mask'] > 0
   loss = losses['total'][mask].mean()
@@ -172,7 +177,7 @@ def train_step(state: TrainState, batch: Dict[str, Any],
       pose_samples=None if samples is None else samples[:, 1:])
 
 
-def eval_step(model: bev_localizer.BEVLocalizer, batch: Dict[str, Any],
+def eval_step(model: base.Model, batch: Dict[str, Any],
               generator: torch.Generator) -> AggregatedMetrics:
   """The forward at ``train=False`` and its metrics and losses
   (``loss/<name>``) as (sum, count) pairs (``trainer.py:eval_step``)."""
@@ -352,7 +357,7 @@ def _sync(device: torch.device) -> None:
     torch.cuda.synchronize(device)
 
 
-def train(config: configs.Config, model: bev_localizer.BEVLocalizer,
+def train(config: configs.Config, model: base.Model,
           dataset: loader.Dataset, workdir: pathlib.Path, seed: int = 0,
           stop_at_step: Optional[int] = None,
           num_steps: Optional[int] = None,

@@ -76,25 +76,49 @@ def interpolate_nd(
   point is invalid when out of bounds or when any corner it reads is invalid.
   Returns ``(values [K, D], valid [K])``.
   """
-  spatial = array.shape[:-1]
+  values, valid = interpolate_nd_batched(
+      array[None], points[None],
+      None if valid_array is None else valid_array[None], order)
+  return values[0], valid[0]
+
+
+def interpolate_nd_batched(
+    array: Tensor,
+    points: Tensor,
+    valid_array: Optional[Tensor] = None,
+    order: int = 1,
+) -> Tuple[Tensor, Tensor]:
+  """``interpolate_nd`` per example (JAX ``vmap``s it): ``array``
+  ``[B, *spatial, D]``, ``points`` ``[B, K, N]``, ``valid_array``
+  ``[B, *spatial]``; returns ``(values [B, K, D], valid [B, K])``."""
+  spatial = array.shape[1:-1]
   n = len(spatial)
-  if points.shape[-1] != n:
-    raise ValueError(f'points {tuple(points.shape)} vs grid {tuple(spatial)}')
+  if points.shape[-1] != n or points.shape[0] != array.shape[0]:
+    raise ValueError(f'points {tuple(points.shape)} vs grid '
+                     f'{tuple(array.shape)}')
+  batch, k = points.shape[:2]
   size = torch.as_tensor(spatial, device=points.device)
   in_bounds = ((points >= 0) & (points < size)).all(-1)
   pts = points.to(array.dtype) - 0.5
 
+  # Each example's cells follow the previous example's in the flat array.
   flat = array.reshape(-1, array.shape[-1])
   flat_valid = None if valid_array is None else valid_array.reshape(-1)
   strides = [int(np.prod(spatial[d + 1:])) for d in range(n)]
+  offset = (torch.arange(batch, device=points.device)
+            * int(np.prod(spatial)))[:, None]
+
+  def read(coords):
+    flat_idx = (offset + sum(c * s for c, s in zip(coords, strides))).long()
+    return flat_idx.reshape(-1)
 
   if order == 0:
     idx = torch.minimum(torch.clamp(torch.round(pts).int(), min=0), size - 1)
-    flat_idx = sum(idx[:, d] * s for d, s in enumerate(strides)).long()
+    flat_idx = read([idx[..., d] for d in range(n)])
     valid = in_bounds
     if flat_valid is not None:
-      valid = valid & flat_valid[flat_idx]
-    return flat[flat_idx], valid
+      valid = valid & flat_valid[flat_idx].reshape(batch, k)
+    return flat[flat_idx].reshape(batch, k, -1), valid
 
   lower_raw = torch.floor(pts)
   frac = pts - lower_raw
@@ -102,16 +126,16 @@ def interpolate_nd(
   lower = torch.minimum(torch.clamp(lower_int, min=0), size - 1)
   upper = torch.minimum(torch.clamp(lower_int + 1, min=0), size - 1)
 
-  values = torch.zeros((points.shape[0], array.shape[-1]), dtype=array.dtype,
+  values = torch.zeros((batch, k, array.shape[-1]), dtype=array.dtype,
                        device=array.device)
   corners_valid = in_bounds
   for corner in itertools.product((0, 1), repeat=n):
-    coords = [(upper if c else lower)[:, d] for d, c in enumerate(corner)]
+    coords = [(upper if c else lower)[..., d] for d, c in enumerate(corner)]
     w = functools.reduce(
-        torch.mul, [(frac if c else (1 - frac))[:, d]
+        torch.mul, [(frac if c else (1 - frac))[..., d]
                     for d, c in enumerate(corner)])
-    flat_idx = sum(cd * s for cd, s in zip(coords, strides)).long()
-    values = values + w[:, None] * flat[flat_idx]
+    flat_idx = read(coords)
+    values = values + w[..., None] * flat[flat_idx].reshape(batch, k, -1)
     if flat_valid is not None:
-      corners_valid = corners_valid & flat_valid[flat_idx]
+      corners_valid = corners_valid & flat_valid[flat_idx].reshape(batch, k)
   return values, corners_valid

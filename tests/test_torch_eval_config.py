@@ -21,6 +21,8 @@ from snap_tpu import evaluator as jevaluator
 from snap_tpu.configs import eval_localization
 from snap_tpu.configs import smoke_eval_localization
 from snap_tpu.configs import train_localization
+from snap_tpu.configs import train_occupancy
+from snap_tpu.configs import train_semantics
 from snap_tpu.data import loader as jloader
 from snap_tpu.train_lib import checkpoints
 from snap_tpu.utils import configs as jconfig_utils
@@ -81,30 +83,77 @@ def test_to_reference_reads_back(name):
   assert configs.from_reference(d) == config
 
 
+def _check_subset(got, want, path=''):
+  """Every key of ``got`` is ``want``'s, with its value."""
+  for key, value in got.items():
+    assert key in want, f'{path}{key}'
+    if isinstance(value, dict):
+      _check_subset(value, want[key], f'{path}{key}.')
+    else:
+      assert value == json.loads(json.dumps(want[key])), f'{path}{key}'
+
+
 def test_to_reference_keys_are_the_references():
   ref = train_localization.get_config(FULL1CHIP).to_dict()
   got = json.loads(json.dumps(configs.to_reference(
       configs.train_full1chip_exhaustive())))
+  _check_subset(got, ref)
 
-  def check(got, want, path):
-    for key, value in got.items():
-      assert key in want, f'{path}{key}'
-      if isinstance(value, dict):
-        check(value, want[key], f'{path}{key}.')
-      else:
-        assert value == json.loads(json.dumps(want[key])), f'{path}{key}'
-  check(got, ref, '')
+
+# The heads' recipes and the three-modality localizer: the port's config,
+# and the JAX config's arguments.
+HEADS = [
+    (configs.train_semantics, train_semantics, {}, 'scale=full'),
+    (configs.train_occupancy, train_occupancy, {}, 'scale=full'),
+    (configs.train_semantics, train_semantics, dict(scale='small'),
+     'scale=small'),
+    (configs.train_occupancy, train_occupancy, dict(scale='small'),
+     'scale=small'),
+    (configs.train_full1chip_exhaustive, train_localization,
+     dict(modalities='streetview+aerial+semantic'),
+     FULL1CHIP + ',modalities=streetview+aerial+semantic'),
+]
+
+
+@pytest.mark.parametrize('port,ref,kwargs,args', HEADS)
+def test_head_configs_are_the_references(port, ref, kwargs, args):
+  """``to_reference`` is a subset of the JAX config, equal where both have
+  a key; ``from_reference`` of the JAX config gives the port's."""
+  want = ref.get_config(args).to_dict()
+  config = port(**kwargs)
+  _check_subset(json.loads(json.dumps(configs.to_reference(config))), want)
+  assert configs.from_reference(json.loads(json.dumps(want))) == config
+
+
+def test_heads_follow_a_pretrained_mapper(tmp_path):
+  """``pretrained_mapper``: the workdir's mapper (street-view encoder) as
+  its config has it, pointing at the workdir, and its scene geometry."""
+  export = configs.train_full1chip_exhaustive()
+  (tmp_path / 'config.json').write_text(json.dumps(configs.to_reference(
+      dataclasses.replace(export, data=dataclasses.replace(
+          export.data, num_views=12, image_size=(90, 120))))))
+  semantics = configs.train_semantics(pretrained_mapper=str(tmp_path))
+  assert semantics.model.bev_mapper == export.model.bev_mapper
+  assert semantics.model.bev_mapper.pretrained_path == str(tmp_path)
+  occupancy = configs.train_occupancy(scale='small',
+                                      pretrained_mapper=str(tmp_path))
+  streetview = occupancy.model.streetview_encoder
+  assert streetview == export.model.bev_mapper.streetview_encoder
+  assert streetview.pretrained_path == str(tmp_path)
+  assert occupancy.train.eval_batch_size == 2
+  for config in (semantics, occupancy):
+    assert (config.data.num_views, config.data.image_size) == (12, (90, 120))
 
 
 @pytest.mark.parametrize('path,value,match', [
-    (('model', 'bev_mapper', 'semantic_encoder'), {'embedding_dim': 8},
-     'model.bev_mapper.semantic_encoder is set'),
+    (('model', 'bev_mapper', 'streetview_encoder', 'depth_mlp'),
+     {'layers': [128]}, 'model.bev_mapper.streetview_encoder.depth_mlp is set'),
     (('model', 'bev_mapper', 'bev_net'), {'num_units': 2},
      'model.bev_mapper.bev_net is set'),
     (('model', 'bev_mapper_query'), {}, 'model.bev_mapper_query is set'),
     (('model', 'bev_mapper', 'streetview_encoder', 'color'), 1,
      'unknown key model.bev_mapper.streetview_encoder.color'),
-    (('model_name',), 'semantic_net', 'model_name'),
+    (('model_name',), 'depth_net', 'model_name'),
     (('mesh', 'model'), 2, 'mesh.model'),
     (('data', 'name'), 'tfds', 'data.name'),
 ])

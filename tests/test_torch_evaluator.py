@@ -148,7 +148,7 @@ def test_eval_on_dataset_equals_per_example_runs():
   """Three examples at batch 2 (the last row padded and dropped) against
   the same three at batch 1."""
   cfg = configs.smoke_exhaustive()
-  model = evaluate.build_localizer(cfg, 'cpu', seed=0)
+  model = evaluate.build_model(cfg, 'cpu', seed=0)
   data = dataclasses.replace(cfg.data, evaluation_size=3, num_workers=1)
   results = {}
   for bs in (2, 1):
@@ -172,7 +172,7 @@ def test_step_context_spans_only_the_forward(monkeypatch):
   """``step_context(k)`` is open during batch k's forward and closed while
   its metrics are computed."""
   cfg = configs.smoke_exhaustive()
-  model = evaluate.build_localizer(cfg, 'cpu', seed=0)
+  model = evaluate.build_model(cfg, 'cpu', seed=0)
   data = dataclasses.replace(cfg.data, evaluation_size=3)
   inside, seen = [], []
 

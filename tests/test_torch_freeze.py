@@ -235,7 +235,7 @@ def test_the_same_regex_freezes_the_same_tensors(smoke_flax_params, regex):
   ``make_freeze_mask`` over the flax params."""
   want = {'/'.join(k) for k, v in flax.traverse_util.flatten_dict(
       joptimizers.make_freeze_mask(smoke_flax_params, regex)).items() if v}
-  model = evaluate.build_localizer(configs.smoke_train_exhaustive(), 'cpu')
+  model = evaluate.build_model(configs.smoke_train_exhaustive(), 'cpu')
   names = [n for n, _ in model.named_parameters()]
   assert {convert.flax_path(n) for n in names} == {
       '/'.join(k) for k in flax.traverse_util.flatten_dict(smoke_flax_params)}
@@ -254,7 +254,7 @@ def test_frozen_mapper_does_not_move_in_a_train_step():
                             allocate_frozen_state=False)
   cfg = dataclasses.replace(cfg, train=dataclasses.replace(
       cfg.train, optimizer_configs=opt))
-  model = evaluate.build_localizer(cfg, 'cpu', 0)
+  model = evaluate.build_model(cfg, 'cpu', 0)
   before = {n: p.detach().clone() for n, p in model.named_parameters()}
   chain = optimizers.get_optimizer(cfg.train, model)
   state = trainer.create_train_state(model, chain, seed=0)

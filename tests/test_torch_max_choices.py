@@ -26,7 +26,7 @@ torch.set_num_threads(2)
 def _train_step(replay=None, draws=None):
   """One step of the tiny trainer from seeded weights under MaxChoices."""
   cfg = configs.smoke_train_exhaustive()
-  model = evaluate.build_localizer(cfg, 'cpu', 0).train()
+  model = evaluate.build_model(cfg, 'cpu', 0).train()
   adam = optimizers.Adam(cfg.train)
   state = trainer.create_train_state(model, adam, seed=0)
   examples = loader.make_train_examples(loader.make_generator(cfg.data, 0),

@@ -68,7 +68,7 @@ def _batch(cfg, start=0, seed=2):
 
 
 def _trained_state(cfg, steps=2):
-  model = evaluate.build_localizer(cfg, 'cpu', 0)
+  model = evaluate.build_model(cfg, 'cpu', 0)
   chain = optimizers.get_optimizer(cfg.train, model)
   state = trainer.create_train_state(model, chain, seed=5)
   for i in range(steps):
@@ -77,7 +77,7 @@ def _trained_state(cfg, steps=2):
 
 
 def _fresh_state(cfg, seed=0):
-  model = evaluate.build_localizer(cfg, 'cpu', seed)
+  model = evaluate.build_model(cfg, 'cpu', seed)
   chain = optimizers.get_optimizer(cfg.train, model)
   return trainer.create_train_state(model, chain, seed=0), chain
 
@@ -255,7 +255,7 @@ def jax_smoke():
   rngs = {'params': jax.random.PRNGKey(0), 'sampling': jax.random.PRNGKey(1)}
   params = jax.jit(lambda b: jmodel.flax_model.init(rngs, b, train=False))(
       jbatches[0])['params']
-  model = evaluate.build_localizer(cfg, 'cpu')
+  model = evaluate.build_model(cfg, 'cpu')
   model.load_state_dict(convert.params_from_flax(
       jax.tree_util.tree_map(np.asarray, params), model))
   return dict(jmodel=jmodel, params=params, jbatches=jbatches, model=model,

@@ -326,7 +326,7 @@ def test_clip_by_global_norm_is_optax_rule():
 
 def _smoke_model(seed=0):
   from snap_tpu_torch import evaluate  # pylint: disable=g-import-not-at-top
-  return evaluate.build_localizer(configs.smoke_train_exhaustive(), 'cpu',
+  return evaluate.build_model(configs.smoke_train_exhaustive(), 'cpu',
                                   seed)
 
 

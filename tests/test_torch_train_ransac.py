@@ -164,7 +164,7 @@ def _smoke_batch(seed=2):
 
 
 def _step(cfg, batch, **inject):
-  model = evaluate.build_localizer(cfg, 'cpu', 4)
+  model = evaluate.build_model(cfg, 'cpu', 4)
   adam = optimizers.Adam(cfg.train)
   state = trainer.create_train_state(model, adam, seed=9)
   return trainer.train_step(state, batch, adam, **inject)

@@ -75,7 +75,7 @@ def _port_model(params, pretrained_path=None):
   if pretrained_path is not None:
     cfg = configs.merge(cfg, {'model': {'bev_mapper': {
         'pretrained_path': str(pretrained_path)}}})
-  model = evaluate.build_localizer(cfg, 'cpu')
+  model = evaluate.build_model(cfg, 'cpu')
   model.load_state_dict(convert.params_from_flax(params, model))
   return cfg, model
 
@@ -219,7 +219,7 @@ def test_train_warm_starts_a_continuation(tmp_path, flax_params, caplog):
   cfg = configs.merge(configs.smoke_train_exhaustive(), {
       'model': {'bev_mapper': {'pretrained_path': str(tmp_path / 'export')}},
       'train': {'xprof': False}})
-  model = evaluate.build_localizer(cfg, 'cpu')
+  model = evaluate.build_model(cfg, 'cpu')
   seen = []
   with caplog.at_level(logging.INFO):
     with loader.get_dataset(cfg.data, cfg.batch_size, device='cpu') as data:
@@ -241,7 +241,7 @@ def test_train_warm_starts_a_continuation(tmp_path, flax_params, caplog):
   with caplog.at_level(logging.INFO):
     with loader.get_dataset(cfg.data, cfg.batch_size, device='cpu',
                             start_step=1) as data:
-      out = trainer.train(cfg, evaluate.build_localizer(cfg, 'cpu'), data,
+      out = trainer.train(cfg, evaluate.build_model(cfg, 'cpu'), data,
                           tmp_path / 'run', num_steps=1)
   assert out['start_step'] == 1 and 'Restored checkpoint at step 1' in (
       caplog.text)
