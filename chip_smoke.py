@@ -1,5 +1,6 @@
 """Drive the port's serving, training, RANSAC, held-out evaluation, bench,
-gather-bench, long-run trainer and head paths on one NVIDIA GPU (H100).
+gather-bench, long-run trainer, head and mapper-option paths on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py
 
@@ -50,6 +51,13 @@ host generator's batch:
    the freeze of ``train_occupancy``: K1 each card step, K2-K4 never; the
    frozen leaves' gradients 0 on both devices) and the tiny localizer with
    the semantic modality (K1-K4 each card step);
+5e. the mapper options the flagship does not use, as phase 5 (K1-K4 each
+   card step): the tiny aerial-only localizer (its map has no images; the
+   query goes through a street-view mapper of its own) with ``bev_net``;
+   query confidence on the aerial-only map, exhaustive and RANSAC (B4 and
+   B7 each card step), the map's confidence head 0 on both devices and
+   the query's not; the street-view column pooled ``'weighted'`` with the
+   modalities fused ``'softmax'``; the column pooled by ``'mlp'``;
 6. serving main path: ``snap_tpu_torch.evaluate`` on ``bench_full`` (R50,
    20 views of 180x240, 120x160x60 voxels, 64 rotations + refinement,
    bf16, random seeded weights), batch 1, 2 synthetic queries; K1 and K2
@@ -124,6 +132,17 @@ host generator's batch:
    ``train_full1chip_exhaustive:modalities=streetview+aerial+semantic``,
    the semantic trunk's gradient on a step whose draws keep it; each run's
    step ms and own peak memory logged;
+7i. the mapper options at full width (seeded weights, bf16, batch 2):
+   ``train_full1chip_exhaustive:modalities=aerial`` (the aerial R50 map,
+   the query's own 20-view street-view mapper at 180x240, 0.2 m), 3 steps
+   with phase 7's checks (K1, K2, K3, K4 >= 1 a step; the query mapper's
+   trunk takes a gradient), then ``evaluator.run`` of its workdir on 2
+   batches of zurich (f32, dense refinement: K1 and K2 each batch, finite
+   errors, step 3 read); the flagship with ``bev_net=1`` and
+   ``add_confidence_query``, 3 steps with phase 7's checks and launches,
+   the stage's units and the confidence head each taking a gradient; each
+   run's step ms, own peak memory and the device ms of 2 more steps traced
+   (``torch.profiler``) logged;
 7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
@@ -846,7 +865,8 @@ def reference_batch(cfg: configs.Config, generator, step: int, device: str):
 
 
 def training_reference(config_name: str = 'smoke_train_exhaustive',
-                       cfg: configs.Config = None, least=(), never=()):
+                       cfg: configs.Config = None, least=(), never=(),
+                       zero=(), nonzero=(), shift_free=()):
   """2 steps of the tiny trainer ``config_name`` (or ``cfg``) on the card and
   on the CPU in lockstep: each step starts both from the CPU's weights, with
   the same batch and draws (the card's, injected on the CPU; on the RANSAC
@@ -857,7 +877,13 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
   separate updates would not work: Adam's first update is ~lr * sign(g), so
   a gradient entry near 0 that differs in sign moves its weight by 2 lr.)
   On the RANSAC backend B4 and B7 launch each card step; each kernel of
-  ``least`` launches on each card step, each of ``never`` on none.
+  ``least`` launches on each card step, each of ``never`` on none. The
+  parameters under each prefix of ``zero`` take a zero gradient on both
+  devices, and some parameter under each of ``nonzero`` a non-zero one.
+  Each bias of ``shift_free`` adds to every logit of a softmax, which does
+  not see the shift: its gradient is 0 but for rounding, so on both
+  devices it is held within ``TRAIN_GRAD_RTOL`` of its layer's weight's
+  largest gradient entry instead of being compared.
   Returns per step the worst leaf error relative to its largest entry and
   to its norm, and the flips per max site."""
   cfg = cfg or configs.get_config(config_name)
@@ -898,13 +924,32 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
       for out in (cpu, card):
         if out.grads[name].abs().max() > 0:
           raise AssertionError(f'step {i}: frozen {name} has a gradient')
+    for prefix in (*zero, *nonzero):
+      names = [n for n in cpu.grads if n.startswith(prefix)]
+      for out in (cpu, card):
+        moved = bool(names) and max(
+            float(out.grads[n].abs().max()) for n in names) > 0
+        if not names or moved != (prefix in nonzero):
+          raise AssertionError(f'step {i}: the gradient under {prefix} '
+                               f'({len(names)} leaves) is '
+                               f'{"non-zero" if moved else "zero"}')
     flips.append({name: f'{n} of {total}, gap {gap:.3g}' for name, (
         n, total, gap) in flips_per_site(replayed.flips).items() if n})
     loss = [trainer.summarize([o.metrics])['loss/total'] for o in (cpu, card)]
     losses.append(loss)
     if not math.isclose(loss[0], loss[1], rel_tol=TRAIN_LOSS_RTOL):
       raise AssertionError(f'step {i}: loss cpu {loss[0]} vs card {loss[1]}')
+    for name in shift_free:
+      weight = name[:-len('bias')] + 'weight'
+      for out in (cpu, card):
+        bound = TRAIN_GRAD_RTOL * float(out.grads[weight].abs().max())
+        if not float(out.grads[name].abs().max()) <= bound:
+          raise AssertionError(f'step {i}: {name} has a gradient '
+                               f'{float(out.grads[name].abs().max()):.3g} '
+                               f'over {bound:.3g}')
     for name, want in cpu.grads.items():
+      if name in shift_free:
+        continue
       got = card.grads[name].cpu()
       scale = float(want.abs().max())
       err = float((got - want).abs().max())
@@ -923,6 +968,8 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
       f'card] per step {losses}; every gradient leaf within {worst} of '
       f'its largest entry (worst: {worst_leaf}) and within {worst_norm} of '
       f'its norm (per step); {len(frozen)} frozen leaves 0 on both; '
+      f'zero gradient on both under {list(zero)}, non-zero under '
+      f'{list(nonzero)}; '
       f'max choices the card flipped against the CPU\'s own, replayed on '
       f'the CPU (site: outputs over its calls, the largest gap from a tie '
       f'relative to the site\'s largest magnitude), per step {flips}; card '
@@ -1128,21 +1175,40 @@ TRAIN_PATHS = {
     f'train_full1chip_exhaustive:modalities={THREE_MODALITIES}': (
         {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
          'patch_sample_2d_bwd': 1}, (), ()),
+    # Phase 7i: the query's lift alone (the map has no street views).
+    'train_full1chip_exhaustive:modalities=aerial': (
+        {'lift_topk_fwd': 1, 'patch_sample_2d': 1, 'lift_topk_bwd': 1,
+         'patch_sample_2d_bwd': 1}, (), ()),
+    'train_full1chip_exhaustive:bev_net=1, add_confidence_query': (
+        {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
+         'patch_sample_2d_bwd': 1}, (), ()),
 }
 
 
-def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
-  """``name`` (a key of ``TRAIN_PATHS``), batch 2, 3 steps; returns
-  launches and the captured inputs of the config's kernels to check."""
+def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive',
+                       config: configs.Config = None, after=None,
+                       traced_steps: int = 0, nonzero=()):
+  """``name`` (a key of ``TRAIN_PATHS``; ``config`` when given, else the
+  named config), batch 2, 3 steps; returns launches and the captured inputs
+  of the config's kernels to check. Some parameter under each prefix of
+  ``nonzero`` takes a non-zero gradient each step. ``after(workdir)`` runs
+  on the run's workdir after its steps; ``traced_steps`` more steps then
+  resume it under ``torch.profiler``, whose device ms a step are logged."""
   least, never, captured = TRAIN_PATHS[name]
   resident = torch.cuda.memory_allocated()  # earlier phases' tensors
-  config = configs.get_config(name)
+  config = config or configs.get_config(name)
   model = evaluate.build_model(config, 'cuda', 0)
   params = dict(model.named_parameters())
   flat = lambda: torch.cat([p.detach().flatten() for p in params.values()])
   before = [flat()]
-  rasters = [m for m in RASTER_TRUNKS
-             if getattr(config.model.bev_mapper, f'{m}_encoder') is not None]
+  # The street-view trunk is the query's own mapper's where it has one.
+  street = ('bev_mapper_query.' if config.model.bev_mapper_query is not None
+            else 'bev_mapper.')
+  street_leaves = [street + leaf[len('bev_mapper.'):]
+                   for leaf in (STREET_ROOT, PROJ_MLP)]
+  map_modalities = [m for m in ('streetview', *RASTER_TRUNKS) if getattr(
+      config.model.bev_mapper, f'{m}_encoder') is not None]
+  rasters = [m for m in RASTER_TRUNKS if m in map_modalities]
   per_step, raster_checked = [], {m: [] for m in rasters}
 
   def check_step(step: int, out: trainer.StepOutput) -> None:
@@ -1153,13 +1219,19 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
     if not (math.isfinite(loss) and math.isfinite(out.logs['l2_grads'])
             and out.logs['is_finite'] == 1.0):
       raise AssertionError(f'step {step}: loss {loss}, logs {out.logs}')
-    for leaf in (STREET_ROOT, PROJ_MLP, 'temperature'):
+    for leaf in (*street_leaves, 'temperature'):
       if not out.grads[leaf].abs().max() > 0:
         raise AssertionError(f'step {step}: no gradient reaches {leaf}')
-    keep = out.draws.modality_keep.cpu()
+    for prefix in nonzero:
+      if not max((float(g.abs().max()) for n, g in out.grads.items()
+                  if n.startswith(prefix)), default=0.0) > 0:
+        raise AssertionError(f'step {step}: no gradient under {prefix}')
+    keep = out.draws.modality_keep
+    keep = (torch.ones(len(map_modalities), 2, dtype=torch.bool)
+            if keep is None else keep.cpu())
     trunk_grads = {}
     for modality in rasters:
-      row, trunk = RASTER_TRUNKS[modality]
+      row, trunk = map_modalities.index(modality), RASTER_TRUNKS[modality][1]
       trunk_grads[modality] = max(float(g.abs().max()) for n, g in
                                   out.grads.items() if n.startswith(trunk))
       if bool(keep[row].any()):
@@ -1186,9 +1258,10 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
     log(f'train step {step} ({name}): loss {loss:.4f}, l2_grads '
         f'{out.logs["l2_grads"]:.4g}, lr {lr:.3g}, params moved {moved:.3g}, '
         f'draws: z jitter {out.draws.z_jitter.tolist()}, modality keep '
-        f'[street, {", ".join(rasters)}] x example {keep.tolist()}; |grad| '
-        f'street root {float(out.grads[STREET_ROOT].abs().max()):.3g}, proj '
-        f'{float(out.grads[PROJ_MLP].abs().max()):.3g}, trunks '
+        f'{map_modalities} x example {keep.tolist()}; |grad| street root '
+        f'{float(out.grads[street_leaves[0]].abs().max()):.3g}, proj '
+        f'{float(out.grads[street_leaves[1]].abs().max()):.3g} (under '
+        f'{street}), trunks '
         f'{trunk_grads}, temperature '
         f'{float(out.grads["temperature"]):.3g}; launches {launched}')
 
@@ -1198,9 +1271,8 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
     captures = [stack.enter_context(Capture(kernels, kernel, 0))
                 for kernel in captured]
     kernels.reset_launch_counts()
-    result = train.train(name, 3, 'cuda', seed=0, model=model,
+    result = train.train(config, 3, 'cuda', seed=0, model=model,
                          on_step=check_step, workdir=workdir)
-  shutil.rmtree(workdir)
   # The steps' launches; the eval and checkpoint at the stop step follow.
   launches = per_step[-1][0]
   after_steps = {k: v - launches[k] for k, v in kernels.LAUNCHES.items()
@@ -1208,6 +1280,18 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
   peak = torch.cuda.max_memory_allocated()
   # The path's own footprint: its peak less what earlier phases still hold.
   TRAIN_PEAK[name] = peak - resident
+  if after is not None:
+    after(workdir)
+  device_ms = None
+  if traced_steps:
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) as prof:
+      train.train(config, traced_steps, 'cuda', seed=0, model=model,
+                  workdir=workdir)
+    prof.export_chrome_trace(str(workdir / 'traced.json'))
+    device_ms = trainer.step_device_ms(workdir / 'traced.json')
+  shutil.rmtree(workdir)
   for modality, steps in raster_checked.items():
     if not steps:
       raise AssertionError(f'no step kept the {modality} modality')
@@ -1225,7 +1309,9 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive'):
       f'{TRAIN_PEAK[name] / 2**30:.2f} GiB its own, beside the earlier '
       f'phases\' tensors), raster trunks\' gradients checked on steps '
       f'{raster_checked}; the eval at the stop step launched '
-      f'{after_steps}, its checkpoint {result["checkpoints"]}; {smi}')
+      f'{after_steps}, its checkpoint {result["checkpoints"]}; device ms '
+      f'a step of {traced_steps} more traced steps (resumed) {device_ms}; '
+      f'{smi}')
   del model, params, before, result
   torch.cuda.empty_cache()
   return (launches, *captures)
@@ -2016,6 +2102,115 @@ def heads_reference() -> None:
                      least=tuple(TRAIN_PATHS['train_full1chip_exhaustive'][0]))
 
 
+# Phase 5e / 7i: the mapper options the flagship does not use.
+MAP_HEAD = 'bev_mapper.confidence_head.'
+QUERY_HEAD = 'bev_mapper_query.confidence_head.'
+EXHAUSTIVE_KERNELS = ('lift_topk_fwd', 'patch_sample_2d', 'lift_topk_bwd',
+                      'patch_sample_2d_bwd')
+
+
+def with_confidence(config: configs.Config) -> configs.Config:
+  return configs.merge(config, {'model': {'add_confidence_query': True}})
+
+
+def a14_reference() -> None:
+  """Phase 5e: as phase 5 (f32, TF32 off, 2 steps in lockstep, the card's
+  draws injected on the CPU, its max choices replayed), the tiny
+  aerial-only localizer with its street-view query mapper and ``bev_net``;
+  query confidence on each backend (on the aerial-only map, whose
+  confidence head takes no gradient on either device, and the query's
+  does); the street-view column pooled ``'weighted'`` with the modalities
+  fused ``'softmax'``; the column pooled by ``'mlp'``."""
+  aerial = 'smoke_train_exhaustive:modalities=aerial'
+  heads = dict(zero=(MAP_HEAD,), nonzero=(QUERY_HEAD,))
+  training_reference(f'{aerial},bev_net=1', least=EXHAUSTIVE_KERNELS,
+                     nonzero=('bev_mapper.bev_net.',
+                              'bev_mapper_query.streetview_encoder.'))
+  training_reference(f'{aerial}, add_confidence_query',
+                     with_confidence(configs.get_config(aerial)),
+                     least=EXHAUSTIVE_KERNELS, **heads)
+  training_reference(
+      'smoke_train_ransac:modalities=aerial, add_confidence_query',
+      with_confidence(configs.smoke_train_ransac(modalities='aerial')),
+      **heads)
+  smoke = configs.smoke_train_exhaustive()
+  training_reference(
+      'smoke_train_exhaustive, pooling weighted, fusion softmax',
+      configs.merge(smoke, {'model': {'bev_mapper': {
+          'pooling': configs.VerticalPoolingConfig('weighted'),
+          'modality_fusion': configs.VerticalPoolingConfig('softmax')}}}),
+      least=EXHAUSTIVE_KERNELS,
+      # The fusion's head takes a gradient only on a step whose draws keep
+      # both modalities of an example: its kernel is compared, not required
+      # to move.
+      nonzero=('bev_mapper.vertical_pooling.confidence_head.',),
+      shift_free=('bev_mapper.modality_fusion.confidence_head.bias',))
+  dim = smoke.model.bev_mapper.streetview_encoder.feature_dim
+  training_reference(
+      'smoke_train_exhaustive, pooling mlp',
+      configs.merge(smoke, {'model': {'bev_mapper': {
+          'pooling': configs.VerticalPoolingConfig(
+              'mlp', configs.MLPConfig(layers=(2 * dim, dim)))}}}),
+      least=EXHAUSTIVE_KERNELS,
+      nonzero=('bev_mapper.vertical_pooling.fusion_mlp.',))
+
+
+# Phase 7i: the aerial-only run's evaluation, 2 batches of zurich.
+A14_EVAL_EXAMPLES, A14_EVAL_BATCH = 4, 2
+
+
+def a14_main_path(smi: str) -> None:
+  """Phase 7i, at full width on seeded weights in bf16, batch 2:
+  ``train_full1chip_exhaustive:modalities=aerial`` (the aerial R50 map, the
+  query through its own 20-view street-view mapper at 180x240, 0.2 m), 3
+  steps, then ``evaluator.run`` of its workdir on 2 batches (f32, dense
+  refinement); the flagship with ``bev_net=1`` and ``add_confidence_query``
+  (map and query share its mapper, so one confidence head serves both), 3
+  steps; each with phase 7's checks per step, its launches, 2 more steps
+  traced for their device ms, and its own peak memory."""
+  aerial = 'train_full1chip_exhaustive:modalities=aerial'
+
+  def evaluate_workdir(workdir: pathlib.Path) -> None:
+    ec = configs.eval_localization(evaluation_size=A14_EVAL_EXAMPLES,
+                                   batch_size=A14_EVAL_BATCH)
+    ec = dataclasses.replace(ec, workdir=str(workdir), data=dataclasses.replace(
+        ec.data, split='zurich'))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (city, (results, record)), = evaluator.run(ec, device='cuda').items()
+    seconds = time.perf_counter() - t0
+    batches = A14_EVAL_EXAMPLES // A14_EVAL_BATCH
+    if (kernels.LAUNCHES['lift_topk_fwd'] < batches
+        or kernels.LAUNCHES['patch_sample_2d'] < batches):
+      raise AssertionError(f'{aerial} eval launched {dict(kernels.LAUNCHES)}')
+    if record['eval_checkpoint_step'] != 3:
+      raise AssertionError(f'{aerial} eval read step '
+                           f'{record["eval_checkpoint_step"]}')
+    for key in ('error_max_meter', 'error_max_deg'):
+      if results[key].shape != (A14_EVAL_EXAMPLES,) or not np.isfinite(
+          results[key]).all():
+        raise AssertionError(f'{aerial} eval: {key} {results[key]}')
+    print(json.dumps(evaluate.city_summary(city, results, record)),
+          flush=True)
+    log(f'{aerial}: evaluator.run of its workdir on {city} '
+        f'({A14_EVAL_EXAMPLES} examples at batch {A14_EVAL_BATCH}, f32, '
+        f'dense refinement) of step 3: {seconds:.2f} s, launches '
+        f'{dict(kernels.LAUNCHES)}; {smi}')
+
+  training_main_path(smi, aerial, after=evaluate_workdir, traced_steps=2,
+                     nonzero=('bev_mapper_query.streetview_encoder.',
+                              'bev_mapper.aerial_encoder.'))
+  name = 'train_full1chip_exhaustive:bev_net=1, add_confidence_query'
+  config = with_confidence(configs.get_config(
+      'train_full1chip_exhaustive:bev_net=1'))
+  if config.model.bev_mapper.bev_net is None or (
+      config.model.bev_mapper_query is not None):
+    raise AssertionError(f'{name}: {config.model}')
+  training_main_path(smi, name, config, traced_steps=2,
+                     nonzero=('bev_mapper.bev_net.unit01.',
+                              'bev_mapper.bev_net.unit02.', MAP_HEAD))
+
+
 # Phase 7h: each head's steps from a seeded export, and the kernels a head
 # step may launch (K1 for the frozen part's forward) and may not.
 HEAD_STEPS = 3
@@ -2588,6 +2783,8 @@ def main() -> int:
   training_reference('smoke_train_ransac')
   # 5d. The heads and the semantic modality, card against CPU.
   heads_reference()
+  # 5e. The mapper options the flagship does not use, card against CPU.
+  a14_reference()
 
   # 6-7e. Main paths, each with the launch counts reset just before it;
   # their batches made on the card by the dataset's iterators.
@@ -2604,6 +2801,8 @@ def main() -> int:
   trainer_loop_phase(smi)
   # 7h. The heads on a frozen mapper, and the semantic modality.
   heads_main_path(smi)
+  # 7i. The aerial-only map, bev_net and query confidence at full width.
+  a14_main_path(smi)
 
   # 7f. The device generator on the card. After the main paths: its
   # profile of one build is this script's first, and later launches on

@@ -41,7 +41,10 @@ can hold the two side by side (tests/test_torch_localizer.py).
   ``configs/train_semantics.py`` and ``train_occupancy.py``;
   ``smoke_semantics()`` / ``smoke_occupancy()`` their tiny counterparts,
   trained whole. The localizer configs take ``modalities`` (the semantic
-  rasters as a third map modality).
+  rasters as a third map modality; ``aerial[+semantic]``, a map without
+  street views whose query goes through a street-view mapper of its own,
+  ``bev_mapper_query``) and ``bev_net`` (the residual stage over the map's
+  fused plane).
 
 ``DataConfig.locations`` and ``shuffle_seed`` seed the scene generator as
 ``snap_tpu/data/loader.py:get_dataset`` does (``data/loader.py``).
@@ -147,7 +150,27 @@ class SemanticRasterEncoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VerticalPoolingConfig:
+  """``defaults.vertical_pooling()``: ``pooling`` is ``'max'``, ``'sum'``,
+  ``'mean'``, ``'weighted'`` / ``'softmax'`` (a learned per-cell score,
+  through a log-sigmoid for ``'weighted'``, softmax-weighted over the
+  column) or ``'mlp'`` (``mlp`` over the flattened column)."""
+
   pooling: str = 'max'
+  mlp: MLPConfig = MLPConfig(layers=(256, 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class BEVNetConfig:
+  """The residual stage over the fused plane (``train_localization.py:
+  bev_net=1``): ``num_units`` bottleneck units of ``nmid`` (else a quarter
+  of the plane's width) mid channels. ``checkpoint_units`` is a memory
+  device of the XLA program (rematerialized units), numerically neutral:
+  read, and without effect in the port. The reference reads each key with
+  a default, so a config may leave any out."""
+
+  num_units: int = 2
+  nmid: Optional[int] = None
+  checkpoint_units: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +184,7 @@ class BEVMapperConfig:
   scene_z_height: float = 12.0
   pooling: VerticalPoolingConfig = VerticalPoolingConfig()
   modality_fusion: VerticalPoolingConfig = VerticalPoolingConfig()
+  bev_net: Optional[BEVNetConfig] = None
   matching_dim: Optional[int] = 32
   normalize_matching_features: bool = True
   add_confidence: bool = False
@@ -176,6 +200,8 @@ class BEVMapperConfig:
 @dataclasses.dataclass(frozen=True)
 class BEVLocalizerConfig:
   bev_mapper: BEVMapperConfig = BEVMapperConfig()
+  # The query's own (street-view) mapper, for maps without street views.
+  bev_mapper_query: Optional[BEVMapperConfig] = None
   add_confidence_query: bool = False
   add_confidence_map: bool = False
   mask_score_out_of_bounds: bool = False
@@ -442,17 +468,13 @@ MODALITIES = ('streetview', 'aerial', 'semantic')
 
 
 def parse_modalities(modalities: str) -> Tuple[str, ...]:
-  """``'streetview+aerial[+semantic]'`` (the reference's argument) -> the
-  names. A map without street views needs a query mapper of its own, which
-  the port does not run (A14)."""
+  """``'streetview+aerial[+semantic]'``, ``'aerial[+semantic]'`` (the
+  reference's argument) -> the names."""
   names = tuple(modalities.split('+'))
   unknown = sorted(set(names) - set(MODALITIES))
   if unknown:
     raise ValueError(f'Unknown map modalities {unknown}; choose from '
                      f'{MODALITIES}')
-  if 'streetview' not in names:
-    raise NotImplementedError('a map without street views needs a query '
-                              'mapper of its own (bev_mapper_query, A14)')
   return names
 
 
@@ -464,35 +486,72 @@ def mapper_of(mapper: BEVMapperConfig, modalities: str,
   names = parse_modalities(modalities)
   return dataclasses.replace(
       mapper,
+      streetview_encoder=(mapper.streetview_encoder if 'streetview' in names
+                          else None),
       aerial_encoder=mapper.aerial_encoder if 'aerial' in names else None,
       semantic_encoder=semantic if 'semantic' in names else None)
+
+
+def query_mapper_of(mapper: BEVMapperConfig) -> BEVMapperConfig:
+  """The query's own mapper for a map without street views
+  (``train_localization.py:107-119``): ``mapper``'s settings with its
+  street-view encoder alone, whose fusion MLP is (2 dim, 2 dim, dim); no
+  ``bev_net`` and no warm start of its own."""
+  streetview = mapper.streetview_encoder
+  dim = streetview.feature_dim
+  return dataclasses.replace(
+      mapper, aerial_encoder=None, semantic_encoder=None, bev_net=None,
+      pretrained_path=None,
+      streetview_encoder=dataclasses.replace(
+          streetview, fusion=MLPConfig(layers=(dim * 2, dim * 2, dim))))
 
 
 def with_modalities(config: Config, modalities: str,
                     semantic: SemanticRasterEncoderConfig) -> Config:
   """The localizer ``config`` with the map encoders of ``modalities``
-  (``train_localization.py:99-100``) and the data layers they read
-  (``:135-138``)."""
-  mapper = mapper_of(config.model.bev_mapper, modalities, semantic)
+  (``train_localization.py:99-100``), a query mapper of its own where the
+  map has no street views (``:104-119``), and the data layers they read
+  (``:135-138``): the map's images only with street views."""
+  mapper = config.model.bev_mapper
+  names = parse_modalities(modalities)
+  query = None if 'streetview' in names else query_mapper_of(mapper)
+  mapper = mapper_of(mapper, modalities, semantic)
   data = dataclasses.replace(
-      config.data, add_images=True,
+      config.data, add_images='streetview' in names,
       add_rasters=bool(mapper.aerial_encoder or mapper.semantic_encoder))
   return dataclasses.replace(
-      config, model=dataclasses.replace(config.model, bev_mapper=mapper),
+      config, model=dataclasses.replace(config.model, bev_mapper=mapper,
+                                        bev_mapper_query=query),
       data=data)
+
+
+def with_bev_net(config: Config, bev_net: int) -> Config:
+  """``train_localization.py:101-103``: ``bev_net=1`` puts the residual
+  stage (2 units, rematerialized in the reference) over the map's fused
+  plane."""
+  if not int(bev_net):
+    return config
+  mapper = dataclasses.replace(
+      config.model.bev_mapper,
+      bev_net=BEVNetConfig(num_units=2, checkpoint_units=True))
+  return dataclasses.replace(config, model=dataclasses.replace(
+      config.model, bev_mapper=mapper))
 
 
 def train_full1chip_exhaustive(batch_size: int = 2,
                                pretrained_mapper: str = '',
                                pretrained_resnet: str = '',
                                continue_step: int = 0,
-                               modalities: str = 'streetview+aerial'
-                               ) -> Config:
+                               modalities: str = 'streetview+aerial',
+                               bev_net: int = 0) -> Config:
   """``train_localization.py:scale=full1chip,pose_backend=exhaustive``.
 
-  ``modalities`` (``'streetview+aerial[+semantic]'``) picks the map
-  encoders at full width; the semantic one is an R26 x2 over the class
-  embeddings (56.7M parameters).
+  ``modalities`` (``'streetview+aerial[+semantic]'``, ``'aerial[+semantic]'``)
+  picks the map encoders at full width; the semantic one is an R26 x2 over
+  the class embeddings (56.7M parameters). A map without street views
+  (the aerial-only neural map) has no images, and the query goes through a
+  street-view mapper of its own. ``bev_net=1`` adds the residual stage
+  over the map's fused plane.
   ``pretrained_mapper`` (an experiment workdir) warm-starts the mapper and
   ``pretrained_resnet`` (a BiT ``.npz``) the street-view trunk. A
   ``continue_step`` continues the 20k recipe from that step of
@@ -543,7 +602,8 @@ def train_full1chip_exhaustive(batch_size: int = 2,
                                 num_pose_sampling_retries=8,
                                 bev_mapper=mapper),
       data=data, train=train)
-  return with_modalities(flagship, modalities, SemanticRasterEncoderConfig())
+  return with_bev_net(with_modalities(
+      flagship, modalities, SemanticRasterEncoderConfig()), bev_net)
 
 
 def _tiny_semantic_encoder(dim: int = 32) -> SemanticRasterEncoderConfig:
@@ -555,11 +615,12 @@ def _tiny_semantic_encoder(dim: int = 32) -> SemanticRasterEncoderConfig:
 
 
 def smoke_train_exhaustive(batch_size: int = 2,
-                           modalities: str = 'streetview+aerial') -> Config:
+                           modalities: str = 'streetview+aerial',
+                           bev_net: int = 0) -> Config:
   """``smoke_exhaustive`` with ``smoke_localization.py``'s training setup:
   8 steps, a summary every 2, a checkpoint every 4, an eval of 1 batch at
-  step 8. ``modalities`` as ``train_full1chip_exhaustive``'s, the encoders
-  tiny."""
+  step 8. ``modalities`` and ``bev_net`` as ``train_full1chip_exhaustive``'s,
+  the encoders tiny."""
   lr = LrConfig(factors='constant', base_learning_rate=1e-3)
   smoke = dataclasses.replace(
       smoke_exhaustive(batch_size),
@@ -567,32 +628,39 @@ def smoke_train_exhaustive(batch_size: int = 2,
                         num_training_steps=8, log_summary_steps=2,
                         log_eval_steps=8, checkpoint_steps=4,
                         steps_per_eval=1))
-  return with_modalities(smoke, modalities, _tiny_semantic_encoder())
+  return with_bev_net(with_modalities(smoke, modalities,
+                                     _tiny_semantic_encoder()), bev_net)
 
 
 def train_full1chip_ransac(batch_size: int = 2, pretrained_mapper: str = '',
                            pretrained_resnet: str = '',
-                           continue_step: int = 0) -> Config:
+                           continue_step: int = 0,
+                           modalities: str = 'streetview+aerial',
+                           bev_net: int = 0) -> Config:
   """``train_localization.py:scale=full1chip``, whose backend defaults to
   RANSAC: ``train_full1chip_exhaustive`` (its warm starts and continuation
   included) with the model settings that ``:94-97`` overrides only for the
   exhaustive backend left at the reference's defaults (the in-FoV query
   points, clipped scores); 10,000 pose samples x 8 retries, no grid
   refinement. The JAX config's ``point_tile=288_000`` is ignored, as in
-  ``train_full1chip_exhaustive``.
+  ``train_full1chip_exhaustive``; ``modalities`` and ``bev_net`` as there.
   """
   flagship = train_full1chip_exhaustive(batch_size, pretrained_mapper,
-                                        pretrained_resnet, continue_step)
+                                        pretrained_resnet, continue_step,
+                                        modalities, bev_net)
   return dataclasses.replace(flagship, model=dataclasses.replace(
       flagship.model, pose_backend='ransac', filter_points_in_fov=True,
       clip_negative_scores=True))
 
 
-def smoke_train_ransac(batch_size: int = 2) -> Config:
+def smoke_train_ransac(batch_size: int = 2,
+                       modalities: str = 'streetview+aerial',
+                       bev_net: int = 0) -> Config:
   """``smoke_localization.py`` with its default backend, RANSAC (the
   in-FoV query points, 64 pose samples x 2 retries, the default 64
-  rotations), and ``smoke_train_exhaustive``'s training setup."""
-  smoke = smoke_train_exhaustive(batch_size)
+  rotations), and ``smoke_train_exhaustive``'s training setup, its
+  ``modalities`` and ``bev_net``."""
+  smoke = smoke_train_exhaustive(batch_size, modalities, bev_net)
   return dataclasses.replace(smoke, model=dataclasses.replace(
       smoke.model, pose_backend='ransac', filter_points_in_fov=True,
       num_rotations=BEVLocalizerConfig().num_rotations))
@@ -696,8 +764,9 @@ def train_semantics(scale: str = 'full', pretrained_mapper: str = '',
   """
   mapper = mapper_of(BEVMapperConfig(), modalities,
                      SemanticRasterEncoderConfig())
-  mapper = dataclasses.replace(mapper, streetview_encoder=dataclasses.replace(
-      mapper.streetview_encoder, max_view_distance=20.0))
+  if mapper.streetview_encoder is not None:
+    mapper = dataclasses.replace(mapper, streetview_encoder=dataclasses.replace(
+        mapper.streetview_encoder, max_view_distance=20.0))
   data = DataConfig(
       num_views=20, voxel_size=0.2, add_images=True, add_rasters=True,
       mode='single_scene', evaluation_size=1_024,
@@ -951,8 +1020,6 @@ _IGNORED_KEYS = {
     # The lift's point tiles in training and at eval: memory devices of
     # the XLA program (rematerialized tiles), numerically neutral.
     StreetViewEncoderConfig: ('point_tile', 'point_tile_eval'),
-    # The MLP of ``pooling='mlp'``, on which the port's mapper raises (A14).
-    VerticalPoolingConfig: ('mlp',),
     DataConfig: (
         # Where a TFDS build would live; the synthetic generator reads none.
         'version', 'data_dir', 'dirname',
@@ -966,11 +1033,11 @@ _CHECKED_KEYS = {
 }
 # Settings the port cannot run: a config that sets one raises.
 _UNPORTED_KEYS = {
-    BEVLocalizerConfig: {'bev_mapper_query': 'a query mapper of its own '
-                                             '(A14)'},
-    BEVMapperConfig: {'bev_net': 'the residual BEV stage (A14)'},
-    StreetViewEncoderConfig: {'depth_mlp': 'a depth MLP (A14)'},
+    StreetViewEncoderConfig: {'depth_mlp': 'a depth MLP (A14, item 5)'},
 }
+# Sections whose keys the reference reads with defaults (``.get``), so a
+# config may leave any of them out.
+_DEFAULTED = (BEVNetConfig,)
 # Top-level keys read and ignored: the JAX trainer's bookkeeping that the
 # port's has no use for (summary writers, debug flags, where its init runs,
 # the tensor-parallel threshold), the seed of its flax init (the port draws
@@ -1031,7 +1098,7 @@ def _from_dict(cls, d: Mapping[str, Any], where: str, **given):
     else:
       kwargs[key] = _tuples(value)
   missing = sorted(set(hints) - set(kwargs))
-  if missing:
+  if missing and cls not in _DEFAULTED:
     raise ValueError(f'from_reference: {where} lacks {missing}')
   return cls(**kwargs)
 

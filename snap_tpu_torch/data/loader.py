@@ -30,7 +30,8 @@ workers on a CUDA card, each builds on its own stream; the consumer's
 stream waits on the build's end event and every tensor of the batch is
 ``record_stream``-ed on it, so its memory is not reused while the
 consumer may still read it. The reference's multi-process and mesh
-branches and its resume fold of the data seed are not ported.
+branches are not ported; a resumed run's fold of the data seed is
+``train.py``'s (``utils/prng.resume_shuffle_seed``).
 """
 
 from __future__ import annotations

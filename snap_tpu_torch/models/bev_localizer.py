@@ -2,7 +2,9 @@
 
 Port of ``snap_tpu/models/bev_localizer.py`` with both pose backends. The
 map and the query (on a gravity-aligned frustum grid) go through the same
-BEV mapper; then
+BEV mapper, or the query through a street-view mapper of its own
+(``bev_mapper_query``: a map without street views, as the aerial-only
+neural map); then
 
 - ``pose_backend='exhaustive'``: the dense (rotation x translation) pose
   volume is voted by FFT correlation and its argmax refined over a fan of
@@ -16,10 +18,19 @@ BEV mapper; then
 ``loss_metrics_function`` gives the loss (InfoNCE of the GT pose's score
 against the volume, or against the sampled poses' scores) and the recall
 metrics.
+
+With ``add_confidence_query`` the mappers get a confidence head (where the
+query has a mapper of its own, the map's is built, as the reference's, and
+takes no gradient), and the query's per-cell confidence weights its points:
+on the sampled path by its masked softmax over the valid points, in place
+of the division by their count; on the dense path, as ``exp`` of the
+log-probability, the features the templates are sampled from (the dense
+refinement keeps the unweighted plane, as the reference does: ROADMAP C23).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 
 from snap_tpu_torch import configs
 from snap_tpu_torch.models import bev_mapper
+from snap_tpu_torch.models import layers
 from snap_tpu_torch.models import pose_estimation
 from snap_tpu_torch.models import pose_exhaustive_voting as pev
 from snap_tpu_torch.utils import geometry
@@ -77,22 +89,42 @@ class BEVLocalizer(nn.Module):
     if config.pose_backend == 'exhaustive' and config.filter_points_in_fov:
       raise ValueError('The exhaustive backend needs the dense query grid '
                        '(filter_points_in_fov=False).')
-    if config.add_confidence_query or config.add_confidence_map:
-      raise NotImplementedError('Confidence heads are not ported yet.')
+    if config.add_confidence_map:
+      # As the reference (``bev_localizer.py:104-105``).
+      raise NotImplementedError('Map confidence is not yet supported.')
     self.config = config
     self.grid_map = grid_map
     self.grid_query, self.qgrid_p_q, self.q_xy_p = build_query_frustum_grid(
         grid_map.cell_size, config.query_frustum_depth,
         config.filter_points_in_fov, streetview_hfov_deg)
-    self.bev_mapper = bev_mapper.BEVMapper(config.bev_mapper, grid_map, dtype,
-                                           semantic_map_classes)
+    confidence = dict(add_confidence=True) if (
+        config.add_confidence_query) else {}
+    self.bev_mapper = bev_mapper.BEVMapper(
+        dataclasses.replace(config.bev_mapper, **confidence), grid_map, dtype,
+        semantic_map_classes)
+    self.bev_mapper_query = None
+    if config.bev_mapper_query is not None:
+      self.bev_mapper_query = bev_mapper.BEVMapper(
+          dataclasses.replace(config.bev_mapper_query, **confidence),
+          grid_map, dtype, semantic_map_classes)
     if config.add_temperature:
       self.temperature = nn.Parameter(
           torch.tensor(config.init_temperature, dtype=torch.float32))
 
+  @property
+  def query_mapper(self) -> bev_mapper.BEVMapper:
+    """The mapper the query goes through."""
+    return self.bev_mapper_query or self.bev_mapper
+
   def sample_draws(self, batch_size: int, generator: torch.Generator,
                    device: torch.device) -> bev_mapper.TrainDraws:
-    return self.bev_mapper.sample_draws(batch_size, generator, device)
+    """The query's z jitter, drawn by the query's mapper's config, then
+    the map's modality dropout, by the map's."""
+    return bev_mapper.TrainDraws(
+        z_jitter=self.query_mapper.sample_z_jitter(batch_size, generator,
+                                                   device),
+        modality_keep=self.bev_mapper.sample_modality_keep(
+            batch_size, generator, device))
 
   def forward(self, data: Dict[str, Any], train: bool = False,
               generator: Optional[torch.Generator] = None,
@@ -114,7 +146,7 @@ class BEVLocalizer(nn.Module):
       draws = self.sample_draws(batch, generator, device)
     pred: Dict[str, Any] = {'draws': draws}
     pred['map'] = self.bev_mapper(data['map'], train=train, draws=draws)
-    pred['query'] = self.bev_mapper(
+    pred['query'] = self.query_mapper(
         dict(query, xy_bev=q_xy_p[None].expand(batch, *q_xy_p.shape)),
         train=train, is_query=True, draws=draws)
     m_t_q_gt = data.get('T_query2map')
@@ -122,20 +154,23 @@ class BEVLocalizer(nn.Module):
       m_t_q_gt = geometry.Transform2D.from_Transform3D(m_t_q_gt)
     plane_q, plane_map = pred['query']['bev_matching'], pred['map'][
         'bev_matching']
+    conf_q = pred['query'].get('bev_confidence')
     if self.config.pose_backend == 'exhaustive':
-      pred.update(self._poses_exhaustive(plane_q, plane_map, m_t_q_gt))
+      pred.update(self._poses_exhaustive(plane_q, plane_map, m_t_q_gt,
+                                         conf_q))
       return pred
     pred.update(self._poses_sampled(plane_q, plane_map, q_xy_p, m_t_q_gt,
-                                    generator, pose_samples))
+                                    generator, pose_samples, conf_q))
     return pred
 
-  def _point_scores(self, plane_q, plane_map
+  def _point_scores(self, plane_q, plane_map, conf_q=None
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """The dense point-vs-map similarity ``sim_points [B, N, H, W]`` f32
-    (clipped, scaled by the temperature, divided by the valid count), its
-    match PDF ``prob_points`` (softmax over the map, divided likewise; no
-    gradient, as JAX's ``stop_gradient`` before the draws) and the query
-    points' validity ``[B, N]``."""
+    (clipped, scaled by the temperature, divided by the valid count, or
+    weighted by the masked softmax of the query's confidence ``conf_q``),
+    its match PDF ``prob_points`` (softmax over the map, divided or
+    weighted likewise; no gradient, as JAX's ``stop_gradient`` before the
+    draws) and the query points' validity ``[B, N]``."""
     b = plane_map.features.shape[0]
     valid_points = plane_q.valid.reshape(b, -1)
     f_p_q = plane_q.features.reshape(b, -1, plane_q.features.shape[-1])
@@ -150,16 +185,20 @@ class BEVLocalizer(nn.Module):
     # output for a backward that nothing takes.
     flat = sim.detach().reshape(*sim.shape[:2], -1)
     prob = torch.softmax(flat, -1).reshape(sim.shape)
+    if conf_q is not None:
+      weights = layers.masked_softmax(conf_q.reshape(b, -1), valid_points,
+                                      -1)[..., None, None]
+      return sim * weights, prob * weights.detach(), valid_points
     num_valid = valid_points.sum(-1).clamp(min=1)[:, None, None, None]
     return sim / num_valid, prob / num_valid, valid_points
 
   def _poses_sampled(self, plane_q, plane_map, q_xy_p, m_t_q_gt, generator,
-                     pose_samples) -> Dict[str, Any]:
+                     pose_samples, conf_q=None) -> Dict[str, Any]:
     """PDF-RANSAC hypotheses, B4 scoring, the best refined on a lattice."""
     out: Dict[str, Any] = {}
     b = plane_map.features.shape[0]
     q_xy_p = q_xy_p.reshape(-1, 2)[None].expand(b, -1, 2).contiguous()
-    sim, prob, valid_points = self._point_scores(plane_q, plane_map)
+    sim, prob, valid_points = self._point_scores(plane_q, plane_map, conf_q)
     if pose_samples is None:
       if generator is None:
         raise ValueError('the RANSAC backend needs a generator for its '
@@ -187,8 +226,11 @@ class BEVLocalizer(nn.Module):
               self.grid_map, self.config.mask_score_out_of_bounds))
     return out
 
-  def _poses_exhaustive(self, plane_q, plane_map, m_t_q_gt) -> Dict[str, Any]:
-    """Dense translation x rotation voting, argmax, fine refinement."""
+  def _poses_exhaustive(self, plane_q, plane_map, m_t_q_gt, conf_q=None
+                        ) -> Dict[str, Any]:
+    """Dense translation x rotation voting (the templates from the query's
+    features weighted by ``exp(conf_q)`` when given), argmax, fine
+    refinement (on the unweighted plane, ROADMAP C23)."""
     out: Dict[str, Any] = {}
     num_rot = self.config.num_rotations
     hq, wq = self.grid_query.extent
@@ -196,8 +238,10 @@ class BEVLocalizer(nn.Module):
     plane_q = type(plane_q)(
         features=plane_q.features.reshape(b, hq, wq, -1),
         valid=plane_q.valid.reshape(b, hq, wq))
+    if conf_q is not None:
+      conf_q = torch.exp(conf_q.reshape(b, hq, wq))
     volume, volume_raw = pev.exhaustive_pose_voting(
-        plane_q, plane_map, num_rot, self.grid_query)
+        plane_q, plane_map, num_rot, self.grid_query, conf_q)
     if self.config.add_temperature:
       # Scale the raw (finite) volume and re-apply the mask: -inf times the
       # learned scale would poison the temperature's gradient (0 * inf).

@@ -2,8 +2,11 @@
 
 Port of ``snap_tpu/models/bev_mapper.py``: street-view volumes are pooled
 vertically into a plane, the aerial raster and the semantic rasters are
-encoded directly, the modalities are fused by a masked max over a pseudo-z
-axis, and a linear matching head gives L2-normalized features. In training
+encoded directly, the modalities are fused by a vertical pooling over a
+pseudo-z axis (a masked max by default; any mode of ``VerticalPooling``), an
+optional residual stage (``bev_net``) runs over the fused plane, a linear
+matching head gives L2-normalized features and an optional confidence head
+a per-cell log-probability. In training
 the query's z column floor is jittered and map modalities are dropped at
 random; the draws come from an explicit CPU ``torch.Generator``
 (``sample_draws``), so a run on the card and one on the CPU draw the same
@@ -17,14 +20,16 @@ import json
 import logging
 import math
 import pathlib
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from snap_tpu_torch import configs
 from snap_tpu_torch.models import image_encoder
 from snap_tpu_torch.models import layers
+from snap_tpu_torch.models import resnet
 from snap_tpu_torch.models import semantic_raster_encoder
 from snap_tpu_torch.models import streetview_encoder
 from snap_tpu_torch.models import types
@@ -56,19 +61,50 @@ class TrainDraws(NamedTuple):
 
 
 class VerticalPooling(nn.Module):
-  """Masked max / sum / mean over the column axis (-2) of a volume."""
+  """Pool the column axis (-2) of a volume into a plane
+  (``snap_tpu/models/bev_mapper.py:VerticalPooling``): a masked max, sum or
+  mean; ``'weighted'`` / ``'softmax'``, a convex combination of the column's
+  valid cells by the masked softmax of a learned per-cell score (through a
+  log-sigmoid for ``'weighted'``); ``'mlp'``, an MLP over the zero-masked
+  column flattened to ``Z * D`` inputs. The learned modes need the
+  ``column`` shape ``(Z, D)`` they pool. Columns with no valid cell give 0.
+  """
 
-  def __init__(self, config: configs.VerticalPoolingConfig):
+  def __init__(self, config: configs.VerticalPoolingConfig,
+               dtype: torch.dtype = torch.float32,
+               column: Optional[Tuple[int, int]] = None):
     super().__init__()
-    if config.pooling not in ('max', 'sum', 'mean'):
-      raise NotImplementedError(
-          f'VerticalPooling {config.pooling!r}: the port has max/sum/mean.')
     self.mode = config.pooling
+    self.dtype = dtype
+    if self.mode in ('weighted', 'softmax', 'mlp') and column is None:
+      raise ValueError(f'VerticalPooling {self.mode!r} needs the column '
+                       'shape (Z, D)')
+    if self.mode in ('weighted', 'softmax'):
+      self.confidence_head = layers.Dense(column[1], 1, dtype)
+      self.out_dim = column[1]
+    elif self.mode == 'mlp':
+      self.fusion_mlp = layers.MLP(config.mlp, column[0] * column[1], dtype)
+      self.out_dim = config.mlp.layers[-1]
+    elif self.mode in ('max', 'sum', 'mean'):
+      self.out_dim = None if column is None else column[1]
+    else:
+      raise NotImplementedError(f'VerticalPooling {self.mode!r}')
 
   def forward(self, volume: types.FeatureVolume) -> types.FeaturePlane:
     features, valid = volume.features, volume.valid
     has_data = valid.any(-1)
-    if self.mode == 'sum':
+    if self.mode in ('weighted', 'softmax'):
+      logits = self.confidence_head(features)[..., 0].float()
+      if self.mode == 'weighted':
+        logits = F.logsigmoid(logits)  # an independent score in [-inf, 0]
+      weights = layers.masked_softmax(logits, valid, axis=-1)
+      weights = torch.where(valid, weights, 0.0)
+      plane = (features * weights[..., None].to(self.dtype)).sum(-2)
+      plane = plane.to(features.dtype)
+    elif self.mode == 'mlp':
+      column = torch.where(valid[..., None], features, 0)
+      plane = self.fusion_mlp(column.reshape(*column.shape[:-2], -1))
+    elif self.mode == 'sum':
       plane = (features * valid[..., None]).sum(-2)
     elif self.mode == 'mean':
       plane = layers.masked_mean(features, valid[..., None], axis=-2)
@@ -82,14 +118,14 @@ class VerticalPooling(nn.Module):
 
 class BEVMapper(nn.Module):
   """Encode a scene (street views, an aerial raster, semantic rasters of
-  ``semantic_map_classes``) into a plane."""
+  ``semantic_map_classes``) into a plane; optionally a residual stage over
+  the fused plane (``bev_net``) and a confidence head
+  (``add_confidence``: ``bev_confidence``, a log-probability per cell)."""
 
   def __init__(self, config: configs.BEVMapperConfig, grid: grids.Grid2D,
                dtype: torch.dtype,
                semantic_map_classes: Optional[Sequence[str]] = None):
     super().__init__()
-    if config.add_confidence:
-      raise NotImplementedError('Map confidence heads are not ported yet.')
     self.config = config
     self.grid = grid
     self.dtype = dtype
@@ -100,8 +136,9 @@ class BEVMapper(nn.Module):
     if config.streetview_encoder is not None:
       self.streetview_encoder = streetview_encoder.StreetViewEncoder(
           config.streetview_encoder, dtype)
-      self.vertical_pooling = VerticalPooling(config.pooling)
-      dims.append(config.streetview_encoder.fusion.layers[-1])
+      column = (self.num_z(), config.streetview_encoder.fusion.layers[-1])
+      self.vertical_pooling = VerticalPooling(config.pooling, dtype, column)
+      dims.append(self.vertical_pooling.out_dim)
     if config.aerial_encoder is not None:
       self.aerial_encoder = image_encoder.ImageEncoder(
           config.aerial_encoder, dtype)
@@ -118,29 +155,65 @@ class BEVMapper(nn.Module):
     if len(set(dims)) > 1:
       raise ValueError(f'Encoders have different output dimensions: {dims}')
     self.num_map_modalities = len(dims)
-    self.feature_dim = dims[0]  # the fused plane's width
-    self.modality_fusion = VerticalPooling(config.modality_fusion)
+    width = dims[0]
+    self.modality_fusion = None
+    if len(dims) > 1:
+      self.modality_fusion = VerticalPooling(config.modality_fusion, dtype,
+                                             (len(dims), width))
+      width = self.modality_fusion.out_dim
+    self.bev_net = None
+    if config.bev_net is not None:
+      nmid = config.bev_net.nmid
+      if nmid is None:
+        # A unit of nmid=None widens to 4 * (C // 4): a width that is not
+        # a multiple of 4 would change and lose the identity residual
+        # (``snap_tpu/models/bev_mapper.py:312-320`` asserts).
+        if width % 4:
+          raise ValueError(f'bev_net needs a fused plane width divisible by '
+                           f'4 (got {width}); set bev_net.nmid.')
+        nmid = width // 4
+      self.bev_net = resnet.ResNetStage(config.bev_net.num_units, width, nmid,
+                                        dtype)
+      width = nmid * 4
+    self.feature_dim = width  # the fused plane's width
     self.matching_proj = None
     if config.matching_dim is not None:
-      self.matching_proj = layers.Dense(dims[0], config.matching_dim, dtype)
+      self.matching_proj = layers.Dense(width, config.matching_dim, dtype)
+    self.confidence_head = None
+    if config.add_confidence:
+      self.confidence_head = layers.Dense(width, 1, dtype)
+
+  def num_z(self) -> int:
+    """The street-view column's levels (``ceil`` keeps the reference's
+    ``arange(0, h, cell)`` count for heights the cell does not divide)."""
+    return math.ceil(self.config.scene_z_height / self.grid.cell_size - 1e-9)
+
+  def sample_z_jitter(self, batch: int, generator: torch.Generator,
+                      device: torch.device) -> Optional[Tensor]:
+    """The query's z floor moves by U(lo, hi) per example."""
+    if self.config.scene_z_offset_range is None:
+      return None
+    lo, hi = self.config.scene_z_offset_range
+    return (lo + (hi - lo) * torch.rand(batch, generator=generator)).to(device)
+
+  def sample_modality_keep(self, batch: int, generator: torch.Generator,
+                           device: torch.device) -> Optional[Tensor]:
+    """Each (map modality, example) is kept with p = 0.5; an example that
+    would lose every modality keeps them all
+    (``snap_tpu/models/bev_mapper.py:267-276``)."""
+    if not (self.config.apply_modality_dropout
+            and self.num_map_modalities > 1):
+      return None
+    keep = torch.rand((self.num_map_modalities, batch),
+                      generator=generator) < 0.5
+    return (keep | ~keep.any(0)).to(device)
 
   def sample_draws(self, batch: int, generator: torch.Generator,
                    device: torch.device) -> TrainDraws:
-    """Draw one training forward's randomness on the CPU ``generator``.
-
-    The query's z floor moves by U(lo, hi) per example; each (map modality,
-    example) is kept with p = 0.5, and an example that would lose every
-    modality keeps them all (``snap_tpu/models/bev_mapper.py:267-276``).
-    """
-    z_jitter = keep = None
-    if self.config.scene_z_offset_range is not None:
-      lo, hi = self.config.scene_z_offset_range
-      z_jitter = lo + (hi - lo) * torch.rand(batch, generator=generator)
-      z_jitter = z_jitter.to(device)
-    if self.config.apply_modality_dropout and self.num_map_modalities > 1:
-      keep = torch.rand((self.num_map_modalities, batch),
-                        generator=generator) < 0.5
-      keep = (keep | ~keep.any(0)).to(device)
+    """Draw one training forward's randomness on the CPU ``generator``:
+    the query's z jitter, then the map's modality dropout."""
+    z_jitter = self.sample_z_jitter(batch, generator, device)
+    keep = self.sample_modality_keep(batch, generator, device)
     return TrainDraws(z_jitter=z_jitter, modality_keep=keep)
 
   def build_xyz_query(self, data: Dict[str, Any],
@@ -157,7 +230,7 @@ class BEVMapper(nn.Module):
     z_floor = median(t[..., -1], -1) - self.config.scene_z_offset
     if z_jitter is not None:
       z_floor = z_floor + z_jitter
-    num_z = math.ceil(self.config.scene_z_height / cell - 1e-9)
+    num_z = self.num_z()
     z_levels = (torch.arange(num_z, device=device, dtype=torch.float32)
                 + 0.5) * cell
     z = z_floor[:, None] + z_levels[None]  # [B, Z]
@@ -190,7 +263,8 @@ class BEVMapper(nn.Module):
 
   def fuse_neural_maps(self, planes: List[types.FeaturePlane],
                        keep: Optional[Tensor] = None) -> types.FeaturePlane:
-    """Masked max over the modalities; ``keep [M, B]`` drops some."""
+    """``modality_fusion`` over the modalities stacked as a column;
+    ``keep [M, B]`` drops some."""
     if len(planes) == 1:
       return planes[0]
     if keep is not None:
@@ -231,12 +305,22 @@ class BEVMapper(nn.Module):
     if not planes:
       raise ValueError('No map encoder given.')
     pred['bev_features'] = plane = self.fuse_neural_maps(planes, keep)
+    if self.bev_net is not None:
+      f = self.bev_net(plane.features)
+      # The convs smear into the invalid cells: zero them again.
+      f = torch.where(plane.valid[..., None], f, 0)
+      pred['bev_features'] = plane = types.FeaturePlane(features=f,
+                                                        valid=plane.valid)
     if self.matching_proj is not None:
       f = self.matching_proj(plane.features)
       if self.config.normalize_matching_features:
         f = layers.normalize(f)
       f = torch.where(plane.valid[..., None], f, 0)
       pred['bev_matching'] = types.FeaturePlane(features=f, valid=plane.valid)
+    if self.confidence_head is not None:
+      scores = self.confidence_head(plane.features)[..., 0]
+      conf = F.logsigmoid(scores.float())
+      pred['bev_confidence'] = torch.where(plane.valid, conf, 0)
     return pred
 
   def load_pretrained_variables(self) -> Optional[Dict[str, Tensor]]:

@@ -154,15 +154,21 @@ def exhaustive_pose_voting(
     plane_map: types.FeaturePlane,
     num_rotations: int,
     grid_q: grids.Grid2D,
+    conf_q: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
   """Batched dense voting: ``(masked, raw)`` volumes ``[B, R, A, B']``.
 
   ``plane_q`` holds ``[B, Hq, Wq, D]`` features on ``grid_q``; ``plane_map``
-  holds ``[B, H, W, D]``.
+  holds ``[B, H, W, D]``. A per-cell weight ``conf_q [B, Hq, Wq]`` scales
+  the query's features before the templates are sampled (in the promoted
+  dtype, as ``snap_tpu``'s product).
   """
   angles = torch.linspace(0, 2 * math.pi, num_rotations + 1)[:-1]
+  features = plane_q.features
+  if conf_q is not None:
+    features = features * conf_q[..., None]
   templates, t_valid = sample_query_templates(
-      plane_q.features, plane_q.valid, angles, grid_q)
+      features, plane_q.valid, angles, grid_q)
   out = [template_matching_fft(templates[i], t_valid[i],
                                plane_map.features[i], plane_map.valid[i])
          for i in range(templates.shape[0])]

@@ -60,10 +60,12 @@ class StreetViewEncoder(nn.Module):
       raise NotImplementedError(
           'The port implements the streamed, score-weighted lift only '
           f'(pooling_impl={config.pooling_impl!r}, '
-          f'do_weighted_fusion={config.do_weighted_fusion}).')
+          f'do_weighted_fusion={config.do_weighted_fusion}): the lift\'s '
+          'other forms are A14, item 5.')
     if config.fusion_add_minmax or not config.fusion_use_variance:
       raise NotImplementedError(
-          'The port pools (mean, variance, max score) only.')
+          'The port pools (mean, variance, max score) only: the other '
+          'statistics are A14, item 5 (B8).')
     self.config = config
     self.dtype = dtype
     self.image_encoder = image_encoder.ImageEncoder(

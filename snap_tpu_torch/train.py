@@ -29,8 +29,10 @@ config function's arguments after a colon, as the reference's does:
 port's checkpoints, or a JAX export's ``params.npz`` + ``checkpoint.json``;
 the heads adopt its mapper or street-view encoder), ``pretrained_resnet``
 (a BiT ``.npz``), ``modalities`` (``streetview+aerial+semantic`` adds the
-semantic rasters to the localizer's map), ``scale`` (the heads'
-``small`` or ``full``) and ``batch_size``.
+semantic rasters to the localizer's map; ``aerial[+semantic]`` is a map
+without street views, whose query goes through a street-view mapper of its
+own), ``bev_net`` (1: the residual stage over the map's fused plane),
+``scale`` (the heads' ``small`` or ``full``) and ``batch_size``.
 
 As ``snap_tpu/train.py`` does: writes ``<workdir>/config.json`` (the
 reference's keys, with the data path the run takes); when the workdir

@@ -323,28 +323,43 @@ STEP_SPAN = 'train_step'
 _DEVICE_EVENTS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
-def trace_split(path: pathlib.Path, wall_ms: float) -> Dict[str, Any]:
-  """The traced steps' split in the chrome trace: the wall time of the
-  ``train_step`` spans (each ends in a device synchronize), and the time
-  inside them when a kernel, copy or memset ran on the device (the union
-  of their intervals). The window's other work (summaries, evals,
-  checkpoints) counts in ``wall_ms`` alone."""
+def _trace_intervals(path: pathlib.Path):
+  """The chrome trace's ``train_step`` spans and device events, as sorted
+  (start, stop) pairs in microseconds."""
   events = json.loads(pathlib.Path(path).read_text()).get('traceEvents', [])
   steps = sorted((e['ts'], e['ts'] + e['dur']) for e in events
                  if e.get('name') == STEP_SPAN
                  and e.get('cat') == 'user_annotation')
   spans = sorted((e['ts'], e['ts'] + e.get('dur', 0)) for e in events
                  if e.get('cat') in _DEVICE_EVENTS and 'ts' in e)
-  busy = 0.0
+  return steps, spans
+
+
+def step_device_ms(path: pathlib.Path) -> List[float]:
+  """Per ``train_step`` span of the chrome trace, in order, the ms in it
+  when a kernel, copy or memset ran on the device (the union of their
+  intervals)."""
+  steps, spans = _trace_intervals(path)
+  out = []
   for step_start, step_stop in steps:
-    end = step_start
+    busy, end = 0.0, step_start
     for start, stop in spans:
       start, stop = max(start, end), min(stop, step_stop)
       if stop > start:
-        busy += stop - start
-        end = stop
+        busy, end = busy + stop - start, stop
+    out.append(busy / 1e3)
+  return out
+
+
+def trace_split(path: pathlib.Path, wall_ms: float) -> Dict[str, Any]:
+  """The traced steps' split in the chrome trace: the wall time of the
+  ``train_step`` spans (each ends in a device synchronize), and the time
+  inside them when a device event ran (``step_device_ms``, summed). The
+  window's other work (summaries, evals, checkpoints) counts in
+  ``wall_ms`` alone."""
+  steps, spans = _trace_intervals(path)
   steps_ms = sum(b - a for a, b in steps) / 1e3
-  device_ms = busy / 1e3 if spans else None
+  device_ms = sum(step_device_ms(path)) if spans else None
   return {'wall_ms': wall_ms, 'steps_ms': steps_ms,
           'device_busy_ms': device_ms,
           'idle_share': (None if device_ms is None or not steps_ms

@@ -148,9 +148,9 @@ def test_heads_follow_a_pretrained_mapper(tmp_path):
 @pytest.mark.parametrize('path,value,match', [
     (('model', 'bev_mapper', 'streetview_encoder', 'depth_mlp'),
      {'layers': [128]}, 'model.bev_mapper.streetview_encoder.depth_mlp is set'),
-    (('model', 'bev_mapper', 'bev_net'), {'num_units': 2},
-     'model.bev_mapper.bev_net is set'),
-    (('model', 'bev_mapper_query'), {}, 'model.bev_mapper_query is set'),
+    (('model', 'bev_mapper', 'bev_net'), {'num_units': 2, 'width': 4},
+     'unknown key model.bev_mapper.bev_net.width'),
+    (('model', 'bev_mapper_query'), {}, 'model.bev_mapper_query lacks'),
     (('model', 'bev_mapper', 'streetview_encoder', 'color'), 1,
      'unknown key model.bev_mapper.streetview_encoder.color'),
     (('model_name',), 'depth_net', 'model_name'),

@@ -84,8 +84,12 @@ def test_configs_are_the_references():
   assert semantic == configs.SemanticRasterEncoderConfig()
   assert (semantic.encoder.encoder.width, semantic.encoder.encoder.depth,
           semantic.embedding_dim) == (2, 26, 8)
-  with pytest.raises(NotImplementedError, match='A14'):
-    configs.train_full1chip_exhaustive(modalities='aerial+semantic')
+  # Without street views the map has no images and the query a street-view
+  # mapper of its own (tests/test_torch_query_mapper.py).
+  aerial = configs.train_full1chip_exhaustive(modalities='aerial+semantic')
+  assert aerial.model.bev_mapper.semantic_encoder == semantic
+  assert aerial.model.bev_mapper_query.streetview_encoder is not None
+  assert not aerial.data.add_images
 
 
 @pytest.mark.parametrize('classes', [

@@ -130,13 +130,15 @@ def port_model(config: configs.Config, params):
   return model
 
 
-def port_step(model, batch, train: bool, draws=None, relu_sides=None):
+def port_step(model, batch, train: bool, draws=None, relu_sides=None,
+              pose_samples=None):
   """The port's masked-mean loss and its gradients by parameter name (0
   where the loss does not reach a parameter); its relus take
   ``relu_sides`` (JAX's, in call order), its other max sites their own
-  choices."""
+  choices; ``pose_samples`` go to the RANSAC backend."""
   with torch.no_grad(), chip_smoke.MaxChoices(model) as own:
-    trainer.loss_and_metrics(model, batch, train, draws=draws)
+    trainer.loss_and_metrics(model, batch, train, draws=draws,
+                             pose_samples=pose_samples)
   sides = iter(relu_sides)
   replay = [next(sides) if site == 'F.relu' else call
             for site, call in zip(own.sites, own.calls)]
@@ -145,7 +147,7 @@ def port_step(model, batch, train: bool, draws=None, relu_sides=None):
       tuple(c.shape) for c in replay]
   with chip_smoke.MaxChoices(model, replay=replay):
     loss, losses, metrics, pred = trainer.loss_and_metrics(
-        model, batch, train, draws=draws)
+        model, batch, train, draws=draws, pose_samples=pose_samples)
   named = list(model.named_parameters())
   grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
   grads = {n: torch.zeros_like(p) if g is None else g
