@@ -12,8 +12,8 @@ host generator's batch:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the eight CUDA kernels of ``snap_tpu_torch/csrc`` (one
-   nvcc call); prints the SASS instructions of B4's, B7's and K1's loops
-   (``cuobjdump``);
+   nvcc call per source, all started together, then one link); prints the
+   SASS instructions of B4's, B7's and K1's loops (``cuobjdump``);
 3. kernels: K1 (``lift_topk_fwd``), K2 (``patch_sample_2d``), K3
    (``lift_topk_bwd``) and K4 (``patch_sample_2d_bwd``) on seeded inputs at
    the flagship shapes and the training batch of 2 against their plain
@@ -26,7 +26,13 @@ host generator's batch:
    2,000 identical poses (every pose of a point adds into the same four
    cells; alone, its sum is held to the closed form) and an example whose
    cotangent is all zero; B5 (``slice_gather``) and B6 (``table_gather``)
-   at the gather tool's shapes over all N points;
+   at the gather tool's shapes over all N points; B8 (K1 and K3 in the
+   other statistics layouts, ``B8_SEEDED``: weighted with the max and min,
+   unweighted with the variance, unweighted with the max and min and no
+   variance, and the scan form's 20 ranks) forward and backward in f32 and
+   bf16, on inputs of the same kinds (single-view points, points with no
+   selected rank, repeated ranks for exact ties of every channel), the
+   cotangents of the maxima zeroed at near ties (NEAR_TIE_RTOL);
 4. serving reference: the tiny ``smoke_exhaustive`` localizer on the card
    (f32, TF32 off) against the same model on the CPU (the plain path);
 5. training reference: ``smoke_train_exhaustive`` (f32, TF32 off), 2 steps
@@ -58,6 +64,11 @@ host generator's batch:
    B7 each card step), the map's confidence head 0 on both devices and
    the query's not; the street-view column pooled ``'weighted'`` with the
    modalities fused ``'softmax'``; the column pooled by ``'mlp'``;
+5f. the lift's other forms (A14, item 5; ``A145_FORMS``), as phase 5:
+   the tiny localizer with the stream's max and min (K1-K4 each card
+   step), the scan unweighted (K1-K4), and the gather form unweighted with
+   the max and min, no variance and a depth MLP (K2 and K4 each card step,
+   K1 and K3 never; the depth MLP takes a gradient);
 6. serving main path: ``snap_tpu_torch.evaluate`` on ``bench_full`` (R50,
    20 views of 180x240, 120x160x60 voxels, 64 rotations + refinement,
    bf16, random seeded weights), batch 1, 2 synthetic queries; K1 and K2
@@ -143,6 +154,16 @@ host generator's batch:
    the stage's units and the confidence head each taking a gradient; each
    run's step ms, own peak memory and the device ms of 2 more steps traced
    (``torch.profiler``) logged;
+7j. the lift's other forms at full width (seeded weights, bf16, batch 2):
+   ``train_full1chip_exhaustive`` with each form of ``A145_FORMS`` (the
+   street-view encoder's keys merged in, as the reference's overrides set
+   them), 3 steps with phase 7's checks: the stream with the max and min
+   (stats 513 wide) and the scan unweighted (20 ranks a point) launch K1
+   and K3 at least twice a step (map and query) and K2 and K4 at least
+   once; the gather form with a depth MLP (128, 128) materializes the
+   [2, 1,152,000, 4, 128] observations, launches no lift kernel, and its
+   depth MLP takes a gradient; each run's step ms, own peak memory and
+   the device ms of 2 more steps traced (``torch.profiler``) logged;
 7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
@@ -173,15 +194,20 @@ host generator's batch:
    its registers, shared memory and spills and the blocks per SM the card
    keeps resident at that launch's shape (``kernels.occupancy``); K1 and
    K2 also checked and timed on the held-out run's f32 inputs, behind a
-   spin too, ``F.grid_sample`` in f32 beside K2.
+   spin too, ``F.grid_sample`` in f32 beside K2; B8's K1 and K3 checked on
+   every input phase 7j's stream and scan runs gave them (the plain versions
+   ``PLAIN_LIFT_CHUNK`` points at a time) and timed on the largest beside
+   their plain versions and bounds.
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
 from the RANSAC run, B7 from the RANSAC training run, B5 and B6 from the
 gather bench), one for B4 at the RANSAC training run's inputs
 (``/train``, launches from that run) and two for K1 and K2 at the
-held-out run's f32 inputs (``/heldout_f32``, launches from that run); the
-last line is ``{"ok": true, "device": {...}}``.
+held-out run's f32 inputs (``/heldout_f32``, launches from that run), and
+B8's K1 and K3 at phase 7j's inputs (``/stream_minmax``,
+``/scan_unweighted``, launches from those runs); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -266,7 +292,22 @@ TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float32: (1e-4, 1e-5)}
 # has the same jump). The check zeroes g_m at points whose two largest
 # selected scores differ by a non-zero amount within NEAR_TIE_RTOL of their
 # size; exact ties (the seeded inputs repeat a rank) keep theirs.
+# B8's max and min of each channel jump alike, and at 2.3M points x 128
+# channels two ranks that read different taps also tie exactly by
+# coincidence in f32 on one side and not on the other (a first run met 56
+# of 18M d stack values off by up to 0.141 on the seeded inputs): their
+# cotangent is zeroed where a selected rank that reads other taps than the
+# extreme's lies within NEAR_TIE_RTOL of it, equal or not; repeated ranks'
+# exact ties keep theirs.
 NEAR_TIE_RTOL = 1e-4
+# B8's backward in f32 (phase 3): a d stack entry sums ~300 tap-weighted
+# contributions of up to ~2 (the max's and min's cotangents go whole to one
+# rank, the mean's spread over the ranks), in orders that change from run
+# to run on both sides (the plain version's index_add_ is atomic on the
+# card too); two orders differ by up to ~2e-4 there. The tolerance of the
+# backward kernels' f32 tests (tests/test_torch_kernels.py BWD_TOLERANCES,
+# measured 7e-4 on their inputs).
+B8_BWD_F32_TOL = (2e-3, 1e-5)
 # B4 against its plain version (and the RANSAC reference, card against
 # CPU): each (pose, point) term is computed alike, operation by operation,
 # and the sum over the points (4,652 at the eval shape, of terms up to
@@ -323,8 +364,9 @@ def log(msg: str) -> None:
   print(f'[{time.perf_counter() - T0:7.1f}s] {msg}', flush=True)
 
 
-def assert_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-  atol, rtol = TOLERANCES[want.dtype]
+def assert_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                 tol=None) -> float:
+  atol, rtol = tol or TOLERANCES[want.dtype]
   got, want = got.float(), want.float()
   err = (got - want).abs()
   bad = err > atol + rtol * want.abs()
@@ -335,10 +377,38 @@ def assert_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
   return float(err.max())
 
 
-def check_lift(args, kwargs) -> float:
+def plain_lift(args, kwargs, chunk: int = None):
+  """K1's plain version, ``chunk`` points at a time (each point's stats are
+  its own): its f32 transients for every rank at once would not fit at the
+  scan form's K = 20."""
+  stack, *per_point = args
+  n = per_point[0].shape[1]
+  parts = [view_scan.lift_topk_plain(
+      stack, *(t[:, lo:lo + (chunk or n)] for t in per_point), **kwargs)
+           for lo in range(0, n, chunk or n)]
+  return (torch.cat([p[0] for p in parts], 1),
+          torch.cat([p[1] for p in parts], 1))
+
+
+def plain_lift_bwd(args, kwargs, chunk: int = None):
+  """K3's plain version, ``chunk`` points at a time: the points'
+  contributions to ``d stack`` summed in f32 (the plain version of an f32
+  copy of the stack, the same f32 arithmetic), cast once."""
+  stack, *per_point = args
+  n = per_point[0].shape[1]
+  if not chunk or chunk >= n:
+    return view_scan.lift_topk_bwd_plain(*args, **kwargs)
+  stack32 = stack.float()
+  grad = sum(view_scan.lift_topk_bwd_plain(
+      stack32, *(t[:, lo:lo + chunk] for t in per_point), **kwargs)
+             for lo in range(0, n, chunk))
+  return grad.to(stack.dtype)
+
+
+def check_lift(args, kwargs, chunk: int = None) -> float:
   """K1 against its plain version on the same CUDA inputs; max abs error."""
   stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
-  stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
+  stats_p, valid_p = plain_lift(args, kwargs, chunk)
   torch.cuda.synchronize()
   if not torch.equal(valid, valid_p):
     raise AssertionError('lift_topk_fwd: valid differs from the plain version')
@@ -364,45 +434,96 @@ def unit_cotangent(g: torch.Tensor) -> torch.Tensor:
   return g * 2.0**-math.floor(math.log2(peak))
 
 
-def assert_close_bwd(name: str, got: torch.Tensor, want: torch.Tensor
-                     ) -> float:
+def assert_close_bwd(name: str, got: torch.Tensor, want: torch.Tensor,
+                     tol=None) -> float:
   """``assert_close``, and the gradient must stand well above atol."""
-  atol = TOLERANCES[want.dtype][0]
+  atol = (tol or TOLERANCES[want.dtype])[0]
   peak = float(want.abs().max())
   if not peak > 10 * atol:
     raise AssertionError(f'{name}: largest entry {peak:.3g} is within 10x '
                          f'of atol {atol}; the check would be vacuous')
-  return assert_close(name, got, want)
+  return assert_close(name, got, want, tol)
 
 
-def without_near_ties(args, kwargs):
-  """``args`` with g_m zeroed at the points of near but inexact ties of the
-  two largest selected scores (see NEAR_TIE_RTOL); and their count."""
+def lift_layout(stack: torch.Tensor, kwargs) -> str:
+  """The statistics layout of a lift call, as the names of its row."""
+  names = ['mean']
+  if kwargs.get('use_variance', True):
+    names.append('var')
+  if kwargs.get('add_minmax', False):
+    names += ['max', 'min']
+  if stack.shape[-1] > kwargs['dim']:
+    names.append('score_max')
+  return f'[{", ".join(names)}]'
+
+
+def without_near_ties(args, kwargs, chunk: int = 131_072):
+  """``args`` with the cotangents of the lift's maxima zeroed where K3 and
+  its plain version may route them to different ranks (see NEAR_TIE_RTOL),
+  and the count of entries zeroed: g_m at points whose two largest
+  selected scores differ by a non-zero amount within NEAR_TIE_RTOL of
+  their size (weighted layouts); with ``add_minmax``, g_max (g_min) of a
+  channel whose largest (smallest) selected value has another selected
+  value of a rank that reads other taps within NEAR_TIE_RTOL of it, equal
+  or not. Exact ties of repeated ranks keep theirs. The ranks are formed
+  ``chunk`` points at a time."""
   stack, view_idx, p2d, select, depth, g_stats = args
-  if view_idx.shape[-1] < 2:
+  dim = kwargs['dim']
+  weighted = stack.shape[-1] > dim
+  add_minmax = kwargs.get('add_minmax', False)
+  if not add_minmax and not (weighted and view_idx.shape[-1] >= 2):
     return args, 0
-  ranks = view_scan._lift_ranks(stack, view_idx, p2d, select, depth,
-                                **kwargs)
-  top = torch.stack([r.score for r in ranks], -1).topk(2, -1).values
-  gap = top[..., 0] - top[..., 1]
-  near = ((top[..., 1] > view_scan.NEG_INF / 2) & (gap > 0)
-          & (gap <= NEAR_TIE_RTOL * top[..., 0].abs().clamp(min=1.0)))
-  g_stats = g_stats.clone()
-  g_stats[..., -1] = torch.where(near, 0.0, g_stats[..., -1])
-  return (*args[:-1], g_stats), int(near.sum())
+  lift_kw = {k: kwargs[k] for k in ('h', 'w', 'dim', 'depth_min_max')}
+  at_max = dim * (1 + kwargs.get('use_variance', True))
+  last = torch.tensor([kwargs['h'] - 1, kwargs['w'] - 1], dtype=p2d.dtype,
+                      device=p2d.device)
+  g_stats, zeroed = g_stats.clone(), 0
+  for lo in range(0, view_idx.shape[1], chunk):
+    part = slice(lo, lo + chunk)
+    ranks = view_scan._lift_ranks(stack, view_idx[:, part], p2d[:, part],
+                                  select[:, part], depth[:, part], **lift_kw)
+    if weighted and len(ranks) >= 2:
+      top = torch.stack([r.score for r in ranks], -1).topk(2, -1).values
+      gap = top[..., 0] - top[..., 1]
+      near = ((top[..., 1] > view_scan.NEG_INF / 2) & (gap > 0)
+              & (gap <= NEAR_TIE_RTOL * top[..., 0].abs().clamp(min=1.0)))
+      g_stats[:, part, -1] = torch.where(near, 0.0, g_stats[:, part, -1])
+      zeroed += int(near.sum())
+    if add_minmax:
+      sel = select[:, part, :, None]
+      f = torch.stack([r.f[..., :dim] for r in ranks], 2)  # [B, n, K, D]
+      del ranks
+      vi = view_idx[:, part]
+      pts = torch.minimum(torch.clamp(p2d[:, part] - 0.5, min=0), last)
+      # [B, n, K, K]: two ranks read the same taps with the same weights.
+      same = (vi[..., :, None] == vi[..., None, :]) & (
+          pts[..., :, None, :] == pts[..., None, :, :]).all(-1)
+      for at, sign in ((at_max, 1.0), (at_max + dim, -1.0)):
+        v = torch.where(sel, sign * f, -torch.inf)
+        top, first = v.max(2)  # [B, n, D]: the extreme and a rank of it
+        same_taps = torch.gather(
+            same, 3, first[:, :, None, :].expand(-1, -1, v.shape[2], -1))
+        near = ((top[:, :, None] - v <= NEAR_TIE_RTOL * top.abs().clamp(
+            min=1.0)[:, :, None]) & ~same_taps).any(2)
+        g = g_stats[:, part, at:at + dim]
+        g_stats[:, part, at:at + dim] = torch.where(near, 0.0, g)
+        zeroed += int(near.sum())
+  return (*args[:-1], g_stats), zeroed
 
 
-def check_lift_bwd(args, kwargs) -> float:
+def check_lift_bwd(args, kwargs, chunk: int = None, tol=None) -> float:
   """K3 against its plain version; ``args`` end with ``g_stats``, which is
   scaled by ``unit_cotangent`` and freed of near ties first."""
   args = (*args[:-1], unit_cotangent(args[-1]))
   args, near = without_near_ties(args, kwargs)
   got = kernels.lift_topk_bwd(*args, **kwargs)
-  want = view_scan.lift_topk_bwd_plain(*args, **kwargs)
+  want = plain_lift_bwd(args, kwargs, chunk)
   torch.cuda.synchronize()
-  log(f'lift_topk_bwd at {tuple(args[0].shape)}: g_m zeroed at {near} of '
-      f'{args[1].shape[0] * args[1].shape[1]} points (near ties)')
-  return assert_close_bwd('lift_topk_bwd d_stack', got, want)
+  log(f'lift_topk_bwd at {tuple(args[0].shape)} '
+      f'{lift_layout(args[0], kwargs)}: '
+      f'{near} cotangent entries of maxima zeroed (near ties) of '
+      f'{args[1].shape[0] * args[1].shape[1]} points')
+  return assert_close_bwd('lift_topk_bwd d_stack', got, want, tol)
 
 
 def check_sample_bwd(args, kwargs) -> float:
@@ -453,6 +574,75 @@ def seeded_kernel_inputs(device: str):
                          ).to(torch.bfloat16)
   sample_bwd = ((g_values, points), dict(plane_shape=tuple(plane.shape)))
   return lift, sample, lift_bwd, sample_bwd
+
+
+# B8 on seeded inputs (phase 3): (name, weighted, use_variance, add_minmax,
+# ranks, points an example); the scan form's K = 20 at a cut of the points.
+B8_SEEDED = (
+    ('weighted [mean, var, max, min, score_max]', True, True, True, 4,
+     1_152_000),
+    ('unweighted [mean, var]', False, True, False, 4, 1_152_000),
+    ('unweighted [mean, max, min]', False, False, True, 4, 1_152_000),
+    ('the scan form, K = 20, unweighted [mean, var]', False, True, False, 20,
+     262_144),
+)
+# Points per call of the lift's plain versions on B8's inputs: at K = 20
+# their f32 transients for every rank of every point would not fit at once.
+PLAIN_LIFT_CHUNK = 262_144
+
+
+def seeded_lift_inputs(device: str, dtype: torch.dtype, weighted: bool,
+                       use_variance: bool, add_minmax: bool, ranks: int,
+                       n: int):
+  """K1/K3 inputs of a B8 layout at the flagship's image stack (20 views of
+  45 x 60 pixels, 128 features, 32 score bins when weighted), batch 2, n
+  points an example: n / 12 single-view points, n / 24 more with no
+  selected rank, and n / 24 whose second half of ranks repeats the first,
+  all selected (exact ties of every channel and score); the rest select
+  ~3.5 ranks a point. Returns (args, g_stats, kwargs)."""
+  g = torch.Generator(device=device).manual_seed(1)
+  b, v, h, w, dim = 2, 20, 45, 60, 128
+  c = dim + (32 if weighted else 0)
+  stack = torch.randn((b, v * (h + 1), w + 1, c), generator=g,
+                      device=device).to(dtype)
+  view_idx = torch.randint(0, v, (b, n, ranks), generator=g, device=device,
+                           dtype=torch.int32)
+  scale = torch.tensor([h, w], dtype=torch.float32, device=device)
+  p2d = torch.rand((b, n, ranks, 2), generator=g, device=device) * (
+      scale + 2) - 1
+  select = torch.rand((b, n, ranks), generator=g, device=device) < (
+      min(0.7, 3.5 / ranks))
+  single, invalid, tie = n // 12, n // 8, slice(n // 8, n // 6)
+  select[:, :invalid] = False
+  select[:, :single, 1] = True
+  depth = torch.rand((b, n, ranks), generator=g, device=device) * 40
+  half = ranks // 2
+  for t in (view_idx, p2d, depth):
+    t[:, tie, half:2 * half] = t[:, tie, :half]
+  select[:, tie] = True
+  width = kernels.stats_width(dim, weighted, use_variance, add_minmax)
+  g_stats = torch.randn((b, n, width), generator=g, device=device).to(dtype)
+  kwargs = dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0),
+                use_variance=use_variance, add_minmax=add_minmax)
+  return (stack, view_idx, p2d, select, depth), g_stats, kwargs
+
+
+def b8_seeded() -> None:
+  """Phase 3, B8: K1 and K3 in the layouts of B8_SEEDED against their plain
+  versions, f32 and bf16, forward and backward."""
+  errs = {}
+  for name, weighted, use_variance, add_minmax, ranks, n in B8_SEEDED:
+    for dtype in (torch.float32, torch.bfloat16):
+      args, g_stats, kw = seeded_lift_inputs('cuda', dtype, weighted,
+                                             use_variance, add_minmax, ranks,
+                                             n)
+      errs[f'{name}, {str(dtype)[6:]}'] = (
+          check_lift(args, kw, PLAIN_LIFT_CHUNK),
+          check_lift_bwd((*args, g_stats), kw, PLAIN_LIFT_CHUNK,
+                         B8_BWD_F32_TOL if dtype == torch.float32 else None))
+      del args, g_stats
+  log(f'B8 (K1, K3 in the other layouts) on seeded inputs, batch 2: max abs '
+      f'err (forward, backward) {errs}')
 
 
 # Cycles the card spins (torch.cuda._sleep) before a run of time_ms(...,
@@ -537,11 +727,15 @@ def lift_bound(args, kwargs, stats, valid):
   """(bound_ms, bound_by): bytes moved vs f32 operations this input needs."""
   stack, _, _, select, _ = args
   c, dim = stack.shape[-1], kwargs['dim']
+  var, minmax = kwargs.get('use_variance', True), kwargs.get('add_minmax',
+                                                             False)
   nbytes = _nbytes(*args, stats, valid)
   # Per selected rank: 4-tap combine (8C), depth hat (4S), online-softmax
-  # update (5D); per point: the (mean, var) epilogue (5D).
-  ops = int(select.sum()) * (8 * c + 4 * (c - dim) + 5 * dim) + (
-      select.shape[0] * select.shape[1] * 5 * dim)
+  # update (5D; 3D without the variance), the max and min (2D); per point:
+  # the epilogue (2D for the mean, 3D more for the variance).
+  ops = int(select.sum()) * (8 * c + 4 * (c - dim) + (3 + 2 * var) * dim
+                             + 2 * minmax * dim) + (
+      select.shape[0] * select.shape[1] * (2 + 3 * var) * dim)
   return _bound(nbytes, ops)
 
 
@@ -549,14 +743,19 @@ def lift_bwd_bound(args, kwargs, d_stack):
   """K3: its inputs read once, ``d stack`` written once; f32 operations."""
   stack, _, _, select, _, _ = args
   c, dim = stack.shape[-1], kwargs['dim']
+  var, minmax = kwargs.get('use_variance', True), kwargs.get('add_minmax',
+                                                             False)
   nbytes = _nbytes(*args, d_stack)
   # Per selected rank: the 4-tap combine of f and c (8C) and the depth hat
-  # (4S), d f and u (8D), d z and d c (2S), and w_tap * [d f, d c] added at
-  # 4 taps (8C); per point: the (mean, E2) gradients (10D). K3's recompute
-  # of the online-softmax update is a cost of its design, not counted.
+  # (4S), d f and u (8D; 3D without the variance), the max's and min's
+  # shares (2D), d z and d c (2S), and w_tap * [d f, d c] added at 4 taps
+  # (8C); per point: the (mean, E2) gradients (10D; 2D without the
+  # variance). K3's recompute of the online-softmax update is a cost of its
+  # design, not counted.
   s = c - dim
-  ops = int(select.sum()) * (16 * c + 6 * s + 8 * dim) + (
-      select.shape[0] * select.shape[1] * 10 * dim)
+  ops = int(select.sum()) * (16 * c + 6 * s + (3 + 5 * var) * dim
+                             + 2 * minmax * dim) + (
+      select.shape[0] * select.shape[1] * (2 + 8 * var) * dim)
   return _bound(nbytes, ops)
 
 
@@ -1182,6 +1381,18 @@ TRAIN_PATHS = {
     'train_full1chip_exhaustive:bev_net=1, add_confidence_query': (
         {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
          'patch_sample_2d_bwd': 1}, (), ()),
+    # Phase 7j: the lift's other forms (A145_FORMS), on map and query; the
+    # gather form launches no lift kernel.
+    'train_full1chip_exhaustive, stream, [mean, var, max, min, score_max]': (
+        {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
+         'patch_sample_2d_bwd': 1}, (), ('lift_topk_fwd', 'lift_topk_bwd')),
+    'train_full1chip_exhaustive, scan, unweighted [mean, var]': (
+        {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
+         'patch_sample_2d_bwd': 1}, (), ('lift_topk_fwd', 'lift_topk_bwd')),
+    'train_full1chip_exhaustive, gather, depth MLP, unweighted '
+    '[mean, max, min]': (
+        {'patch_sample_2d': 1, 'patch_sample_2d_bwd': 1},
+        ('lift_topk_fwd', 'lift_topk_bwd'), ()),
 }
 
 
@@ -1204,8 +1415,10 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive',
   # The street-view trunk is the query's own mapper's where it has one.
   street = ('bev_mapper_query.' if config.model.bev_mapper_query is not None
             else 'bev_mapper.')
+  weighted = (config.model.bev_mapper_query or config.model.bev_mapper
+              ).streetview_encoder.do_weighted_fusion
   street_leaves = [street + leaf[len('bev_mapper.'):]
-                   for leaf in (STREET_ROOT, PROJ_MLP)]
+                   for leaf in (STREET_ROOT, PROJ_MLP)[:1 + weighted]]
   map_modalities = [m for m in ('streetview', *RASTER_TRUNKS) if getattr(
       config.model.bev_mapper, f'{m}_encoder') is not None]
   rasters = [m for m in RASTER_TRUNKS if m in map_modalities]
@@ -1255,12 +1468,14 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive',
       raise AssertionError(f'step {step}: lr {lr} but params moved {moved}')
     before.append(after)
     per_step.append((counts, launched))
+    proj_grad = (f'{float(out.grads[street_leaves[1]].abs().max()):.3g}'
+                 if weighted else 'none (unweighted fusion)')
     log(f'train step {step} ({name}): loss {loss:.4f}, l2_grads '
         f'{out.logs["l2_grads"]:.4g}, lr {lr:.3g}, params moved {moved:.3g}, '
         f'draws: z jitter {out.draws.z_jitter.tolist()}, modality keep '
         f'{map_modalities} x example {keep.tolist()}; |grad| street root '
         f'{float(out.grads[street_leaves[0]].abs().max()):.3g}, proj '
-        f'{float(out.grads[street_leaves[1]].abs().max()):.3g} (under '
+        f'{proj_grad} (under '
         f'{street}), trunks '
         f'{trunk_grads}, temperature '
         f'{float(out.grads["temperature"]):.3g}; launches {launched}')
@@ -2211,6 +2426,68 @@ def a14_main_path(smi: str) -> None:
                               'bev_mapper.bev_net.unit02.', MAP_HEAD))
 
 
+# Phase 5f / 7j / 8: the lift's other forms (A14, item 5), as the street-view
+# encoder's keys of each run; the gather form's depth MLP is (D, D).
+A145_FORMS = {
+    'stream, [mean, var, max, min, score_max]': dict(fusion_add_minmax=True),
+    'scan, unweighted [mean, var]': dict(pooling_impl='scan',
+                                         do_weighted_fusion=False),
+    'gather, depth MLP, unweighted [mean, max, min]': dict(
+        pooling_impl='gather', do_weighted_fusion=False,
+        fusion_use_variance=False, fusion_add_minmax=True),
+}
+DEPTH_MLP = 'bev_mapper.streetview_encoder.depth_mlp.'
+
+
+def with_lift_form(config: configs.Config, form: str) -> configs.Config:
+  """``config`` with the street-view encoder's keys of ``form``, as the
+  reference's ``--config.model.bev_mapper.streetview_encoder.*``
+  overrides set them."""
+  keys = dict(A145_FORMS[form])
+  if form.startswith('gather'):
+    dim = config.model.bev_mapper.streetview_encoder.image_encoder.output_dim
+    keys['depth_mlp'] = configs.MLPConfig(layers=(dim, dim))
+  return configs.merge(config, {'model': {'bev_mapper': {
+      'streetview_encoder': keys}}})
+
+
+def a145_reference() -> None:
+  """Phase 5f: as phase 5 (f32, TF32 off, 2 steps in lockstep, the card's
+  draws injected on the CPU, its max choices replayed), the tiny localizer
+  with each of the lift's other forms: the stream with the max and min
+  (K1-K4 each card step), the scan unweighted (K1-K4), the gather form with
+  a depth MLP (K2 and K4; K1 and K3 never; the depth MLP takes a
+  gradient)."""
+  smoke = configs.smoke_train_exhaustive()
+  for form in A145_FORMS:
+    gather = form.startswith('gather')
+    training_reference(
+        f'smoke_train_exhaustive, {form}', with_lift_form(smoke, form),
+        least=EXHAUSTIVE_KERNELS[1::2] if gather else EXHAUSTIVE_KERNELS,
+        never=EXHAUSTIVE_KERNELS[0::2] if gather else (),
+        nonzero=(DEPTH_MLP,) if gather else ())
+
+
+def a145_main_path(smi: str):
+  """Phase 7j, at full width on seeded weights in bf16, batch 2:
+  ``train_full1chip_exhaustive`` with each of the lift's other forms, 3
+  steps with phase 7's checks per step and its launches (B8's K1 and K3 on
+  map and query for the stream and the scan, none for the gather form,
+  whose depth MLP takes a gradient), 2 more steps traced for their device
+  ms, and its own peak memory. Returns per lifted form its launches and
+  the captured inputs of K1 and K3."""
+  runs = {}
+  for form in A145_FORMS:
+    name = f'train_full1chip_exhaustive, {form}'
+    config = with_lift_form(configs.train_full1chip_exhaustive(), form)
+    gather = form.startswith('gather')
+    out = training_main_path(smi, name, config, traced_steps=2,
+                             nonzero=(DEPTH_MLP,) if gather else ())
+    if not gather:
+      runs[form] = out
+  return runs
+
+
 # Phase 7h: each head's steps from a seeded export, and the kernels a head
 # step may launch (K1 for the frozen part's forward) and may not.
 HEAD_STEPS = 3
@@ -2603,6 +2880,52 @@ def report(name, source, launches, err, k_ms, p_ms, bound, lib_ms,
               bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
 
 
+def b8_rows(runs):
+  """Phase 8, B8: K1 and K3 of each lifted form of phase 7j checked on every
+  input its run gave them (the plain versions PLAIN_LIFT_CHUNK points at a
+  time), then timed on the largest with the plain version and the bound;
+  one JSON row each, its launches those of its run."""
+  rows = []
+  for form, (launches, lift, lift_bwd) in runs.items():
+    tag = form.split(',')[0] + ('_minmax' if 'max' in form else
+                               '_unweighted')
+    errs = (max(check_lift(*c, chunk=PLAIN_LIFT_CHUNK)
+                for c in lift.calls.values()),
+            max(check_lift_bwd(*c, chunk=PLAIN_LIFT_CHUNK)
+                for c in lift_bwd.calls.values()))
+    args, kw = lift.largest()
+    out = kernels.lift_topk_fwd(*args, **kw)
+    log_occupancy('lift_topk_fwd', f'7j {form}')
+    fwd = report(
+        f'lift_topk_fwd/{tag}', 'snap_tpu_torch/csrc/lift_topk_fwd.cu',
+        launches['lift_topk_fwd'], errs[0],
+        time_ms(lambda: kernels.lift_topk_fwd(*args, **kw)),
+        time_ms(lambda: plain_lift(args, kw, PLAIN_LIFT_CHUNK), iters=1),
+        lift_bound(args, kw, *out), None)
+    selected = int(args[3].sum())
+    del out
+    args, kw = lift_bwd.largest()
+    out = kernels.lift_topk_bwd(*args, **kw)
+    log_occupancy('lift_topk_bwd', f'7j {form}')
+    bwd = report(
+        f'lift_topk_bwd/{tag}', 'snap_tpu_torch/csrc/lift_topk_bwd.cu',
+        launches['lift_topk_bwd'], errs[1],
+        time_ms(lambda: kernels.lift_topk_bwd(*args, **kw)),
+        time_ms(lambda: plain_lift_bwd(args, kw, PLAIN_LIFT_CHUNK), iters=1),
+        lift_bwd_bound(args, kw, out), None)
+    del out
+    lift.calls.clear()  # the next form's K3 scratch needs the room
+    lift_bwd.calls.clear()
+    for row in (fwd, bwd):
+      log(f'{row["name"]} ({form}) at {tuple(args[0].shape)}, '
+          f'{tuple(args[1].shape)} ranks, {selected} selected: '
+          f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, bound '
+          f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}), max abs err '
+          f'{row["max_abs_err"]:.3g}')
+    rows += [fwd, bwd]
+  return rows
+
+
 def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
                 sample_bwd, lift_f32):
   """Check each kernel on every captured input (K1 also on the RANSAC
@@ -2755,6 +3078,7 @@ def main() -> int:
       f'lift_topk_bwd {check_lift_bwd(*lift_bwd):.3g}, patch_sample_2d_bwd '
       f'{check_sample_bwd(*sample_bwd):.3g}')
   del lift, sample, lift_bwd, sample_bwd
+  b8_seeded()
   scoring = {mask: check_pose_scoring(*seeded_pose_scoring_inputs('cuda',
                                                                    mask))
              for mask in (False, True)}
@@ -2785,6 +3109,8 @@ def main() -> int:
   heads_reference()
   # 5e. The mapper options the flagship does not use, card against CPU.
   a14_reference()
+  # 5f. The lift's other forms, card against CPU.
+  a145_reference()
 
   # 6-7e. Main paths, each with the launch counts reset just before it;
   # their batches made on the card by the dataset's iterators.
@@ -2803,14 +3129,24 @@ def main() -> int:
   heads_main_path(smi)
   # 7i. The aerial-only map, bev_net and query confidence at full width.
   a14_main_path(smi)
+  # 7j. The lift's other forms at full width.
+  b8_runs = a145_main_path(smi)
 
   # 7f. The device generator on the card. After the main paths: its
   # profile of one build is this script's first, and later launches on
   # the host-bound paths would pay for it.
   data_on_card(smi)
 
-  # 8. Kernels on the main paths' own inputs: check, then time.
+  # 8. Kernels on the main paths' own inputs: check, then time. B8's first:
+  # the scan's inputs and K3's scratch for its 20 ranks are the largest,
+  # and go before the plain versions of the others run.
   with torch.no_grad():
+    torch.cuda.empty_cache()
+    log(f'phase 8: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held '
+        f'(the main paths\' captured inputs)')
+    b8 = b8_rows(b8_runs)
+    del b8_runs
+    torch.cuda.empty_cache()
     rows = kernel_rows(serve_launches, train_launches, lift, sample,
                        lift_bwd, sample_bwd, lift_f32)
     rows += new_kernel_rows(ransac_launches, bench_launches, scoring,
@@ -2818,6 +3154,7 @@ def main() -> int:
     rows += ransac_training_rows(ransac_train_launches, scoring_train,
                                  scoring_bwd)
     rows += heldout_rows(heldout_launches, heldout_lift, heldout_sample)
+    rows += b8
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -118,6 +118,9 @@ class MLPConfig:
   apply_input_activation: bool = False
 
 
+POOLING_IMPLS = ('stream', 'scan', 'gather')
+
+
 @dataclasses.dataclass(frozen=True)
 class StreetViewEncoderConfig:
   image_encoder: ImageEncoderConfig = ImageEncoderConfig()
@@ -131,11 +134,23 @@ class StreetViewEncoderConfig:
   fusion_add_minmax: bool = False
   fusion_use_variance: bool = True
   max_view_distance: Optional[float] = None
+  # The lift's form (``defaults.py:244-250``): 'stream' (the top-k views
+  # pooled online), 'scan' (every view in view order, those within the
+  # k-th nearest visible one's distance pooled) or 'gather' (the
+  # reference's [N, K, D] observations, then masked statistics).
   pooling_impl: str = 'stream'
+  # A per-observation MLP over [feature, log10 depth, ray] added to the
+  # features before pooling; built only without weighted fusion.
+  depth_mlp: Optional[MLPConfig] = None
   # An experiment workdir whose ``streetview_encoder`` subtree warm-starts
   # this one, after its config is merged in ("export wins",
   # ``models/streetview_encoder.py:merged_config``).
   pretrained_path: Optional[str] = _warm_start_field()
+
+  def __post_init__(self):
+    if self.pooling_impl not in POOLING_IMPLS:
+      raise ValueError(f'pooling_impl={self.pooling_impl!r}; choose from '
+                       f'{POOLING_IMPLS}')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1031,10 +1046,6 @@ _CHECKED_KEYS = {
     DataConfig: {'name': 'streetview_singlescene'},
     LrConfig: {'learning_rate_schedule': 'compound'},
 }
-# Settings the port cannot run: a config that sets one raises.
-_UNPORTED_KEYS = {
-    StreetViewEncoderConfig: {'depth_mlp': 'a depth MLP (A14, item 5)'},
-}
 # Sections whose keys the reference reads with defaults (``.get``), so a
 # config may leave any of them out.
 _DEFAULTED = (BEVNetConfig,)
@@ -1084,11 +1095,6 @@ def _from_dict(cls, d: Mapping[str, Any], where: str, **given):
       continue
     if key in _CHECKED_KEYS.get(cls, {}):
       _check(name, value, _CHECKED_KEYS[cls][key])
-      continue
-    if key in _UNPORTED_KEYS.get(cls, {}):
-      if value is not None:
-        raise ValueError(f'from_reference: {name} is set; the port does not '
-                         f'run {_UNPORTED_KEYS[cls][key]}')
       continue
     if key not in hints or key in given:
       raise ValueError(f'from_reference: unknown key {name}')

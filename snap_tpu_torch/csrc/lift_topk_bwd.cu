@@ -27,6 +27,22 @@
 // rank, summed in f32 into a [B, R, W, C] buffer that the wrapper casts to
 // the stack's dtype. Coordinates, selection and depth get no gradient.
 //
+// B8, the other statistics layouts (lift_stats.cuh), each a compile-time
+// mode of its own: unweighted (C = D: z_k = 0 for every selected rank, so
+// p is uniform, and nothing reaches a score bin), without the variance
+// (gE2 = 0), and with the max and min of each channel, whose cotangents
+// add to d f_k down the chains f_max = where(select, max(f_max, f_k),
+// f_max) (and the min's) as jnp.maximum's gradient runs them: all of it to
+// the rank that last set the max strictly, and at each later exact tie
+// half of what reaches it to each side. In rank order that is: the rank
+// that last set it takes 2^-T of g_max, T the ties met after it, and the
+// i-th of those ties 2^-(T - i + 1). The first pass notes per channel that
+// rank and a bit for each tie after it; the second forms the shares from
+// those alone, so that taps gathered again there cannot round a tie
+// differently. The flagship's mode (weighted,
+// variance) keeps the code below; the others take its runtime rank loop
+// (any K <= 32) and D <= 256.
+//
 // Design: the selected ranks are sorted by the pixel of their lower tap, so
 // that the sum over a pixel's ranks is formed in registers and reaches the
 // global buffer as one vector add per tap and 4 channels, instead of one
@@ -79,6 +95,7 @@
 
 #include "bin_sort.cuh"
 #include "launch_log.cuh"
+#include "lift_stats.cuh"
 
 namespace {
 
@@ -160,9 +177,12 @@ __device__ inline Geo rank_geo(float p_i, float p_j, float dep, int h, int w,
   g.lj = (int)lj;
   g.fi = pi - li;
   g.fj = pj - lj;
-  const float d = fminf(fmaxf(dep, depth_min), depth_max);
-  const float x = logf(d / depth_min) / log_range * (float)(S - 1);
-  g.x = fminf(fmaxf(x, 0.f), (float)(S - 1));
+  g.x = 0.f;  // no score bins: unweighted
+  if (S > 0) {
+    const float d = fminf(fmaxf(dep, depth_min), depth_max);
+    const float x = logf(d / depth_min) / log_range * (float)(S - 1);
+    g.x = fminf(fmaxf(x, 0.f), (float)(S - 1));
+  }
   return g;
 }
 
@@ -330,11 +350,13 @@ __device__ inline float max_chain_share(int lane, int K, float my_z,
 }
 
 // d f of one rank for a lane's channels, into the rank's d f row, and the
-// lane's part of u.
-template <int CPL, int E>
+// lane's part of u. With kExtra, the max's and min's shares of the rank
+// (extra) add to d f.
+template <int CPL, int E, bool kExtra>
 __device__ inline float emit_d_f(const float (&f)[CPL][E], float p,
                                  const float (&gmu)[CPL][E],
-                                 const float (&ge2)[CPL][E], int cell, int D,
+                                 const float (&ge2)[CPL][E],
+                                 const float (&extra)[CPL][E], int cell, int D,
                                  float* row) {
   float partial = 0.f;
 #pragma unroll
@@ -347,6 +369,7 @@ __device__ inline float emit_d_f(const float (&f)[CPL][E], float p,
       if (c0 + e < D) {
         partial += gmu[q][e] * f[q][e] + ge2[q][e] * f[q][e] * f[q][e];
         df[e] = p * (gmu[q][e] + 2.f * ge2[q][e] * f[q][e]);
+        if constexpr (kExtra) df[e] += extra[q][e];
       }
     }
     // Whole float4s: D % 4 == 0, so the rows are 16-byte aligned.
@@ -357,6 +380,16 @@ __device__ inline float emit_d_f(const float (&f)[CPL][E], float p,
                make_float4(df[e], df[e + 1], df[e + 2], df[e + 3]));
   }
   return partial;
+}
+
+// The share of an extreme's cotangent g that rank k takes, given the rank
+// that last set the extreme strictly (at) and a bit for each rank that tied
+// it after that (ties): 2^-T for the rank that set it, T the ties; for a
+// tie 2^-(the ties at or after it).
+__device__ inline float extreme_share(int k, int at, unsigned ties, float g) {
+  if (k == at) return ldexpf(g, -__popc(ties));
+  if ((ties >> k) & 1u) return ldexpf(g, -__popc(ties >> k));
+  return 0.f;
 }
 
 // The last step of a point: d z_k and the records of its selected ranks.
@@ -380,14 +413,14 @@ __device__ inline void write_records(const LaneRank& me, int lane, int K,
 // its combined features stay in registers for pass 2 (a loop bound known
 // only at run time cost ~1 ms on the training path's input); with more
 // ranks the taps are gathered again.
-template <typename T, int CPL, bool kOneGroup>
+template <typename T, int CPL, bool kOneGroup, int kMode>
 __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
     const T* __restrict__ stack,           // [B, R, W, C]
     const int32_t* __restrict__ view_idx,  // [B, N, K]
     const float* __restrict__ p2d,         // [B, N, K, 2]
     const uint8_t* __restrict__ selected,  // [B, N, K]
     const float* __restrict__ depth,       // [B, N, K]
-    const T* __restrict__ g_stats,         // [B, N, 2D + 1]
+    const T* __restrict__ g_stats,         // [B, N, stats_width]
     const int* __restrict__ offsets,       // [bins + 1]
     const int* __restrict__ within,        // [B, N, K]
     float* __restrict__ d_f,               // [slots, D]
@@ -395,6 +428,8 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
     int* __restrict__ bins,                // [slots]
     Dims d) {
   constexpr int KG = 4;  // ranks per group
+  constexpr bool kW = (kMode & kWeighted) != 0;
+  constexpr bool kMM = (kMode & kMinMax) != 0;
   using Raw = typename Quad<T>::Raw;
   const int lane = threadIdx.x & 31;
   const long long point =
@@ -412,22 +447,30 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
   const long long down = (long long)W * C;
   // The point's cotangent for the lane's channels, fetched ahead (read
   // once: evict first, so that the stack stays in L2).
-  const T* g = g_stats + point * (2 * D + 1);
-  float g_mean[CPL][4], g_var[CPL][4];
+  const int row = stats_width(kMode, D), at_max = max_offset(kMode, D);
+  const T* g = g_stats + point * row;
+  float g_mean[CPL][4], g_var[CPL][4], g_max[CPL][4], g_min[CPL][4];
 #pragma unroll
   for (int q = 0; q < CPL; ++q) {
     const int c0 = 4 * (lane + 32 * q);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       g_mean[q][e] = c0 < D ? to_float(__ldcs(g + c0 + e)) : 0.f;
-      g_var[q][e] = c0 < D ? to_float(__ldcs(g + D + c0 + e)) : 0.f;
+      g_var[q][e] = 0.f;
+      if constexpr ((kMode & kVariance) != 0)
+        g_var[q][e] = c0 < D ? to_float(__ldcs(g + D + c0 + e)) : 0.f;
+      if constexpr (kMM) {
+        g_max[q][e] = c0 < D ? to_float(__ldcs(g + at_max + c0 + e)) : 0.f;
+        g_min[q][e] = c0 < D ? to_float(__ldcs(g + at_max + D + c0 + e)) : 0.f;
+      }
     }
   }
-  const float g_m = to_float(g[2 * D]);
+  const float g_m = kW ? to_float(g[row - 1]) : 0.f;
 
   // Lane k: rank k's score from the two depth bins around x.
   float my_z = kNegInf;
-  if (me.sel) {
+  if (!kW && me.sel) my_z = 0.f;
+  if (kW && me.sel) {
     float tw[4];
     tap_weights(me.geo.fi, me.geo.fj, tw);
     const int s0 = min((int)me.geo.x, S - 1), s1 = min(s0 + 1, S - 1);
@@ -486,12 +529,24 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
   };
 
   // Pass 1: the online softmax in rank order, as K1 and the reference run
-  // it.
-  float s1[CPL][4], s2[CPL][4];
+  // it; with kMM, per channel the max and min, the rank that last set each
+  // strictly and a bit for each rank that tied it since.
+  float s1[CPL][4], s2[CPL][4], mx[CPL][4], mn[CPL][4];
+  int mx_at[CPL][4], mn_at[CPL][4];
+  unsigned mx_ties[CPL][4], mn_ties[CPL][4];
 #pragma unroll
   for (int q = 0; q < CPL; ++q)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) { s1[q][e] = 0.f; s2[q][e] = 0.f; }
+    for (int e = 0; e < 4; ++e) {
+      s1[q][e] = 0.f;
+      s2[q][e] = 0.f;
+      if constexpr (kMM) {
+        mx[q][e] = -inf_f();
+        mn[q][e] = inf_f();
+        mx_at[q][e] = mn_at[q][e] = 0;
+        mx_ties[q][e] = mn_ties[q][e] = 0u;
+      }
+    }
   float m = kNegInf, l = 0.f;
   const int num_k = kOneGroup ? KG : d.K;  // k0 + u <= 31 as K <= 32
   for (int k0 = 0; k0 < num_k; k0 += KG) {
@@ -500,7 +555,31 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
     for (int u = 0; u < KG; ++u) {
       const int k = k0 + u;
       const float score = __shfl_sync(kFull, my_z, k);
-      if ((sel >> k) & 1) online_update(score, f[u], m, l, s1, s2);
+      if ((sel >> k) & 1) {
+        online_update(score, f[u], m, l, s1, s2);
+        if constexpr (kMM) {
+#pragma unroll
+          for (int q = 0; q < CPL; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = f[u][q][e];
+              if (v > mx[q][e]) {
+                mx[q][e] = v;
+                mx_at[q][e] = k;
+                mx_ties[q][e] = 0u;
+              } else if (v == mx[q][e]) {
+                mx_ties[q][e] |= 1u << k;
+              }
+              if (v < mn[q][e]) {
+                mn[q][e] = v;
+                mn_at[q][e] = k;
+                mn_ties[q][e] = 0u;
+              } else if (v == mn[q][e]) {
+                mn_ties[q][e] |= 1u << k;
+              }
+            }
+        }
+      }
     }
   }
 
@@ -520,16 +599,37 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
       const float p = __shfl_sync(kFull, my_p, k);
       const int slot = __shfl_sync(kFull, me.slot, k);
       u[v] = 0.f;
-      if ((sel >> k) & 1)
-        u[v] = emit_d_f(f[v], p, gmu, ge2, lane, D, d_f + (long long)slot * D);
-    }
+      if ((sel >> k) & 1) {
+        float extra[CPL][4];
+        if constexpr (kMM) {
+          // The max's and min's shares of rank k (above).
 #pragma unroll
-    for (int v = 0; v < KG; ++v) {
-      const float sum = warp_sum(u[v]);
-      if (lane == k0 + v) my_u = sum;
+          for (int q = 0; q < CPL; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              extra[q][e] =
+                  extreme_share(k, mx_at[q][e], mx_ties[q][e], g_max[q][e]) +
+                  extreme_share(k, mn_at[q][e], mn_ties[q][e], g_min[q][e]);
+        }
+        u[v] = emit_d_f<CPL, 4, kMM>(f[v], p, gmu, ge2, extra, lane, D,
+                                     d_f + (long long)slot * D);
+      }
+    }
+    if constexpr (kW) {
+#pragma unroll
+      for (int v = 0; v < KG; ++v) {
+        const float sum = warp_sum(u[v]);
+        if (lane == k0 + v) my_u = sum;
+      }
     }
   }
-  write_records(me, lane, d.K, my_z, my_p, my_u, g_m, records, bins);
+  if constexpr (kW) {
+    write_records(me, lane, d.K, my_z, my_p, my_u, g_m, records, bins);
+  } else if (me.sel) {
+    // Unweighted: no score bins, so the runs read the tap fractions alone.
+    records[me.slot] = make_float4(me.geo.fi, me.geo.fj, 0.f, 0.f);
+    bins[me.slot] = me.bin;
+  }
 }
 
 // 4. Per block of kChunk sorted ranks: the first feature_warps warps hold 4
@@ -630,7 +730,7 @@ __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
   if (cur >= 0) flush();
 }
 
-template <typename T>
+template <typename T, int kMode>
 int launch_ranks(const void* stack, const int32_t* view_idx, const float* p2d,
                  const uint8_t* selected, const float* depth,
                  const void* g_stats, const int* offsets, const int* within,
@@ -648,35 +748,64 @@ int launch_ranks(const void* stack, const int32_t* view_idx, const float* p2d,
         bins, d);
     return (int)cudaGetLastError();
   };
-  const bool one_group = d.K <= 4;
-  if (d.D <= 128 && one_group) return run(ranks_kernel<T, 1, true>);
-  if (d.D <= 128) return run(ranks_kernel<T, 1, false>);
-  if (d.D <= 256 && one_group) return run(ranks_kernel<T, 2, true>);
-  if (d.D <= 256) return run(ranks_kernel<T, 2, false>);
+  // Only the flagship's layout keeps one group of ranks in registers.
+  if constexpr (kMode == kFlagship) {
+    const bool one_group = d.K <= 4;
+    if (d.D <= 128 && one_group) return run(ranks_kernel<T, 1, true, kMode>);
+    if (d.D <= 256 && one_group) return run(ranks_kernel<T, 2, true, kMode>);
+  }
+  if (d.D <= 128) return run(ranks_kernel<T, 1, false, kMode>);
+  if (d.D <= 256) return run(ranks_kernel<T, 2, false, kMode>);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation of the statistics layout `mode` (lift_stats.cuh).
+template <typename T>
+int launch_ranks_mode(int mode, const void* stack, const int32_t* view_idx,
+                      const float* p2d, const uint8_t* selected,
+                      const float* depth, const void* g_stats,
+                      const int* offsets, const int* within, float* d_f,
+                      float4* records, int* bins, const Dims& d,
+                      cudaStream_t stream) {
+#define SNAP_LIFT_MODE(M)                                                    \
+  case M:                                                                    \
+    return launch_ranks<T, M>(stack, view_idx, p2d, selected, depth, g_stats, \
+                              offsets, within, d_f, records, bins, d, stream);
+  switch (mode) {
+    SNAP_LIFT_MODE(0) SNAP_LIFT_MODE(1) SNAP_LIFT_MODE(2) SNAP_LIFT_MODE(3)
+    SNAP_LIFT_MODE(4) SNAP_LIFT_MODE(5) SNAP_LIFT_MODE(6) SNAP_LIFT_MODE(7)
+  }
+#undef SNAP_LIFT_MODE
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (stack and g_stats). Scratch, allocated
+// dtype: 0 = float32, 1 = bfloat16 (stack and g_stats). weighted,
+// use_variance and add_minmax pick the statistics layout, stats_row wide
+// (lift_stats.cuh); weighted iff C > D. Scratch, allocated
 // by the caller: counts [bins] int32 zeroed, offsets [bins + 1] int32,
 // within and bins_of_slots [B * N * K] int32, d_f [B * N * K, D] f32 and
 // records [B * N * K, 4] f32, with bins = B * V * h * w and V = R / (h + 1).
 // grad [B, R, W, C] f32 must be zeroed; C * dtype size a multiple of 16
-// bytes; D % 4 == 0 and D <= 256; K <= 32.
+// bytes; D % 4 == 0 and D <= 256; C <= 256; K <= 32.
 // Returns a cudaError_t (0 on success).
 extern "C" int lift_topk_bwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, const void* g_stats, void* grad,
     void* counts, void* offsets, void* within, void* d_f, void* records,
     void* bins_of_slots, int dtype, int B, int N, int K, int R, int W, int C,
-    int D, int h, int w, float depth_min, float depth_max, float log_range,
+    int D, int h, int w, int weighted, int use_variance, int add_minmax,
+    int stats_row, float depth_min, float depth_max, float log_range,
     void* stream) {
   launches.clear();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int feature_warps = (D + 127) / 128, score_warps = (C - D + 31) / 32;
+  const int mode = (weighted ? kWeighted : 0) |
+                   (use_variance ? kVariance : 0) | (add_minmax ? kMinMax : 0);
   if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 1 ||
-      feature_warps + score_warps > kMaxRunWarps)
+      feature_warps + score_warps > kMaxRunWarps ||
+      (weighted != 0) != (C > D) || stats_row != stats_width(mode, D))
     return (int)cudaErrorInvalidValue;
   const Dims d{B, N, K, R, W, C, D, h, w, R / (h + 1), depth_min, depth_max,
                log_range};
@@ -708,11 +837,12 @@ extern "C" int lift_topk_bwd(
   if ((code = (int)cudaGetLastError())) return code;
   const auto* dep = static_cast<const float*>(depth);
   code = dtype == 0
-             ? launch_ranks<float>(stack, idx, pts, sel, dep, g_stats, off,
-                                   pos, df, rec, slot_bins, d, s)
-             : launch_ranks<__nv_bfloat16>(stack, idx, pts, sel, dep,
-                                           g_stats, off, pos, df, rec,
-                                           slot_bins, d, s);
+             ? launch_ranks_mode<float>(mode, stack, idx, pts, sel, dep,
+                                        g_stats, off, pos, df, rec, slot_bins,
+                                        d, s)
+             : launch_ranks_mode<__nv_bfloat16>(mode, stack, idx, pts, sel,
+                                                dep, g_stats, off, pos, df,
+                                                rec, slot_bins, d, s);
   if (code) return code;
   // Enough blocks for every rank; those past the selected ones return.
   const unsigned blocks = (unsigned)((ranks + kChunk - 1) / kChunk);

@@ -15,6 +15,14 @@
 // Epilogue: stats = [S1/l, max(S2/l - mean^2, 0), m] (zeros where no rank is
 // selected), written in the stack's dtype; valid = (count > 0).
 //
+// B8, the other statistics layouts (lift_stats.cuh), each a compile-time
+// mode of its own: unweighted (C = D: every selected rank scores 0, so the
+// weights are equal and no m is written), without the variance, and with
+// the max and min of each feature channel over the selected ranks, in the
+// row [mean, var?, max?, min?, m?]. The flagship's mode (weighted,
+// variance) keeps the design below; the others take its runtime rank loop
+// (any K <= 32, as the scan form's K = V = 20) and D <= 256.
+//
 // A rank that is not selected leaves the state exactly as the reference's
 // masked update does (its weight is 0), so it is skipped without a read.
 //
@@ -67,6 +75,7 @@
 #include <stdint.h>
 
 #include "launch_log.cuh"
+#include "lift_stats.cuh"
 
 namespace {
 
@@ -157,11 +166,12 @@ __device__ inline RankIn load_ranks(long long point, int lane, const Dims& d,
 }
 
 // One point's stats row into my_row (shared memory) and its valid flag.
-template <typename T, int CPL, bool kOneGroup>
+template <typename T, int CPL, bool kOneGroup, int kMode>
 __device__ inline void lift_point(const T* __restrict__ stack,
                                   const RankIn& in, long long point, int lane,
                                   const Dims& d, T* my_row, uint8_t* valid) {
   constexpr int KG = 4 / CPL;  // ranks per group
+  constexpr bool kW = (kMode & kWeighted) != 0;
   using Raw = typename Quad<T>::Raw;
   const int C = d.C, D = d.D, S = C - D, W = d.W;
   const int b = (int)(point / d.N);
@@ -183,10 +193,12 @@ __device__ inline void lift_point(const T* __restrict__ stack,
       fi = pi - li;
       fj = pj - lj;
       tap0 = (((long long)view * (d.h + 1) + (int)li) * W + (int)lj) * C;
-      const float dc = fminf(fmaxf(dep, d.depth_min), d.depth_max);
-      const float xr =
-          logf(dc / d.depth_min) / d.log_range * (float)(S - 1);
-      x = fminf(fmaxf(xr, 0.f), (float)(S - 1));
+      if constexpr (kW) {
+        const float dc = fminf(fmaxf(dep, d.depth_min), d.depth_max);
+        const float xr =
+            logf(dc / d.depth_min) / d.log_range * (float)(S - 1);
+        x = fminf(fmaxf(xr, 0.f), (float)(S - 1));
+      }
     }
   }
   const unsigned selmask = __ballot_sync(kFull, sel);
@@ -194,8 +206,8 @@ __device__ inline void lift_point(const T* __restrict__ stack,
   // Lane k: score z_k from the two depth bins around x (loads issued
   // here, used after the first group's taps are in flight).
   float za[4], zb[4];
-  const int s0 = min((int)x, S - 1), s1 = min(s0 + 1, S - 1);
-  if (sel) {
+  const int s0 = kW ? min((int)x, S - 1) : 0, s1 = kW ? min(s0 + 1, S - 1) : 0;
+  if (kW && sel) {
     const T* taps[4] = {base + tap0, base + tap0 + C, base + tap0 + down,
                         base + tap0 + down + C};
 #pragma unroll
@@ -251,17 +263,23 @@ __device__ inline void lift_point(const T* __restrict__ stack,
       }
   };
 
-  float s1a[CPL][4], s2a[CPL][4];
+  float s1a[CPL][4], s2a[CPL][4], fmx[CPL][4], fmn[CPL][4];
 #pragma unroll
   for (int q = 0; q < CPL; ++q)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) { s1a[q][e] = 0.f; s2a[q][e] = 0.f; }
+    for (int e = 0; e < 4; ++e) {
+      s1a[q][e] = 0.f;
+      s2a[q][e] = 0.f;
+      fmx[q][e] = -inf_f();
+      fmn[q][e] = inf_f();
+    }
   float m = kNegInf, l = 0.f;
   float my_z = kNegInf;
   const int num_k = kOneGroup ? KG : d.K;
   for (int k0 = 0; k0 < num_k; k0 += KG) {
     gather(k0);
-    if (k0 == 0 && sel) {
+    if (!kW && k0 == 0 && sel) my_z = 0.f;
+    if (kW && k0 == 0 && sel) {
       const float tw[4] = {(1.f - fi) * (1.f - fj), (1.f - fi) * fj,
                            fi * (1.f - fj), fi * fj};
       float fa = 0.f, fb = 0.f;
@@ -289,6 +307,10 @@ __device__ inline void lift_point(const T* __restrict__ stack,
           for (int e = 0; e < 4; ++e) {
             s1a[q][e] = s1a[q][e] * rescale + wv * f[u][q][e];
             s2a[q][e] = s2a[q][e] * rescale + wv * f[u][q][e] * f[u][q][e];
+            if constexpr ((kMode & kMinMax) != 0) {
+              fmx[q][e] = fmaxf(fmx[q][e], f[u][q][e]);
+              fmn[q][e] = fminf(fmn[q][e], f[u][q][e]);
+            }
           }
         m = new_m;
       }
@@ -300,6 +322,7 @@ __device__ inline void lift_point(const T* __restrict__ stack,
   // them (correctly rounded quotients, no FMA): the variance's tie at 0
   // falls on the same side in all three.
   const float l_safe = fmaxf(l, 1e-20f);
+  const int at_max = max_offset(kMode, D);
 #pragma unroll
   for (int q = 0; q < CPL; ++q) {
     const int c0 = 4 * (lane + 32 * q);
@@ -307,14 +330,21 @@ __device__ inline void lift_point(const T* __restrict__ stack,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float mean = __fdiv_rn(s1a[q][e], l_safe);
-      const float e2 = __fdiv_rn(s2a[q][e], l_safe);
-      const float var = fmaxf(__fsub_rn(e2, __fmul_rn(mean, mean)), 0.f);
       from_float(ok ? mean : 0.f, my_row + c0 + e);
-      from_float(ok ? var : 0.f, my_row + D + c0 + e);
+      if constexpr ((kMode & kVariance) != 0) {
+        const float e2 = __fdiv_rn(s2a[q][e], l_safe);
+        const float var = fmaxf(__fsub_rn(e2, __fmul_rn(mean, mean)), 0.f);
+        from_float(ok ? var : 0.f, my_row + D + c0 + e);
+      }
+      if constexpr ((kMode & kMinMax) != 0) {
+        from_float(ok ? fmx[q][e] : 0.f, my_row + at_max + c0 + e);
+        from_float(ok ? fmn[q][e] : 0.f, my_row + at_max + D + c0 + e);
+      }
     }
   }
   if (lane == 0) {
-    from_float(ok ? m : 0.f, my_row + 2 * D);
+    if constexpr (kW)
+      from_float(ok ? m : 0.f, my_row + stats_width(kMode, D) - 1);
     *valid = ok ? 1 : 0;
   }
 }
@@ -324,7 +354,7 @@ __device__ inline void lift_point(const T* __restrict__ stack,
 // the partial 16-byte chunk carried from the row before, whole chunks are
 // written as 16-byte stores, and the span's first and last partial chunks
 // (shared with the neighbouring warps' spans) as scalars.
-template <typename T, int CPL, bool kOneGroup>
+template <typename T, int CPL, bool kOneGroup, int kMode>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks<T>)
 lift_topk_fwd_kernel(
     const T* __restrict__ stack,           // [B, R, W, C]
@@ -332,13 +362,13 @@ lift_topk_fwd_kernel(
     const float* __restrict__ p2d,         // [B, N, K, 2] (row, col) pixels
     const uint8_t* __restrict__ selected,  // [B, N, K]
     const float* __restrict__ depth,       // [B, N, K]
-    T* __restrict__ stats,                 // [B, N, 2D + 1]
+    T* __restrict__ stats,                 // [B, N, stats_width]
     uint8_t* __restrict__ valid,           // [B, N]
     Dims d) {
   constexpr int kPerVec = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = 2 * d.D + 1;
+  const int row = stats_width(kMode, d.D);
   T* buf = reinterpret_cast<T*>(smem) + warp * staged_stride<T>(row);
   const long long total = (long long)d.B * d.N;
   const long long p0 =
@@ -358,8 +388,8 @@ lift_topk_fwd_kernel(
     const RankIn in = next;
     if (point + 1 < p1)  // the next point's inputs load during this one
       next = load_ranks(point + 1, lane, d, view_idx, p2d, selected, depth);
-    lift_point<T, CPL, kOneGroup>(stack, in, point, lane, d, buf + pending,
-                                  valid + point);
+    lift_point<T, CPL, kOneGroup, kMode>(stack, in, point, lane, d,
+                                         buf + pending, valid + point);
     __syncwarp();
     const int count = pending + row;
     const int chunks = count / kPerVec;
@@ -385,14 +415,15 @@ lift_topk_fwd_kernel(
   if (lane < pending) stats[at + lane] = buf[lane];
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, int kMode>
 int launch(const void* stack, const int32_t* view_idx, const float* p2d,
            const uint8_t* selected, const float* depth, void* stats,
            uint8_t* valid, const Dims& d, cudaStream_t stream) {
   const long long points = (long long)d.B * d.N;
   const long long per_block = (long long)kWarps * kPointsPerWarp;
   const unsigned blocks = (unsigned)((points + per_block - 1) / per_block);
-  const int smem = kWarps * staged_stride<T>(2 * d.D + 1) * (int)sizeof(T);
+  const int smem =
+      kWarps * staged_stride<T>(stats_width(kMode, d.D)) * (int)sizeof(T);
   const auto run = [&](auto kernel) {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -405,40 +436,70 @@ int launch(const void* stack, const int32_t* view_idx, const float* p2d,
         static_cast<T*>(stats), valid, d);
     return (int)cudaGetLastError();
   };
-  if (d.K <= 4 / CPL) return run(lift_topk_fwd_kernel<T, CPL, true>);
-  return run(lift_topk_fwd_kernel<T, CPL, false>);
+  // Only the flagship's layout unrolls its one group of ranks.
+  if constexpr (kMode == kFlagship) {
+    if (d.K <= 4 / CPL) return run(lift_topk_fwd_kernel<T, CPL, true, kMode>);
+  }
+  return run(lift_topk_fwd_kernel<T, CPL, false, kMode>);
 }
 
-template <typename T>
+template <typename T, int kMode>
 int dispatch(const void* stack, const int32_t* view_idx, const float* p2d,
              const uint8_t* selected, const float* depth, void* stats,
              uint8_t* valid, const Dims& d, cudaStream_t stream) {
   const int cpl = (d.D + 127) / 128;
   if (cpl <= 1)
-    return launch<T, 1>(stack, view_idx, p2d, selected, depth, stats, valid,
-                        d, stream);
+    return launch<T, 1, kMode>(stack, view_idx, p2d, selected, depth, stats,
+                               valid, d, stream);
   if (cpl <= 2)
-    return launch<T, 2>(stack, view_idx, p2d, selected, depth, stats, valid,
-                        d, stream);
-  if (cpl <= 4)
-    return launch<T, 4>(stack, view_idx, p2d, selected, depth, stats, valid,
-                        d, stream);
+    return launch<T, 2, kMode>(stack, view_idx, p2d, selected, depth, stats,
+                               valid, d, stream);
+  if constexpr (kMode == kFlagship) {
+    if (cpl <= 4)
+      return launch<T, 4, kMode>(stack, view_idx, p2d, selected, depth,
+                                 stats, valid, d, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation of the statistics layout `mode` (lift_stats.cuh).
+template <typename T>
+int dispatch_mode(int mode, const void* stack, const int32_t* view_idx,
+                  const float* p2d, const uint8_t* selected,
+                  const float* depth, void* stats, uint8_t* valid,
+                  const Dims& d, cudaStream_t stream) {
+#define SNAP_LIFT_MODE(M)                                                    \
+  case M:                                                                    \
+    return dispatch<T, M>(stack, view_idx, p2d, selected, depth, stats,      \
+                          valid, d, stream);
+  switch (mode) {
+    SNAP_LIFT_MODE(0) SNAP_LIFT_MODE(1) SNAP_LIFT_MODE(2) SNAP_LIFT_MODE(3)
+    SNAP_LIFT_MODE(4) SNAP_LIFT_MODE(5) SNAP_LIFT_MODE(6) SNAP_LIFT_MODE(7)
+  }
+#undef SNAP_LIFT_MODE
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Needs D % 4 == 0, D <= 512, K <= 32 and
-// 16-byte aligned stack rows and stats. Returns a cudaError_t (0 on
-// success).
+// dtype: 0 = float32, 1 = bfloat16. weighted, use_variance and add_minmax
+// pick the statistics layout, stats_row wide (lift_stats.cuh); weighted iff
+// C > D. Needs D % 4 == 0, K <= 32, D <= 512 for the flagship's layout and
+// D <= 256 for the others, and 16-byte aligned stack rows and stats.
+// Returns a cudaError_t (0 on success).
 extern "C" int lift_topk_fwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, void* stats, void* valid,
     int dtype, int B, int N, int K, int R, int W, int C, int D, int h, int w,
+    int weighted, int use_variance, int add_minmax, int stats_row,
     float depth_min, float depth_max, float log_range, void* stream) {
   launches.clear();
+  const int mode = (weighted ? kWeighted : 0) |
+                   (use_variance ? kVariance : 0) | (add_minmax ? kMinMax : 0);
+  if (D % 4 || K > 32 || (weighted != 0) != (C > D) ||
+      stats_row != stats_width(mode, D))
+    return (int)cudaErrorInvalidValue;
   if ((long long)B * N == 0) return 0;
-  if (D % 4 || K > 32) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* idx = static_cast<const int32_t*>(view_idx);
   const auto* pts = static_cast<const float*>(p2d);
@@ -447,10 +508,11 @@ extern "C" int lift_topk_fwd(
   auto* val = static_cast<uint8_t*>(valid);
   const Dims d{B, N, K, R, W, C, D, h, w, depth_min, depth_max, log_range};
   if (dtype == 0)
-    return dispatch<float>(stack, idx, pts, sel, dep, stats, val, d, s);
+    return dispatch_mode<float>(mode, stack, idx, pts, sel, dep, stats, val, d,
+                                s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(stack, idx, pts, sel, dep, stats, val, d,
-                                   s);
+    return dispatch_mode<__nv_bfloat16>(mode, stack, idx, pts, sel, dep, stats,
+                                        val, d, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
 """Build, bind and launch the port's CUDA kernels (``snap_tpu_torch/csrc``).
 
-The sources are compiled by one plain ``nvcc`` call into a shared library
-with a C interface and loaded with ``ctypes``; nothing here includes
+The sources are compiled by plain ``nvcc`` calls, one per source, all
+started together, and linked into a shared library with a C interface,
+loaded with ``ctypes``; nothing here includes
 PyTorch's headers. The library lands in ``build/kernels/`` at the repo root
 (listed in ``.gitignore``), named by a hash of the sources, on first use.
 
@@ -22,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -81,27 +83,55 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-  """Compile every ``csrc/*.cu`` into one .so unless it is already built."""
+  """Compile every ``csrc/*.cu`` into one .so unless it is already built:
+  one ``nvcc -c`` per source, all started together, then one link."""
   target = library_path()
   if target.exists():
     return target
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  sources = [str(s) for s in sorted(CSRC.glob('*.cu'))]
-  # Build under a temporary name and rename: concurrent builders never see
-  # a half-written library.
-  fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-  os.close(fd)
-  cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources]
-  try:
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT_S)
-    if proc.returncode != 0:
-      raise RuntimeError(
-          f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{proc.stderr}')
-    os.replace(tmp, target)
-  finally:
-    if os.path.exists(tmp):
-      os.unlink(tmp)
+  nvcc = _nvcc()
+  compile_flags = [f for f in NVCC_FLAGS if f != '-shared']
+  deadline = time.monotonic() + BUILD_TIMEOUT_S
+  # Build in a temporary directory and rename the library: concurrent
+  # builds never see a half-written one.
+  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+
+    def start(cmd, name):
+      log = open(os.path.join(tmp, f'{name}.log'), 'w+')
+      return cmd, log, subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT)
+
+    def finish(cmd, log, proc):
+      try:
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+      finally:
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
+        log.seek(0)
+        output = log.read()
+        log.close()
+      if proc.returncode != 0:
+        raise RuntimeError(
+            f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{output}')
+
+    jobs, objects, failures = [], [], []
+    try:
+      for src in sorted(CSRC.glob('*.cu')):
+        objects.append(os.path.join(tmp, f'{src.stem}.o'))
+        jobs.append(start([nvcc, *compile_flags, '-c', '-o', objects[-1],
+                           str(src)], src.stem))
+    finally:
+      for job in jobs:  # every job ends (or is killed) before a raise
+        try:
+          finish(*job)
+        except (RuntimeError, subprocess.TimeoutExpired) as e:
+          failures.append(e)
+    if failures:
+      raise failures[0]
+    library = os.path.join(tmp, 'library.so')
+    finish(*start([nvcc, *NVCC_FLAGS, '-o', library, *objects], 'link'))
+    os.replace(library, target)
   return target
 
 
@@ -121,9 +151,9 @@ def load_library() -> ctypes.CDLL:
   lib = ctypes.CDLL(str(build()))
   vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-  lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 10 + [f32] * 3 + [vp]
+  lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 14 + [f32] * 3 + [vp]
   lib.patch_sample_2d.argtypes = [vp] * 6 + [i32] * 9 + [vp]
-  lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 10 + [f32] * 3 + [vp]
+  lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 14 + [f32] * 3 + [vp]
   lib.patch_sample_2d_bwd.argtypes = [vp] * 8 + [i32] * 7 + [vp]
   lib.pose_scoring.argtypes = [vp] * 8 + [i32] * 5 + [f32] + [i32] * 3 + [vp]
   lib.pose_scoring_bwd.argtypes = [vp] * 8 + [i32] * 5 + [f32, i32, i32, vp]
@@ -169,39 +199,62 @@ def _raise_on_error(code: int, kernel: str) -> None:
     raise RuntimeError(f'{kernel} launch failed: cudaError_t {code}')
 
 
-def lift_topk_fwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
-                  select: Tensor, depth: Tensor, *, h: int, w: int, dim: int,
-                  depth_min_max: Tuple[float, float]) -> Tuple[Tensor, Tensor]:
-  """K1 on the card: ``stats [B, N, 2*dim + 1]`` (stack dtype), ``valid``."""
+def stats_width(dim: int, weighted: bool, use_variance: bool,
+                add_minmax: bool) -> int:
+  """Channels of the lift's statistics ``[mean, var?, max?, min?,
+  score_max?]`` over ``dim`` features (``csrc/lift_stats.cuh``)."""
+  return dim * (1 + int(use_variance) + 2 * int(add_minmax)) + int(weighted)
+
+
+def _lift_layout(name: str, stack: Tensor, k: int, *, h: int, w: int,
+                 dim: int, use_variance: bool, add_minmax: bool) -> int:
+  """Checks K1's and K3's shared arguments; their stats width. The stack
+  holds score bins past ``dim`` (weighted fusion) or none."""
   if stack.device.type != 'cuda':
-    raise ValueError(f'lift_topk_fwd needs CUDA tensors, got {stack.device}')
+    raise ValueError(f'{name} needs CUDA tensors, got {stack.device}')
   if stack.dtype not in _DTYPE_CODES:
-    raise ValueError(f'lift_topk_fwd: unsupported dtype {stack.dtype}')
-  b, r, wp, c = stack.shape
-  n, k = view_idx.shape[1:]
-  if r % (h + 1) or wp != w + 1 or not 0 < dim < c:
+    raise ValueError(f'{name}: unsupported dtype {stack.dtype}')
+  _, r, wp, c = stack.shape
+  if r % (h + 1) or wp != w + 1 or not 0 < dim <= c:
     raise ValueError(f'stack {tuple(stack.shape)} vs h={h} w={w} dim={dim}')
   if (c * stack.element_size()) % 16 or stack.data_ptr() % 16 or dim % 4:
-    raise ValueError('lift_topk_fwd needs 16-byte aligned stack rows and '
+    raise ValueError(f'{name} needs 16-byte aligned stack rows and '
                      f'dim % 4 == 0, got {c} channels, dim {dim}')
-  if dim > 4 * 128 or k > 32:
-    raise ValueError(f'lift_topk_fwd supports dim <= 512 and at most 32 '
-                     f'ranks, got dim {dim}, {k} ranks')
+  flagship = c > dim and use_variance and not add_minmax
+  if k > 32 or dim > (4 if flagship and name == 'lift_topk_fwd' else 2) * 128:
+    raise ValueError(f'{name} supports at most 32 ranks and dim <= 256 '
+                     f'(512 in the forward of the layout [mean, var, '
+                     f'score_max]), got dim {dim}, {k} ranks')
+  return stats_width(dim, c > dim, use_variance, add_minmax)
+
+
+def lift_topk_fwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
+                  select: Tensor, depth: Tensor, *, h: int, w: int, dim: int,
+                  depth_min_max: Tuple[float, float],
+                  use_variance: bool = True, add_minmax: bool = False
+                  ) -> Tuple[Tensor, Tensor]:
+  """K1 on the card: ``stats [B, N, stats_width(...)]`` (stack dtype),
+  ``valid``."""
+  b, r, wp, c = stack.shape
+  n, k = view_idx.shape[1:]
+  width = _lift_layout('lift_topk_fwd', stack, k, h=h, w=w, dim=dim,
+                       use_variance=use_variance, add_minmax=add_minmax)
   dev = stack.device
   _check(stack, 'stack', stack.dtype, (b, r, wp, c), dev)
   _check(view_idx, 'view_idx', torch.int32, (b, n, k), dev)
   _check(p2d, 'p2d', torch.float32, (b, n, k, 2), dev)
   _check(select, 'select', torch.bool, (b, n, k), dev)
   _check(depth, 'depth', torch.float32, (b, n, k), dev)
-  stats = torch.empty((b, n, 2 * dim + 1), dtype=stack.dtype, device=dev)
+  stats = torch.empty((b, n, width), dtype=stack.dtype, device=dev)
   valid = torch.empty((b, n), dtype=torch.bool, device=dev)
   lo, hi = depth_min_max
   lib = load_library()
   code = lib.lift_topk_fwd(
       stack.data_ptr(), view_idx.data_ptr(), p2d.data_ptr(),
       select.data_ptr(), depth.data_ptr(), stats.data_ptr(), valid.data_ptr(),
-      _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h, w,
-      float(lo), float(hi), math.log(hi / lo),
+      _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h, w, int(c > dim),
+      int(use_variance), int(add_minmax), width, float(lo), float(hi),
+      math.log(hi / lo),
       torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'lift_topk_fwd')
   LAUNCHES['lift_topk_fwd'] += 1
@@ -250,7 +303,8 @@ def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
 
 def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
                   select: Tensor, depth: Tensor, g_stats: Tensor, *, h: int,
-                  w: int, dim: int, depth_min_max: Tuple[float, float]
+                  w: int, dim: int, depth_min_max: Tuple[float, float],
+                  use_variance: bool = True, add_minmax: bool = False
                   ) -> Tensor:
   """K3 on the card: ``d stack`` (stack dtype) from ``g_stats`` = d stats.
 
@@ -260,28 +314,19 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   place in its bin, a record, its bin and its f32 ``d f`` row
   (``B * N * K * dim * 4`` bytes, 4.7 GB on the training path).
   """
-  if stack.device.type != 'cuda':
-    raise ValueError(f'lift_topk_bwd needs CUDA tensors, got {stack.device}')
-  if stack.dtype not in _DTYPE_CODES:
-    raise ValueError(f'lift_topk_bwd: unsupported dtype {stack.dtype}')
   b, r, wp, c = stack.shape
   n, k = view_idx.shape[1:]
-  if r % (h + 1) or wp != w + 1 or not 0 < dim < c:
-    raise ValueError(f'stack {tuple(stack.shape)} vs h={h} w={w} dim={dim}')
+  width = _lift_layout('lift_topk_bwd', stack, k, h=h, w=w, dim=dim,
+                       use_variance=use_variance, add_minmax=add_minmax)
   if c > 8 * 32:
     raise ValueError(f'lift_topk_bwd supports at most 256 channels, got {c}')
-  if (c * stack.element_size()) % 16 or stack.data_ptr() % 16 or dim % 4:
-    raise ValueError('lift_topk_bwd needs 16-byte aligned stack rows and '
-                     f'dim % 4 == 0, got {c} channels, dim {dim}')
-  if k > 32:
-    raise ValueError(f'lift_topk_bwd supports at most 32 ranks, got {k}')
   dev = stack.device
   _check(stack, 'stack', stack.dtype, (b, r, wp, c), dev)
   _check(view_idx, 'view_idx', torch.int32, (b, n, k), dev)
   _check(p2d, 'p2d', torch.float32, (b, n, k, 2), dev)
   _check(select, 'select', torch.bool, (b, n, k), dev)
   _check(depth, 'depth', torch.float32, (b, n, k), dev)
-  _check(g_stats, 'g_stats', stack.dtype, (b, n, 2 * dim + 1), dev)
+  _check(g_stats, 'g_stats', stack.dtype, (b, n, width), dev)
   ranks = b * n * k
   bins = b * (r // (h + 1)) * h * w
   if ranks >= 2**31 or bins >= 2**31:
@@ -301,7 +346,8 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
       grad.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
       within.data_ptr(), d_f.data_ptr(), records.data_ptr(),
       slot_bins.data_ptr(), _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c,
-      dim, h, w, float(lo), float(hi), math.log(hi / lo),
+      dim, h, w, int(c > dim), int(use_variance), int(add_minmax), width,
+      float(lo), float(hi), math.log(hi / lo),
       torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'lift_topk_bwd')
   LAUNCHES['lift_topk_bwd'] += 1

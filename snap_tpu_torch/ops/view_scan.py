@@ -1,12 +1,20 @@
-"""Streamed top-k lifting and the 2x2 patch sampler, forward and backward.
+"""The lift's streamed and scanned forms, and the 2x2 patch sampler.
 
-Port of the stream path of ``snap_tpu/ops/view_scan.py``:
+Port of ``snap_tpu/ops/view_scan.py``:
 
-- ``pool_views_stream``: project, select the top-k views and pick the
-  per-rank (view, pixel, visibility, depth) in plain torch, then pool with
-  ``lift_topk``: **K1** forward (2x2 bilinear patch reads of the row-padded
-  image stack, depth-hat score, online softmax over the k ranks) and
-  **K3** backward (the softmax's gradient scattered onto the stack);
+- ``pool_views_stream`` (``pooling_impl='stream'``): project, select the
+  top-k views and pick the per-rank (view, pixel, visibility, depth) in
+  plain torch, then pool with ``lift_topk``;
+- ``pool_views_scan`` (``pooling_impl='scan'``): every view is a rank, in
+  view order, and a rank counts where the view is visible and no farther
+  than the point's k-th nearest visible view; pooled with ``lift_topk``;
+- ``lift_topk``: **K1** forward (2x2 bilinear patch reads of the
+  row-padded image stack, the depth-hat score of weighted fusion, online
+  softmax over the ranks) and **K3** backward (the gradient scattered onto
+  the stack), for each statistics layout ``[mean, var?, max?, min?,
+  score_max?]``: weighted or not (unweighted, every selected rank scores 0
+  and the softmax weights are equal), with or without the variance and
+  the per-channel max and min (B8, the switches of K1 and K3);
 - ``interpolate_patch_2d``: bilinear 2-D sampling with ``interpolate_nd``'s
   boundary rules around ``patch_sample_2d``: **K2** forward, **K4**
   backward (the tap-weighted scatter onto the plane).
@@ -19,7 +27,6 @@ device of its input: a CPU tensor takes the plain PyTorch version beside it
 
 from __future__ import annotations
 
-import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -34,7 +41,7 @@ NEG_INF = -1e30
 
 
 class ViewScanOutput(NamedTuple):
-  stats: Tensor  # [B, N, 2D + 1] pooled (mean, var, score max)
+  stats: Tensor  # [B, N, C] pooled [mean, var?, max?, min?, score_max?]
   valid: Tensor  # [B, N]
   min_distance: Tensor  # [B, N]
 
@@ -57,16 +64,6 @@ def gather_bilinear_patches(images: Tensor, row0: Tensor, col0: Tensor
   return torch.stack(rows, 2)
 
 
-def _depth_hat_weights(depth: Tensor, num_bins: int,
-                       depth_min_max: Tuple[float, float]) -> Tensor:
-  """Hat-function interpolation weights over S log-depth bins: [..., S]."""
-  lo, hi = depth_min_max
-  x = torch.log(depth.clamp(lo, hi) / lo) / math.log(hi / lo) * (num_bins - 1)
-  x = x.clamp(0, num_bins - 1)
-  bins = torch.arange(num_bins, dtype=depth.dtype, device=depth.device)
-  return torch.clamp(1 - torch.abs(x[..., None] - bins), min=0)
-
-
 class _Rank(NamedTuple):
   """One rank of every point: its taps, combined channels and score."""
 
@@ -74,7 +71,7 @@ class _Rank(NamedTuple):
   col0: Tensor  # [B, N] int32
   weights: Tensor  # [B, N, 2, 2] f32 bilinear tap weights
   f: Tensor  # [B, N, C] f32 combined channels (features, then score bins)
-  hat: Tensor  # [B, N, S] f32 depth-hat weights
+  hat: Tensor  # [B, N, S] f32 depth-hat weights (S = 0 unweighted)
   score: Tensor  # [B, N] f32, NEG_INF where the rank is not selected
 
 
@@ -91,66 +88,102 @@ def _bilinear_taps(p2d: Tensor, size: Tensor):
 def _lift_ranks(stack: Tensor, view_idx: Tensor, p2d: Tensor, select: Tensor,
                 depth: Tensor, *, h: int, w: int, dim: int,
                 depth_min_max: Tuple[float, float]) -> List[_Rank]:
-  """Gather, combine and score each rank of each point (f32 inside)."""
+  """Gather, combine and score each rank of each point (f32 inside). The
+  stack's channels past ``dim`` are the score bins; without any (the
+  unweighted lift) every selected rank scores 0."""
   size = torch.tensor([h, w], dtype=torch.float32, device=stack.device)
+  bins = stack.shape[-1] - dim
   ranks = []
   for r in range(view_idx.shape[-1]):
     lower, weights = _bilinear_taps(p2d[:, :, r], size)
     row0 = view_idx[:, :, r] * (h + 1) + lower[..., 0]
     patches = gather_bilinear_patches(stack, row0, lower[..., 1])
     f = (weights[..., None] * patches.float()).sum((2, 3))
-    hat = _depth_hat_weights(depth[:, :, r], f.shape[-1] - dim, depth_min_max)
-    score = torch.where(select[:, :, r], (f[..., dim:] * hat).sum(-1),
-                        NEG_INF)
+    if bins:
+      hat = view_fusion.depth_hat_weights(depth[:, :, r], bins, depth_min_max)
+      score = (f[..., dim:] * hat).sum(-1)
+    else:
+      hat, score = f[..., dim:], torch.zeros_like(f[..., 0])
+    score = torch.where(select[:, :, r], score, NEG_INF)
     ranks.append(_Rank(row0, lower[..., 1], weights, f, hat, score))
   return ranks
 
 
-def _online_pool(ranks: List[_Rank], select: Tensor, dim: int):
-  """The reference's online softmax over the ranks: (m, l, S1, S2, valid)."""
+class _Pool(NamedTuple):
+  """The online pool's state after the last rank."""
+
+  m: Tensor  # [B, N] running max score
+  l: Tensor  # [B, N] sum of exp(score - m)
+  s1: Tensor  # [B, N, D] sum of exp(score - m) f
+  s2: Tensor  # [B, N, D] sum of exp(score - m) f^2
+  f_max: Tensor  # [B, N, D] max of f over the selected ranks (or -inf)
+  f_min: Tensor  # [B, N, D] min (or +inf)
+  valid: Tensor  # [B, N] some rank selected
+
+
+def _online_pool(ranks: List[_Rank], select: Tensor, dim: int) -> _Pool:
+  """The reference's online softmax over the ranks, and the running max and
+  min of the features (``jnp.where(select, jnp.maximum(f_max, f), f_max)``)."""
   b, n = select.shape[:2]
-  m = torch.full((b, n), NEG_INF, device=select.device)
-  l = torch.zeros((b, n), device=select.device)
-  s1 = torch.zeros((b, n, dim), device=select.device)
-  s2 = torch.zeros((b, n, dim), device=select.device)
+  dev = select.device
+  m = torch.full((b, n), NEG_INF, device=dev)
+  l = torch.zeros((b, n), device=dev)
+  s1 = torch.zeros((b, n, dim), device=dev)
+  s2 = torch.zeros((b, n, dim), device=dev)
+  f_max = torch.full((b, n, dim), -torch.inf, device=dev)
+  f_min = torch.full((b, n, dim), torch.inf, device=dev)
   for r, rank in enumerate(ranks):
     f = rank.f[..., :dim]
+    sel = select[:, :, r]
     new_m = torch.maximum(m, rank.score)
     safe_m = torch.where(new_m <= NEG_INF, 0.0, new_m)
     rescale = torch.exp(torch.where(m <= NEG_INF, NEG_INF, m) - safe_m)
-    wv = torch.exp(rank.score - safe_m) * select[:, :, r]
+    wv = torch.exp(rank.score - safe_m) * sel
     l = l * rescale + wv
     s1 = s1 * rescale[..., None] + wv[..., None] * f
     s2 = s2 * rescale[..., None] + wv[..., None] * f * f
+    f_max = torch.where(sel[..., None], torch.maximum(f_max, f), f_max)
+    f_min = torch.where(sel[..., None], torch.minimum(f_min, f), f_min)
     m = new_m
-  return m, l, s1, s2, select.any(-1)
+  return _Pool(m, l, s1, s2, f_max, f_min, select.any(-1))
 
 
 def lift_topk_plain(stack: Tensor, view_idx: Tensor, p2d: Tensor,
                     select: Tensor, depth: Tensor, *, h: int, w: int, dim: int,
-                    depth_min_max: Tuple[float, float]
+                    depth_min_max: Tuple[float, float],
+                    use_variance: bool = True, add_minmax: bool = False
                     ) -> Tuple[Tensor, Tensor]:
   """Plain version of K1; ``stats`` in the stack's dtype, f32 inside.
 
   Differentiable in plain torch; ``torch.maximum`` (not ``clamp``) on the
-  variance passes half the gradient at a tie, as ``jnp.maximum`` does.
+  variance, and on the chains of the max and min, passes half the gradient
+  at a tie, as ``jnp.maximum`` does.
   """
   ranks = _lift_ranks(stack, view_idx, p2d, select, depth, h=h, w=w, dim=dim,
                       depth_min_max=depth_min_max)
-  m, l, s1, s2, valid = _online_pool(ranks, select, dim)
-  l_safe = torch.clamp(l, min=1e-20)[..., None]
-  mean = s1 / l_safe
-  var_raw = s2 / l_safe - mean * mean
-  var = torch.maximum(var_raw, torch.zeros_like(var_raw))
-  stats = torch.cat([mean, var, torch.where(valid, m, 0.0)[..., None]], -1)
-  stats = torch.where(valid[..., None], stats, 0.0)
+  pool = _online_pool(ranks, select, dim)
+  valid = pool.valid
+  l_safe = torch.clamp(pool.l, min=1e-20)[..., None]
+  mean = pool.s1 / l_safe
+  stats = [mean]
+  if use_variance:
+    var_raw = pool.s2 / l_safe - mean * mean
+    stats.append(torch.maximum(var_raw, torch.zeros_like(var_raw)))
+  if add_minmax:
+    stats.append(torch.where(valid[..., None], pool.f_max, 0.0))
+    stats.append(torch.where(valid[..., None], pool.f_min, 0.0))
+  if stack.shape[-1] > dim:
+    stats.append(torch.where(valid, pool.m, 0.0)[..., None])
+  stats = torch.where(valid[..., None], torch.cat(stats, -1), 0.0)
   return stats.to(stack.dtype), valid
 
 
 def _max_chain_shares(scores: List[Tensor], g_m: Tensor) -> List[Tensor]:
   """d m / d score_k for m = max(..max(max(NEG_INF, s_0), s_1).., s_K-1),
   times ``g_m``: all of it to the strict running maximum, and half to each
-  side of an exact tie (``jnp.maximum``'s gradient)."""
+  side of an exact tie (``jnp.maximum``'s gradient). A score of -inf (a
+  rank that is not selected, in the features' chains) takes none and
+  passes all."""
   before, m = [], torch.full_like(g_m, NEG_INF)
   for score in scores:
     before.append(m)
@@ -166,41 +199,64 @@ def _max_chain_shares(scores: List[Tensor], g_m: Tensor) -> List[Tensor]:
 def lift_topk_bwd_plain(stack: Tensor, view_idx: Tensor, p2d: Tensor,
                         select: Tensor, depth: Tensor, g_stats: Tensor, *,
                         h: int, w: int, dim: int,
-                        depth_min_max: Tuple[float, float]) -> Tensor:
+                        depth_min_max: Tuple[float, float],
+                        use_variance: bool = True, add_minmax: bool = False
+                        ) -> Tensor:
   """Plain version of K3: ``d stack`` in the stack's dtype from ``g_stats``.
 
   The formulas of ``csrc/lift_topk_bwd.cu``, written out with
   ``index_add_`` into an f32 buffer: the forward is recomputed, the
   gradient goes through (mean, E2 = sum p f^2) of the softmax weights p,
-  the variance's tie passes half, the score max passes ``g_m`` down its
-  chain of maxima, and each selected rank adds ``w_tap * [d f, d c]`` at
-  its four taps. Coordinates, selection and depth get no gradient.
+  the variance's tie passes half, the max and min of each channel and the
+  score max pass their cotangents down their chains of maxima (half to
+  each side of an exact tie), and each selected rank adds ``w_tap * [d f,
+  d c]`` at its four taps. Coordinates, selection and depth get no
+  gradient.
   """
+  weighted = stack.shape[-1] > dim
   ranks = _lift_ranks(stack, view_idx, p2d, select, depth, h=h, w=w, dim=dim,
                       depth_min_max=depth_min_max)
-  m, l, s1, s2, valid = _online_pool(ranks, select, dim)
-  l_safe = torch.clamp(l, min=1e-20)[..., None]
-  mean = s1 / l_safe
-  var_raw = s2 / l_safe - mean * mean
-  tau = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5, 0.0))
+  pool = _online_pool(ranks, select, dim)
+  valid = pool.valid
+  l_safe = torch.clamp(pool.l, min=1e-20)[..., None]
+  mean = pool.s1 / l_safe
   g = torch.where(valid[..., None], g_stats.float(), 0.0)
-  g_e2 = g[..., dim:2 * dim] * tau
-  g_mu = g[..., :dim] - 2 * mean * g_e2
+  g_mean, at = g[..., :dim], dim
+  g_e2 = torch.zeros_like(g_mean)
+  if use_variance:
+    var_raw = pool.s2 / l_safe - mean * mean
+    tau = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5, 0.0))
+    g_e2, at = g[..., at:at + dim] * tau, at + dim
+  g_mu = g_mean - 2 * mean * g_e2
   p = [torch.where(select[:, :, r] & valid,
-                   torch.exp(rank.score - m) / l_safe[..., 0], 0.0)
+                   torch.exp(rank.score - pool.m) / l_safe[..., 0], 0.0)
        for r, rank in enumerate(ranks)]
-  u = [(g_mu * rank.f[..., :dim] + g_e2 * rank.f[..., :dim]**2).sum(-1)
-       for rank in ranks]
-  sum_pu = sum(p_r * u_r for p_r, u_r in zip(p, u))
-  shares = _max_chain_shares([rank.score for rank in ranks], g[..., 2 * dim])
+  # Per rank, d [f, c]: the features' gradient, then the score bins'.
+  d_ranks = [p_r[..., None] * (g_mu + 2 * g_e2 * rank.f[..., :dim])
+             for p_r, rank in zip(p, ranks)]
+  if add_minmax:
+    feats = [torch.where(select[:, :, r, None], rank.f[..., :dim], -torch.inf)
+             for r, rank in enumerate(ranks)]
+    negated = [torch.where(select[:, :, r, None], -rank.f[..., :dim],
+                           -torch.inf) for r, rank in enumerate(ranks)]
+    to_max = _max_chain_shares(feats, g[..., at:at + dim])
+    to_min = _max_chain_shares(negated, g[..., at + dim:at + 2 * dim])
+    d_ranks = [d + a + b for d, a, b in zip(d_ranks, to_max, to_min)]
+  if weighted:
+    u = [(g_mu * rank.f[..., :dim] + g_e2 * rank.f[..., :dim]**2).sum(-1)
+         for rank in ranks]
+    sum_pu = sum(p_r * u_r for p_r, u_r in zip(p, u))
+    shares = _max_chain_shares([rank.score for rank in ranks], g[..., -1])
+    d_ranks = [torch.cat([d, (p_r * (u_r - sum_pu) + share * select[:, :, r]
+                              )[..., None] * rank.hat], -1)
+               for r, (d, p_r, u_r, share, rank) in enumerate(
+                   zip(d_ranks, p, u, shares, ranks))]
 
   b, rows, cols, c = stack.shape
   grad = torch.zeros((b * rows * cols, c), device=stack.device)
   offset = (torch.arange(b, device=stack.device) * rows * cols)[:, None]
-  for r, rank in enumerate(ranks):
-    d_f = p[r][..., None] * (g_mu + 2 * g_e2 * rank.f[..., :dim])
-    d_z = p[r] * (u[r] - sum_pu) + shares[r] * select[:, :, r]
-    d = torch.cat([d_f, d_z[..., None] * rank.hat], -1)  # [B, N, C]
+  for r, (rank, d) in enumerate(zip(ranks, d_ranks)):
+    d = torch.where(select[:, :, r, None], d, 0.0)  # [B, N, C]
     for a in (0, 1):
       for e in (0, 1):
         ids = offset + (rank.row0 + a) * cols + rank.col0 + e
@@ -237,45 +293,67 @@ class _LiftTopk(torch.autograd.Function):
 
 def lift_topk(stack: Tensor, view_idx: Tensor, p2d: Tensor, select: Tensor,
               depth: Tensor, *, h: int, w: int, dim: int,
-              depth_min_max: Tuple[float, float]) -> Tuple[Tensor, Tensor]:
-  """K1: pool the top-k ranks of each point from the row-padded stack.
+              depth_min_max: Tuple[float, float], use_variance: bool = True,
+              add_minmax: bool = False) -> Tuple[Tensor, Tensor]:
+  """K1: pool the ranks of each point from the row-padded stack.
 
   Args:
-    stack: ``[B, V*(h+1), w+1, C]`` row-padded image stack, C = dim + S
-      (features, then S log-depth score bins).
+    stack: ``[B, V*(h+1), w+1, C]`` row-padded image stack: the ``dim``
+      features, then (weighted fusion) S = C - dim log-depth score bins;
+      C = dim pools unweighted.
     view_idx: ``[B, N, K]`` int32 view of each rank.
     p2d: ``[B, N, K, 2]`` f32 (row, col) pixel coordinates per rank.
-    select: ``[B, N, K]`` bool, the rank counts (visible and selected).
+    select: ``[B, N, K]`` bool, the rank counts.
     depth: ``[B, N, K]`` f32 camera-frame depth per rank.
 
   Returns:
-    ``stats [B, N, 2*dim + 1]`` = (mean, variance, max score), zero where
-    invalid, in the stack's dtype, and ``valid [B, N]``. Differentiable in
-    ``stack`` (all C channels) through K3.
+    ``stats [B, N, kernels.stats_width(...)]`` = ``[mean, var?, max?,
+    min?, score_max?]`` (the variance with ``use_variance``, the max and
+    min of each channel over the selected ranks with ``add_minmax``, the
+    max score when weighted), zero where invalid, in the stack's dtype, and
+    ``valid [B, N]``. Differentiable in ``stack`` (all C channels) through
+    K3.
   """
-  kwargs = dict(h=h, w=w, dim=dim, depth_min_max=depth_min_max)
+  kwargs = dict(h=h, w=w, dim=dim, depth_min_max=depth_min_max,
+                use_variance=use_variance, add_minmax=add_minmax)
   return _LiftTopk.apply(stack, view_idx, p2d, select, depth, kwargs)
+
+
+def _image_stack(f_images: Tensor, scores_images: Optional[Tensor]) -> Tensor:
+  """``[B, V*(h+1), w+1, C]``: features (and score bins) of every view, a
+  zero row and column after each. The clamped bilinear coordinates give
+  the out-of-range tap a weight of exactly 0, so patches never need
+  clamping."""
+  b, v, h, w, _ = f_images.shape
+  images = f_images if scores_images is None else torch.cat(
+      [f_images, scores_images.to(f_images.dtype)], -1)
+  padded = torch.nn.functional.pad(images, (0, 0, 0, 1, 0, 1))
+  return padded.reshape(b, v * (h + 1), w + 1, padded.shape[-1])
 
 
 def pool_views_stream(
     f_images: Tensor,
-    scores_images: Tensor,
+    scores_images: Optional[Tensor],
     scene_t_view: geometry.Transform3D,
     camera: geometry.Camera,
     points: Tensor,
     *,
     top_k: int,
     depth_min_max: Tuple[float, float],
+    add_minmax: bool = False,
+    use_variance: bool = True,
 ) -> ViewScanOutput:
   """Top-k streamed lifting of ``[B, V, h, w, D]`` features at ``[B, N, 3]``.
 
-  Score-weighted mean/variance pooling (``use_variance=True``,
-  ``add_minmax=False``, the configs' values); returns stats ``[B, N, 2D+1]``
-  in the feature dtype, valid ``[B, N]`` and min view distance ``[B, N]``.
+  The ranks of a point are its top-k views (all V when ``top_k`` is 0 or
+  at least V), pooled softmax-weighted by the depth scores of
+  ``scores_images [B, V, h, w, S]``, or unweighted where that is None;
+  returns stats ``[B, N, C]`` (the layout of ``lift_topk``) in the feature
+  dtype, valid ``[B, N]`` and min view distance ``[B, N]``.
   """
   b, v, h, w, dim = f_images.shape
   n = points.shape[1]
-  p2d_all, vis_all, depth_all = view_fusion.project_points_to_views(
+  p2d_all, vis_all, depth_all, _ = view_fusion.project_points_to_views(
       scene_t_view, camera, points)
   if top_k and v > top_k:
     view_indices, min_dist = view_fusion.view_selection(
@@ -286,20 +364,61 @@ def pool_views_stream(
         points[..., None, :] - scene_t_view.t[..., None, :, :], dim=-1)
     min_dist = torch.where(vis_all, dist, torch.inf).amin(-1)
 
-  images = torch.cat([f_images, scores_images.to(f_images.dtype)], -1)
-  # Pad one zero row/col per view: the clamped bilinear coordinates give the
-  # out-of-range tap a weight of exactly 0, so patches never need clamping.
-  padded = torch.nn.functional.pad(images, (0, 0, 0, 1, 0, 1))
-  stack = padded.reshape(b, v * (h + 1), w + 1, padded.shape[-1])
-
   idx = view_indices
   p2d_sel = torch.gather(p2d_all, 2, idx[..., None].expand(-1, -1, -1, 2))
   vis_sel = torch.gather(vis_all, 2, idx)
   depth_sel = torch.gather(depth_all, 2, idx)
   stats, valid = lift_topk(
-      stack, idx.int().contiguous(), p2d_sel.contiguous(),
-      vis_sel.contiguous(), depth_sel.contiguous(), h=h, w=w, dim=dim,
-      depth_min_max=depth_min_max)
+      _image_stack(f_images, scores_images), idx.int().contiguous(),
+      p2d_sel.contiguous(), vis_sel.contiguous(), depth_sel.contiguous(),
+      h=h, w=w, dim=dim, depth_min_max=depth_min_max,
+      use_variance=use_variance, add_minmax=add_minmax)
+  return ViewScanOutput(stats=stats, valid=valid, min_distance=min_dist)
+
+
+def scan_selection(points: Tensor, scene_t_view: geometry.Transform3D,
+                   visible: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+  """The scan form's ranks that count, ``[B, N, V]``: visible, and no
+  farther than the k-th nearest visible view (every visible view with
+  fewer than k, or ``top_k`` 0); so a tie at that distance counts more than
+  k (``_view_threshold``). Also the distance to the nearest visible view
+  ``[B, N]``."""
+  dist = torch.where(visible, view_fusion.view_distances(points, scene_t_view),
+                     torch.inf)
+  if top_k and dist.shape[-1] > top_k:
+    threshold = -torch.topk(-dist, top_k, dim=-1).values[..., -1:]
+  else:
+    threshold = torch.full_like(dist[..., :1], torch.inf)
+  return visible & (dist <= threshold), dist.amin(-1)
+
+
+def pool_views_scan(
+    f_images: Tensor,
+    scores_images: Optional[Tensor],
+    scene_t_view: geometry.Transform3D,
+    camera: geometry.Camera,
+    points: Tensor,
+    *,
+    top_k: int,
+    depth_min_max: Tuple[float, float],
+    add_minmax: bool = False,
+    use_variance: bool = True,
+) -> ViewScanOutput:
+  """The scan form of the lift: every view a rank, in view order, as the
+  reference's loop over the views visits them; a rank counts as
+  ``scan_selection`` says. Shapes and layout as ``pool_views_stream``."""
+  b, v, h, w, dim = f_images.shape
+  n = points.shape[1]
+  p2d, visible, depth, _ = view_fusion.project_points_to_views(
+      scene_t_view, camera, points)
+  select, min_dist = scan_selection(points, scene_t_view, visible, top_k)
+  view_idx = torch.arange(v, dtype=torch.int32, device=points.device)
+  stats, valid = lift_topk(
+      _image_stack(f_images, scores_images),
+      view_idx.expand(b, n, v).contiguous(), p2d.contiguous(),
+      select.contiguous(), depth.contiguous(), h=h, w=w, dim=dim,
+      depth_min_max=depth_min_max, use_variance=use_variance,
+      add_minmax=add_minmax)
   return ViewScanOutput(stats=stats, valid=valid, min_distance=min_dist)
 
 

@@ -105,7 +105,7 @@ def _num_selected(x):
   cam = geometry.FisheyeCamera.from_dict(x['cam']).scale(
       torch.tensor([0.25, 0.25]))
   points = torch.from_numpy(np.ascontiguousarray(x['points']))
-  _, vis, _ = view_fusion.project_points_to_views(pose, cam, points)
+  _, vis, _, _ = view_fusion.project_points_to_views(pose, cam, points)
   if x['top_k'] and vis.shape[-1] > x['top_k']:
     idx, _ = view_fusion.view_selection(points, pose, vis, x['top_k'])
     vis = torch.gather(vis, 2, idx)

@@ -147,7 +147,10 @@ def test_heads_follow_a_pretrained_mapper(tmp_path):
 
 @pytest.mark.parametrize('path,value,match', [
     (('model', 'bev_mapper', 'streetview_encoder', 'depth_mlp'),
-     {'layers': [128]}, 'model.bev_mapper.streetview_encoder.depth_mlp is set'),
+     {'layers': [128], 'width': 4},
+     'unknown key model.bev_mapper.streetview_encoder.depth_mlp.width'),
+    (('model', 'bev_mapper', 'streetview_encoder', 'pooling_impl'), 'fused',
+     "pooling_impl='fused'"),
     (('model', 'bev_mapper', 'bev_net'), {'num_units': 2, 'width': 4},
      'unknown key model.bev_mapper.bev_net.width'),
     (('model', 'bev_mapper_query'), {}, 'model.bev_mapper_query lacks'),

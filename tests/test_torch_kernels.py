@@ -144,7 +144,7 @@ def test_cuda_launchers_refuse_cpu_tensors():
 
 
 def test_build_recipe():
-  """One plain nvcc call for sm_90a into a .gitignored build directory."""
+  """Plain nvcc calls for sm_90a into a .gitignored build directory."""
   assert 'arch=compute_90a,code=sm_90a' in kernels.NVCC_FLAGS
   assert '-shared' in kernels.NVCC_FLAGS
   path = kernels.library_path()
@@ -933,3 +933,89 @@ def test_pose_scoring_division_is_correctly_rounded(cell):
     rem = Fraction(_rn32(x - b * q))
     assert rem == x - b * q  # the FMA remainder is exact
     assert _rn32(q + rem * r) == _rn32(x / b), float(value)
+
+
+# B8: K1's and K3's statistics layouts besides the flagship's (weighted,
+# variance), as (weighted, use_variance, add_minmax).
+LAYOUTS = [(w, v, m) for w in (True, False) for v in (True, False)
+           for m in (False, True)]
+B8_LAYOUTS = [layout for layout in LAYOUTS if layout != (True, True, False)]
+
+
+def _b8_inputs(device, dtype, weighted, k, seed=11):
+  """K1 and K3 inputs of a layout: 3,000 points an example on 5 views of
+  7 x 9 pixels (pixels past every edge), 32 features (and 8 score bins
+  when weighted); 200 points with no selected rank, 200 with one; in
+  1,000 points the second half of the ranks repeats the first, all
+  selected (exact ties of every channel and score)."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, v, h, w, n, dim = 2, 5, 7, 9, 3000, 32
+  c = dim + (8 if weighted else 0)
+  stack = torch.randn((b, v * (h + 1), w + 1, c), generator=g)
+  view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
+  p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor(
+      [h + 2.0, w + 2.0]) - 1
+  select = torch.rand((b, n, k), generator=g) < 0.6
+  select[:, :400] = False
+  select[:, 200:400, k - 1] = True
+  depth = torch.rand((b, n, k), generator=g) * 40
+  half, tie = k // 2, slice(400, 1400)
+  for t in (view_idx, p2d, depth):
+    t[:, tie, half:2 * half] = t[:, tie, :half]
+  select[:, tie, :2 * half] = True
+  args = [t.to(device) for t in (stack.to(dtype), view_idx, p2d, select,
+                                 depth)]
+  return args, dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0))
+
+
+@pytest.mark.parametrize('k', [4, 20])  # the stream's ranks, the scan's
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layout', B8_LAYOUTS)
+def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k):
+  """B8: K1 and K3 through the autograd wrapper against their plain
+  versions, forward and backward (the cotangent scaled and freed of near
+  ties as chip_smoke.py frees it: exact ties stay)."""
+  weighted, use_variance, add_minmax = layout
+  args, kwargs = _b8_inputs(cuda, dtype, weighted, k)
+  kwargs.update(use_variance=use_variance, add_minmax=add_minmax)
+  stack = args[0].clone().requires_grad_()
+  before = dict(kernels.LAUNCHES)
+  stats, valid = view_scan.lift_topk(stack, *args[1:], **kwargs)
+  assert kernels.LAUNCHES['lift_topk_fwd'] == before['lift_topk_fwd'] + 1
+  assert stats.shape[-1] == kernels.stats_width(32, *layout)
+  stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(valid, valid_p)
+  assert not valid[:, :200].any() and not stats[:, :200].any()
+  torch.testing.assert_close(stats.float(), stats_p.float(),
+                             **TOLERANCES[dtype])
+  g = torch.randn(stats.shape, device=cuda).to(dtype)
+  (*_, g), _ = chip_smoke.without_near_ties(
+      (*args, chip_smoke.unit_cotangent(g)), kwargs)
+  (got,) = torch.autograd.grad(stats, stack, g)
+  assert kernels.LAUNCHES['lift_topk_bwd'] == before['lift_topk_bwd'] + 1
+  want = view_scan.lift_topk_bwd_plain(*args, g, **kwargs)
+  torch.cuda.synchronize()
+  assert want.abs().max() > 0.1
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize('layout', LAYOUTS)
+def test_stats_width_is_the_plain_versions(layout):
+  """The launchers size stats and check g_stats by ``stats_width``: the
+  plain versions' row, [mean, var?, max?, min?, score_max?]."""
+  weighted, use_variance, add_minmax = layout
+  args, kwargs = _b8_inputs('cpu', torch.float32, weighted, 4)
+  kwargs.update(use_variance=use_variance, add_minmax=add_minmax)
+  stats, valid = view_scan.lift_topk_plain(*args, **kwargs)
+  assert stats.shape == (2, 3000, kernels.stats_width(32, *layout))
+  dim = 32
+  mean = stats[..., :dim]
+  if add_minmax:
+    at = dim * (1 + use_variance)
+    f_max, f_min = stats[..., at:at + dim], stats[..., at + dim:at + 2 * dim]
+    assert (f_min[valid] <= mean[valid] + 1e-6).all()
+    assert (mean[valid] <= f_max[valid] + 1e-6).all()
+  with pytest.raises(ValueError, match='needs CUDA'):
+    kernels.lift_topk_fwd(*args, **kwargs)

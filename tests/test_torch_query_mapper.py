@@ -35,6 +35,7 @@ from snap_tpu_torch.data import device_synthetic as ds
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.data import types as data_types
 from snap_tpu_torch.train_lib import checkpoints
+from snap_tpu_torch.train_lib import trainer
 import test_torch_device_synthetic as tds
 import torch_a14
 import torch_heads
@@ -240,17 +241,31 @@ def test_trains_resumes_warm_starts_and_serves_from_a_workdir(tmp_path):
 @pytest.mark.parametrize('key,value', [
     ('pooling_impl', 'gather'), ('pooling_impl', 'scan'),
     ('fusion_add_minmax', True), ('fusion_use_variance', False),
-    ('do_weighted_fusion', False)])
+    ('do_weighted_fusion', False),
+    ('depth_mlp', {'layers': [torch_a14.DIM, torch_a14.DIM],
+                   'activation': 'relu', 'apply_input_activation': False})])
 def test_the_lifts_other_forms_raise_naming_their_item(key, value):
-  """A14's fifth item stays unported: ``from_reference`` reads these keys
-  and the street-view encoder raises on building, naming the item;
-  ``depth_mlp`` raises in ``from_reference``."""
+  """A14's fifth item, ported: ``from_reference`` reads each of the lift's
+  other settings on the query mapper (a depth MLP with unweighted fusion),
+  and the port builds the model and runs a forward on the CPU, whose query
+  plane is finite and partly valid; only an unknown ``pooling_impl``
+  raises, naming the value."""
   d = configs.to_reference(torch_a14.port_config('aerial'))
-  d['model']['bev_mapper_query']['streetview_encoder'][key] = value
+  encoder = d['model']['bev_mapper_query']['streetview_encoder']
+  encoder[key] = value
+  if key == 'depth_mlp':
+    encoder['do_weighted_fusion'] = False
   config = configs.from_reference(json.loads(json.dumps(d)))
-  with pytest.raises(NotImplementedError, match='A14, item 5'):
-    evaluator.build_model(config, 'cpu')
-  d['model']['bev_mapper_query']['streetview_encoder']['depth_mlp'] = {
-      'layers': [8]}
-  with pytest.raises(ValueError, match='depth_mlp is set.*A14, item 5'):
+  assert getattr(config.model.bev_mapper_query.streetview_encoder, key) == (
+      configs.MLPConfig(layers=(torch_a14.DIM,) * 2) if key == 'depth_mlp'
+      else value)
+  model = evaluator.build_model(config, 'cpu')
+  _, batch = torch_a14.pair_batches(config)
+  with torch.no_grad():
+    pred = trainer.loss_and_metrics(model, batch, False)[3]
+  plane = pred['query']['bev_matching']
+  assert torch.isfinite(plane.features).all()
+  assert plane.valid.any() and not plane.valid.all()
+  encoder['pooling_impl'] = 'fused'
+  with pytest.raises(ValueError, match="pooling_impl='fused'"):
     configs.from_reference(d)

@@ -109,7 +109,7 @@ def _torch_lift(x):
   out = view_scan.pool_views_stream(
       torch.from_numpy(x['f_images']), torch.from_numpy(x['scores']), pose,
       cam, points, top_k=x['top_k'], depth_min_max=(1.0, 32.0))
-  _, vis, _ = view_fusion.project_points_to_views(pose, cam, points)
+  _, vis, _, _ = view_fusion.project_points_to_views(pose, cam, points)
   idx, _ = view_fusion.view_selection(points, pose, vis, 3)
   return out, idx.numpy()
 
