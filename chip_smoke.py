@@ -32,7 +32,9 @@ host generator's batch:
    variance, and the scan form's 20 ranks) forward and backward in f32 and
    bf16, on inputs of the same kinds (single-view points, points with no
    selected rank, repeated ranks for exact ties of every channel), the
-   cotangents of the maxima zeroed at near ties (NEAR_TIE_RTOL);
+   cotangents of the maxima zeroed at near ties (NEAR_TIE_RTOL); K3 timed
+   on the flagship's seeded input and B8's in bf16, with its device ms by
+   launch stage (``torch.profiler``);
 4. serving reference: the tiny ``smoke_exhaustive`` localizer on the card
    (f32, TF32 off) against the same model on the CPU (the plain path);
 5. training reference: ``smoke_train_exhaustive`` (f32, TF32 off), 2 steps
@@ -197,7 +199,9 @@ host generator's batch:
    spin too, ``F.grid_sample`` in f32 beside K2; B8's K1 and K3 checked on
    every input phase 7j's stream and scan runs gave them (the plain versions
    ``PLAIN_LIFT_CHUNK`` points at a time) and timed on the largest beside
-   their plain versions and bounds.
+   their plain versions and bounds, K3 with its device ms by launch stage.
+   Every K3 call timed takes its count of selected ranks counted
+   beforehand, as the autograd function passes it (``lift_bwd_call``).
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -393,7 +397,10 @@ def plain_lift(args, kwargs, chunk: int = None):
 def plain_lift_bwd(args, kwargs, chunk: int = None):
   """K3's plain version, ``chunk`` points at a time: the points'
   contributions to ``d stack`` summed in f32 (the plain version of an f32
-  copy of the stack, the same f32 arithmetic), cast once."""
+  copy of the stack, the same f32 arithmetic), cast once. The wrapper's
+  count of selected ranks, which the plain version does not take, is
+  dropped from ``kwargs``."""
+  kwargs = {k: v for k, v in kwargs.items() if k != 'selected'}
   stack, *per_point = args
   n = per_point[0].shape[1]
   if not chunk or chunk >= n:
@@ -630,7 +637,7 @@ def seeded_lift_inputs(device: str, dtype: torch.dtype, weighted: bool,
 def b8_seeded() -> None:
   """Phase 3, B8: K1 and K3 in the layouts of B8_SEEDED against their plain
   versions, f32 and bf16, forward and backward."""
-  errs = {}
+  errs, times = {}, {}
   for name, weighted, use_variance, add_minmax, ranks, n in B8_SEEDED:
     for dtype in (torch.float32, torch.bfloat16):
       args, g_stats, kw = seeded_lift_inputs('cuda', dtype, weighted,
@@ -640,9 +647,16 @@ def b8_seeded() -> None:
           check_lift(args, kw, PLAIN_LIFT_CHUNK),
           check_lift_bwd((*args, g_stats), kw, PLAIN_LIFT_CHUNK,
                          B8_BWD_F32_TOL if dtype == torch.float32 else None))
+      if add_minmax:
+        log_occupancy('lift_topk_bwd', f'phase 3 {name}, {str(dtype)[6:]}')
+      if dtype == torch.bfloat16:
+        call = lift_bwd_call((*args, g_stats), kw)
+        times[name] = dict(ms=time_ms(call), selected=int(args[3].sum()),
+                           stages=kernel_stages_ms(call, K3_STAGES))
       del args, g_stats
   log(f'B8 (K1, K3 in the other layouts) on seeded inputs, batch 2: max abs '
-      f'err (forward, backward) {errs}')
+      f'err (forward, backward) {errs}; lift_topk_bwd in bf16, ms per call '
+      f'and (device ms per call, launches kept) per stage {times}')
 
 
 # Cycles the card spins (torch.cuda._sleep) before a run of time_ms(...,
@@ -698,8 +712,12 @@ def sample_bwd_bin_counts(points: torch.Tensor, plane_shape) -> torch.Tensor:
 
 def kernel_stages_ms(fn, names, iters: int = 5):
   """Device ms per call of each CUDA kernel named in ``names`` that ``fn``
-  launches, and of all the others together (``torch.profiler``, over
-  ``iters`` calls after a warm one)."""
+  launches (each at most once a call), beside the launches of it that the
+  trace kept, and of all the others together (``torch.profiler``, over
+  ``iters`` calls after a warm one; each sum divided by ``iters``).
+  ``complete`` is False where the trace kept no launch at all, or fewer
+  than ``iters`` of a named kernel that it kept any of: late in a long
+  process it has dropped some, and such a split is not to be read."""
   fn()
   torch.cuda.synchronize()
   with torch.profiler.profile(
@@ -707,14 +725,36 @@ def kernel_stages_ms(fn, names, iters: int = 5):
     for _ in range(iters):
       fn()
     torch.cuda.synchronize()
-  stages = {name: 0.0 for name in (*names, 'other')}
+  stages = {name: [0.0, 0] for name in names}
+  other = 0.0
   for evt in prof.key_averages():
     us = evt.self_device_time_total
     if us <= 0:
       continue
-    name = next((n for n in names if n in evt.key), 'other')
-    stages[name] += us / 1e3 / iters
-  return stages
+    name = next((n for n in names if n in evt.key), None)
+    if name is None:
+      other += us / 1e3
+    else:
+      stages[name][0] += us / 1e3
+      stages[name][1] += evt.count
+  kept = [count for _, count in stages.values() if count]
+  return {name: (ms / iters, count) for name, (ms, count) in stages.items()
+          } | {'other': other / iters,
+               'complete': bool(kept) and all(c == iters for c in kept)}
+
+
+# K3's launch stages, as torch.profiler names them (the wide one first: the
+# narrow one's name is in its name).
+K3_STAGES = ('count_kernel', 'scan_kernel', 'wide_ranks_kernel',
+             'ranks_kernel', 'runs_kernel')
+
+
+def lift_bwd_call(args, kwargs):
+  """K3 on ``args`` as the autograd function calls it: its count of
+  selected ranks counted once here and passed, so that a timed call does
+  not wait for the card."""
+  kwargs = dict(kwargs, selected=int(args[3].sum()))
+  return lambda: kernels.lift_topk_bwd(*args, **kwargs)
 
 
 # Bounds: the larger of the bytes moved over the HBM rate and the f32
@@ -2909,11 +2949,13 @@ def b8_rows(runs):
     log_occupancy('lift_topk_bwd', f'7j {form}')
     bwd = report(
         f'lift_topk_bwd/{tag}', 'snap_tpu_torch/csrc/lift_topk_bwd.cu',
-        launches['lift_topk_bwd'], errs[1],
-        time_ms(lambda: kernels.lift_topk_bwd(*args, **kw)),
+        launches['lift_topk_bwd'], errs[1], time_ms(lift_bwd_call(args, kw)),
         time_ms(lambda: plain_lift_bwd(args, kw, PLAIN_LIFT_CHUNK), iters=1),
         lift_bwd_bound(args, kw, out), None)
     del out
+    log(f'lift_topk_bwd/{tag} stages at 7j {form}, (device ms per call, '
+        f'launches kept): '
+        f'{kernel_stages_ms(lift_bwd_call(args, kw), K3_STAGES)}')
     lift.calls.clear()  # the next form's K3 scratch needs the room
     lift_bwd.calls.clear()
     for row in (fwd, bwd):
@@ -2976,8 +3018,8 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
   rows.append(report(
       'lift_topk_bwd', 'snap_tpu_torch/csrc/lift_topk_bwd.cu',
       train_launches['lift_topk_bwd'], errs['lift_topk_bwd'],
-      time_ms(lambda: kernels.lift_topk_bwd(*args, **kw)),
-      time_ms(lambda: view_scan.lift_topk_bwd_plain(*args, **kw), iters=3),
+      time_ms(lift_bwd_call(args, kw)),
+      time_ms(lambda: plain_lift_bwd(args, kw), iters=3),
       lift_bwd_bound(args, kw, out), None))
   args, kw = sample_bwd.largest()
   out = kernels.patch_sample_2d_bwd(*args, **kw)
@@ -3008,16 +3050,13 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       'F.grid_sample': time_ms(grid_sample_call(*args), spin=True)})
   stages = kernel_stages_ms(lambda: kernels.patch_sample_2d(*args, **kw),
                             ('pack_plane_kernel', 'patch_sample_2d_kernel'))
-  log(f'patch_sample_2d stages at {tuple(args[1].shape)}, device ms per '
-      f'call: {stages}')
+  log(f'patch_sample_2d stages at {tuple(args[1].shape)}, (device ms per '
+      f'call, launches kept): {stages}')
   args, kw = lift_bwd.largest()
-  queued['lift_topk_bwd'] = time_ms(
-      lambda: kernels.lift_topk_bwd(*args, **kw), spin=True)
-  stages = kernel_stages_ms(lambda: kernels.lift_topk_bwd(*args, **kw),
-                            ('count_kernel', 'scan_kernel', 'ranks_kernel',
-                             'runs_kernel'))
-  log(f'lift_topk_bwd stages at {tuple(args[0].shape)}, device ms per call: '
-      f'{stages}')
+  queued['lift_topk_bwd'] = time_ms(lift_bwd_call(args, kw), spin=True)
+  stages = kernel_stages_ms(lift_bwd_call(args, kw), K3_STAGES)
+  log(f'lift_topk_bwd stages at {tuple(args[0].shape)}, (device ms per '
+      f'call, launches kept): {stages}')
   args, kw = sample_bwd.largest()
   queued['patch_sample_2d_bwd'] = time_ms(
       lambda: kernels.patch_sample_2d_bwd(*args, **kw), spin=True)
@@ -3032,8 +3071,8 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
                             ('bin_points_kernel', 'scan_kernel',
                              'place_points_kernel', 'sum_runs_kernel',
                              'cast_grad_kernel'))
-  log(f'patch_sample_2d_bwd stages at {tuple(args[1].shape)}, device ms per '
-      f'call (the memset in other): {stages}')
+  log(f'patch_sample_2d_bwd stages at {tuple(args[1].shape)}, (device ms '
+      f'per call, launches kept; the memset in other): {stages}')
   log(f'ms per call with the launches queued behind a spin of the card '
       f'(host launch overhead hidden; the rows below are timed without): '
       f'{queued}')
@@ -3076,7 +3115,10 @@ def main() -> int:
   log(f'kernels on seeded inputs: max abs err lift_topk_fwd '
       f'{check_lift(*lift):.3g}, patch_sample_2d {check_sample(*sample):.3g}, '
       f'lift_topk_bwd {check_lift_bwd(*lift_bwd):.3g}, patch_sample_2d_bwd '
-      f'{check_sample_bwd(*sample_bwd):.3g}')
+      f'{check_sample_bwd(*sample_bwd):.3g}; lift_topk_bwd '
+      f'{time_ms(lift_bwd_call(*lift_bwd)):.4f} ms per call, (device ms per '
+      f'call, launches kept) per stage '
+      f'{kernel_stages_ms(lift_bwd_call(*lift_bwd), K3_STAGES)}')
   del lift, sample, lift_bwd, sample_bwd
   b8_seeded()
   scoring = {mask: check_pose_scoring(*seeded_pose_scoring_inputs('cuda',
@@ -3155,6 +3197,8 @@ def main() -> int:
                                  scoring_bwd)
     rows += heldout_rows(heldout_launches, heldout_lift, heldout_sample)
     rows += b8
+  # Every K3 call of the run was given the count its count stage found.
+  kernels.check_lift_counts(wait=True)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -13,12 +13,14 @@ constexpr unsigned kScanMask = 0xffffffffu;  // every lane
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 16;  // counts a thread takes per step
 
-// Each bin's first slot; offsets[nbins] = the number of items. One block
+// Each bin's first slot; offsets[nbins] = the number of items, also
+// written to *total where given (a word the host reads). One block
 // walks the counts kScanItems per thread at a time (16-byte loads and
 // stores where a thread's items are whole), a warp-shuffle scan within each
 // step and a running carry across steps.
 __global__ void __launch_bounds__(kScanThreads) scan_kernel(
-    const int* __restrict__ counts, int* __restrict__ offsets, int nbins) {
+    const int* __restrict__ counts, int* __restrict__ offsets, int nbins,
+    int* total = nullptr) {
   __shared__ int warp_sums[kScanThreads / 32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   int carry = 0;
@@ -77,7 +79,10 @@ __global__ void __launch_bounds__(kScanThreads) scan_kernel(
     carry += warp_sums[kScanThreads / 32 - 1];
     __syncthreads();  // warp_sums is written again in the next step
   }
-  if (t == 0) offsets[nbins] = carry;
+  if (t == 0) {
+    offsets[nbins] = carry;
+    if (total) *total = carry;
+  }
 }
 
 }  // namespace

@@ -36,36 +36,47 @@
 // the rank that last set the max strictly, and at each later exact tie
 // half of what reaches it to each side. In rank order that is: the rank
 // that last set it takes 2^-T of g_max, T the ties met after it, and the
-// i-th of those ties 2^-(T - i + 1). The first pass notes per channel that
-// rank and a bit for each tie after it; the second forms the shares from
-// those alone, so that taps gathered again there cannot round a tie
-// differently. The flagship's mode (weighted,
-// variance) keeps the code below; the others take its runtime rank loop
-// (any K <= 32) and D <= 256.
+// i-th of those ties 2^-(T - i + 1). Every layout runs the code below
+// (any K <= 32, D <= 256).
 //
 // Design: the selected ranks are sorted by the pixel of their lower tap, so
 // that the sum over a pixel's ranks is formed in registers and reaches the
 // global buffer as one vector add per tap and 4 channels, instead of one
 // scalar atomic per rank, tap and channel (~280 per address on the training
-// path). Four launches from one call:
+// path). The scratch and the last stage's grid are sized by the count of
+// selected ranks (the caller's, `capacity`), not by every rank: the scan
+// form's 20 ranks a point select ~3.7. Launches from one call:
 //   1. count: one thread per rank; a selected rank's bin is (example, view,
 //      lower-tap pixel). Lanes of a warp with the same bin add their number
 //      to the bin's count with one atomic (__match_any_sync), and each rank
 //      keeps its place within the bin.
 //   2. scan: one block turns the counts (108k bins on the training path)
 //      into each bin's first slot and the total.
-//   3. ranks: one warp per point. It recomputes the forward exactly as K1
-//      does, in rank order (the variance's tie rule makes the rounding of
-//      E2 - mean^2 matter), writes d f_k (D f32) into the rank's slot of the
-//      sorted order, then d z_k, and each rank's lane writes its record (the
-//      tap fractions, the depth-hat abscissa, d z_k) and its bin. Writing
-//      d f_k (512 B per rank at D = 128) moves fewer bytes than the point's
-//      f32 gmu and gE2 rows (1 KB, read again for every rank of the point).
-//      Each lane holds 4 feature channels per 128 (D % 4 == 0, D <= 256),
-//      and lane k forms z_k from the two depth bins whose hat is non-zero.
-//      The ranks go in groups of 4, every tap of a group loaded before any
-//      is used; with K <= 4 (every configuration) the combined features stay
-//      in registers for pass 2, with more each group is gathered again.
+//   3. ranks: one warp per point. The point's selected ranks are compacted
+//      in rank order (a ballot; lane j takes the j-th), and the warp
+//      recomputes the forward exactly as K1 does, in that order (the
+//      variance's tie rule makes the rounding of E2 - mean^2 matter),
+//      writes d f_k (D f32) into the rank's slot of the sorted order, then
+//      d z_k, and each rank's lane writes its record (the tap fractions,
+//      the depth-hat abscissa, d z_k) and its bin. Writing d f_k (512 B per
+//      rank at D = 128) moves fewer bytes than the point's f32 gmu and gE2
+//      rows (1 KB, read again for every rank of the point). Each lane holds
+//      4 feature channels per 128 (D % 4 == 0, D <= 256), and lane j forms
+//      z_j from the two depth bins whose hat is non-zero. A point with at
+//      most 4 selected ranks (every point of the stream, nearly every one
+//      of the scan) takes one group whose loop is known at compile time:
+//      its combined features stay in registers for pass 2, where the max's
+//      and min's shares are formed from those very registers, so that no
+//      chain state lives across the passes and no tie can round
+//      differently (a loop bound known only at run time cost ~1 ms on the
+//      training path's input, and the chain state took the stage to 162
+//      registers and 3 blocks of 128 an SM). A point with more (a tie at
+//      the scan's threshold selects more than top_k) goes on a list that
+//   3b. wide ranks takes after: a warp a listed point, groups of 4 ranks
+//      gathered again in pass 2, and per channel the rank that last set
+//      the max (min) strictly and a bit for each tie after it noted in pass
+//      1, from which pass 2 forms the shares. One instantiation for every
+//      layout (its mode read at run time); not launched where K <= 4.
 //   4. runs: one block per kChunk consecutive sorted ranks. Its feature
 //      warps give each lane 4 channels of d f, its score warps a depth bin
 //      each; a warp adds w_tap * [d f_k, d c_k] of consecutive ranks of one
@@ -73,6 +84,10 @@
 //      changes, adds them to the zeroed global buffer with float4 atomics
 //      (red.global.add.v4.f32). An address receives one add per run of each
 //      of the 4 pixels whose taps reach it (and per block boundary).
+// No stage writes past the scratch: a slot at or past capacity is skipped.
+// The scan writes the count stage's total into a word of pinned host
+// memory, which the wrapper compares with capacity once the call has ended
+// (without a wait for the card), and raises on a difference.
 // This departs from the 8 x 8 tile bins with a shared-memory accumulator
 // that were tried first: there each rank's read-modify-writes of shared
 // memory (4 taps x C floats, ~5 KB) bound the last stage at ~1.4 ms on the
@@ -84,7 +99,8 @@
 // the inputs, g (2.3M x 257 x 2 B = 1.18 GB) and the output read or written
 // once: 0.49 ms. The design adds its own traffic: the stack's gathers
 // (L2-resident: the stack is 36 MB at batch 2), and the d f rows written
-// and read once (4 GB at batch 2, ~2.4 ms at 3.35 TB/s). The f32 buffer is
+// and read once (4.4 GB each way at batch 2, ~2.6 ms at 3.35 TB/s: the runs
+// stage reads them in ~1.6 ms unweighted). The f32 buffer is
 // 71.8 MB at batch 2, more than the 50 MB L2: the design before this one
 // (one warp per point, ~4 G scalar f32 atomics into that buffer) ran at 40x
 // the bound.
@@ -198,6 +214,7 @@ struct Dims {
   int B, N, K, R, W, C, D, h, w;
   int V;  // views: R = V (h + 1)
   float depth_min, depth_max, log_range;
+  int mode;  // the statistics layout (lift_stats.cuh)
 };
 
 // A rank's bin: its example, view and lower-tap pixel.
@@ -238,37 +255,44 @@ __global__ void __launch_bounds__(kCountThreads) count_kernel(
   }
 }
 
-// Lane k of a point's warp: rank k's selection, geometry, first tap, bin
-// and slot in the sorted order. The loads are issued together, within[r]
-// for an unselected rank too (read and ignored).
+// The position of the (j + 1)-th set bit of mask, j < __popc(mask).
+__device__ inline int nth_set_bit(unsigned mask, int j) {
+  for (int i = 0; i < j; ++i) mask &= mask - 1u;
+  return __ffs(mask) - 1;
+}
+
+// Lane j < n of a point's warp: the point's j-th selected rank in rank
+// order (its geometry, first tap, bin and slot in the sorted order), of the
+// n whose bits are set in sel. Lane k < K has loaded rank k's inputs
+// (in_*: view, pixel coordinates, depth, place in its bin; read for an
+// unselected rank too and ignored); lane j takes its rank's by shuffles.
 struct LaneRank {
-  bool sel;
+  bool sel;  // j < n
   Geo geo;
   long long tap0;  // element offset of the lower-left tap in the example
   int bin, slot;
 };
 
-__device__ inline LaneRank lane_rank(const Dims& d, int b, long long r0,
-                                     int lane, const int32_t* view_idx,
-                                     const float* p2d, const uint8_t* selected,
-                                     const float* depth, const int* offsets,
-                                     const int* within) {
+__device__ inline LaneRank compact_rank(const Dims& d, int b, int lane,
+                                        unsigned sel, int n, int in_view,
+                                        float in_pi, float in_pj,
+                                        float in_dep, int in_pos,
+                                        const int* offsets) {
+  const int src = lane < n ? nth_set_bit(sel, lane) : lane;
+  const int view = __shfl_sync(kFull, in_view, src);
+  const float pi = __shfl_sync(kFull, in_pi, src);
+  const float pj = __shfl_sync(kFull, in_pj, src);
+  const float dep = __shfl_sync(kFull, in_dep, src);
+  const int pos = __shfl_sync(kFull, in_pos, src);
   LaneRank m{false, {0, 0, 0.f, 0.f, 0.f}, 0, 0, 0};
-  if (lane < d.K) {
-    const long long r = r0 + lane;
-    const bool sel = selected[r];
-    const int view = view_idx[r];
-    const float pi = p2d[2 * r], pj = p2d[2 * r + 1], dep = depth[r];
-    const int pos = within[r];
-    if (sel) {
-      m.sel = true;
-      m.geo = rank_geo(pi, pj, dep, d.h, d.w, d.C - d.D, d.depth_min,
-                       d.depth_max, d.log_range);
-      m.tap0 = (((long long)view * (d.h + 1) + m.geo.li) * d.W + m.geo.lj) *
-               d.C;
-      m.bin = bin_of(d, b, view, m.geo.li, m.geo.lj);
-      m.slot = offsets[m.bin] + pos;
-    }
+  if (lane < n) {
+    m.sel = true;
+    m.geo = rank_geo(pi, pj, dep, d.h, d.w, d.C - d.D, d.depth_min,
+                     d.depth_max, d.log_range);
+    m.tap0 = (((long long)view * (d.h + 1) + m.geo.li) * d.W + m.geo.lj) *
+             d.C;
+    m.bin = bin_of(d, b, view, m.geo.li, m.geo.lj);
+    m.slot = offsets[m.bin] + pos;
   }
   return m;
 }
@@ -349,15 +373,15 @@ __device__ inline float max_chain_share(int lane, int K, float my_z,
   return g_m * after * (gt ? 1.f : (eq ? 0.5f : 0.f));
 }
 
-// d f of one rank for a lane's channels, into the rank's d f row, and the
-// lane's part of u. With kExtra, the max's and min's shares of the rank
-// (extra) add to d f.
-template <int CPL, int E, bool kExtra>
+// d f of one rank for a lane's channels, into the rank's d f row (none
+// where row is null), and the lane's part of u. With extra_on, the max's and
+// min's shares of the rank (extra) add to d f.
+template <int CPL, int E>
 __device__ inline float emit_d_f(const float (&f)[CPL][E], float p,
                                  const float (&gmu)[CPL][E],
                                  const float (&ge2)[CPL][E],
-                                 const float (&extra)[CPL][E], int cell, int D,
-                                 float* row) {
+                                 const float (&extra)[CPL][E], bool extra_on,
+                                 int cell, int D, float* row) {
   float partial = 0.f;
 #pragma unroll
   for (int q = 0; q < CPL; ++q) {
@@ -369,13 +393,13 @@ __device__ inline float emit_d_f(const float (&f)[CPL][E], float p,
       if (c0 + e < D) {
         partial += gmu[q][e] * f[q][e] + ge2[q][e] * f[q][e] * f[q][e];
         df[e] = p * (gmu[q][e] + 2.f * ge2[q][e] * f[q][e]);
-        if constexpr (kExtra) df[e] += extra[q][e];
+        if (extra_on) df[e] += extra[q][e];
       }
     }
     // Whole float4s: D % 4 == 0, so the rows are 16-byte aligned.
 #pragma unroll
     for (int e = 0; e < E; e += 4)
-      if (c0 + e < D)
+      if (row != nullptr && c0 + e < D)
         __stcs(reinterpret_cast<float4*>(row + c0 + e),
                make_float4(df[e], df[e + 1], df[e + 2], df[e + 3]));
   }
@@ -392,13 +416,43 @@ __device__ inline float extreme_share(int k, int at, unsigned ties, float g) {
   return 0.f;
 }
 
-// The last step of a point: d z_k and the records of its selected ranks.
-__device__ inline void write_records(const LaneRank& me, int lane, int K,
+// The same shares from the values themselves, for the first n of KG ranks
+// held in registers: walking back from the last, all of what reaches a
+// rank that set the running max strictly, and half at an exact tie (half
+// passes on); added into share.
+template <int KG>
+__device__ inline void add_extreme_shares(const float (&v)[KG], int n,
+                                          float g, float (&share)[KG]) {
+  float before[KG];
+  float m = -inf_f();
+#pragma unroll
+  for (int u = 0; u < KG; ++u) {
+    before[u] = m;
+    if (u < n) m = fmaxf(m, v[u]);
+  }
+  float coef = g;
+#pragma unroll
+  for (int u = KG - 1; u >= 0; --u) {
+    if (u >= n) continue;
+    if (v[u] > before[u]) {
+      share[u] += coef;
+      coef = 0.f;
+    } else if (v[u] == before[u]) {
+      share[u] += 0.5f * coef;
+      coef *= 0.5f;
+    }
+  }
+}
+
+// The last step of a point: d z_k and the records of its n selected ranks
+// (none past the scratch's capacity).
+__device__ inline void write_records(const LaneRank& me, int lane, int n,
                                      float my_z, float my_p, float my_u,
-                                     float g_m, float4* records, int* bins) {
+                                     float g_m, float4* records, int* bins,
+                                     int capacity) {
   const float sum_pu = warp_sum(my_p * my_u);
-  const float share = max_chain_share(lane, K, my_z, g_m);
-  if (me.sel) {
+  const float share = max_chain_share(lane, n, my_z, g_m);
+  if (me.sel && me.slot < capacity) {
     const float dz = my_p * (my_u - sum_pu) + share;
     records[me.slot] = make_float4(me.geo.fi, me.geo.fj, me.geo.x, dz);
     bins[me.slot] = me.bin;
@@ -406,71 +460,100 @@ __device__ inline void write_records(const LaneRank& me, int lane, int K,
 }
 
 // 3. Per point: the forward again, d f_k into the sorted slots, records.
-// Lane l holds feature channels 4 (l + 32 q) .. + 3, q < CPL (D <= 128 CPL);
-// lane k forms z_k from the two depth bins whose hat is non-zero. The ranks
-// go in groups of 4, every tap of a group's selected ranks loaded before any
-// is used. kOneGroup (K <= 4) makes the one group's loop a compile-time one:
-// its combined features stay in registers for pass 2 (a loop bound known
-// only at run time cost ~1 ms on the training path's input); with more
-// ranks the taps are gathered again.
-template <typename T, int CPL, bool kOneGroup, int kMode>
-__global__ void __launch_bounds__(kRankThreads) ranks_kernel(
-    const T* __restrict__ stack,           // [B, R, W, C]
-    const int32_t* __restrict__ view_idx,  // [B, N, K]
-    const float* __restrict__ p2d,         // [B, N, K, 2]
-    const uint8_t* __restrict__ selected,  // [B, N, K]
-    const float* __restrict__ depth,       // [B, N, K]
-    const T* __restrict__ g_stats,         // [B, N, stats_width]
-    const int* __restrict__ offsets,       // [bins + 1]
-    const int* __restrict__ within,        // [B, N, K]
-    float* __restrict__ d_f,               // [slots, D]
-    float4* __restrict__ records,          // [slots]: fi, fj, x, d z
-    int* __restrict__ bins,                // [slots]
-    Dims d) {
+// Lane l holds feature channels 4 (l + 32 q) .. + 3, q < CPL (D <= 128 CPL).
+// The point's n selected ranks are compacted in rank order (lane j takes
+// the j-th), the order of the online softmax and of every chain of maxima:
+// an unselected rank adds nothing to those sums and takes no share of a
+// chain's cotangent (it scores -1e30, and the first selected rank passes 0
+// back past it). Lane j forms z_j from the two depth bins whose hat is
+// non-zero. The ranks go in groups of 4, every tap of a group loaded before
+// any is used.
+//   narrow (!kWide, every point with n <= 4): one group, its loop known at
+//     compile time, so the combined features stay in registers for pass 2;
+//     the max's and min's shares are formed there from those same
+//     registers, so no tie can round differently between the passes. A
+//     point with more ranks goes on the wide list.
+//   wide (the list): the group loop bound is n, pass 2 gathers each group
+//     again, and pass 1 notes per channel the rank that last set the max
+//     (min) strictly and a bit for each tie after it, from which pass 2
+//     forms the shares without comparing values gathered twice.
+// kMode is the statistics layout (lift_stats.cuh), or -1 for the wide
+// stage, which reads it from d.mode (one instantiation for every layout).
+// Nothing is written at a slot past capacity.
+template <typename T, int CPL, bool kWide, int kMode>
+__device__ __forceinline__ void rank_point(
+    const T* __restrict__ stack, const int32_t* __restrict__ view_idx,
+    const float* __restrict__ p2d, const uint8_t* __restrict__ selected,
+    const float* __restrict__ depth, const T* __restrict__ g_stats,
+    const int* __restrict__ offsets, const int* __restrict__ within,
+    float* __restrict__ d_f, float4* __restrict__ records,
+    int* __restrict__ bins, int* __restrict__ wide_points,
+    int* __restrict__ wide_count, int capacity, const Dims& d,
+    long long point, int lane) {
   constexpr int KG = 4;  // ranks per group
-  constexpr bool kW = (kMode & kWeighted) != 0;
-  constexpr bool kMM = (kMode & kMinMax) != 0;
+  const int mode = kMode >= 0 ? kMode : d.mode;
+  const bool weighted = (mode & kWeighted) != 0;
+  const bool variance = (mode & kVariance) != 0;
+  const bool minmax = (mode & kMinMax) != 0;
   using Raw = typename Quad<T>::Raw;
-  const int lane = threadIdx.x & 31;
-  const long long point =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (point >= (long long)d.B * d.N) return;
   const int b = (int)(point / d.N);
   const int C = d.C, D = d.D, S = C - D, W = d.W;
   const long long r0 = point * d.K;
-  const LaneRank me = lane_rank(d, b, r0, lane, view_idx, p2d, selected,
-                                depth, offsets, within);
-  const unsigned sel = __ballot_sync(kFull, me.sel);
+  bool in_sel = false;
+  int in_view = 0, in_pos = 0;
+  float in_pi = 0.f, in_pj = 0.f, in_dep = 0.f;
+  if (lane < d.K) {
+    const long long r = r0 + lane;
+    in_sel = selected[r];
+    in_view = view_idx[r];
+    in_pi = p2d[2 * r];
+    in_pj = p2d[2 * r + 1];
+    in_dep = depth[r];
+    in_pos = within[r];
+  }
+  const unsigned sel = __ballot_sync(kFull, in_sel);
   if (!sel) return;  // invalid point: g is zero, nothing to add
+  const int n = __popc(sel);
+  if (!kWide && n > KG) {
+    if (lane == 0) wide_points[atomicAdd(wide_count, 1)] = (int)point;
+    return;
+  }
+  const LaneRank me = compact_rank(d, b, lane, sel, n, in_view, in_pi, in_pj,
+                                   in_dep, in_pos, offsets);
 
   const T* base = stack + (long long)b * d.R * W * C;
   const long long down = (long long)W * C;
   // The point's cotangent for the lane's channels, fetched ahead (read
-  // once: evict first, so that the stack stays in L2).
-  const int row = stats_width(kMode, D), at_max = max_offset(kMode, D);
+  // once: evict first, so that the stack stays in L2); the max's and min's
+  // when pass 2 needs them.
+  const int row = stats_width(mode, D), at_max = max_offset(mode, D);
   const T* g = g_stats + point * row;
   float g_mean[CPL][4], g_var[CPL][4], g_max[CPL][4], g_min[CPL][4];
+  auto load_g = [&](float (&out)[CPL][4], int at) {
 #pragma unroll
-  for (int q = 0; q < CPL; ++q) {
-    const int c0 = 4 * (lane + 32 * q);
+    for (int q = 0; q < CPL; ++q) {
+      const int c0 = 4 * (lane + 32 * q);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      g_mean[q][e] = c0 < D ? to_float(__ldcs(g + c0 + e)) : 0.f;
-      g_var[q][e] = 0.f;
-      if constexpr ((kMode & kVariance) != 0)
-        g_var[q][e] = c0 < D ? to_float(__ldcs(g + D + c0 + e)) : 0.f;
-      if constexpr (kMM) {
-        g_max[q][e] = c0 < D ? to_float(__ldcs(g + at_max + c0 + e)) : 0.f;
-        g_min[q][e] = c0 < D ? to_float(__ldcs(g + at_max + D + c0 + e)) : 0.f;
-      }
+      for (int e = 0; e < 4; ++e)
+        out[q][e] = c0 < D ? to_float(__ldcs(g + at + c0 + e)) : 0.f;
     }
+  };
+  load_g(g_mean, 0);
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g_var[q][e] = 0.f;
+  if (variance) load_g(g_var, D);
+  if (kWide && minmax) {
+    load_g(g_max, at_max);
+    load_g(g_min, at_max + D);
   }
-  const float g_m = kW ? to_float(g[row - 1]) : 0.f;
+  const float g_m = weighted ? to_float(g[row - 1]) : 0.f;
 
-  // Lane k: rank k's score from the two depth bins around x.
+  // Lane j: rank j's score from the two depth bins around x.
   float my_z = kNegInf;
-  if (!kW && me.sel) my_z = 0.f;
-  if (kW && me.sel) {
+  if (!weighted && me.sel) my_z = 0.f;
+  if (weighted && me.sel) {
     float tw[4];
     tap_weights(me.geo.fi, me.geo.fj, tw);
     const int s0 = min((int)me.geo.x, S - 1), s1 = min(s0 + 1, S - 1);
@@ -496,7 +579,7 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
       const long long off = __shfl_sync(kFull, me.tap0, k);
       tap_weights(__shfl_sync(kFull, me.geo.fi, k),
                   __shfl_sync(kFull, me.geo.fj, k), tw[u]);
-      const bool on = (sel >> k) & 1;  // 0 for k >= K
+      const bool on = k < n;
 #pragma unroll
       for (int q = 0; q < CPL; ++q) {
         const int c0 = 4 * (lane + 32 * q);
@@ -529,8 +612,8 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
   };
 
   // Pass 1: the online softmax in rank order, as K1 and the reference run
-  // it; with kMM, per channel the max and min, the rank that last set each
-  // strictly and a bit for each rank that tied it since.
+  // it; wide, with the max and min, per channel the extreme, the rank that
+  // last set it strictly and a bit for each rank that tied it since.
   float s1[CPL][4], s2[CPL][4], mx[CPL][4], mn[CPL][4];
   int mx_at[CPL][4], mn_at[CPL][4];
   unsigned mx_ties[CPL][4], mn_ties[CPL][4];
@@ -540,7 +623,7 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
     for (int e = 0; e < 4; ++e) {
       s1[q][e] = 0.f;
       s2[q][e] = 0.f;
-      if constexpr (kMM) {
+      if (kWide && minmax) {
         mx[q][e] = -inf_f();
         mn[q][e] = inf_f();
         mx_at[q][e] = mn_at[q][e] = 0;
@@ -548,16 +631,16 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
       }
     }
   float m = kNegInf, l = 0.f;
-  const int num_k = kOneGroup ? KG : d.K;  // k0 + u <= 31 as K <= 32
+  const int num_k = kWide ? n : KG;  // k0 + u <= 31 as n <= K <= 32
   for (int k0 = 0; k0 < num_k; k0 += KG) {
     gather(k0);
 #pragma unroll
     for (int u = 0; u < KG; ++u) {
       const int k = k0 + u;
       const float score = __shfl_sync(kFull, my_z, k);
-      if ((sel >> k) & 1) {
+      if (k < n) {
         online_update(score, f[u], m, l, s1, s2);
-        if constexpr (kMM) {
+        if (kWide && minmax) {
 #pragma unroll
           for (int q = 0; q < CPL; ++q)
 #pragma unroll
@@ -588,10 +671,35 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
   point_grads(s1, s2, l_safe, g_mean, g_var, lane, D, gmu, ge2);
   const float my_p = me.sel ? expf(my_z - m) / l_safe : 0.f;
 
+  // Narrow, with the max and min: each rank's shares of g_max and g_min
+  // from the registers pass 1 read.
+  float extra[KG][CPL][4];
+  if (!kWide && minmax) {
+    load_g(g_max, at_max);
+    load_g(g_min, at_max + D);
+#pragma unroll
+    for (int q = 0; q < CPL; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v[KG], to_max[KG], to_min[KG];
+#pragma unroll
+        for (int u = 0; u < KG; ++u) {
+          v[u] = f[u][q][e];
+          to_max[u] = to_min[u] = 0.f;
+        }
+        add_extreme_shares(v, n, g_max[q][e], to_max);
+#pragma unroll
+        for (int u = 0; u < KG; ++u) v[u] = -v[u];
+        add_extreme_shares(v, n, g_min[q][e], to_min);
+#pragma unroll
+        for (int u = 0; u < KG; ++u) extra[u][q][e] = to_max[u] + to_min[u];
+      }
+  }
+
   // Pass 2: d f_k into rank k's slot; lane k keeps u_k.
   float my_u = 0.f;
   for (int k0 = 0; k0 < num_k; k0 += KG) {
-    if (!kOneGroup) gather(k0);
+    if (kWide) gather(k0);
     float u[KG];
 #pragma unroll
     for (int v = 0; v < KG; ++v) {
@@ -599,23 +707,26 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
       const float p = __shfl_sync(kFull, my_p, k);
       const int slot = __shfl_sync(kFull, me.slot, k);
       u[v] = 0.f;
-      if ((sel >> k) & 1) {
-        float extra[CPL][4];
-        if constexpr (kMM) {
-          // The max's and min's shares of rank k (above).
+      if (k < n) {
+        float shares[CPL][4];
 #pragma unroll
-          for (int q = 0; q < CPL; ++q)
+        for (int q = 0; q < CPL; ++q)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              extra[q][e] =
-                  extreme_share(k, mx_at[q][e], mx_ties[q][e], g_max[q][e]) +
-                  extreme_share(k, mn_at[q][e], mn_ties[q][e], g_min[q][e]);
-        }
-        u[v] = emit_d_f<CPL, 4, kMM>(f[v], p, gmu, ge2, extra, lane, D,
-                                     d_f + (long long)slot * D);
+          for (int e = 0; e < 4; ++e)
+            shares[q][e] = !minmax ? 0.f
+                           : kWide ? extreme_share(k, mx_at[q][e],
+                                                   mx_ties[q][e],
+                                                   g_max[q][e]) +
+                                         extreme_share(k, mn_at[q][e],
+                                                       mn_ties[q][e],
+                                                       g_min[q][e])
+                                   : extra[v][q][e];
+        u[v] = emit_d_f<CPL, 4>(
+            f[v], p, gmu, ge2, shares, minmax, lane, D,
+            slot < capacity ? d_f + (long long)slot * D : nullptr);
       }
     }
-    if constexpr (kW) {
+    if (weighted) {
 #pragma unroll
       for (int v = 0; v < KG; ++v) {
         const float sum = warp_sum(u[v]);
@@ -623,25 +734,61 @@ __global__ void __launch_bounds__(kRankThreads) ranks_kernel(
       }
     }
   }
-  if constexpr (kW) {
-    write_records(me, lane, d.K, my_z, my_p, my_u, g_m, records, bins);
-  } else if (me.sel) {
+  if (weighted) {
+    write_records(me, lane, n, my_z, my_p, my_u, g_m, records, bins,
+                  capacity);
+  } else if (me.sel && me.slot < capacity) {
     // Unweighted: no score bins, so the runs read the tap fractions alone.
     records[me.slot] = make_float4(me.geo.fi, me.geo.fj, 0.f, 0.f);
     bins[me.slot] = me.bin;
   }
 }
 
-// 4. Per block of kChunk sorted ranks: the first feature_warps warps hold 4
-// channels of d f per lane, the others a depth bin per lane; each warp sums
-// a pixel's consecutive ranks in registers and adds the sum at the pixel's
-// 4 taps when the pixel changes.
+#define SNAP_RANK_PARAMS                                                    \
+  const T *__restrict__ stack, const int32_t *__restrict__ view_idx,        \
+      const float *__restrict__ p2d, const uint8_t *__restrict__ selected,  \
+      const float *__restrict__ depth, const T *__restrict__ g_stats,       \
+      const int *__restrict__ offsets, const int *__restrict__ within,      \
+      float *__restrict__ d_f, float4 *__restrict__ records,                \
+      int *__restrict__ bins, int *__restrict__ wide_points,                \
+      int *__restrict__ wide_count, int capacity, Dims d
+#define SNAP_RANK_ARGS                                                      \
+  stack, view_idx, p2d, selected, depth, g_stats, offsets, within, d_f,     \
+      records, bins, wide_points, wide_count, capacity, d
+
+// 3, narrow: one warp per point of the [B, N] grid (kRankThreads / 32 a
+// block).
+template <typename T, int CPL, int kMode>
+__global__ void __launch_bounds__(kRankThreads)
+    ranks_kernel(SNAP_RANK_PARAMS) {
+  const long long point =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (point >= (long long)d.B * d.N) return;
+  rank_point<T, CPL, false, kMode>(SNAP_RANK_ARGS, point, threadIdx.x & 31);
+}
+
+// 3, wide: the listed points, a warp each, over the grid in turn.
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kRankThreads)
+    wide_ranks_kernel(SNAP_RANK_PARAMS) {
+  const int warps = blockDim.x >> 5, count = *wide_count;
+  for (int i = blockIdx.x * warps + (threadIdx.x >> 5); i < count;
+       i += gridDim.x * warps)
+    rank_point<T, CPL, true, -1>(SNAP_RANK_ARGS, wide_points[i],
+                                 threadIdx.x & 31);
+}
+
+// 4. Per block of kChunk sorted ranks (of the first capacity): the first
+// feature_warps warps hold 4 channels of d f per lane, the others a depth
+// bin per lane; each warp sums a pixel's consecutive ranks in registers and
+// adds the sum at the pixel's 4 taps when the pixel changes.
 __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
     const float* __restrict__ d_f, const float4* __restrict__ records,
     const int* __restrict__ bins, const int* __restrict__ offsets,
-    float* __restrict__ grad, int nbins, int feature_warps, Dims d) {
+    float* __restrict__ grad, int nbins, int capacity, int feature_warps,
+    Dims d) {
   const int begin = blockIdx.x * kChunk;
-  const int end = min(offsets[nbins], begin + kChunk);
+  const int end = min(min(offsets[nbins], capacity), begin + kChunk);
   if (begin >= end) return;
   const int C = d.C, D = d.D, S = C - D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -730,33 +877,37 @@ __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
   if (cur >= 0) flush();
 }
 
+// The wide stage's blocks: enough to keep every SM busy over any list.
+constexpr int kWideBlocksPerSm = 8;
+
 template <typename T, int kMode>
 int launch_ranks(const void* stack, const int32_t* view_idx, const float* p2d,
                  const uint8_t* selected, const float* depth,
                  const void* g_stats, const int* offsets, const int* within,
-                 float* d_f, float4* records, int* bins, const Dims& d,
+                 float* d_f, float4* records, int* bins, int* wide_points,
+                 int* wide_count, int capacity, const Dims& d, int sms,
                  cudaStream_t stream) {
   constexpr int kPerBlock = kRankThreads / 32;
   const long long points = (long long)d.B * d.N;
   const unsigned blocks = (unsigned)((points + kPerBlock - 1) / kPerBlock);
   const auto* st = static_cast<const T*>(stack);
   const auto* g = static_cast<const T*>(g_stats);
-  const auto run = [&](auto kernel) {
-    launches.add(kernel, "ranks_kernel", kRankThreads, 0);
-    kernel<<<blocks, kRankThreads, 0, stream>>>(
+  const auto run = [&](auto kernel, const char* name, unsigned grid) {
+    launches.add(kernel, name, kRankThreads, 0);
+    kernel<<<grid, kRankThreads, 0, stream>>>(
         st, view_idx, p2d, selected, depth, g, offsets, within, d_f, records,
-        bins, d);
+        bins, wide_points, wide_count, capacity, d);
     return (int)cudaGetLastError();
   };
-  // Only the flagship's layout keeps one group of ranks in registers.
-  if constexpr (kMode == kFlagship) {
-    const bool one_group = d.K <= 4;
-    if (d.D <= 128 && one_group) return run(ranks_kernel<T, 1, true, kMode>);
-    if (d.D <= 256 && one_group) return run(ranks_kernel<T, 2, true, kMode>);
-  }
-  if (d.D <= 128) return run(ranks_kernel<T, 1, false, kMode>);
-  if (d.D <= 256) return run(ranks_kernel<T, 2, false, kMode>);
-  return (int)cudaErrorInvalidValue;
+  int code = d.D <= 128 ? run(ranks_kernel<T, 1, kMode>, "ranks_kernel",
+                              blocks)
+                        : run(ranks_kernel<T, 2, kMode>, "ranks_kernel",
+                              blocks);
+  if (code || d.K <= 4) return code;  // with K <= 4 the wide list is empty
+  const long long most = (long long)kWideBlocksPerSm * sms;
+  const unsigned wide = (unsigned)(blocks < most ? blocks : most);
+  return d.D <= 128 ? run(wide_ranks_kernel<T, 1>, "wide_ranks_kernel", wide)
+                    : run(wide_ranks_kernel<T, 2>, "wide_ranks_kernel", wide);
 }
 
 // The instantiation of the statistics layout `mode` (lift_stats.cuh).
@@ -765,12 +916,15 @@ int launch_ranks_mode(int mode, const void* stack, const int32_t* view_idx,
                       const float* p2d, const uint8_t* selected,
                       const float* depth, const void* g_stats,
                       const int* offsets, const int* within, float* d_f,
-                      float4* records, int* bins, const Dims& d,
+                      float4* records, int* bins, int* wide_points,
+                      int* wide_count, int capacity, const Dims& d, int sms,
                       cudaStream_t stream) {
 #define SNAP_LIFT_MODE(M)                                                    \
   case M:                                                                    \
     return launch_ranks<T, M>(stack, view_idx, p2d, selected, depth, g_stats, \
-                              offsets, within, d_f, records, bins, d, stream);
+                              offsets, within, d_f, records, bins,           \
+                              wide_points, wide_count, capacity, d, sms,     \
+                              stream);
   switch (mode) {
     SNAP_LIFT_MODE(0) SNAP_LIFT_MODE(1) SNAP_LIFT_MODE(2) SNAP_LIFT_MODE(3)
     SNAP_LIFT_MODE(4) SNAP_LIFT_MODE(5) SNAP_LIFT_MODE(6) SNAP_LIFT_MODE(7)
@@ -783,32 +937,37 @@ int launch_ranks_mode(int mode, const void* stack, const int32_t* view_idx,
 
 // dtype: 0 = float32, 1 = bfloat16 (stack and g_stats). weighted,
 // use_variance and add_minmax pick the statistics layout, stats_row wide
-// (lift_stats.cuh); weighted iff C > D. Scratch, allocated
-// by the caller: counts [bins] int32 zeroed, offsets [bins + 1] int32,
-// within and bins_of_slots [B * N * K] int32, d_f [B * N * K, D] f32 and
-// records [B * N * K, 4] f32, with bins = B * V * h * w and V = R / (h + 1).
-// grad [B, R, W, C] f32 must be zeroed; C * dtype size a multiple of 16
-// bytes; D % 4 == 0 and D <= 256; C <= 256; K <= 32.
+// (lift_stats.cuh); weighted iff C > D. Scratch, allocated by the caller:
+// counts [bins + 1] int32 zeroed (the last, the wide list's length),
+// offsets [bins + 1] int32, within [B * N * K] int32, wide_points [B * N]
+// int32, and for capacity slots, the count of selected ranks: d_f
+// [capacity, D] f32, records [capacity, 4] f32 and bins_of_slots
+// [capacity] int32; bins = B * V * h * w and V = R / (h + 1). No stage
+// writes a slot past capacity, whatever the count stage finds; the count it
+// found goes to found, one int32 of pinned host memory, for the caller to
+// compare with capacity once the launches have ended. grad [B, R, W, C] f32
+// must be zeroed; C * dtype size a multiple of 16 bytes; D % 4 == 0 and
+// D <= 256; C <= 256; K <= 32.
 // Returns a cudaError_t (0 on success).
 extern "C" int lift_topk_bwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, const void* g_stats, void* grad,
     void* counts, void* offsets, void* within, void* d_f, void* records,
-    void* bins_of_slots, int dtype, int B, int N, int K, int R, int W, int C,
-    int D, int h, int w, int weighted, int use_variance, int add_minmax,
-    int stats_row, float depth_min, float depth_max, float log_range,
-    void* stream) {
+    void* bins_of_slots, void* wide_points, void* found, int dtype, int B,
+    int N, int K, int R, int W, int C, int D, int h, int w, int weighted,
+    int use_variance, int add_minmax, int stats_row, int capacity,
+    float depth_min, float depth_max, float log_range, void* stream) {
   launches.clear();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int feature_warps = (D + 127) / 128, score_warps = (C - D + 31) / 32;
   const int mode = (weighted ? kWeighted : 0) |
                    (use_variance ? kVariance : 0) | (add_minmax ? kMinMax : 0);
   if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 1 ||
-      feature_warps + score_warps > kMaxRunWarps ||
+      feature_warps + score_warps > kMaxRunWarps || capacity < 0 ||
       (weighted != 0) != (C > D) || stats_row != stats_width(mode, D))
     return (int)cudaErrorInvalidValue;
   const Dims d{B, N, K, R, W, C, D, h, w, R / (h + 1), depth_min, depth_max,
-               log_range};
+               log_range, mode};
   const int nbins = B * d.V * h * w;
   const auto* idx = static_cast<const int32_t*>(view_idx);
   const auto* pts = static_cast<const float*>(p2d);
@@ -819,6 +978,12 @@ extern "C" int lift_topk_bwd(
   auto* df = static_cast<float*>(d_f);
   auto* rec = static_cast<float4*>(records);
   auto* slot_bins = static_cast<int*>(bins_of_slots);
+  auto* wide = static_cast<int*>(wide_points);
+
+  int* found_on_card = nullptr;
+  if (cudaHostGetDevicePointer(reinterpret_cast<void**>(&found_on_card),
+                               found, 0) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
 
   const long long ranks = (long long)B * N * K;
   int device = 0, sms = 0;
@@ -833,23 +998,24 @@ extern "C" int lift_topk_bwd(
   int code = (int)cudaGetLastError();
   if (code) return code;
   launches.add(scan_kernel, "scan_kernel", kScanThreads, 0);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, off, nbins);
+  scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, off, nbins, found_on_card);
   if ((code = (int)cudaGetLastError())) return code;
   const auto* dep = static_cast<const float*>(depth);
   code = dtype == 0
              ? launch_ranks_mode<float>(mode, stack, idx, pts, sel, dep,
                                         g_stats, off, pos, df, rec, slot_bins,
-                                        d, s)
-             : launch_ranks_mode<__nv_bfloat16>(mode, stack, idx, pts, sel,
-                                                dep, g_stats, off, pos, df,
-                                                rec, slot_bins, d, s);
-  if (code) return code;
-  // Enough blocks for every rank; those past the selected ones return.
-  const unsigned blocks = (unsigned)((ranks + kChunk - 1) / kChunk);
+                                        wide, cnt + nbins, capacity, d, sms,
+                                        s)
+             : launch_ranks_mode<__nv_bfloat16>(
+                   mode, stack, idx, pts, sel, dep, g_stats, off, pos, df,
+                   rec, slot_bins, wide, cnt + nbins, capacity, d, sms, s);
+  if (code || capacity == 0) return code;
+  // A block per kChunk slots of the capacity.
+  const unsigned blocks = (unsigned)((capacity + kChunk - 1) / kChunk);
   const int run_threads = (feature_warps + score_warps) * 32;
   launches.add(runs_kernel, "runs_kernel", run_threads, 0);
   runs_kernel<<<blocks, run_threads, 0, s>>>(
-      df, rec, slot_bins, off, static_cast<float*>(grad), nbins,
+      df, rec, slot_bins, off, static_cast<float*>(grad), nbins, capacity,
       feature_warps, d);
   return (int)cudaGetLastError();
 }

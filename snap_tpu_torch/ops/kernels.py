@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,6 +44,10 @@ LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0, 'lift_topk_bwd': 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+# K3's calls whose counts are still to be read: the count of selected ranks
+# each was given, the one its count stage found (an int32 that the card
+# writes into pinned host memory) and an event after its launches.
+_LIFT_COUNTS: List[Tuple[int, Tensor, torch.cuda.Event]] = []
 
 
 def reset_launch_counts() -> None:
@@ -153,7 +157,7 @@ def load_library() -> ctypes.CDLL:
                        ctypes.c_float)
   lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 14 + [f32] * 3 + [vp]
   lib.patch_sample_2d.argtypes = [vp] * 6 + [i32] * 9 + [vp]
-  lib.lift_topk_bwd.argtypes = [vp] * 13 + [i32] * 14 + [f32] * 3 + [vp]
+  lib.lift_topk_bwd.argtypes = [vp] * 15 + [i32] * 15 + [f32] * 3 + [vp]
   lib.patch_sample_2d_bwd.argtypes = [vp] * 8 + [i32] * 7 + [vp]
   lib.pose_scoring.argtypes = [vp] * 8 + [i32] * 5 + [f32] + [i32] * 3 + [vp]
   lib.pose_scoring_bwd.argtypes = [vp] * 8 + [i32] * 5 + [f32, i32, i32, vp]
@@ -301,19 +305,48 @@ def patch_sample_2d(padded: Tensor, points: Tensor, *, dim: int,
   return values, valid
 
 
+def check_lift_counts(wait: bool = False) -> None:
+  """Raises if a call of ``lift_topk_bwd`` was given another count of
+  selected ranks than its count stage found (its scratch had too few slots,
+  or too many; no stage wrote past it). Reads the calls whose launches have
+  ended, or with ``wait`` every call after waiting for it. Each call of
+  ``lift_topk_bwd`` reads the ended ones first, without a wait."""
+  pending, wrong = [], []
+  for given, found, done in _LIFT_COUNTS:
+    if wait:
+      done.synchronize()
+    elif not done.query():
+      pending.append((given, found, done))
+      continue
+    if int(found) != given:
+      wrong.append((given, int(found)))
+  _LIFT_COUNTS[:] = pending
+  if wrong:
+    raise RuntimeError('lift_topk_bwd: ' + '; '.join(
+        f'{given} selected ranks passed, the count stage found {found}'
+        for given, found in wrong))
+
+
 def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
                   select: Tensor, depth: Tensor, g_stats: Tensor, *, h: int,
                   w: int, dim: int, depth_min_max: Tuple[float, float],
-                  use_variance: bool = True, add_minmax: bool = False
-                  ) -> Tensor:
+                  use_variance: bool = True, add_minmax: bool = False,
+                  selected: Optional[int] = None) -> Tensor:
   """K3 on the card: ``d stack`` (stack dtype) from ``g_stats`` = d stats.
 
-  Scratch allocated here for the kernel's stages, sized by every rank so
-  that nothing waits on the card for the count of selected ones: per bin
-  (example, view, lower-tap pixel) its count and first slot; per rank its
-  place in its bin, a record, its bin and its f32 ``d f`` row
-  (``B * N * K * dim * 4`` bytes, 4.7 GB on the training path).
+  Scratch allocated here for the kernel's stages: per bin (example, view,
+  lower-tap pixel) its count and first slot; per rank its place in its
+  bin; per point a place on the list of points with more than 4 selected
+  ranks; and per selected rank a record, its bin and its f32 ``d f`` row
+  (``selected * dim * 4`` bytes, 4.4 GB on the training path).
+
+  ``selected`` is the count of selected ranks, ``select.sum()``, which
+  sizes that scratch; None counts them here (a wait for the card). No stage
+  writes past it. The count stage's own total is compared with it once the
+  call has ended: ``check_lift_counts`` raises on a difference, at this
+  wrapper's next call or when asked.
   """
+  check_lift_counts()
   b, r, wp, c = stack.shape
   n, k = view_idx.shape[1:]
   width = _lift_layout('lift_topk_bwd', stack, k, h=h, w=w, dim=dim,
@@ -331,26 +364,36 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   bins = b * (r // (h + 1)) * h * w
   if ranks >= 2**31 or bins >= 2**31:
     raise ValueError(f'lift_topk_bwd: {ranks} ranks, {bins} bins are too many')
-  counts = torch.zeros((bins,), dtype=torch.int32, device=dev)
+  if selected is None:
+    selected = int(select.sum())
+  if not 0 <= selected <= ranks:
+    raise ValueError(f'lift_topk_bwd: {selected} selected of {ranks} ranks')
+  counts = torch.zeros((bins + 1,), dtype=torch.int32, device=dev)
   offsets = torch.empty((bins + 1,), dtype=torch.int32, device=dev)
   within = torch.empty((ranks,), dtype=torch.int32, device=dev)
-  slot_bins = torch.empty((ranks,), dtype=torch.int32, device=dev)
-  records = torch.empty((ranks, 4), dtype=torch.float32, device=dev)
-  d_f = torch.empty((ranks, dim), dtype=torch.float32, device=dev)
+  wide = torch.empty((b * n,), dtype=torch.int32, device=dev)
+  slot_bins = torch.empty((selected,), dtype=torch.int32, device=dev)
+  records = torch.empty((selected, 4), dtype=torch.float32, device=dev)
+  d_f = torch.empty((selected, dim), dtype=torch.float32, device=dev)
   grad = torch.zeros((b, r, wp, c), dtype=torch.float32, device=dev)
+  found = torch.empty((1,), dtype=torch.int32, pin_memory=True)
   lo, hi = depth_min_max
   lib = load_library()
+  stream = torch.cuda.current_stream(dev)
   code = lib.lift_topk_bwd(
       stack.data_ptr(), view_idx.data_ptr(), p2d.data_ptr(),
       select.data_ptr(), depth.data_ptr(), g_stats.data_ptr(),
       grad.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
       within.data_ptr(), d_f.data_ptr(), records.data_ptr(),
-      slot_bins.data_ptr(), _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c,
-      dim, h, w, int(c > dim), int(use_variance), int(add_minmax), width,
-      float(lo), float(hi), math.log(hi / lo),
-      torch.cuda.current_stream(dev).cuda_stream)
+      slot_bins.data_ptr(), wide.data_ptr(), found.data_ptr(),
+      _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h, w, int(c > dim),
+      int(use_variance), int(add_minmax), width, selected, float(lo),
+      float(hi), math.log(hi / lo), stream.cuda_stream)
   _raise_on_error(code, 'lift_topk_bwd')
   LAUNCHES['lift_topk_bwd'] += 1
+  done = torch.cuda.Event()
+  done.record(stream)
+  _LIFT_COUNTS.append((selected, found, done))
   return grad.to(stack.dtype)
 
 

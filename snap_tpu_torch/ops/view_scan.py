@@ -265,14 +265,35 @@ def lift_topk_bwd_plain(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   return grad.reshape(stack.shape).to(stack.dtype)
 
 
+class _SelectedCount:
+  """``select.sum()`` copied to pinned host memory behind the card's work,
+  and an event after the copy: read in the backward, long after the copy
+  ended, without a wait for the card."""
+
+  def __init__(self, select: Tensor):
+    self.count = torch.empty((), dtype=torch.int64, pin_memory=True)
+    self.count.copy_(select.sum(), non_blocking=True)
+    self.done = torch.cuda.Event()
+    self.done.record()
+
+  def __int__(self) -> int:
+    self.done.synchronize()
+    return int(self.count)
+
+
 class _LiftTopk(torch.autograd.Function):
-  """K1 forward, K3 backward (their plain versions for CPU tensors)."""
+  """K1 forward, K3 backward (their plain versions for CPU tensors). On the
+  card each call keeps its own count of selected ranks, which sizes K3's
+  scratch."""
 
   @staticmethod
   def forward(ctx, stack, view_idx, p2d, select, depth, kwargs):
     args = (stack, view_idx, p2d, select, depth)
+    ctx.selected = None
     if kernels.on_card(stack, 'lift_topk'):
       stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
+      if ctx.needs_input_grad[0]:
+        ctx.selected = _SelectedCount(select)
     else:
       stats, valid = lift_topk_plain(*args, **kwargs)
     ctx.save_for_backward(*args)
@@ -285,7 +306,8 @@ class _LiftTopk(torch.autograd.Function):
     del g_valid
     args = (*ctx.saved_tensors, g_stats.contiguous())
     if kernels.on_card(g_stats, 'lift_topk_bwd'):
-      d_stack = kernels.lift_topk_bwd(*args, **ctx.kwargs)
+      selected = None if ctx.selected is None else int(ctx.selected)
+      d_stack = kernels.lift_topk_bwd(*args, **ctx.kwargs, selected=selected)
     else:
       d_stack = lift_topk_bwd_plain(*args, **ctx.kwargs)
     return d_stack, None, None, None, None, None

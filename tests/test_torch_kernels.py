@@ -942,12 +942,17 @@ LAYOUTS = [(w, v, m) for w in (True, False) for v in (True, False)
 B8_LAYOUTS = [layout for layout in LAYOUTS if layout != (True, True, False)]
 
 
-def _b8_inputs(device, dtype, weighted, k, seed=11):
+def _b8_inputs(device, dtype, weighted, k, case='mixed', seed=11):
   """K1 and K3 inputs of a layout: 3,000 points an example on 5 views of
   7 x 9 pixels (pixels past every edge), 32 features (and 8 score bins
-  when weighted); 200 points with no selected rank, 200 with one; in
+  when weighted); the first 200 points with no selected rank. ``case``:
+  'mixed', 200 with one and ~60% of the ranks of the rest selected, and in
   1,000 points the second half of the ranks repeats the first, all
-  selected (exact ties of every channel and score)."""
+  selected (exact ties of every channel and score); 'sparse', the scan's
+  kind, ~4 selected a point (1 of 4 ranks at K = 4), 200 points with
+  theirs only in the last 4 lanes, 200 with 5-8 (every rank at K = 4) and
+  300 whose last rank repeats their first, both selected; 'dense', every
+  rank selected, the second half repeating the first."""
   g = torch.Generator(device='cpu').manual_seed(seed)
   b, v, h, w, n, dim = 2, 5, 7, 9, 3000, 32
   c = dim + (8 if weighted else 0)
@@ -955,28 +960,49 @@ def _b8_inputs(device, dtype, weighted, k, seed=11):
   view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
   p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor(
       [h + 2.0, w + 2.0]) - 1
-  select = torch.rand((b, n, k), generator=g) < 0.6
-  select[:, :400] = False
-  select[:, 200:400, k - 1] = True
+  draw = torch.rand((b, n, k), generator=g)
   depth = torch.rand((b, n, k), generator=g) * 40
-  half, tie = k // 2, slice(400, 1400)
-  for t in (view_idx, p2d, depth):
-    t[:, tie, half:2 * half] = t[:, tie, :half]
-  select[:, tie, :2 * half] = True
+  half = k // 2
+  if case == 'mixed':
+    select = draw < 0.6
+    select[:, 200:400] = False
+    select[:, 200:400, k - 1] = True
+    tie = slice(400, 1400)
+    for t in (view_idx, p2d, depth):
+      t[:, tie, half:2 * half] = t[:, tie, :half]
+    select[:, tie, :2 * half] = True
+  elif case == 'sparse':
+    select = draw < min(0.25, 3.7 / k)
+    select[:, 200:400] = False
+    select[:, 200:400, k - 4:] = torch.rand((b, 200, 4), generator=g) < 0.6
+    many = torch.randint(5, 9, (b, 200, 1), generator=g)
+    order = torch.rand((b, 200, k), generator=g).argsort(-1).argsort(-1)
+    select[:, 400:600] = order < many
+    tie = slice(600, 900)
+    for t in (view_idx, p2d, depth):
+      t[:, tie, k - 1] = t[:, tie, 0]
+    select[:, tie, 0] = select[:, tie, k - 1] = True
+  else:
+    select = torch.ones((b, n, k), dtype=torch.bool)
+    for t in (view_idx, p2d, depth):
+      t[:, :, half:2 * half] = t[:, :, :half]
+  select[:, :200] = False
   args = [t.to(device) for t in (stack.to(dtype), view_idx, p2d, select,
                                  depth)]
   return args, dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0))
 
 
+@pytest.mark.parametrize('case', ['mixed', 'sparse', 'dense'])
 @pytest.mark.parametrize('k', [4, 20])  # the stream's ranks, the scan's
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('layout', B8_LAYOUTS)
-def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k):
+def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k, case):
   """B8: K1 and K3 through the autograd wrapper against their plain
   versions, forward and backward (the cotangent scaled and freed of near
-  ties as chip_smoke.py frees it: exact ties stay)."""
+  ties as chip_smoke.py frees it: exact ties stay); K3 through its narrow
+  stage (at most 4 selected ranks a point) and its wide one."""
   weighted, use_variance, add_minmax = layout
-  args, kwargs = _b8_inputs(cuda, dtype, weighted, k)
+  args, kwargs = _b8_inputs(cuda, dtype, weighted, k, case)
   kwargs.update(use_variance=use_variance, add_minmax=add_minmax)
   stack = args[0].clone().requires_grad_()
   before = dict(kernels.LAUNCHES)
@@ -994,11 +1020,55 @@ def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k):
       (*args, chip_smoke.unit_cotangent(g)), kwargs)
   (got,) = torch.autograd.grad(stats, stack, g)
   assert kernels.LAUNCHES['lift_topk_bwd'] == before['lift_topk_bwd'] + 1
+  stages = [o['name'] for o in kernels.occupancy('lift_topk_bwd')]
+  assert ('wide_ranks_kernel' in stages) == (k > 4)
   want = view_scan.lift_topk_bwd_plain(*args, g, **kwargs)
   torch.cuda.synchronize()
   assert want.abs().max() > 0.1
   torch.testing.assert_close(got.float(), want.float(),
                              **BWD_TOLERANCES[dtype])
+
+
+def test_lift_bwd_scratch_follows_the_selected_count(cuda):
+  """K3's scratch is sized by the selected ranks, not by every rank: on a
+  sparse input of 20 ranks a point its own peak stays under what the
+  per-rank ``d f`` rows alone would take; a count passed that is not the
+  count stage's is read back from the card once the call has ended and
+  raises, at the wrapper's next call or when the counts are checked."""
+  g = torch.Generator(device='cpu').manual_seed(12)
+  b, v, h, w, n, k, dim = 2, 5, 7, 9, 200_000, 20, 32
+  stack = torch.randn((b, v * (h + 1), w + 1, dim), generator=g).to(cuda)
+  view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
+  p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor([h, w + 0.0])
+  select = torch.rand((b, n, k), generator=g) < 0.15
+  depth = torch.rand((b, n, k), generator=g) * 40
+  args = [stack] + [t.to(cuda) for t in (view_idx, p2d, select, depth)]
+  kw = dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0),
+            use_variance=True, add_minmax=False)
+  g_stats = torch.randn((b, n, 2 * dim), device=cuda)
+  selected = int(select.sum())
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  got = kernels.lift_topk_bwd(*args, g_stats, **kw, selected=selected)
+  torch.cuda.synchronize()
+  own = torch.cuda.max_memory_allocated() - base
+  every_rank = b * n * k * dim * 4
+  assert own < every_rank / 2, (own, every_rank)
+  torch.testing.assert_close(
+      got, view_scan.lift_topk_bwd_plain(*args, g_stats, **kw),
+      **BWD_TOLERANCES[torch.float32])
+  kernels.check_lift_counts(wait=True)
+  for wrong in (selected - 1, selected + 1):
+    kernels.lift_topk_bwd(*args, g_stats, **kw, selected=wrong)
+    with pytest.raises(RuntimeError, match=f'{wrong} selected ranks passed, '
+                       f'the count stage found {selected}'):
+      kernels.check_lift_counts(wait=True)
+  kernels.lift_topk_bwd(*args, g_stats, **kw, selected=selected - 1)
+  torch.cuda.synchronize()
+  with pytest.raises(RuntimeError, match='the count stage found'):
+    kernels.lift_topk_bwd(*args, g_stats, **kw, selected=selected)
+  kernels.check_lift_counts(wait=True)
 
 
 @pytest.mark.parametrize('layout', LAYOUTS)
