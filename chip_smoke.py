@@ -13,7 +13,8 @@ host generator's batch:
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the eight CUDA kernels of ``snap_tpu_torch/csrc`` (one
    nvcc call per source, all started together, then one link); prints the
-   SASS instructions of B4's, B7's and K1's loops (``cuobjdump``);
+   SASS instructions of B4's, B7's and K1's loops (``cuobjdump``; K1's in
+   the flagship's layout and in B8's two of phase 7j);
 3. kernels: K1 (``lift_topk_fwd``), K2 (``patch_sample_2d``), K3
    (``lift_topk_bwd``) and K4 (``patch_sample_2d_bwd``) on seeded inputs at
    the flagship shapes and the training batch of 2 against their plain
@@ -210,7 +211,8 @@ gather bench), one for B4 at the RANSAC training run's inputs
 (``/train``, launches from that run) and two for K1 and K2 at the
 held-out run's f32 inputs (``/heldout_f32``, launches from that run), and
 B8's K1 and K3 at phase 7j's inputs (``/stream_minmax``,
-``/scan_unweighted``, launches from those runs); the last line is
+``/scan_unweighted``, launches from those runs; K1's rows also give its
+``registers``, ``local_bytes`` and ``blocks_per_sm``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -764,12 +766,13 @@ _bound = bench_gather.bound
 
 
 def lift_bound(args, kwargs, stats, valid):
-  """(bound_ms, bound_by): bytes moved vs f32 operations this input needs."""
+  """(bound_ms, bound_by): bytes moved vs f32 operations this input needs;
+  the unweighted layouts (no score bins) need no depth."""
   stack, _, _, select, _ = args
   c, dim = stack.shape[-1], kwargs['dim']
   var, minmax = kwargs.get('use_variance', True), kwargs.get('add_minmax',
                                                              False)
-  nbytes = _nbytes(*args, stats, valid)
+  nbytes = _nbytes(*(args if c > dim else args[:4]), stats, valid)
   # Per selected rank: 4-tap combine (8C), depth hat (4S), online-softmax
   # update (5D; 3D without the variance), the max and min (2D); per point:
   # the epilogue (2D for the mean, 3D more for the variance).
@@ -2924,7 +2927,8 @@ def b8_rows(runs):
   """Phase 8, B8: K1 and K3 of each lifted form of phase 7j checked on every
   input its run gave them (the plain versions PLAIN_LIFT_CHUNK points at a
   time), then timed on the largest with the plain version and the bound;
-  one JSON row each, its launches those of its run."""
+  one JSON row each, its launches those of its run, K1's with the
+  registers, local bytes and blocks per SM of its launch."""
   rows = []
   for form, (launches, lift, lift_bwd) in runs.items():
     tag = form.split(',')[0] + ('_minmax' if 'max' in form else
@@ -2936,12 +2940,15 @@ def b8_rows(runs):
     args, kw = lift.largest()
     out = kernels.lift_topk_fwd(*args, **kw)
     log_occupancy('lift_topk_fwd', f'7j {form}')
+    launch, = kernels.occupancy('lift_topk_fwd')
     fwd = report(
         f'lift_topk_fwd/{tag}', 'snap_tpu_torch/csrc/lift_topk_fwd.cu',
         launches['lift_topk_fwd'], errs[0],
         time_ms(lambda: kernels.lift_topk_fwd(*args, **kw)),
         time_ms(lambda: plain_lift(args, kw, PLAIN_LIFT_CHUNK), iters=1),
         lift_bound(args, kw, *out), None)
+    fwd.update({k: launch[k] for k in ('registers', 'local_bytes',
+                                       'blocks_per_sm')})
     selected = int(args[3].sum())
     del out
     args, kw = lift_bwd.largest()
@@ -3108,7 +3115,11 @@ def main() -> int:
       f'{sass_loops("pose_scoring_kernelILb0E")}, pose_scoring_bwd_kernel'
       f'<false> {sass_loops("pose_scoring_bwd_kernelILb0E")}, '
       f'lift_topk_fwd_kernel<bf16, 1, true> '
-      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb1E")}')
+      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb1E")}, and '
+      f'in B8\'s layouts of phase 7j, [mean, var, max, min, score_max] '
+      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb0ELi7E")}, '
+      f'unweighted [mean, var] '
+      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb0ELi2E")}')
 
   # 3. Kernels against their plain versions on seeded flagship-shape inputs.
   lift, sample, lift_bwd, sample_bwd = seeded_kernel_inputs('cuda')

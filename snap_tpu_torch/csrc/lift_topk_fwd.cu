@@ -19,12 +19,24 @@
 // mode of its own: unweighted (C = D: every selected rank scores 0, so the
 // weights are equal and no m is written), without the variance, and with
 // the max and min of each feature channel over the selected ranks, in the
-// row [mean, var?, max?, min?, m?]. The flagship's mode (weighted,
-// variance) keeps the design below; the others take its runtime rank loop
-// (any K <= 32, as the scan form's K = V = 20) and D <= 256.
+// row [mean, var?, max?, min?, m?]. Any K <= 32 (the scan form's K = V =
+// 20) and D <= 256.
 //
 // A rank that is not selected leaves the state exactly as the reference's
 // masked update does (its weight is 0), so it is skipped without a read.
+// The flagship's layout walks ranks 0..K-1 and skips those (the design
+// below). B8's layouts visit the selected ones alone (lift_point_compact):
+// a point's n selected ranks are compacted in rank order (a ballot; lane
+// j < n takes the j-th, as K3's ranks stage does), so an unselected rank
+// costs no shuffle, tap weight, zeroed tap or FMA (the scan selects ~3.7
+// of its 20). A point with n <= 4 / CPL (nearly all: the stream's K = 4,
+// the scan's top 4 but for ties at its threshold) takes one group whose
+// loop is known at compile time; one with more, a runtime loop over its
+// compacted ranks, in the same kernel (K1 has no second pass whose
+// registers a wide branch would raise, unlike K3). The unweighted layouts
+// read no depth and form no score. The flagship's layout through
+// lift_point_compact gave the same stats but took 1.3% longer in bf16 and
+// 4.2% in f32 on an H100, so it keeps its own loop.
 //
 // What bounds it on an H100: bytes. At the serving shape the stack is
 // [1, 920, 61, 160] bf16 = 18 MB and stays in the 50 MB L2; device memory
@@ -72,6 +84,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "launch_log.cuh"
@@ -149,6 +162,9 @@ struct RankIn {
   float pi, pj, dep;
 };
 
+// kDepth: the layout scores its ranks by depth (weighted); else depth is
+// not read.
+template <bool kDepth>
 __device__ inline RankIn load_ranks(long long point, int lane, const Dims& d,
                                     const int32_t* view_idx, const float* p2d,
                                     const uint8_t* selected,
@@ -160,18 +176,63 @@ __device__ inline RankIn load_ranks(long long point, int lane, const Dims& d,
     in.view = view_idx[r];
     in.pi = p2d[2 * r];
     in.pj = p2d[2 * r + 1];
-    in.dep = depth[r];
+    if constexpr (kDepth) in.dep = depth[r];
   }
   return in;
 }
 
-// One point's stats row into my_row (shared memory) and its valid flag.
-template <typename T, int CPL, bool kOneGroup, int kMode>
+// The position of the (j + 1)-th set bit of mask, j < __popc(mask).
+__device__ inline int nth_set_bit(unsigned mask, int j) {
+  for (int i = 0; i < j; ++i) mask &= mask - 1u;
+  return __ffs(mask) - 1;
+}
+
+// A point's stats row from its pooled sums into my_row, and its valid
+// flag (ok: some rank selected). mean, E2 and E2 - mean^2 rounded as the
+// plain version and K3 round them (correctly rounded quotients, no FMA):
+// the variance's tie at 0 falls on the same side in all three.
+// fmx and fmn (the max and min) are read only where the layout has them.
+template <typename T, int CPL, int kMode>
+__device__ inline void write_stats(const float (&s1a)[CPL][4],
+                                   const float (&s2a)[CPL][4],
+                                   const float (*fmx)[4], const float (*fmn)[4],
+                                   float m, float l, bool ok, int lane, int D,
+                                   T* my_row, uint8_t* valid) {
+  const float l_safe = fmaxf(l, 1e-20f);
+  const int at_max = max_offset(kMode, D);
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int c0 = 4 * (lane + 32 * q);
+    if (c0 >= D) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float mean = __fdiv_rn(s1a[q][e], l_safe);
+      from_float(ok ? mean : 0.f, my_row + c0 + e);
+      if constexpr ((kMode & kVariance) != 0) {
+        const float e2 = __fdiv_rn(s2a[q][e], l_safe);
+        const float var = fmaxf(__fsub_rn(e2, __fmul_rn(mean, mean)), 0.f);
+        from_float(ok ? var : 0.f, my_row + D + c0 + e);
+      }
+      if constexpr ((kMode & kMinMax) != 0) {
+        from_float(ok ? fmx[q][e] : 0.f, my_row + at_max + c0 + e);
+        from_float(ok ? fmn[q][e] : 0.f, my_row + at_max + D + c0 + e);
+      }
+    }
+  }
+  if (lane == 0) {
+    if constexpr ((kMode & kWeighted) != 0)
+      from_float(ok ? m : 0.f, my_row + stats_width(kMode, D) - 1);
+    *valid = ok ? 1 : 0;
+  }
+}
+
+// The flagship's layout: one point's stats row into my_row (shared
+// memory) and its valid flag, walking ranks 0..K-1.
+template <typename T, int CPL, bool kOneGroup>
 __device__ inline void lift_point(const T* __restrict__ stack,
                                   const RankIn& in, long long point, int lane,
                                   const Dims& d, T* my_row, uint8_t* valid) {
   constexpr int KG = 4 / CPL;  // ranks per group
-  constexpr bool kW = (kMode & kWeighted) != 0;
   using Raw = typename Quad<T>::Raw;
   const int C = d.C, D = d.D, S = C - D, W = d.W;
   const int b = (int)(point / d.N);
@@ -193,12 +254,9 @@ __device__ inline void lift_point(const T* __restrict__ stack,
       fi = pi - li;
       fj = pj - lj;
       tap0 = (((long long)view * (d.h + 1) + (int)li) * W + (int)lj) * C;
-      if constexpr (kW) {
-        const float dc = fminf(fmaxf(dep, d.depth_min), d.depth_max);
-        const float xr =
-            logf(dc / d.depth_min) / d.log_range * (float)(S - 1);
-        x = fminf(fmaxf(xr, 0.f), (float)(S - 1));
-      }
+      const float dc = fminf(fmaxf(dep, d.depth_min), d.depth_max);
+      const float xr = logf(dc / d.depth_min) / d.log_range * (float)(S - 1);
+      x = fminf(fmaxf(xr, 0.f), (float)(S - 1));
     }
   }
   const unsigned selmask = __ballot_sync(kFull, sel);
@@ -206,8 +264,8 @@ __device__ inline void lift_point(const T* __restrict__ stack,
   // Lane k: score z_k from the two depth bins around x (loads issued
   // here, used after the first group's taps are in flight).
   float za[4], zb[4];
-  const int s0 = kW ? min((int)x, S - 1) : 0, s1 = kW ? min(s0 + 1, S - 1) : 0;
-  if (kW && sel) {
+  const int s0 = min((int)x, S - 1), s1 = min(s0 + 1, S - 1);
+  if (sel) {
     const T* taps[4] = {base + tap0, base + tap0 + C, base + tap0 + down,
                         base + tap0 + down + C};
 #pragma unroll
@@ -263,23 +321,20 @@ __device__ inline void lift_point(const T* __restrict__ stack,
       }
   };
 
-  float s1a[CPL][4], s2a[CPL][4], fmx[CPL][4], fmn[CPL][4];
+  float s1a[CPL][4], s2a[CPL][4];
 #pragma unroll
   for (int q = 0; q < CPL; ++q)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s1a[q][e] = 0.f;
       s2a[q][e] = 0.f;
-      fmx[q][e] = -inf_f();
-      fmn[q][e] = inf_f();
     }
   float m = kNegInf, l = 0.f;
   float my_z = kNegInf;
   const int num_k = kOneGroup ? KG : d.K;
   for (int k0 = 0; k0 < num_k; k0 += KG) {
     gather(k0);
-    if (!kW && k0 == 0 && sel) my_z = 0.f;
-    if (kW && k0 == 0 && sel) {
+    if (k0 == 0 && sel) {
       const float tw[4] = {(1.f - fi) * (1.f - fj), (1.f - fi) * fj,
                            fi * (1.f - fj), fi * fj};
       float fa = 0.f, fb = 0.f;
@@ -288,7 +343,10 @@ __device__ inline void lift_point(const T* __restrict__ stack,
         fa += tw[t] * za[t];
         fb += tw[t] * zb[t];
       }
-      my_z = fa * hat(x, s0) + (s1 > s0 ? fb * hat(x, s1) : 0.f);
+      // Both products rounded before the sum, as the plain version and K3
+      // round them (a product fused into the sum is an ulp off at times).
+      my_z = __fadd_rn(__fmul_rn(fa, hat(x, s0)),
+                       s1 > s0 ? __fmul_rn(fb, hat(x, s1)) : 0.f);
     }
 #pragma unroll
     for (int u = 0; u < KG; ++u) {
@@ -307,46 +365,188 @@ __device__ inline void lift_point(const T* __restrict__ stack,
           for (int e = 0; e < 4; ++e) {
             s1a[q][e] = s1a[q][e] * rescale + wv * f[u][q][e];
             s2a[q][e] = s2a[q][e] * rescale + wv * f[u][q][e] * f[u][q][e];
-            if constexpr ((kMode & kMinMax) != 0) {
-              fmx[q][e] = fmaxf(fmx[q][e], f[u][q][e]);
-              fmn[q][e] = fminf(fmn[q][e], f[u][q][e]);
-            }
           }
         m = new_m;
       }
     }
   }
 
-  const bool ok = selmask != 0;
-  // mean, E2 and E2 - mean^2 rounded as the plain version and K3 round
-  // them (correctly rounded quotients, no FMA): the variance's tie at 0
-  // falls on the same side in all three.
-  const float l_safe = fmaxf(l, 1e-20f);
-  const int at_max = max_offset(kMode, D);
+  write_stats<T, CPL, kFlagship>(s1a, s2a, nullptr, nullptr, m, l,
+                                 selmask != 0, lane, D, my_row, valid);
+}
+
+// B8's layouts: one point's stats row over its selected ranks alone, into
+// my_row (shared memory), and its valid flag. Lane k < K has loaded rank
+// k's inputs (in); the point's n selected ranks are compacted in rank
+// order, lane j < n taking the j-th. Each rank goes through the arithmetic
+// of lift_point above, expression for expression and in rank order, so
+// that the sums, the variance's tie at 0 and the extremes' ties fall where
+// they fall there and in K3 (the score's two products both rounded, as in
+// lift_point and K3). On an H100 a spill cost more than a round
+// trip (24 warps an SM hide one), so, within the bf16 bound of 80
+// registers and without spills:
+//   - the score (weighted) is formed before the taps are loaded, its loads
+//     a round trip of their own (issued with the first taps, they spilled
+//     and ran slower);
+//   - a rank's lower-left tap is a pixel index (an int; the offset is
+//     formed at the load), and its tap weights come from two shuffled
+//     fractions once its taps have landed;
+//   - each rank's combined features are pooled as soon as they are formed,
+//     and only the selected ranks of a group are combined at all;
+//   - in bf16 half a group's taps are in flight at a time (with a whole
+//     group's, every B8 layout spilled).
+template <typename T, int CPL, int kMode>
+__device__ inline void lift_point_compact(const T* __restrict__ stack,
+                                          const RankIn& in, long long point,
+                                          int lane, const Dims& d, T* my_row,
+                                          uint8_t* valid) {
+  constexpr int KG = 4 / CPL;  // ranks per group
+  // Ranks whose taps are in flight together: the whole group in f32, half
+  // of it in bf16.
+  constexpr int KF = sizeof(T) == 2 ? KG / 2 : KG;
+  constexpr bool kW = (kMode & kWeighted) != 0;
+  using Raw = typename Quad<T>::Raw;
+  const int C = d.C, D = d.D, S = C - D, W = d.W;
+  const int b = (int)point / d.N;  // B N < 2^31
+  const T* base = stack + (long long)b * d.R * W * C;
+  const int down = W * C;
+
+  const unsigned selmask = __ballot_sync(kFull, in.sel);
+  const int n = __popc(selmask);
+  const int src = lane < n ? nth_set_bit(selmask, lane) : lane;
+  const int view = __shfl_sync(kFull, in.view, src);
+  const float in_pi = __shfl_sync(kFull, in.pi, src);
+  const float in_pj = __shfl_sync(kFull, in.pj, src);
+  // Lane j < n: the j-th selected rank's tap fractions, lower-left tap
+  // (pixel) and score.
+  const bool sel = lane < n;
+  float fi = 0.f, fj = 0.f, my_z = kNegInf;
+  int pix = 0;
+  if (sel) {
+    const float pi = fminf(fmaxf(in_pi - 0.5f, 0.f), (float)(d.h - 1));
+    const float pj = fminf(fmaxf(in_pj - 0.5f, 0.f), (float)(d.w - 1));
+    const float li = floorf(pi), lj = floorf(pj);
+    fi = pi - li;
+    fj = pj - lj;
+    pix = (view * (d.h + 1) + (int)li) * W + (int)lj;
+    my_z = 0.f;  // unweighted: every selected rank scores 0
+  }
+  if constexpr (kW) {
+    const float dep = __shfl_sync(kFull, in.dep, src);
+    if (sel) {
+      const float dc = fminf(fmaxf(dep, d.depth_min), d.depth_max);
+      const float xr = logf(dc / d.depth_min) / d.log_range * (float)(S - 1);
+      const float x = fminf(fmaxf(xr, 0.f), (float)(S - 1));
+      const int s0 = min((int)x, S - 1), s1 = min(s0 + 1, S - 1);
+      const T* t0 = base + (long long)pix * C + D;
+      const T* taps[4] = {t0, t0 + C, t0 + down, t0 + down + C};
+      float za[4], zb[4];
 #pragma unroll
-  for (int q = 0; q < CPL; ++q) {
-    const int c0 = 4 * (lane + 32 * q);
-    if (c0 >= D) continue;
+      for (int t = 0; t < 4; ++t) {
+        za[t] = to_float(taps[t][s0]);
+        zb[t] = to_float(taps[t][s1]);
+      }
+      const float tw[4] = {(1.f - fi) * (1.f - fj), (1.f - fi) * fj,
+                           fi * (1.f - fj), fi * fj};
+      float fa = 0.f, fb = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float mean = __fdiv_rn(s1a[q][e], l_safe);
-      from_float(ok ? mean : 0.f, my_row + c0 + e);
-      if constexpr ((kMode & kVariance) != 0) {
-        const float e2 = __fdiv_rn(s2a[q][e], l_safe);
-        const float var = fmaxf(__fsub_rn(e2, __fmul_rn(mean, mean)), 0.f);
-        from_float(ok ? var : 0.f, my_row + D + c0 + e);
+      for (int t = 0; t < 4; ++t) {
+        fa += tw[t] * za[t];
+        fb += tw[t] * zb[t];
       }
-      if constexpr ((kMode & kMinMax) != 0) {
-        from_float(ok ? fmx[q][e] : 0.f, my_row + at_max + c0 + e);
-        from_float(ok ? fmn[q][e] : 0.f, my_row + at_max + D + c0 + e);
-      }
+      // Both products rounded before the sum, as lift_point and K3 round
+      // them (a product fused into the sum is an ulp off at times).
+      my_z = __fadd_rn(__fmul_rn(fa, hat(x, s0)),
+                       s1 > s0 ? __fmul_rn(fb, hat(x, s1)) : 0.f);
     }
   }
-  if (lane == 0) {
-    if constexpr (kW)
-      from_float(ok ? m : 0.f, my_row + stats_width(kMode, D) - 1);
-    *valid = ok ? 1 : 0;
+
+  float s1a[CPL][4], s2a[CPL][4], fmx[CPL][4], fmn[CPL][4];
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s1a[q][e] = 0.f;
+      s2a[q][e] = 0.f;
+      fmx[q][e] = -inf_f();
+      fmn[q][e] = inf_f();
+    }
+  float m = kNegInf, l = 0.f;
+  // The compacted ranks k0 .. k0 + KF - 1 (those below n): every tap
+  // loaded before any is used, then each combined and pooled in order.
+  const auto batch = [&](int k0) {
+    Raw raw[KF][CPL][4];
+#pragma unroll
+    for (int u = 0; u < KF; ++u) {
+      const int k = k0 + u;  // <= 31: k0 < n <= 32 and KF divides 32
+      const int p = __shfl_sync(kFull, pix, k);
+      if (k < n) {
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int c0 = 4 * (lane + 32 * q);
+          if (c0 < D) {
+            const T* t = base + (long long)p * C + c0;
+            raw[u][q][0] = Quad<T>::load(t);
+            raw[u][q][1] = Quad<T>::load(t + C);
+            raw[u][q][2] = Quad<T>::load(t + down);
+            raw[u][q][3] = Quad<T>::load(t + down + C);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KF; ++u) {
+      const int k = k0 + u;
+      if (k >= n) break;  // warp-uniform
+      const float gi = __shfl_sync(kFull, fi, k);
+      const float gj = __shfl_sync(kFull, fj, k);
+      const float score = __shfl_sync(kFull, my_z, k);
+      const float tw[4] = {(1.f - gi) * (1.f - gj), (1.f - gi) * gj,
+                           gi * (1.f - gj), gi * gj};
+      float f[CPL][4];
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[q][e] = 0.f;
+        if (4 * (lane + 32 * q) >= D) continue;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float v[4];
+          Quad<T>::convert(raw[u][q][t], v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[q][e] += tw[t] * v[e];
+        }
+      }
+      // Online-softmax update of a selected rank (reference: rank_step).
+      const float new_m = fmaxf(m, score);
+      const float safe_m = new_m <= kNegInf ? 0.f : new_m;
+      const float rescale = expf((m <= kNegInf ? kNegInf : m) - safe_m);
+      const float wv = expf(score - safe_m);
+      l = l * rescale + wv;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s1a[q][e] = s1a[q][e] * rescale + wv * f[q][e];
+          s2a[q][e] = s2a[q][e] * rescale + wv * f[q][e] * f[q][e];
+          if constexpr ((kMode & kMinMax) != 0) {
+            fmx[q][e] = fmaxf(fmx[q][e], f[q][e]);
+            fmn[q][e] = fminf(fmn[q][e], f[q][e]);
+          }
+        }
+      m = new_m;
+    }
+  };
+  if (n > KG) {
+    for (int k0 = 0; k0 < n; k0 += KF) batch(k0);
+  } else if (n > 0) {  // one group, its batches known at compile time
+    batch(0);
+    if constexpr (KF < KG) {
+      if (n > KF) batch(KF);
+    }
   }
+  write_stats<T, CPL, kMode>(s1a, s2a, fmx, fmn, m, l, n > 0, lane, D,
+                             my_row, valid);
 }
 
 // A warp walks kPointsPerWarp consecutive points. Their stats rows are one
@@ -383,13 +583,20 @@ lift_topk_fwd_kernel(
   int lead = (int)(at % kPerVec);
   at -= lead;
   int pending = lead;
-  RankIn next = load_ranks(p0, lane, d, view_idx, p2d, selected, depth);
+  constexpr bool kW = (kMode & kWeighted) != 0;
+  RankIn next =
+      load_ranks<kW>(p0, lane, d, view_idx, p2d, selected, depth);
   for (long long point = p0; point < p1; ++point) {
     const RankIn in = next;
     if (point + 1 < p1)  // the next point's inputs load during this one
-      next = load_ranks(point + 1, lane, d, view_idx, p2d, selected, depth);
-    lift_point<T, CPL, kOneGroup, kMode>(stack, in, point, lane, d,
-                                         buf + pending, valid + point);
+      next = load_ranks<kW>(point + 1, lane, d, view_idx, p2d, selected,
+                            depth);
+    if constexpr (kMode == kFlagship)
+      lift_point<T, CPL, kOneGroup>(stack, in, point, lane, d, buf + pending,
+                                    valid + point);
+    else
+      lift_point_compact<T, CPL, kMode>(stack, in, point, lane, d,
+                                        buf + pending, valid + point);
     __syncwarp();
     const int count = pending + row;
     const int chunks = count / kPerVec;
@@ -436,7 +643,8 @@ int launch(const void* stack, const int32_t* view_idx, const float* p2d,
         static_cast<T*>(stats), valid, d);
     return (int)cudaGetLastError();
   };
-  // Only the flagship's layout unrolls its one group of ranks.
+  // The flagship's layout unrolls its one group of ranks where K fits it
+  // (B8's layouts choose per point: lift_point_compact).
   if constexpr (kMode == kFlagship) {
     if (d.K <= 4 / CPL) return run(lift_topk_fwd_kernel<T, CPL, true, kMode>);
   }
@@ -485,7 +693,9 @@ int dispatch_mode(int mode, const void* stack, const int32_t* view_idx,
 // dtype: 0 = float32, 1 = bfloat16. weighted, use_variance and add_minmax
 // pick the statistics layout, stats_row wide (lift_stats.cuh); weighted iff
 // C > D. Needs D % 4 == 0, K <= 32, D <= 512 for the flagship's layout and
-// D <= 256 for the others, and 16-byte aligned stack rows and stats.
+// D <= 256, fewer than 2^31 pixels an example (R W) and points (B N) for
+// the others, and
+// 16-byte aligned stack rows and stats.
 // Returns a cudaError_t (0 on success).
 extern "C" int lift_topk_fwd(
     const void* stack, const void* view_idx, const void* p2d,
@@ -497,7 +707,9 @@ extern "C" int lift_topk_fwd(
   const int mode = (weighted ? kWeighted : 0) |
                    (use_variance ? kVariance : 0) | (add_minmax ? kMinMax : 0);
   if (D % 4 || K > 32 || (weighted != 0) != (C > D) ||
-      stats_row != stats_width(mode, D))
+      stats_row != stats_width(mode, D) ||
+      (mode != kFlagship &&
+       ((long long)R * W > INT_MAX || (long long)B * N > INT_MAX)))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

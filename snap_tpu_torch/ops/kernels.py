@@ -229,6 +229,9 @@ def _lift_layout(name: str, stack: Tensor, k: int, *, h: int, w: int,
     raise ValueError(f'{name} supports at most 32 ranks and dim <= 256 '
                      f'(512 in the forward of the layout [mean, var, '
                      f'score_max]), got dim {dim}, {k} ranks')
+  if r * wp >= 2**31:
+    raise ValueError(f'{name} supports fewer than 2^31 pixels an example, '
+                     f'got {r} x {wp}')
   return stats_width(dim, c > dim, use_variance, add_minmax)
 
 

@@ -21,6 +21,7 @@ from snap_tpu_torch.models import pose_estimation
 from snap_tpu_torch.models import pose_exhaustive_voting as pev
 from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
+from snap_tpu_torch.ops import view_fusion
 from snap_tpu_torch.ops import view_scan
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
@@ -788,15 +789,19 @@ def test_pose_scoring_refinement_lattice_reads_each_points_own_map(cuda,
   torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
-def _tied_lift_inputs(device, k=16, seed=8):
+def _tied_lift_inputs(device, k=16, seed=8, weighted=True):
   """K1 inputs in f32 whose every step but the epilogue's divisions is
   exact: each point's ranks read one pixel centre of one view (bilinear
-  weights 1, 0, 0, 0) at depth_min (the score is bin 0's value), and the
-  stack holds bf16 values, so the softmax weights are 1 and the sums
-  c f and c f^2 over c selected ranks are exact. Then mean = f, E2 = f^2
-  and E2 - mean^2 = 0 exactly, where the quotients are correctly rounded."""
+  weights 1, 0, 0, 0) at depth_min (the score is bin 0's value; without
+  score bins every selected rank scores 0), and the stack holds bf16
+  values, so the softmax weights are 1 and the sums c f and c f^2 over c
+  selected ranks are exact. Then mean = f, E2 = f^2 and E2 - mean^2 = 0
+  exactly, where the quotients are correctly rounded. Blocks of points
+  select none, one, 2-4, 5-8 (where k > 4) and every rank, at random
+  places."""
   g = torch.Generator(device='cpu').manual_seed(seed)
-  b, v, h, w, n, channels, dim = 2, 3, 7, 9, 2000, 40, 32
+  b, v, h, w, n, dim = 2, 3, 7, 9, 2000, 32
+  channels = dim + (8 if weighted else 0)
   lo, hi = 1.0, 32.0
   stack = torch.randn((b, v * (h + 1), w + 1, channels),
                       generator=g).to(torch.bfloat16).float()
@@ -805,18 +810,44 @@ def _tied_lift_inputs(device, k=16, seed=8):
                        torch.randint(0, w, (b, n), generator=g)], -1)
   view_idx = view.expand(b, n, k).contiguous()
   p2d = (pixel.float() + 0.5)[:, :, None, :].expand(b, n, k, 2).contiguous()
-  select = torch.rand((b, n, k), generator=g) < torch.rand(
-      (b, n, 1), generator=g)
+  select = _blocks_of_selections(g, b, n, k)
   depth = torch.full((b, n, k), lo)
   args = [t.to(device) for t in (stack, view_idx, p2d, select, depth)]
   return args, dict(h=h, w=w, dim=dim, depth_min_max=(lo, hi))
 
 
-def test_lift_topk_fwd_tied_stats_are_the_plain_versions_to_the_bit(cuda):
+def _blocks_of_selections(g, b, n, k):
+  """select [b, n, k]: five blocks of points (in order) selecting none,
+  one, 2-4, 5-8 (where k > 4) and every rank, at random places."""
+  low = torch.tensor([0, 1, 2, 5, k]).clamp(max=k)
+  high = torch.tensor([0, 1, 4, 8, k]).clamp(max=k)
+  kind = torch.arange(n) * 5 // n
+  count = low[kind] + (torch.rand((b, n), generator=g) * (
+      high[kind] - low[kind] + 1)).long()
+  order = torch.rand((b, n, k), generator=g).argsort(-1).argsort(-1)
+  return order < count[..., None]
+
+
+@pytest.mark.parametrize('layout,k', [
+    ((True, True, False), 16), ((True, True, False), 4),
+    ((True, True, False), 20), ((True, True, True), 4), ((True, True, True), 20),
+    ((False, True, False), 4), ((False, True, False), 20),
+    ((False, True, True), 4), ((False, True, True), 20)])
+def test_lift_topk_fwd_tied_stats_are_the_plain_versions_to_the_bit(
+    cuda, layout, k):
   """Where E2 - mean^2 is exactly 0, K1's stats are the plain version's bit
   for bit: a quotient an ulp off would leave a variance of an ulp (or
-  clamp another point's), the tie K3's backward splits (C7)."""
-  args, kwargs = _tied_lift_inputs(cuda)
+  clamp another point's), the tie K3's backward splits (C7). In every
+  layout with the variance (the flagship's and B8's), at the stream's 4
+  ranks and the scan's 20, so that B8's points with at most 4 selected
+  ranks (one compile-time group) and with more (the runtime loop over
+  their compacted ranks) both run."""
+  weighted, use_variance, add_minmax = layout
+  args, kwargs = _tied_lift_inputs(cuda, k, weighted=weighted)
+  kwargs.update(use_variance=use_variance, add_minmax=add_minmax)
+  n = args[3].sum(-1)
+  assert (n == 0).any() and (n == 1).any() and (n == k).any()
+  assert k == 4 or ((n > 4) & (n < k)).any()
   stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
   stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
   torch.cuda.synchronize()
@@ -824,6 +855,86 @@ def test_lift_topk_fwd_tied_stats_are_the_plain_versions_to_the_bit(cuda):
   assert torch.equal(stats, stats_p)
   dim = kwargs['dim']
   assert not stats[..., dim:2 * dim].any()  # every variance is exactly 0
+
+
+@pytest.mark.parametrize('k', [4, 20])
+@pytest.mark.parametrize('layout', [(True, True, False), (True, True, True),
+                                    (True, False, True), (True, False, False)])
+def test_lift_topk_fwd_scores_and_extremes_are_the_plain_versions_to_the_bit(
+    cuda, layout, k):
+  """Each weighted layout's score max, and the max and min of the features,
+  are the plain version's bit for bit at depths off the bins' centres: the
+  score is RN(RN(a h0) + RN(b h1)) in both (the two bins around the depth;
+  a fused product would be an ulp off at times), the scores K3 recomputes.
+  Each rank reads a pixel centre of f32 values (bilinear weights 1, 0, 0,
+  0: its features and bins are the pixel's, exactly), and depth_min 1 with
+  a log range of 4 makes the bins' abscissa the same whether divided or
+  multiplied by the reciprocal (as torch divides by a scalar on the card).
+  The mean and variance, sums of softmax weights, are held to the f32
+  tolerance."""
+  _, use_variance, add_minmax = layout
+  g = torch.Generator(device='cpu').manual_seed(9)
+  b, v, h, w, n, dim, bins = 2, 3, 7, 9, 2000, 32, 8
+  lo, hi = 1.0, math.exp(4.0)
+  assert float(torch.tensor(math.log(hi / lo))) == 4.0
+  stack = torch.randn((b, v * (h + 1), w + 1, dim + bins), generator=g)
+  view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
+  pixel = torch.stack([torch.randint(0, h, (b, n, k), generator=g),
+                       torch.randint(0, w, (b, n, k), generator=g)], -1)
+  select = _blocks_of_selections(g, b, n, k)
+  depth = 0.5 + torch.rand((b, n, k), generator=g) * (hi + 5.0)
+  args = [t.to(cuda) for t in (stack, view_idx, pixel.float() + 0.5, select,
+                               depth)]
+  kwargs = dict(h=h, w=w, dim=dim, depth_min_max=(lo, hi),
+                use_variance=use_variance, add_minmax=add_minmax)
+  stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
+  stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(valid, valid_p)
+  exact = dim * (1 + use_variance)  # the extremes and the score max
+  assert torch.equal(stats[..., exact:], stats_p[..., exact:])
+  torch.testing.assert_close(stats[..., :exact], stats_p[..., :exact],
+                             **TOLERANCES[torch.float32])
+  # The roundings differ here: the products fused into the sum (exact in
+  # f64) give other scores than the plain version's at some ranks.
+  hat = view_fusion.depth_hat_weights(depth, bins, (lo, hi))
+  bins_read = stack[torch.arange(b)[:, None, None],
+                    view_idx * (h + 1) + pixel[..., 0], pixel[..., 1], dim:]
+  assert ((bins_read * hat).sum(-1) != (bins_read.double() * hat).sum(
+      -1).float())[select].any()
+
+
+@pytest.mark.parametrize('layout', [(True, True, True), (True, False, True),
+                                    (True, False, False), (False, True, False),
+                                    (False, True, True), (False, False, True),
+                                    (False, False, False)])
+def test_lift_topk_fwd_b8_bf16_keeps_three_blocks_without_spills(cuda,
+                                                                 layout):
+  """K1's bf16 instantiations of B8's layouts at phase 7j's widths (128
+  features; 32 score bins when weighted): no local memory (spills or
+  stack) within the bf16 launch bound, and 3 blocks of 256 threads an SM."""
+  weighted, use_variance, add_minmax = layout
+  g = torch.Generator(device='cpu').manual_seed(13)
+  b, v, h, w, n, k, dim = 2, 3, 7, 9, 500, 20, 128
+  c = dim + (32 if weighted else 0)
+  stack = torch.randn((b, v * (h + 1), w + 1, c), generator=g)
+  view_idx = torch.randint(0, v, (b, n, k), generator=g, dtype=torch.int32)
+  p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor([h, w + 0.0])
+  select = torch.rand((b, n, k), generator=g) < 0.2
+  depth = torch.rand((b, n, k), generator=g) * 40
+  args = [t.to(cuda) for t in (stack.to(torch.bfloat16), view_idx, p2d,
+                               select, depth)]
+  kwargs = dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0),
+                use_variance=use_variance, add_minmax=add_minmax)
+  stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
+  launch, = kernels.occupancy('lift_topk_fwd')
+  assert launch['local_bytes'] == 0, launch
+  assert launch['threads'] == 256 and launch['blocks_per_sm'] == 3, launch
+  stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert torch.equal(valid, valid_p)
+  torch.testing.assert_close(stats.float(), stats_p.float(),
+                             **TOLERANCES[torch.bfloat16])
 
 
 def test_occupancy_reports_each_launch_of_the_last_call(cuda):

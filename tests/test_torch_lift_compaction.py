@@ -14,6 +14,15 @@ order the compaction keeps. Then the scan form's compacted ranks against
 the JAX package's ``pool_views_scan`` (stats and VJP), on the inputs of
 ``test_torch_lift_forms.py`` whose repeated view ties at the scan's
 threshold.
+
+The premises of K1's compaction (``csrc/lift_topk_fwd.cu``, B8's layouts),
+which never reads an unselected rank's view, pixel or depth, and reads no
+depth at all in the unweighted layouts: other values there (another valid
+view, other finite pixels on the image, any depth, NaN and infinities
+included) give the plain versions the same stats, validity and ``d stack``,
+value for value; so does a depth of NaN everywhere in the unweighted
+layouts. The pixels stay finite because the plain version multiplies an
+unselected rank's combined features by its weight of 0.
 """
 
 import numpy as np
@@ -66,33 +75,84 @@ def _ranks(k: int, seed: int = 0):
   return [torch.from_numpy(t) for t in (view_idx, p2d, select, depth)]
 
 
-@pytest.mark.parametrize('k', [4, 20])
-@pytest.mark.parametrize('layout', LAYOUTS)
-def test_compacted_ranks_give_the_same_stats_and_d_stack(layout, k):
+def _layout_inputs(layout, k):
+  """The stack, the kwargs and a cotangent of ``layout`` for ``_ranks(k)``:
+  32 features, 8 score bins when weighted."""
   weighted, use_variance, add_minmax = layout
   rng = np.random.default_rng(1)
   dim, bins = 32, 8 if weighted else 0
-  view_idx, p2d, select, depth = _ranks(k)
-  p = select.shape[0]
+  p = 240
   image = rng.normal(size=(1, 5 * 8, 10, dim + bins)).astype(np.float32)
   stack = torch.from_numpy(image).expand(p, -1, -1, -1).contiguous()
   kw = dict(h=7, w=9, dim=dim, depth_min_max=(1.0, 32.0),
             use_variance=use_variance, add_minmax=add_minmax)
   g = torch.from_numpy(rng.normal(size=(p, 1, kernels.stats_width(
       dim, weighted, use_variance, add_minmax))).astype(np.float32))
+  return stack, kw, g
+
+
+def _assert_same_lift(stack, given, other, g, kw):
+  """The plain K1 and K3 on ``given`` and on ``other``: the same stats,
+  validity and ``d stack``, value for value."""
+  stats, valid = view_scan.lift_topk_plain(stack, *given, **kw)
+  stats_o, valid_o = view_scan.lift_topk_plain(stack, *other, **kw)
+  assert torch.equal(valid, valid_o) and torch.equal(stats, stats_o)
+  d_stack = view_scan.lift_topk_bwd_plain(stack, *given, g, **kw)
+  d_stack_o = view_scan.lift_topk_bwd_plain(stack, *other, g, **kw)
+  assert d_stack.abs().max() > 0.1
+  assert torch.equal(d_stack, d_stack_o)
+
+
+@pytest.mark.parametrize('k', [4, 20])
+@pytest.mark.parametrize('layout', LAYOUTS)
+def test_compacted_ranks_give_the_same_stats_and_d_stack(layout, k):
+  stack, kw, g = _layout_inputs(layout, k)
+  view_idx, p2d, select, depth = _ranks(k)
   given = (view_idx, p2d, select, depth)
   packed = compact(*given)
   n = select.sum(-1)
   assert (n == 0).any() and (n == 1).any() and (n == k).any()
   assert k == 4 or ((n >= 5) & (n <= 8) & (n < k)).any()
   assert not torch.equal(packed[2], select)  # the compaction moves ranks
-  stats, valid = view_scan.lift_topk_plain(stack, *given, **kw)
-  stats_c, valid_c = view_scan.lift_topk_plain(stack, *packed, **kw)
-  assert torch.equal(valid, valid_c) and torch.equal(stats, stats_c)
-  d_stack = view_scan.lift_topk_bwd_plain(stack, *given, g, **kw)
-  d_stack_c = view_scan.lift_topk_bwd_plain(stack, *packed, g, **kw)
-  assert d_stack.abs().max() > 0.1
-  assert torch.equal(d_stack, d_stack_c)
+  _assert_same_lift(stack, given, packed, g, kw)
+
+
+@pytest.mark.parametrize('k', [4, 20])
+@pytest.mark.parametrize('layout', LAYOUTS)
+def test_unselected_ranks_inputs_are_never_read(layout, k):
+  """An unselected rank's view, pixel and depth replaced by others (another
+  valid view, other finite pixels on the image, any depth: NaN, +-inf and
+  finite values in and out of the depth range) change nothing."""
+  stack, kw, g = _layout_inputs(layout, k)
+  view_idx, p2d, select, depth = _ranks(k)
+  rng = np.random.default_rng(2)
+  off = ~select
+  shape = tuple(select.shape)
+  other_view = torch.where(off, (view_idx + torch.from_numpy(
+      rng.integers(1, 5, shape).astype(np.int32))) % 5, view_idx)
+  pixels = torch.from_numpy((rng.uniform(size=shape + (2,)) * [7.0, 9.0]
+                             ).astype(np.float32))
+  other_p2d = torch.where(off[..., None], pixels, p2d)
+  anything = torch.from_numpy(rng.choice(
+      np.array([np.nan, np.inf, -np.inf, -3.0, 0.0, 0.5, 17.0, 1e4],
+               np.float32), shape))
+  other_depth = torch.where(off, anything, depth)
+  assert off.any() and not torch.equal(other_view, view_idx)
+  assert not torch.equal(other_p2d, p2d)
+  assert other_depth[off].isnan().any() and other_depth[off].isinf().any()
+  _assert_same_lift(stack, (view_idx, p2d, select, depth),
+                    (other_view, other_p2d, select, other_depth), g, kw)
+
+
+@pytest.mark.parametrize('k', [4, 20])
+@pytest.mark.parametrize('layout', [l for l in LAYOUTS if not l[0]])
+def test_unweighted_layouts_read_no_depth(layout, k):
+  """Without score bins, a depth of NaN at every rank changes nothing."""
+  stack, kw, g = _layout_inputs(layout, k)
+  view_idx, p2d, select, depth = _ranks(k)
+  nan = torch.full_like(depth, float('nan'))
+  _assert_same_lift(stack, (view_idx, p2d, select, depth),
+                    (view_idx, p2d, select, nan), g, kw)
 
 
 def _port_scan_compacted(x, add_minmax, use_variance, cotangent):

@@ -16,12 +16,14 @@ selected ranks that the autograd function keeps for K3. Card only:
 
     python3 tests/torch_k3_ab.py --parent checkout_check/parent
 
-One JSON line per row on stdout and in ``--out``.
+One JSON line per row on stdout and in ``--out``. ``tests/torch_k1_ab.py``
+times K1 the same way, with this script's capture and set-up.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import inspect
 import json
@@ -60,21 +62,37 @@ def load_parent(root: pathlib.Path):
   return module
 
 
-def step_inputs(row: str):
-  """K3's inputs in the map's lift of one training step of ``row``."""
+def step_inputs(row: str, names=('lift_topk_bwd',)):
+  """The largest inputs (args, kwargs) that each wrapper of ``kernels`` in
+  ``names`` is given in the map's lift of one training step of ``row``."""
   config = configs.train_full1chip_exhaustive()
   if ROWS[row] is not None:
     config = chip_smoke.with_lift_form(config, ROWS[row])
   model = evaluate.build_model(config, 'cuda', 0)
-  workdir = chip_smoke.fresh_workdir(f'k3_ab_{row}')
-  with chip_smoke.Capture(kernels, 'lift_topk_bwd', 0) as capture:
+  workdir = chip_smoke.fresh_workdir(f'ab_{row}')
+  with contextlib.ExitStack() as stack:
+    captures = [stack.enter_context(chip_smoke.Capture(kernels, name, 0))
+                for name in names]
     train.train(config, 1, 'cuda', seed=0, model=model, workdir=str(workdir))
   shutil.rmtree(workdir)
   del model
-  args, kw = capture.largest()
-  capture.calls.clear()
+  out = [capture.largest() for capture in captures]
+  for capture in captures:
+    capture.calls.clear()
   torch.cuda.empty_cache()
-  return args, kw
+  return out
+
+
+def own_peak_gib(fn) -> float:
+  """The peak memory that one call of ``fn`` adds, in GiB."""
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  out = fn()
+  torch.cuda.synchronize()
+  del out
+  return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
 def call(module, args, kw):
@@ -88,18 +106,12 @@ def call(module, args, kw):
 
 def turn(module, args, kw):
   fn = call(module, args, kw)
-  torch.cuda.synchronize()
-  torch.cuda.empty_cache()
-  base = torch.cuda.memory_allocated()
-  torch.cuda.reset_peak_memory_stats()
-  fn()
-  torch.cuda.synchronize()
-  peak = torch.cuda.max_memory_allocated() - base
+  peak_gib = own_peak_gib(fn)
   ranks = [o for o in module.occupancy('lift_topk_bwd')
            if 'ranks' in o['name']]
   return dict(ms=chip_smoke.time_ms(fn),
               stages=chip_smoke.kernel_stages_ms(fn, STAGES),
-              peak_gib=peak / 2**30,
+              peak_gib=peak_gib,
               ranks=[{k: o[k] for k in ('name', 'registers', 'local_bytes',
                                         'blocks_per_sm')} for o in ranks])
 
@@ -144,16 +156,19 @@ def compare(name, parent, args, kw, check=True):
               selected_count=selected_count_cost(args[3]), turns=turns)
 
 
-def main() -> int:
+def start(default_out: str):
+  """Parses ``--parent`` and ``--out``, loads both trees' kernel libraries
+  and returns the parent's module and ``emit``, which prints a row as a
+  JSON line beside the card's name and power limit and rewrites ``--out``
+  with every row so far; None where no card is present."""
   parser = argparse.ArgumentParser()
   parser.add_argument('--parent', required=True)
-  parser.add_argument('--out', default='chiprun_out/k3_ab.json')
-  parser.add_argument('--rows', default=','.join(ROWS))
-  parser.add_argument('--skip_seeded', action='store_true')
+  parser.add_argument('--out', default=default_out)
   opts = parser.parse_args()
   if not torch.cuda.is_available():
-    print('torch_k3_ab: needs a CUDA card', file=sys.stderr)
-    return 1
+    print(f'{pathlib.Path(sys.argv[0]).stem}: needs a CUDA card',
+          file=sys.stderr)
+    return None
   parent = load_parent(pathlib.Path(opts.parent).resolve())
   parent.load_library()
   kernels.load_library()
@@ -171,15 +186,23 @@ def main() -> int:
     out.write_text('\n'.join(json.dumps(r) for r in results) + '\n')
 
   torch.backends.cuda.matmul.allow_tf32 = False
+  return parent, emit
+
+
+def main() -> int:
+  started = start('chiprun_out/k3_ab.json')
+  if started is None:
+    return 1
+  parent, emit = started
   with torch.no_grad():
     for name, weighted, use_variance, add_minmax, ranks, n in (
-        () if opts.skip_seeded else chip_smoke.B8_SEEDED):
+        chip_smoke.B8_SEEDED):
       args, g_stats, kw = chip_smoke.seeded_lift_inputs(
           'cuda', torch.bfloat16, weighted, use_variance, add_minmax, ranks, n)
       emit(compare(f'seeded {name}', parent, (*args, g_stats), kw))
       del args, g_stats
-  for row in opts.rows.split(','):
-    args, kw = step_inputs(row)
+  for row in ROWS:
+    (args, kw), = step_inputs(row)
     with torch.no_grad():
       emit(compare(row, parent, args, kw))
     del args
