@@ -26,8 +26,9 @@ host generator's batch:
    the same kind of inputs, mask on and off, with invalid points, a run of
    2,000 identical poses (every pose of a point adds into the same four
    cells; alone, its sum is held to the closed form) and an example whose
-   cotangent is all zero; B5 (``slice_gather``) and B6 (``table_gather``)
-   at the gather tool's shapes over all N points; B8 (K1 and K3 in the
+   cotangent is all zero, held to its plain version bit for bit; B5
+   (``slice_gather``) and B6 (``table_gather``) at the gather tool's
+   shapes over all N points; B8 (K1 and K3 in the
    other statistics layouts, ``B8_SEEDED``: weighted with the max and min,
    unweighted with the variance, unweighted with the max and min and no
    variance, and the scan form's 20 ranks) forward and backward in f32 and
@@ -187,7 +188,11 @@ host generator's batch:
    RANSAC path's f32 input, and B4 on both of its calls (sampled poses and
    the refinement lattice), each with its bound and B4's grid and waves;
    B4 and B7 on the RANSAC training run's own inputs (B7's cotangent
-   scaled as the other backward kernels'), each with its bound;
+   scaled as the other backward kernels'), each with its bound, B7 bit for
+   bit against its plain version (as captured and without the GT pose's
+   cotangent) and ten calls on each input to the same bits; K3's and K4's
+   outputs of two calls on each captured training input compared, the
+   entries whose bits differ logged (ROADMAP C20);
    K1, K2, K3, K4, B4 and their library calls timed again with the
    launches queued behind a spin of the card (the card's time alone,
    without the host's launch overhead); K3's selected ranks and K4's points
@@ -1663,10 +1668,13 @@ def seeded_pose_scoring_bwd_inputs(device: str, mask: bool):
 
 
 def check_pose_scoring_bwd(args, kwargs) -> float:
-  """B7 against its plain version; ``args`` = (g, angle, t, xy,
+  """B7 against its plain version, bit for bit (both fold each cell's
+  values in one order: runs of 32 poses, each in ascending pose then tap,
+  then the runs); ``args`` = (g, angle, t, xy,
   valid_points, valid_map), and ``g`` is scaled by ``unit_cotangent``
   first. Where every entry of ``g`` of an example is 0, its gradient must
-  be 0."""
+  be 0; elsewhere some entry must not be. Returns the largest absolute
+  difference, 0."""
   args = (unit_cotangent(args[0]), *args[1:])
   got = kernels.pose_scoring_bwd(*args, **kwargs)
   want = pose_estimation.pose_scoring_bwd_plain(
@@ -1676,7 +1684,40 @@ def check_pose_scoring_bwd(args, kwargs) -> float:
   if got[silent].any():
     raise AssertionError('pose_scoring_bwd: an example whose cotangent is 0 '
                          'has a gradient')
-  return assert_close_bwd('pose_scoring_bwd d_sim', got, want)
+  if not want[~silent].abs().max() > 0:
+    raise AssertionError('pose_scoring_bwd: the plain version\'s gradient is '
+                         '0; the check would be vacuous')
+  if not torch.equal(got, want):
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    raise AssertionError(
+        f'pose_scoring_bwd d_sim: {differ} of {got.numel()} entries differ '
+        f'from the plain version, by up to '
+        f'{float((got - want).abs().max()):.3g}')
+  return float((got - want).abs().max())
+
+
+def check_pose_scoring_bwd_repeats(args, kwargs, calls: int = 10) -> int:
+  """B7 called ``calls`` times on one input (``g`` scaled as in
+  ``check_pose_scoring_bwd``): every call's bits must be the first's.
+  Returns the number of calls."""
+  args = (unit_cotangent(args[0]), *args[1:])
+  first = kernels.pose_scoring_bwd(*args, **kwargs)
+  for i in range(1, calls):
+    if not torch.equal(kernels.pose_scoring_bwd(*args, **kwargs), first):
+      raise AssertionError(f'pose_scoring_bwd: call {i + 1} of {calls} on '
+                           f'one input differs from the first')
+  return calls
+
+
+def repeat_differences(fn) -> tuple[int, int]:
+  """Two calls of ``fn`` (a kernel on one input): the entries whose bits
+  differ between their outputs, and the entries in all."""
+  first = fn()
+  second = fn()
+  torch.cuda.synchronize()
+  bits = {2: torch.int16, 4: torch.int32}[first.element_size()]
+  return (int((first.view(bits) != second.view(bits)).sum()),
+          first.numel())
 
 
 def check_identical_run(args, kwargs) -> float:
@@ -2711,6 +2752,10 @@ def ransac_training_rows(launches, scoring, scoring_bwd):
   log(f'pose_scoring_bwd on the RANSAC training run\'s inputs '
       f'{list(scoring_bwd.calls)}: max abs err {err_bwd:.3g}; pose_scoring '
       f'(max abs err, near ties of the argmax) per call {checks}')
+  repeats = sum(check_pose_scoring_bwd_repeats(*c)
+                for c in scoring_bwd.calls.values())
+  log(f'pose_scoring_bwd: {repeats} calls on the RANSAC training run\'s '
+      f'inputs, ten on each, give its first call\'s bits')
   args, kw = scoring_bwd.largest()
   args = (unit_cotangent(args[0]), *args[1:])
   out = kernels.pose_scoring_bwd(*args, **kw)
@@ -2992,6 +3037,15 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       f'{list(lift_f32.calls)} f32, sample {list(sample.calls)}, lift_bwd '
       f'{list(lift_bwd.calls)}, sample_bwd {list(sample_bwd.calls)}): max '
       f'abs err {errs}')
+  # ROADMAP C20: how far K3's and K4's atomics make two calls differ.
+  repeats = {
+      'lift_topk_bwd': [repeat_differences(lift_bwd_call(*c))
+                        for c in lift_bwd.calls.values()],
+      'patch_sample_2d_bwd': [repeat_differences(
+          functools.partial(kernels.patch_sample_2d_bwd, *c[0], **c[1]))
+                              for c in sample_bwd.calls.values()]}
+  log(f'two calls on each captured training input (entries whose bits '
+      f'differ, entries in all): {repeats}')
 
   rows = []
   args, kw = lift.largest()

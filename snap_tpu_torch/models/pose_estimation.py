@@ -12,7 +12,8 @@ Port of ``snap_tpu/models/pose_estimation.py``, with its names:
   gradient in the score maps is **B7** (``csrc/pose_scoring_bwd.cu``, the
   port of JAX's autodiff of it); on a CPU tensor it runs
   ``pose_scoring_plain`` and ``pose_scoring_bwd_plain``, the same
-  arithmetic in chunks of poses;
+  arithmetic in chunks of poses (of points for the latter, which sums each
+  entry in B7's order: runs of 32 poses, each in ascending pose then tap);
 - ``grid_refinement``: every offset of a dense 41 x 41 x 41 (rotation, x,
   y) lattice around a pose, scored the same way.
 
@@ -39,6 +40,10 @@ Tensor = torch.Tensor
 # Poses per chunk of the plain scorer, as the JAX package tiles them; it
 # bounds the [B, chunk, N] intermediates, not the result.
 POSE_CHUNK = 4096
+# B7 sums each entry of d sim over runs of this many consecutive poses
+# first, then over the runs (csrc/pose_scoring_bwd.cu: a producer warp's
+# poses).
+POSE_RUN = 32
 
 
 def sample_sparse_query_points(
@@ -249,32 +254,81 @@ def pose_scoring_plain(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
       for s in range(0, angle.shape[-1], pose_chunk)], -1)
 
 
+def fold_runs(key: Tensor, value: Tensor) -> Tuple[Tensor, Tensor]:
+  """Per distinct ``key``, the left fold from +0.0 of its ``value`` entries
+  in the order they are listed: ``(keys, sums)``, one entry per key (the
+  longest runs first).
+
+  A stable sort puts each key's entries in one run, in their order; round
+  r then adds the r-th entry of every run still open into its sum, one
+  gather and one add over distinct sums. Each sum is thus formed by the
+  same sequence of f32 (or f64) additions on any device and for any
+  batching of the runs; the rounds number the longest run."""
+  if key.numel() == 0:
+    return key, value
+  key, order = torch.sort(key, stable=True)
+  value = value[order]
+  first = torch.ones_like(key, dtype=torch.bool)
+  first[1:] = key[1:] != key[:-1]
+  starts = first.nonzero().squeeze(1)
+  lengths = torch.diff(starts, append=starts.new_tensor([key.numel()]))
+  lengths, by_length = torch.sort(lengths, descending=True)
+  starts = starts[by_length]
+  # open_runs[r]: the runs of more than r entries, a prefix of the sorted.
+  ended = torch.cumsum(torch.bincount(lengths), 0)[:-1]
+  open_runs = (starts.numel() - ended).tolist()
+  sums = torch.zeros_like(value[:starts.numel()])
+  for r, k in enumerate(open_runs):
+    sums[:k] += value[starts[:k] + r]
+  return key[starts], sums
+
+
 def pose_scoring_bwd_plain(g: Tensor, angle: Tensor, t: Tensor, xy: Tensor,
                            valid_points: Tensor, valid_map: Tensor, *,
                            sim_shape: Tuple[int, int, int, int],
                            cell_size: float, mask_out_of_bounds: bool,
                            pose_chunk: int = POSE_CHUNK) -> Tensor:
   """B7's plain version: ``d sim [B, N, H, W]`` (``g``'s dtype) from ``g`` =
-  d scores ``[B, P]``, the VJP of ``pose_scoring_plain`` in ``sim``. Per
-  chunk of ``pose_chunk`` poses it recomputes the forward's taps and adds
-  ``(w_u w_v) * (g * keep)`` at each (the reference's product, as JAX's
-  autodiff forms it) into a flat buffer with ``index_add_``; nothing of
-  size ``[B, P, N]`` outlives its chunk."""
+  d scores ``[B, P]``, the VJP of ``pose_scoring_plain`` in ``sim``.
+
+  Summation order (B7's, ``csrc/pose_scoring_bwd.cu``): each entry of
+  ``d sim`` is the left fold from +0.0, over the runs of ``POSE_RUN``
+  consecutive poses in ascending order, of each run's left fold from +0.0
+  of its contributions ``(w_u w_v) * (g * keep)`` to the entry (the
+  reference's product, as JAX's autodiff forms it) in ascending pose, a
+  pose's taps in the order (lower, lower), (lower, upper), (upper, lower),
+  (upper, upper). Contributions that are +-0 change no such fold and are
+  left out before it (``fold_runs``).
+
+  It recomputes the forward's taps for all poses and a chunk of points at
+  a time, sized so that the ``[B, P, points]`` intermediates hold about as
+  many entries as ``[B, pose_chunk, N]``: ``pose_chunk`` bounds memory
+  and leaves the result unchanged."""
   b, n, h, w = sim_shape
+  p = angle.shape[-1]
   out = torch.zeros((b * n * h * w,), dtype=g.dtype, device=g.device)
-  point_ids = torch.arange(n, device=g.device) * (h * w)
-  base = torch.arange(b, device=g.device)[:, None, None] * (n * h * w)
-  for s in range(0, angle.shape[-1], pose_chunk):
-    taps, valid = _pose_taps(angle[:, s:s + pose_chunk],
-                             t[:, s:s + pose_chunk], xy, valid_map, h, w,
+  step = max(1, pose_chunk * n // max(p, 1))
+  example = torch.arange(b, device=g.device)[:, None, None, None]
+  runs = max(1, -(-p // POSE_RUN))
+  run = (torch.arange(p, device=g.device) // POSE_RUN)[:, None, None]
+  for s in range(0, n, step):
+    points = torch.arange(s, min(s + step, n), device=g.device)
+    taps, valid = _pose_taps(angle, t, xy[:, s:s + step], valid_map, h, w,
                              cell_size, mask_out_of_bounds)
-    keep = valid_points[:, None, :]
+    keep = valid_points[:, None, s:s + step]
     if mask_out_of_bounds:
       keep = keep & valid
-    g_keep = g[:, s:s + pose_chunk, None] * keep
-    for cu, cv, weight in taps:
-      idx = base + point_ids + cu * w + cv
-      out.index_add_(0, idx.reshape(-1), (weight * g_keep).reshape(-1))
+    g_keep = g[:, :, None] * keep
+    # [B, P, points, tap]: for each (example, point), poses then taps.
+    cell = torch.stack([cu * w + cv for cu, cv, _ in taps], -1)
+    value = torch.stack([weight * g_keep for _, _, weight in taps], -1)
+    key = ((example * n + points[:, None]) * (h * w) + cell) * runs + run
+    key, value = key.reshape(-1), value.reshape(-1)
+    nonzero = value != 0  # NaN stays
+    key, sums = fold_runs(key[nonzero], value[nonzero])  # each run's fold
+    key, order = torch.sort(key)  # per entry, its runs in ascending order
+    key, sums = fold_runs(key // runs, sums[order])
+    out[key] = sums
   return out.reshape(b, n, h, w)
 
 
@@ -327,8 +381,8 @@ def pose_scoring_many(
   Differentiable in ``scores_points_all`` only (the poses and points
   raise if they need a gradient): on a CUDA tensor B4 scores all poses in
   one launch and B7 takes the gradient; on a CPU tensor their plain
-  versions run, in chunks of ``pose_chunk`` poses; any other device
-  raises.
+  versions run, their intermediates about ``[B, pose_chunk, N]``; any
+  other device raises.
   """
   args = (j_t_i.angle.contiguous(), j_t_i.t.contiguous(),
           scores_points_all.contiguous(), i_xy_points.contiguous(),

@@ -535,12 +535,24 @@ def pose_scoring(angle: Tensor, t: Tensor, sim: Tensor, xy: Tensor,
   return out
 
 
+# B7's tiles: 384 poses (12 producer warps of 32), each with one slot (cell,
+# value; 8 bytes) in each of the 4 parity classes of the map's cells, two
+# tiles in flight.
+POSE_BWD_PRODUCERS = 12
+POSE_BWD_TILE_BYTES = 2 * 4 * 32 * POSE_BWD_PRODUCERS * 8
+
+
 def pose_scoring_bwd_smem_bytes(h: int, w: int, mask: bool) -> int:
   """B7's dynamic shared memory per block, which the wrapper passes to the
-  launch: one point's ``h x w`` f32 map and, with the mask, the example's
-  valid map (bytes, rounded up to 16)."""
-  cells = h * w
-  return 4 * cells + (((cells + 15) & ~15) if mask else 0)
+  launch: one point's ``h x w`` f32 map as 4 planes (one per parity class
+  of its cells, ``(h + 1) // 2`` rows of a pitch of ``(w + 1) // 2``
+  rounded up to even, plus 2), two tiles of slots, each producer warp's
+  marks (a bit per cell of a plane) and, with the mask, the example's
+  valid map as bits."""
+  plane = (h + 1) // 2 * ((((w + 1) // 2) + 2) & ~1)
+  return (16 * plane + POSE_BWD_TILE_BYTES
+          + 4 * POSE_BWD_PRODUCERS * ((plane + 31) // 32)
+          + (4 * ((h * w + 31) // 32) if mask else 0))
 
 
 def pose_scoring_bwd(g: Tensor, angle: Tensor, t: Tensor, xy: Tensor,
@@ -552,7 +564,10 @@ def pose_scoring_bwd(g: Tensor, angle: Tensor, t: Tensor, xy: Tensor,
 
   Two launches from one call: each pose's (cos, sin, t) into ``[B, P, 4]``
   scratch allocated here, then one block per (point, example) that sums the
-  point's gradient in shared memory.
+  point's gradient in shared memory, each entry in the fixed order of
+  ``models/pose_estimation.py:pose_scoring_bwd_plain`` (runs of 32
+  consecutive poses, each in ascending pose then tap, then the runs in
+  order): the same bits on every run, and the plain version's.
   """
   if g.device.type != 'cuda':
     raise ValueError(f'pose_scoring_bwd needs CUDA tensors, got {g.device}')

@@ -482,11 +482,17 @@ def test_pose_scoring_matches_plain(cuda, mask):
   torch.testing.assert_close(got.cpu(), on_cpu, atol=1e-4, rtol=1e-5)
 
 
-# B7 against its plain version: each added value is the plain version's
-# to the bit; a cell sums it over the poses that reach it, with
-# shared-memory atomics in an order that changes from run to run. The
-# off-map poses' clamped reads pile onto the border cells (a few hundred
-# N(0, 1) cotangents there), whose f32 sums differ by order by ~1e-5.
+# B7 against its plain version on the card: each added value is the plain
+# version's to the bit, and both add a cell's values in one order (runs of
+# 32 poses, each in ascending pose then tap, then the runs;
+# csrc/pose_scoring_bwd.cu), so ``d sim`` is the
+# plain version's bit for bit (torch.equal), the off-map poses' clamped
+# reads piled onto the border cells included. Against the plain version on
+# the CPU, the poses whose cos or sin the card's libm and the CPU's round
+# an ulp apart add other values (see
+# test_pose_scoring_bwd_plain_on_the_card_is_the_cpus): a few hundred N(0,
+# 1) cotangents pile onto the border cells, whose f32 sums then differ by
+# ~1e-5.
 BWD_SCORE_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
@@ -515,7 +521,7 @@ def test_pose_scoring_bwd_matches_plain(cuda, mask):
   assert kernels.LAUNCHES['pose_scoring_bwd'] == before + 1
   want = pose_estimation.pose_scoring_bwd_plain(*args, **kwargs)
   torch.cuda.synchronize()
-  torch.testing.assert_close(got, want, **BWD_SCORE_TOL)
+  assert torch.equal(got, want)
   assert not got[~valid_points].any()  # invalid points' maps are all 0
   on_cpu = pose_estimation.pose_scoring_bwd_plain(
       *(a.cpu() for a in args), **kwargs)
@@ -537,7 +543,7 @@ def test_pose_scoring_bwd_cases_match_plain(cuda, case, mask):
   got = kernels.pose_scoring_bwd(*bwd_args, **kwargs)
   want = pose_estimation.pose_scoring_bwd_plain(*bwd_args, **kwargs)
   torch.cuda.synchronize()
-  torch.testing.assert_close(got, want, **BWD_SCORE_TOL)
+  assert torch.equal(got, want)
   if case == 'off_map' and mask:
     assert not got.any()
 
@@ -560,7 +566,73 @@ def test_pose_scoring_autograd_launches_b4_and_b7(cuda):
   want = pose_estimation.pose_scoring_bwd_plain(
       g, angle, t, xy, valid_points, valid_map, sim_shape=tuple(sim.shape),
       cell_size=cell, mask_out_of_bounds=False)
-  torch.testing.assert_close(sim.grad, want, **BWD_SCORE_TOL)
+  assert torch.equal(sim.grad, want)
+
+
+@pytest.mark.parametrize('mask', [False, True])
+def test_pose_scoring_bwd_repeat_calls_give_equal_bits(cuda, mask):
+  """Ten calls at the training shape (chip_smoke's seeded inputs: 10,001
+  poses, 4,652 points, 120 x 160, a run of 2,000 identical poses) give
+  the same bits: no sum depends on the order in which blocks or warps
+  run."""
+  args, kwargs = chip_smoke.seeded_pose_scoring_bwd_inputs('cuda', mask)
+  first = kernels.pose_scoring_bwd(*args, **kwargs)
+  for _ in range(9):
+    assert torch.equal(kernels.pose_scoring_bwd(*args, **kwargs), first)
+
+
+@pytest.mark.parametrize('mask', [False, True])
+def test_pose_scoring_bwd_plain_on_the_card_is_the_cpus(cuda, mask):
+  """The plain version (the kernel's oracle) folds each entry's values in
+  the same order on the card as on the CPU (``fold_runs``: the same bits
+  from the same keys and values). Its values are formed alike on both but
+  for cos and sin, which the card's libm and the CPU's round an ulp apart
+  at some angles; with those poses' cotangent 0 on both sides (a 0 changes
+  no fold), the whole plain version gives the same bits."""
+  (g, angle, t, sim, xy, valid_points, valid_map), cell = (
+      _scoring_bwd_inputs(cuda))
+  apart = ((torch.cos(angle).cpu() != torch.cos(angle.cpu()))
+           | (torch.sin(angle).cpu() != torch.sin(angle.cpu())))
+  assert apart.float().mean() < 0.5
+  g = torch.where(apart.to(cuda), 0.0, g)
+  kwargs = dict(sim_shape=tuple(sim.shape), cell_size=cell,
+                mask_out_of_bounds=mask)
+  args = (g, angle, t, xy, valid_points, valid_map)
+  on_card = pose_estimation.pose_scoring_bwd_plain(*args, **kwargs)
+  on_cpu = pose_estimation.pose_scoring_bwd_plain(
+      *(a.cpu() for a in args), **kwargs)
+  assert on_card.abs().max() > 1
+  assert torch.equal(on_card.cpu(), on_cpu)
+  gen = torch.Generator().manual_seed(1)
+  key = torch.randint(0, 500, (200_000,), generator=gen)
+  value = torch.randn(200_000, generator=gen) * 10.0 ** torch.randint(
+      -4, 5, (200_000,), generator=gen)
+  keys, sums = pose_estimation.fold_runs(key, value)
+  keys_card, sums_card = pose_estimation.fold_runs(key.to(cuda),
+                                                   value.to(cuda))
+  order, order_card = torch.argsort(keys), torch.argsort(keys_card)
+  assert torch.equal(keys[order], keys_card[order_card].cpu())
+  assert torch.equal(sums[order], sums_card[order_card].cpu())
+
+
+@pytest.mark.parametrize('bad', [math.nan, math.inf])
+def test_pose_scoring_bwd_non_finite_cotangent_reaches_its_example(cuda,
+                                                                   bad):
+  """A non-finite entry of ``g`` gives its example a non-finite gradient
+  on the card, as in the plain version; the other example's is the plain
+  version's bit for bit."""
+  (g, angle, t, sim, xy, valid_points, valid_map), cell = (
+      _scoring_bwd_inputs(cuda))
+  g[0, 1700] = bad
+  kwargs = dict(sim_shape=tuple(sim.shape), cell_size=cell,
+                mask_out_of_bounds=False)
+  args = (g, angle, t, xy, valid_points, valid_map)
+  got = kernels.pose_scoring_bwd(*args, **kwargs)
+  want = pose_estimation.pose_scoring_bwd_plain(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert not torch.isfinite(got[0]).all()
+  assert not torch.isfinite(want[0]).all()
+  assert torch.equal(got[1], want[1])
 
 
 def test_pose_scoring_bwd_refuses_maps_too_large_for_shared_memory(cuda):
@@ -989,7 +1061,8 @@ def test_pose_scoring_plan_covers_every_pose_and_point(b, p, n):
 
 def test_pose_scoring_bwd_keeps_two_blocks_per_sm_on_the_training_map():
   """B7's block at the RANSAC path's 120 x 160 map: the point's f32 map
-  and the valid map fit twice in an SM's 228 KB of shared memory."""
+  (4 padded planes), two tiles of slots, the producer warps' marks and the
+  valid map's bits fit twice in an SM's 228 KB of shared memory."""
   for mask in (False, True):
     assert 2 * (kernels.pose_scoring_bwd_smem_bytes(120, 160, mask)
                 + 1024) <= 228 * 1024
