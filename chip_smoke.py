@@ -1,6 +1,6 @@
 """Drive the port's serving, training, RANSAC, held-out evaluation, bench,
-gather-bench, long-run trainer, head and mapper-option paths on one NVIDIA
-GPU (H100).
+gather-bench, long-run trainer, head, mapper-option and fp16 paths on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -12,14 +12,19 @@ host generator's batch:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the eight CUDA kernels of ``snap_tpu_torch/csrc`` (one
-   nvcc call per source, all started together, then one link); prints the
-   SASS instructions of B4's, B7's and K1's loops (``cuobjdump``; K1's in
-   the flagship's layout and in B8's two of phase 7j);
+   nvcc call per source, all started together, then one link; its seconds
+   printed); prints the SASS instructions of B4's, B7's, K1's and K3's
+   ranks stage's loops (``cuobjdump``; K1's in the flagship's layout and
+   in B8's two of phase 7j, in bf16 and f16; K3's in the two weighted
+   layouts: ``SASS_LOOPS``);
 3. kernels: K1 (``lift_topk_fwd``), K2 (``patch_sample_2d``), K3
    (``lift_topk_bwd``) and K4 (``patch_sample_2d_bwd``) on seeded inputs at
-   the flagship shapes and the training batch of 2 against their plain
-   PyTorch versions (K3's inputs hold single-view points and unselected
-   ranks, and repeat a rank for exact score ties); B4 (``pose_scoring``) on
+   the flagship shapes and the training batch of 2, in bf16 and f16,
+   against their plain PyTorch versions (K3's inputs hold single-view
+   points and unselected ranks, and repeat a rank for exact score ties),
+   with each launch's resources; in f16 K3 and K4 also with an infinite
+   cotangent entry (the gradient non-finite at the plain version's
+   non-finite entries alone, ``check_non_finite``); B4 (``pose_scoring``) on
    seeded inputs at the eval shape with transformed points on cell edges,
    borders and off the map, mask on and off; B7 (``pose_scoring_bwd``) at
    the training shape (batch 2, 10,001 poses, 4,652 points, 120 x 160) on
@@ -31,8 +36,9 @@ host generator's batch:
    shapes over all N points; B8 (K1 and K3 in the
    other statistics layouts, ``B8_SEEDED``: weighted with the max and min,
    unweighted with the variance, unweighted with the max and min and no
-   variance, and the scan form's 20 ranks) forward and backward in f32 and
-   bf16, on inputs of the same kinds (single-view points, points with no
+   variance, and the scan form's 20 ranks) forward and backward in f32,
+   bf16 and f16 (the resources of each bf16 and f16 instantiation), on
+   inputs of the same kinds (single-view points, points with no
    selected rank, repeated ranks for exact ties of every channel), the
    cotangents of the maxima zeroed at near ties (NEAR_TIE_RTOL); K3 timed
    on the flagship's seeded input and B8's in bf16, with its device ms by
@@ -73,6 +79,12 @@ host generator's batch:
    step), the scan unweighted (K1-K4), and the gather form unweighted with
    the max and min, no variance and a depth MLP (K2 and K4 each card step,
    K1 and K3 never; the depth MLP takes a gradient);
+5g. f16 with the dynamic loss scale: ``smoke_train_exhaustive`` with
+   ``dtype_str='float16'`` as phase 5 (K1-K4 each card step), the
+   is_finite flags and loss scales equal on both devices, under
+   ``F16_TRAIN_TOL``; then one step on each from a loss scale of 2^30,
+   which overflows f16 on both: skipped, no parameter moved, the scale
+   halved; every card kernel call in f16 (``KernelDtypes``);
 6. serving main path: ``snap_tpu_torch.evaluate`` on ``bench_full`` (R50,
    20 views of 180x240, 120x160x60 voxels, 64 rotations + refinement,
    bf16, random seeded weights), batch 1, 2 synthetic queries; K1 and K2
@@ -168,6 +180,15 @@ host generator's batch:
    [2, 1,152,000, 4, 128] observations, launches no lift kernel, and its
    depth MLP takes a gradient; each run's step ms, own peak memory and
    the device ms of 2 more steps traced (``torch.profiler``) logged;
+7k. f16 at full width: ``train_full1chip_exhaustive`` with
+   ``dtype_str='float16'`` (seeded weights, batch 2), 12 steps: the loss
+   scale's sequence follows flax's rule from 65536, some step by the 9th
+   is finite, the finite steps' losses and gradients finite, the skipped
+   steps' parameters unmoved, K1-K4 each step and every kernel call in
+   f16; 2 more steps resumed from its checkpoint (the scale restored) and
+   traced (device ms a step, idle share), its own peak memory; then
+   ``evaluator.run`` of its workdir in f16 on 4 examples of zurich at
+   batch 2 (the step read, finite errors, K1 and K2 each batch, in f16);
 7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
@@ -208,6 +229,10 @@ host generator's batch:
    their plain versions and bounds, K3 with its device ms by launch stage.
    Every K3 call timed takes its count of selected ranks counted
    beforehand, as the autograd function passes it (``lift_bwd_call``).
+   K1-K4 in f16 on phase 7k's inputs (K1 and K2 its evaluation's, K3 and
+   K4 its steps'), checked on every captured input and timed beside their
+   plain versions, bounds and (K2, K4) ``F.grid_sample`` and its input
+   gradient in f16.
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -217,7 +242,9 @@ gather bench), one for B4 at the RANSAC training run's inputs
 held-out run's f32 inputs (``/heldout_f32``, launches from that run), and
 B8's K1 and K3 at phase 7j's inputs (``/stream_minmax``,
 ``/scan_unweighted``, launches from those runs; K1's rows also give its
-``registers``, ``local_bytes`` and ``blocks_per_sm``); the last line is
+``registers``, ``local_bytes`` and ``blocks_per_sm``), and K1-K4 in f16
+(``/f16``: K1 and K2 launches from phase 7k's evaluation, K3 and K4 from
+its steps; each also gives ``spin_ms``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -261,6 +288,7 @@ from snap_tpu_torch.ops import view_scan
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
 from snap_tpu_torch.train_lib import checkpoints
+from snap_tpu_torch.train_lib import dynamic_scale
 from snap_tpu_torch.train_lib import optimizers
 from snap_tpu_torch.train_lib import trainer
 from snap_tpu_torch.utils import prng
@@ -284,7 +312,8 @@ def fresh_workdir(name: str) -> pathlib.Path:
 # output dtype. The backward kernels are linear in the cotangent and are
 # checked on cotangents scaled to a largest entry in [1, 2) (see
 # unit_cotangent), so that atol stays far below the gradient it bounds.
-TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float32: (1e-4, 1e-5)}
+TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float16: (1e-3, 2.0**-10),
+              torch.float32: (1e-4, 1e-5)}
 # Training reference, card against CPU in f32 with TF32 off: cuDNN, cuFFT
 # and the atomics sum in other orders than the CPU, and where two values
 # of a max pooling (vertical or over modalities) are closer than that
@@ -361,6 +390,17 @@ TRAIN_GRAD_NORM_RTOL = 1e-2
 # flips more, fails the check instead of being replayed.
 CHOICE_GAP_RTOL = 1e-4
 MAX_FLIPS_PER_STEP = 100
+# The training reference in f16 (phase 5g): cuDNN's f16 convolutions on the
+# card and oneDNN's on the CPU round at other places, 2^-11 relative each
+# time. A first run measured the losses 9e-6 apart (relative), the worst
+# gradient leaf 6.4e-3 of its largest entry and 4.6e-3 of its norm, and at
+# most 303 flipped relu outputs of 4.27M a step, each within 5.1e-4 of a
+# tie: the loss to 1e-3 relative, each leaf to 0.05 of its largest entry
+# and of its norm, a replayed choice within two f16 roundings (2^-10) of a
+# tie, and at most 2,000 flipped outputs a site a step. The is_finite flags
+# and the loss scale's sequence are equal.
+F16_TRAIN_TOL = dict(loss_rtol=1e-3, grad_rtol=0.05, grad_norm_rtol=0.05,
+                     gap_rtol=2.0**-10, max_flips=2_000)
 
 STREET_ROOT = 'bev_mapper.streetview_encoder.image_encoder.encoder.root_block.conv_root.weight'
 PROJ_MLP = 'bev_mapper.streetview_encoder.proj_mlp.Dense_0.weight'
@@ -552,13 +592,46 @@ def check_sample_bwd(args, kwargs) -> float:
   return assert_close_bwd('patch_sample_2d_bwd d_padded', got, want)
 
 
-def seeded_kernel_inputs(device: str):
-  """K1-K4 inputs at the flagship shapes and the training batch of 2, from
-  a seeded generator."""
+def check_non_finite(lift_bwd, sample_bwd) -> dict:
+  """K3 and K4 with an infinite entry in the cotangent (a mean channel of a
+  point with a selected rank; a channel of a point): the gradient is
+  non-finite at the plain version's non-finite entries and nowhere else
+  (nothing clamps or masks it, so that a loss scale sees the overflow), and
+  the finite entries agree. Returns the non-finite entries of each."""
+  counts = {}
+  (args, kw) = lift_bwd
+  g = unit_cotangent(args[-1])
+  point = int(args[3][0].any(-1).nonzero()[0])
+  g[0, point, 3] = math.inf
+  args, _ = without_near_ties((*args[:-1], g), kw)
+  got = kernels.lift_topk_bwd(*args, **kw)
+  want = plain_lift_bwd(args, kw)
+  (g_values, points), skw = sample_bwd
+  g_values = unit_cotangent(g_values)
+  g_values[0, 7, 3] = math.inf
+  got_s = kernels.patch_sample_2d_bwd(g_values, points, **skw)
+  want_s = view_scan.patch_sample_2d_bwd_plain(g_values, points, **skw)
+  torch.cuda.synchronize()
+  for name, a, b in (('lift_topk_bwd', got, want),
+                     ('patch_sample_2d_bwd', got_s, want_s)):
+    fin = torch.isfinite(b)
+    if fin.all() or not torch.equal(torch.isfinite(a), fin):
+      raise AssertionError(f'{name}: non-finite entries {int((~fin).sum())} '
+                           f'in the plain version, '
+                           f'{int((~torch.isfinite(a)).sum())} in the '
+                           f'kernel\'s, at other entries')
+    assert_close(f'{name} (finite entries)', a[fin], b[fin])
+    counts[name] = int((~fin).sum())
+  return counts
+
+
+def seeded_kernel_inputs(device: str, dtype: torch.dtype = torch.bfloat16):
+  """K1-K4 inputs at the flagship shapes and the training batch of 2 in
+  ``dtype``, from a seeded generator."""
   g = torch.Generator(device=device).manual_seed(0)
   b, v, h, w, c, dim, n, k = 2, 20, 45, 60, 160, 128, 1_152_000, 4
   stack = torch.randn((b, v * (h + 1), w + 1, c), generator=g, device=device
-                      ).to(torch.bfloat16)
+                      ).to(dtype)
   view_idx = torch.randint(0, v, (b, n, k), generator=g, device=device,
                            dtype=torch.int32)
   scale = torch.tensor([h, w], dtype=torch.float32, device=device)
@@ -575,7 +648,7 @@ def seeded_kernel_inputs(device: str):
   lift_kw = dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0))
   lift = ((stack, view_idx, p2d, select, depth), lift_kw)
   g_stats = torch.randn((b, n, 2 * dim + 1), generator=g, device=device
-                        ).to(torch.bfloat16)
+                        ).to(dtype)
   lift_bwd = ((stack, view_idx, p2d, select, depth, g_stats), lift_kw)
   hq, wq, d, p = 120, 80, 32, 64 * 120 * 80
   plane = torch.randn((b, hq + 1, wq + 1, d + 1), generator=g, device=device)
@@ -583,9 +656,8 @@ def seeded_kernel_inputs(device: str):
   pts_scale = torch.tensor([hq, wq], dtype=torch.float32, device=device)
   points = torch.rand((b, p, 2), generator=g, device=device) * (
       pts_scale + 4) - 2
-  sample = ((plane.to(torch.bfloat16), points), dict(dim=d, has_valid=True))
-  g_values = torch.randn((b, p, d), generator=g, device=device
-                         ).to(torch.bfloat16)
+  sample = ((plane.to(dtype), points), dict(dim=d, has_valid=True))
+  g_values = torch.randn((b, p, d), generator=g, device=device).to(dtype)
   sample_bwd = ((g_values, points), dict(plane_shape=tuple(plane.shape)))
   return lift, sample, lift_bwd, sample_bwd
 
@@ -643,10 +715,11 @@ def seeded_lift_inputs(device: str, dtype: torch.dtype, weighted: bool,
 
 def b8_seeded() -> None:
   """Phase 3, B8: K1 and K3 in the layouts of B8_SEEDED against their plain
-  versions, f32 and bf16, forward and backward."""
+  versions, f32, bf16 and f16, forward and backward; the resources of the
+  bf16 and f16 instantiations of each."""
   errs, times = {}, {}
   for name, weighted, use_variance, add_minmax, ranks, n in B8_SEEDED:
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
       args, g_stats, kw = seeded_lift_inputs('cuda', dtype, weighted,
                                              use_variance, add_minmax, ranks,
                                              n)
@@ -654,16 +727,19 @@ def b8_seeded() -> None:
           check_lift(args, kw, PLAIN_LIFT_CHUNK),
           check_lift_bwd((*args, g_stats), kw, PLAIN_LIFT_CHUNK,
                          B8_BWD_F32_TOL if dtype == torch.float32 else None))
-      if add_minmax:
-        log_occupancy('lift_topk_bwd', f'phase 3 {name}, {str(dtype)[6:]}')
-      if dtype == torch.bfloat16:
+      if dtype != torch.float32:
+        kernels.lift_topk_fwd(*args, **kw)
+        for kernel in ('lift_topk_fwd', 'lift_topk_bwd'):
+          log_occupancy(kernel, f'phase 3 {name}, {str(dtype)[6:]}')
+      if dtype != torch.float32:
         call = lift_bwd_call((*args, g_stats), kw)
-        times[name] = dict(ms=time_ms(call), selected=int(args[3].sum()),
-                           stages=kernel_stages_ms(call, K3_STAGES))
+        times[f'{name}, {str(dtype)[6:]}'] = dict(
+            ms=time_ms(call), selected=int(args[3].sum()),
+            stages=kernel_stages_ms(call, K3_STAGES))
       del args, g_stats
   log(f'B8 (K1, K3 in the other layouts) on seeded inputs, batch 2: max abs '
-      f'err (forward, backward) {errs}; lift_topk_bwd in bf16, ms per call '
-      f'and (device ms per call, launches kept) per stage {times}')
+      f'err (forward, backward) {errs}; lift_topk_bwd in bf16 and f16, ms '
+      f'per call and (device ms per call, launches kept) per stage {times}')
 
 
 # Cycles the card spins (torch.cuda._sleep) before a run of time_ms(...,
@@ -954,10 +1030,10 @@ def _tie_gap(gaps: torch.Tensor, flipped: torch.Tensor,
   return float(gaps[flipped].max()) / max(scale, 1e-30)
 
 
-def flips_per_site(flips):
+def flips_per_site(flips, most: int = MAX_FLIPS_PER_STEP):
   """``MaxChoices.flips`` of one step summed per site: name -> [outputs
   flipped, outputs, largest gap]; raises where a site flipped more than
-  ``MAX_FLIPS_PER_STEP`` outputs."""
+  ``most`` outputs."""
   per_site = {}
   for name, n, total, gap in flips:
     count = per_site.setdefault(name, [0, 0, 0.0])
@@ -965,9 +1041,9 @@ def flips_per_site(flips):
     count[1] += total
     count[2] = max(count[2], gap)
   for name, (n, total, _) in per_site.items():
-    if n > MAX_FLIPS_PER_STEP:
+    if n > most:
       raise AssertionError(f'{name}: {n} of {total} max choices flipped in a '
-                           f'step (limit {MAX_FLIPS_PER_STEP})')
+                           f'step (limit {most})')
   return per_site
 
 
@@ -989,12 +1065,14 @@ class MaxChoices:
   outputs whose own choice differs from the recorded one and all its
   outputs, and the largest gap between this copy's own max and its value
   at a recorded choice, relative to the site's largest magnitude; a gap
-  over ``CHOICE_GAP_RTOL`` (a choice that is no near tie) raises. A context
+  over ``gap_rtol`` (a choice that is no near tie) raises. A context
   manager: the hooks, and ``F.relu``'s stand-in, go on exit.
   """
 
-  def __init__(self, model: torch.nn.Module, replay=None):
+  def __init__(self, model: torch.nn.Module, replay=None,
+               gap_rtol: float = CHOICE_GAP_RTOL):
     self.calls, self.flips, self.replay = [], [], replay
+    self.gap_rtol = gap_rtol
     self.sites = []  # the site of each recorded call
     self._stashed = {}
     self._handles = []
@@ -1034,10 +1112,10 @@ class MaxChoices:
                            f' against {tuple(own.shape)}')
     flips, total, gap = flips_of(own, recorded)
     self.flips.append((name, flips, total, gap))
-    if not gap <= CHOICE_GAP_RTOL:
+    if not gap <= self.gap_rtol:
       raise AssertionError(
           f'{name}: a recorded max choice is {gap:.3g} of the site\'s '
-          f'largest magnitude from a tie here (limit {CHOICE_GAP_RTOL})')
+          f'largest magnitude from a tie here (limit {self.gap_rtol})')
     return recorded
 
   def _pooling_hook(self, name: str):
@@ -1113,7 +1191,7 @@ def reference_batch(cfg: configs.Config, generator, step: int, device: str):
 
 def training_reference(config_name: str = 'smoke_train_exhaustive',
                        cfg: configs.Config = None, least=(), never=(),
-                       zero=(), nonzero=(), shift_free=()):
+                       zero=(), nonzero=(), shift_free=(), tol=None):
   """2 steps of the tiny trainer ``config_name`` (or ``cfg``) on the card and
   on the CPU in lockstep: each step starts both from the CPU's weights, with
   the same batch and draws (the card's, injected on the CPU; on the RANSAC
@@ -1130,10 +1208,15 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
   Each bias of ``shift_free`` adds to every logit of a softmax, which does
   not see the shift: its gradient is 0 but for rounding, so on both
   devices it is held within ``TRAIN_GRAD_RTOL`` of its layer's weight's
-  largest gradient entry instead of being compared.
+  largest gradient entry instead of being compared. In f16 both devices
+  train with the loss scale, whose is_finite flags and scales must be
+  equal each step, under ``tol`` (F16_TRAIN_TOL).
   Returns per step the worst leaf error relative to its largest entry and
   to its norm, and the flips per max site."""
   cfg = cfg or configs.get_config(config_name)
+  tol = tol or dict(loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL,
+                    grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+                    gap_rtol=CHOICE_GAP_RTOL, max_flips=MAX_FLIPS_PER_STEP)
   ransac = getattr(cfg.model, 'pose_backend', None) == 'ransac'
   card_launches = []
   models = {dev: evaluate.build_model(cfg, dev, 0).train()
@@ -1141,10 +1224,12 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
   adam = optimizers.get_optimizer(cfg.train, models['cpu'])
   frozen = [n for n, f in zip(dict(models['cpu'].named_parameters()),
                               adam.frozen or []) if f]
-  states = {dev: trainer.create_train_state(m, adam, seed=0)
+  states = {dev: trainer.create_train_state(
+      m, adam, seed=0, dynamic_scale=dynamic_scale.for_dtype(cfg.dtype_str))
             for dev, m in models.items()}
   generator = loader.make_generator(cfg.data, 0)
   worst, worst_norm, losses, flips = [0.0, 0.0], [0.0, 0.0], [], []
+  scales = []
   worst_leaf = ['', '']
   for i in range(2):
     models['cuda'].load_state_dict(models['cpu'].state_dict())
@@ -1163,10 +1248,17 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
     if (any(launched[k] < 1 for k in least)
         or any(launched[k] for k in never)):
       raise AssertionError(f'step {i}: card step launched {launched}')
-    with MaxChoices(models['cpu'], replay=on_card.calls) as replayed:
+    with MaxChoices(models['cpu'], replay=on_card.calls,
+                    gap_rtol=tol['gap_rtol']) as replayed:
       cpu = trainer.train_step(states['cpu'],
                                reference_batch(cfg, generator, i, 'cpu'),
                                adam, draws=card.draws, pose_samples=samples)
+    scale = [(o.logs['is_finite'], o.logs.get('loss_scale'))
+             for o in (cpu, card)]
+    scales.append(scale[1])
+    if scale[0] != scale[1]:
+      raise AssertionError(f'step {i}: (is_finite, loss_scale) cpu '
+                           f'{scale[0]} vs card {scale[1]}')
     for name in frozen:
       for out in (cpu, card):
         if out.grads[name].abs().max() > 0:
@@ -1181,15 +1273,16 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
                                f'({len(names)} leaves) is '
                                f'{"non-zero" if moved else "zero"}')
     flips.append({name: f'{n} of {total}, gap {gap:.3g}' for name, (
-        n, total, gap) in flips_per_site(replayed.flips).items() if n})
+        n, total, gap) in flips_per_site(replayed.flips,
+                                         tol['max_flips']).items() if n})
     loss = [trainer.summarize([o.metrics])['loss/total'] for o in (cpu, card)]
     losses.append(loss)
-    if not math.isclose(loss[0], loss[1], rel_tol=TRAIN_LOSS_RTOL):
+    if not math.isclose(loss[0], loss[1], rel_tol=tol['loss_rtol']):
       raise AssertionError(f'step {i}: loss cpu {loss[0]} vs card {loss[1]}')
     for name in shift_free:
       weight = name[:-len('bias')] + 'weight'
       for out in (cpu, card):
-        bound = TRAIN_GRAD_RTOL * float(out.grads[weight].abs().max())
+        bound = tol['grad_rtol'] * float(out.grads[weight].abs().max())
         if not float(out.grads[name].abs().max()) <= bound:
           raise AssertionError(f'step {i}: {name} has a gradient '
                                f'{float(out.grads[name].abs().max()):.3g} '
@@ -1202,17 +1295,18 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
       err = float((got - want).abs().max())
       norm = float(want.norm())
       err_norm = float((got - want).norm())
-      if not err <= TRAIN_GRAD_RTOL * scale + 1e-7:
+      if not err <= tol['grad_rtol'] * scale + 1e-7:
         raise AssertionError(f'step {i}: gradient of {name} off by {err:.3g} '
                              f'(largest entry {scale:.3g})')
-      if not err_norm <= TRAIN_GRAD_NORM_RTOL * norm + 1e-7:
+      if not err_norm <= tol['grad_norm_rtol'] * norm + 1e-7:
         raise AssertionError(f'step {i}: gradient of {name} off by '
                              f'{err_norm:.3g} in norm (norm {norm:.3g})')
       if err / max(scale, 1e-30) > worst[i]:
         worst[i], worst_leaf[i] = err / max(scale, 1e-30), name
       worst_norm[i] = max(worst_norm[i], err_norm / max(norm, 1e-30))
-  log(f'training reference ({config_name}, f32): losses [cpu, '
-      f'card] per step {losses}; every gradient leaf within {worst} of '
+  log(f'training reference ({config_name}, {cfg.dtype_str}): losses [cpu, '
+      f'card] per step {losses}; (is_finite, loss_scale) per step, equal '
+      f'on both {scales}; every gradient leaf within {worst} of '
       f'its largest entry (worst: {worst_leaf}) and within {worst_norm} of '
       f'its norm (per step); {len(frozen)} frozen leaves 0 on both; '
       f'zero gradient on both under {list(zero)}, non-zero under '
@@ -1222,6 +1316,39 @@ def training_reference(config_name: str = 'smoke_train_exhaustive',
       f'relative to the site\'s largest magnitude), per step {flips}; card '
       f'launches per step {card_launches}')
   return worst, worst_leaf, worst_norm, flips
+
+
+def f16_overflow_reference(scale: float = 2.0**30) -> list:
+  """Phase 5g: one f16 step of the tiny trainer on the card and on the CPU
+  from the same weights, batch and draws, from a loss scale of ``scale``
+  that overflows f16 in the backward: neither step is finite, neither
+  moves a parameter, and both back the scale off to ``scale / 2``. Returns
+  each device's (is_finite, loss_scale)."""
+  cfg = dataclasses.replace(configs.smoke_train_exhaustive(),
+                            dtype_str='float16')
+  models = {dev: evaluate.build_model(cfg, dev, 0).train()
+            for dev in ('cpu', 'cuda')}
+  adam = optimizers.get_optimizer(cfg.train, models['cpu'])
+  generator = loader.make_generator(cfg.data, 0)
+  draws, seen = None, []
+  for dev in ('cuda', 'cpu'):
+    state = trainer.create_train_state(
+        models[dev], adam, seed=0, dynamic_scale=dataclasses.replace(
+            dynamic_scale.for_dtype(cfg.dtype_str), scale=scale))
+    start = [p.detach().clone() for p in models[dev].parameters()]
+    out = trainer.train_step(state, reference_batch(cfg, generator, 0, dev),
+                             adam, draws=draws)
+    draws = bev_mapper.TrainDraws(
+        z_jitter=out.draws.z_jitter.cpu(),
+        modality_keep=None if out.draws.modality_keep is None
+        else out.draws.modality_keep.cpu())
+    moved = any(not torch.equal(p, q) for p, q in zip(
+        start, models[dev].parameters()))
+    seen.append((out.logs['is_finite'], out.logs['loss_scale']))
+    if seen[-1] != (0.0, scale / 2) or moved:
+      raise AssertionError(f'{dev}: an f16 step from a loss scale of {scale} '
+                           f'gave {out.logs}, params moved {moved}')
+  return seen
 
 
 def fft_contraction_bound(config: configs.Config):
@@ -2572,6 +2699,191 @@ def a145_main_path(smi: str):
   return runs
 
 
+# K1-K4 and, by position, the arguments whose dtype a call computes in: the
+# stack, the plane, the backward's cotangent (the rest are f32, int32 or
+# bool in every dtype).
+KERNEL_DTYPE_ARGS = {'lift_topk_fwd': (0,), 'patch_sample_2d': (0,),
+                     'lift_topk_bwd': (0, 5), 'patch_sample_2d_bwd': (0,)}
+
+
+class KernelDtypes:
+  """Counts the calls of each wrapper of KERNEL_DTYPE_ARGS by the dtypes
+  of those arguments: a context manager, the wrappers restored on exit."""
+
+  def __init__(self):
+    self.seen = {name: {} for name in KERNEL_DTYPE_ARGS}
+    self._wrapped = {}
+
+  def __enter__(self):
+    for name, at in KERNEL_DTYPE_ARGS.items():
+      wrapped = self._wrapped[name] = getattr(kernels, name)
+
+      def call(*args, _name=name, _at=at, _wrapped=wrapped, **kwargs):
+        key = tuple(str(args[i].dtype)[6:] for i in _at)
+        self.seen[_name][key] = self.seen[_name].get(key, 0) + 1
+        return _wrapped(*args, **kwargs)
+      setattr(kernels, name, call)
+    return self
+
+  def __exit__(self, *exc):
+    for name, wrapped in self._wrapped.items():
+      setattr(kernels, name, wrapped)
+
+  def assert_only(self, dtype: torch.dtype, where: str,
+                  names=tuple(KERNEL_DTYPE_ARGS)) -> dict:
+    """Every call was in ``dtype`` and each wrapper of ``names`` was
+    called; returns their counts."""
+    want = str(dtype)[6:]
+    for name, seen in self.seen.items():
+      if (name in names and not seen) or set(seen) - {
+          (want,) * len(KERNEL_DTYPE_ARGS[name])}:
+        raise AssertionError(f'{where}: {name} called with {seen}, expected '
+                             f'{want} calls only')
+    return {name: sum(self.seen[name].values()) for name in names}
+
+
+# Phase 7k: the flagship run in f16 with the loss scale.
+F16_STEPS = 12
+# The first finite step comes by this step at the latest: by then eight
+# back-offs from 65536 reach the floor of 256.
+F16_FINITE_BY = 9
+F16_EVAL_EXAMPLES, F16_EVAL_BATCH = 4, 2
+
+
+def f16_main_path(smi: str):
+  """Phase 7k: ``train_full1chip_exhaustive`` with ``dtype_str='float16'``
+  (seeded weights, batch 2), F16_STEPS steps: the loss scale's sequence
+  by the flax rule from 65536, a finite step by F16_FINITE_BY, finite
+  losses and gradients on the finite steps, unmoved parameters on the
+  others, K1-K4 each step and every call in f16; 2 more steps (resumed,
+  the scale restored) traced for their device ms and idle share; the
+  run's own peak memory; then ``evaluator.run`` of its workdir in f16 on
+  F16_EVAL_EXAMPLES examples of zurich at batch F16_EVAL_BATCH, finite
+  errors, K1 and K2 each batch, all in f16. Returns the launches of the
+  steps and of the evaluation, and the captured inputs of K1 and K2 (the
+  evaluation's) and K3 and K4 (the steps')."""
+  name = 'train_full1chip_exhaustive, float16'
+  config = dataclasses.replace(configs.train_full1chip_exhaustive(),
+                               dtype_str='float16')
+  least = TRAIN_PATHS['train_full1chip_exhaustive'][0]
+  resident = torch.cuda.memory_allocated()
+  model = evaluate.build_model(config, 'cuda', 0)
+  params = dict(model.named_parameters())
+  flat = lambda: torch.cat([p.detach().flatten() for p in params.values()])
+  before, per_step, steps = [flat()], [], []
+  expected = dynamic_scale.for_dtype(config.dtype_str)
+
+  def check_step(step: int, out: trainer.StepOutput) -> None:
+    nonlocal expected
+    counts = dict(kernels.LAUNCHES)
+    prev = per_step[-1] if per_step else {k: 0 for k in counts}
+    launched = {k: counts[k] - prev[k] for k in counts}
+    per_step.append(counts)
+    finite = out.logs['is_finite'] == 1.0
+    expected = expected.update(finite)
+    loss = trainer.summarize([out.metrics])['loss/total']
+    if out.logs['loss_scale'] != expected.scale:
+      raise AssertionError(f'step {step}: loss scale {out.logs} against the '
+                           f'rule\'s {expected}')
+    after = flat()
+    moved = float((after - before[-1]).abs().max())
+    before.append(after)
+    if finite and not (math.isfinite(loss) and math.isfinite(
+        out.logs['l2_grads'])):
+      raise AssertionError(f'step {step}: finite step, loss {loss}, logs '
+                           f'{out.logs}')
+    if not finite and moved:
+      raise AssertionError(f'step {step}: skipped, but params moved {moved}')
+    if finite and out.logs['learning_rate'] > 0 and not moved > 0:
+      raise AssertionError(f'step {step}: finite, lr > 0, params still')
+    for kernel, fewest in least.items():
+      if launched[kernel] < fewest:
+        raise AssertionError(f'step {step}: {kernel} launched '
+                             f'{launched[kernel]} times, expected >= {fewest}')
+    steps.append((step, finite, out.logs['loss_scale'], loss,
+                   out.logs['l2_grads'], moved))
+    log(f'f16 train step {step}: is_finite {finite}, loss scale '
+        f'{out.logs["loss_scale"]}, loss {loss:.4f}, l2_grads '
+        f'{out.logs["l2_grads"]:.4g}, lr {out.logs["learning_rate"]:.3g}, '
+        f'params moved {moved:.3g}; launches {launched}')
+
+  workdir = fresh_workdir('f16')
+  torch.cuda.reset_peak_memory_stats()
+  with contextlib.ExitStack() as stack:
+    captures = [stack.enter_context(Capture(kernels, kernel, 0))
+                for kernel in ('lift_topk_bwd', 'patch_sample_2d_bwd')]
+    dtypes = stack.enter_context(KernelDtypes())
+    kernels.reset_launch_counts()
+    result = train.train(config, F16_STEPS, 'cuda', seed=0, model=model,
+                         on_step=check_step, workdir=workdir)
+  calls = dtypes.assert_only(torch.float16, name)
+  train_launches = dict(per_step[-1])
+  peak = torch.cuda.max_memory_allocated() - resident
+  finite = [s[1] for s in steps]
+  if not any(finite[:F16_FINITE_BY]):
+    raise AssertionError(f'{name}: no finite step in the first '
+                         f'{F16_FINITE_BY}: {steps}')
+  if result['generator_kind'] != 'device-torch':
+    raise AssertionError(f'training data from {result["generator_kind"]}')
+  with torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    resumed = train.train(config, 2, 'cuda', seed=0, model=model,
+                          workdir=workdir)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+  prof.export_chrome_trace(str(workdir / 'traced.json'))
+  device_ms = trainer.step_device_ms(workdir / 'traced.json')
+  split = trainer.trace_split(workdir / 'traced.json', wall_ms)
+  resumed_scales = [(l['is_finite'], l['loss_scale'])
+                    for l in resumed['logs']]
+  ms = [1e3 * t for t in result['step_seconds']]
+  log(f'f16 training main path ({name}, batch 2): (step, is_finite, loss '
+      f'scale, loss, l2_grads, params moved) {steps}; the scale follows '
+      f'flax\'s rule from 65536; kernel calls, all f16, {calls}; launches '
+      f'{train_launches}; ms per step {ms}; own peak memory '
+      f'{peak / 2**30:.2f} GiB; 2 resumed steps (is_finite, loss scale) '
+      f'{resumed_scales}, traced: device ms a step {device_ms}, the '
+      f'steps\' wall ms {split["steps_ms"]:.1f}, idle share '
+      f'{split["idle_share"]}; {smi}')
+  ec = configs.eval_localization(evaluation_size=F16_EVAL_EXAMPLES,
+                                 batch_size=F16_EVAL_BATCH)
+  ec = dataclasses.replace(ec, workdir=str(workdir), dtype_str='float16',
+                           data=dataclasses.replace(ec.data, split='zurich'))
+  with contextlib.ExitStack() as stack:
+    serving = [stack.enter_context(Capture(kernels, kernel, 0))
+               for kernel in ('lift_topk_fwd', 'patch_sample_2d')]
+    dtypes = stack.enter_context(KernelDtypes())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (city, (results, record)), = evaluator.run(ec, device='cuda').items()
+    seconds = time.perf_counter() - t0
+  eval_launches = dict(kernels.LAUNCHES)
+  calls = dtypes.assert_only(torch.float16, f'{name} eval',
+                             ('lift_topk_fwd', 'patch_sample_2d'))
+  batches = F16_EVAL_EXAMPLES // F16_EVAL_BATCH
+  if (eval_launches['lift_topk_fwd'] < batches
+      or eval_launches['patch_sample_2d'] < batches):
+    raise AssertionError(f'{name} eval launched {eval_launches}')
+  if (record['eval_checkpoint_step'] != F16_STEPS + 2
+      or record['dtype_str'] != 'float16'):
+    raise AssertionError(f'{name} eval: {record}')
+  for key in ('error_max_meter', 'error_max_deg'):
+    if results[key].shape != (F16_EVAL_EXAMPLES,) or not np.isfinite(
+        results[key]).all():
+      raise AssertionError(f'{name} eval: {key} {results[key]}')
+  print(json.dumps(evaluate.city_summary(city, results, record)), flush=True)
+  log(f'{name}: evaluator.run of its workdir on {city} '
+      f'({F16_EVAL_EXAMPLES} examples at batch {F16_EVAL_BATCH}, f16, '
+      f'dense refinement) of step {record["eval_checkpoint_step"]}: '
+      f'{seconds:.2f} s, kernel calls, all f16, {calls}, launches '
+      f'{eval_launches}; {smi}')
+  shutil.rmtree(workdir)
+  del model, params, before, result
+  return (train_launches, eval_launches, *serving, *captures)
+
+
 # Phase 7h: each head's steps from a seeded export, and the kernels a head
 # step may launch (K1 for the frozen part's forward) and may not.
 HEAD_STEPS = 3
@@ -2895,26 +3207,28 @@ def heldout_rows(launches, lift, sample):
   return [lift_row, sample_row]
 
 
-@functools.lru_cache(maxsize=1)
-def library_sass():
-  """``cuobjdump -sass`` of the kernel library (one call, ~10 s); None
-  where the toolkit has no ``cuobjdump``."""
+@functools.lru_cache(maxsize=2)
+def library_sass(library=None):
+  """``cuobjdump -sass`` of a kernel library (this tree's by default; one
+  call, ~10 s); None where the toolkit has no ``cuobjdump``."""
   tool = kernels._nvcc().replace('nvcc', 'cuobjdump')
   try:
-    return subprocess.run([tool, '-sass', str(kernels.library_path())],
+    return subprocess.run([tool, '-sass',
+                           str(library or kernels.library_path())],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
   except (OSError, subprocess.SubprocessError):
     return None
 
 
-def sass_loops(function: str):
+def sass_loops(function: str, library=None):
   """The loops of the compiled kernel whose mangled name contains
-  ``function`` (``cuobjdump -sass``): per loop (a predicated backward
-  branch; an unpredicated one returns from out-of-line code), its
-  instructions and those outside the loops nested in it, largest first;
-  None where the toolkit has no ``cuobjdump``."""
-  sass = library_sass()
+  ``function`` (``cuobjdump -sass`` of ``library``, this tree's by
+  default): per loop (a predicated backward branch; an unpredicated one
+  returns from out-of-line code), its instructions and those outside the
+  loops nested in it, largest first; None where the toolkit has no
+  ``cuobjdump``."""
+  sass = library_sass(library)
   if sass is None:
     return None
   body, labels, pending, inside = [], {}, [], False
@@ -2948,6 +3262,26 @@ def sass_loops(function: str):
                  if start <= s and e <= end and (s, e) != (start, end))
     counts.append((total, total - nested))
   return sorted(counts, reverse=True)
+
+
+# The kernels whose SASS loops phase 2 prints: (label, a part of the
+# mangled name). K1 in the flagship's layout and B8's two of phase 7j, in
+# bf16 and f16; K3's ranks stage (which forms each rank's score, ROADMAP
+# C27) in the two weighted layouts of the main paths.
+SASS_LOOPS = tuple(
+    [('pose_scoring_kernel<false>', 'pose_scoring_kernelILb0E'),
+     ('pose_scoring_bwd_kernel<false>', 'pose_scoring_bwd_kernelILb0E')]
+    + [(f'lift_topk_fwd_kernel {t} {layout}',
+        f'lift_topk_fwd_kernelI{mangled}Li1E{mode}')
+       for t, mangled in (('bf16', '13__nv_bfloat16'), ('f16', '6__half'))
+       for layout, mode in (('(the flagship)', 'Lb1E'),
+                            ('[mean, var, max, min, score_max]', 'Lb0ELi7E'),
+                            ('unweighted [mean, var]', 'Lb0ELi2E'))]
+    + [(f'lift_topk_bwd ranks_kernel {t} {layout}',
+        f'12ranks_kernelI{mangled}Li1ELi{mode}E')
+       for t, mangled in (('bf16', '13__nv_bfloat16'), ('f16', '6__half'))
+       for layout, mode in (('(the flagship)', 3),
+                            ('[mean, var, max, min, score_max]', 7))])
 
 
 def log_occupancy(kernel: str, at: str) -> None:
@@ -3145,6 +3479,52 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
   return rows
 
 
+def f16_rows(train_launches, eval_launches, lift, sample, lift_bwd,
+             sample_bwd):
+  """Phase 8 in f16: K1 and K2 on phase 7k's evaluation inputs, K3 and K4
+  on its training steps' (each checked on every captured input, then
+  timed on the largest beside its plain version, its bound and
+  ``F.grid_sample`` and its input gradient in f16 for K2 and K4): one JSON
+  row each, named ``<kernel>/f16``."""
+  rows = []
+  for kernel, calls, launches, check, plain, bound, library in (
+      ('lift_topk_fwd', lift, eval_launches, check_lift,
+       lambda a, k: view_scan.lift_topk_plain(*a, **k),
+       lambda a, k, out: lift_bound(a, k, *out), None),
+      ('patch_sample_2d', sample, eval_launches, check_sample,
+       lambda a, k: view_scan.patch_sample_2d_plain(*a, **k),
+       lambda a, k, out: sample_bound(a, k, *out),
+       lambda a, k: grid_sample_call(*a)),
+      ('lift_topk_bwd', lift_bwd, train_launches, check_lift_bwd,
+       lambda a, k: plain_lift_bwd(a, k), lift_bwd_bound, None),
+      ('patch_sample_2d_bwd', sample_bwd, train_launches, check_sample_bwd,
+       lambda a, k: view_scan.patch_sample_2d_bwd_plain(*a, **k),
+       sample_bwd_bound,
+       lambda a, k: grid_sample_bwd_call(*a, k['plane_shape']))):
+    err = max(check(*c) for c in calls.calls.values())
+    args, kw = calls.largest()
+    if args[0].dtype != torch.float16:
+      raise AssertionError(f'{kernel}: captured {args[0].dtype}')
+    call = (lift_bwd_call(args, kw) if kernel == 'lift_topk_bwd'
+            else functools.partial(getattr(kernels, kernel), *args, **kw))
+    out = call()
+    log_occupancy(kernel, 'phase 7k\'s f16 input')
+    row = report(f'{kernel}/f16', f'snap_tpu_torch/csrc/{kernel}.cu',
+                 launches[kernel], err, time_ms(call),
+                 time_ms(lambda: plain(args, kw), iters=3),
+                 bound(args, kw, out),
+                 None if library is None else time_ms(library(args, kw)))
+    row['spin_ms'] = time_ms(call, spin=True)
+    log(f'{row["name"]} at {tuple(args[0].shape)} (inputs '
+        f'{list(calls.calls)}): {row["ms"]:.4f} ms, spin '
+        f'{row["spin_ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, bound '
+        f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, library '
+        f'{row["library_ms"]}), max abs err {err:.3g}')
+    rows.append(row)
+    del out
+  return rows
+
+
 def main() -> int:
   # 1. Device.
   if not torch.cuda.is_available():
@@ -3164,27 +3544,29 @@ def main() -> int:
   kernels.load_library()
   log(f'build: {time.perf_counter() - t:.1f} s '
       f'({kernels.library_path().name})')
-  log(f'SASS loops (instructions, of them outside nested loops), largest '
-      f'first: pose_scoring_kernel<false> '
-      f'{sass_loops("pose_scoring_kernelILb0E")}, pose_scoring_bwd_kernel'
-      f'<false> {sass_loops("pose_scoring_bwd_kernelILb0E")}, '
-      f'lift_topk_fwd_kernel<bf16, 1, true> '
-      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb1E")}, and '
-      f'in B8\'s layouts of phase 7j, [mean, var, max, min, score_max] '
-      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb0ELi7E")}, '
-      f'unweighted [mean, var] '
-      f'{sass_loops("lift_topk_fwd_kernelI13__nv_bfloat16Li1ELb0ELi2E")}')
+  log('SASS loops (instructions, of them outside nested loops), largest '
+      'first: ' + '; '.join(f'{label} {sass_loops(name)}'
+                            for label, name in SASS_LOOPS))
 
-  # 3. Kernels against their plain versions on seeded flagship-shape inputs.
-  lift, sample, lift_bwd, sample_bwd = seeded_kernel_inputs('cuda')
-  log(f'kernels on seeded inputs: max abs err lift_topk_fwd '
-      f'{check_lift(*lift):.3g}, patch_sample_2d {check_sample(*sample):.3g}, '
-      f'lift_topk_bwd {check_lift_bwd(*lift_bwd):.3g}, patch_sample_2d_bwd '
-      f'{check_sample_bwd(*sample_bwd):.3g}; lift_topk_bwd '
-      f'{time_ms(lift_bwd_call(*lift_bwd)):.4f} ms per call, (device ms per '
-      f'call, launches kept) per stage '
-      f'{kernel_stages_ms(lift_bwd_call(*lift_bwd), K3_STAGES)}')
-  del lift, sample, lift_bwd, sample_bwd
+  # 3. Kernels against their plain versions on seeded flagship-shape inputs,
+  # bf16 and f16.
+  for dtype in (torch.bfloat16, torch.float16):
+    lift, sample, lift_bwd, sample_bwd = seeded_kernel_inputs('cuda', dtype)
+    log(f'kernels on seeded inputs, {str(dtype)[6:]}: max abs err '
+        f'lift_topk_fwd {check_lift(*lift):.3g}, patch_sample_2d '
+        f'{check_sample(*sample):.3g}, lift_topk_bwd '
+        f'{check_lift_bwd(*lift_bwd):.3g}, patch_sample_2d_bwd '
+        f'{check_sample_bwd(*sample_bwd):.3g}; lift_topk_bwd '
+        f'{time_ms(lift_bwd_call(*lift_bwd)):.4f} ms per call, (device ms '
+        f'per call, launches kept) per stage '
+        f'{kernel_stages_ms(lift_bwd_call(*lift_bwd), K3_STAGES)}')
+    for kernel in EXHAUSTIVE_KERNELS:
+      log_occupancy(kernel, f'phase 3, {str(dtype)[6:]}')
+    if dtype == torch.float16:
+      log(f'an infinite cotangent entry, f16: the non-finite entries of the '
+          f'gradient, the plain version\'s '
+          f'{check_non_finite(lift_bwd, sample_bwd)}')
+    del lift, sample, lift_bwd, sample_bwd
   b8_seeded()
   scoring = {mask: check_pose_scoring(*seeded_pose_scoring_inputs('cuda',
                                                                    mask))
@@ -3218,6 +3600,16 @@ def main() -> int:
   a14_reference()
   # 5f. The lift's other forms, card against CPU.
   a145_reference()
+  # 5g. f16 with the loss scale, card against CPU; every card call in f16.
+  with KernelDtypes() as dtypes:
+    training_reference('smoke_train_exhaustive, float16', dataclasses.replace(
+        configs.smoke_train_exhaustive(), dtype_str='float16'),
+                       least=EXHAUSTIVE_KERNELS, tol=F16_TRAIN_TOL)
+    overflow = f16_overflow_reference()
+  log(f'f16 training reference: a step from a loss scale of 2^30, '
+      f'(is_finite, loss_scale) on the card and the CPU {overflow}; card '
+      f'kernel calls, all f16, '
+      f'{dtypes.assert_only(torch.float16, "phase 5g")}')
 
   # 6-7e. Main paths, each with the launch counts reset just before it;
   # their batches made on the card by the dataset's iterators.
@@ -3238,6 +3630,8 @@ def main() -> int:
   a14_main_path(smi)
   # 7j. The lift's other forms at full width.
   b8_runs = a145_main_path(smi)
+  # 7k. The flagship run in f16 with the loss scale, and its workdir served.
+  f16_runs = f16_main_path(smi)
 
   # 7f. The device generator on the card. After the main paths: its
   # profile of one build is this script's first, and later launches on
@@ -3262,6 +3656,8 @@ def main() -> int:
                                  scoring_bwd)
     rows += heldout_rows(heldout_launches, heldout_lift, heldout_sample)
     rows += b8
+    rows += f16_rows(*f16_runs)
+    del f16_runs
   # Every K3 call of the run was given the count its count stage found.
   kernels.check_lift_counts(wait=True)
   print(smi, flush=True)

@@ -1067,6 +1067,8 @@ _TRAINER_TOP = ('checkpoint', 'checkpoint_steps', 'max_checkpoints_to_keep',
                 'log_summary_steps', 'log_eval_steps', 'steps_per_eval',
                 'eval_batch_size', 'stop_at_step', 'xprof')
 _CHECKED_TOP = {'data_dtype_str': 'float32', 'num_training_epochs': None}
+# The compute dtypes the port runs (``dtype_str``): the reference's three.
+DTYPE_STRS = ('bfloat16', 'float16', 'float32')
 
 
 def _check(where: str, value, want) -> None:
@@ -1128,6 +1130,9 @@ def from_reference(d: Mapping[str, Any]) -> Config:
   for key, want in _CHECKED_TOP.items():
     _check(key, d.get(key), want)
   _check('mesh.model', d.get('mesh', {}).get('model', 1), 1)
+  if d.get('dtype_str') not in DTYPE_STRS:
+    raise ValueError(f'from_reference: dtype_str = {d.get("dtype_str")!r}; '
+                     f'the port runs {list(DTYPE_STRS)}')
   model_name = d.get('model_name')
   if model_name not in MODEL_CONFIGS:
     raise ValueError(f'from_reference: model_name = {model_name!r}; the '

@@ -1,4 +1,6 @@
-// K3: fused top-k lift, backward (training path).
+// K3: fused top-k lift, backward (training path). The stack and g_stats in
+// f32, bf16 or f16; every sum in f32, d stack f32 (the wrapper casts it to
+// the stack's dtype, f16 past 65504 to inf); a non-finite g reaches d stack.
 //
 // Replaces the backward of snap_tpu/ops/view_scan.py:pool_views_stream:
 // XLA's autodiff of the per-rank online softmax (rank_step) followed by the
@@ -107,6 +109,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "bin_sort.cuh"
@@ -129,6 +132,7 @@ __device__ inline float to_float(float x) { return x; }
 __device__ inline float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ inline float to_float(__half x) { return __half2float(x); }
 
 // 4 channels: loaded raw, converted later.
 template <typename T> struct Quad;
@@ -152,6 +156,18 @@ template <> struct Quad<__nv_bfloat16> {
   __device__ static void convert(const Raw& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
     const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  }
+};
+
+template <> struct Quad<__half> {
+  using Raw = uint2;
+  __device__ static Raw load(const __half* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static void convert(const Raw& v, float* out) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+    const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
     out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
   }
 };
@@ -565,7 +581,11 @@ __device__ __forceinline__ void rank_point(
       fa += tw[t] * to_float(taps[t][D + s0]);
       fb += tw[t] * to_float(taps[t][D + s1]);
     }
-    my_z = fa * hat(me.geo.x, s0) + (s1 > s0 ? fb * hat(me.geo.x, s1) : 0.f);
+    // Both products rounded before the sum, as K1 and the plain version
+    // round them (a product fused into the sum is an ulp off at times, and
+    // moves the score max's cotangent at a near tie).
+    my_z = __fadd_rn(__fmul_rn(fa, hat(me.geo.x, s0)),
+                     s1 > s0 ? __fmul_rn(fb, hat(me.geo.x, s1)) : 0.f);
   }
 
   // The combined features of ranks k0 .. k0 + 3 for the lane's channels.
@@ -935,20 +955,19 @@ int launch_ranks_mode(int mode, const void* stack, const int32_t* view_idx,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (stack and g_stats). weighted,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (stack and g_stats). weighted,
 // use_variance and add_minmax pick the statistics layout, stats_row wide
 // (lift_stats.cuh); weighted iff C > D. Scratch, allocated by the caller:
-// counts [bins + 1] int32 zeroed (the last, the wide list's length),
-// offsets [bins + 1] int32, within [B * N * K] int32, wide_points [B * N]
-// int32, and for capacity slots, the count of selected ranks: d_f
-// [capacity, D] f32, records [capacity, 4] f32 and bins_of_slots
-// [capacity] int32; bins = B * V * h * w and V = R / (h + 1). No stage
-// writes a slot past capacity, whatever the count stage finds; the count it
-// found goes to found, one int32 of pinned host memory, for the caller to
-// compare with capacity once the launches have ended. grad [B, R, W, C] f32
-// must be zeroed; C * dtype size a multiple of 16 bytes; D % 4 == 0 and
-// D <= 256; C <= 256; K <= 32.
-// Returns a cudaError_t (0 on success).
+// counts [bins + 1] int32 zeroed (the last, the wide list's length), offsets
+// [bins + 1] int32, within [B * N * K] int32, wide_points [B * N] int32, and
+// for capacity slots, the count of selected ranks: d_f [capacity, D] f32,
+// records [capacity, 4] f32 and bins_of_slots [capacity] int32; bins = B * V *
+// h * w and V = R / (h + 1). No stage writes a slot past capacity, whatever the
+// count stage finds; the count it found goes to found, one int32 of pinned host
+// memory, for the caller to compare with capacity once the launches have ended.
+// grad [B, R, W, C] f32 must be zeroed; C * dtype size a multiple of 16 bytes;
+// D % 4 == 0 and D <= 256; C <= 256; K <= 32. Returns a cudaError_t (0 on
+// success).
 extern "C" int lift_topk_bwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, const void* g_stats, void* grad,
@@ -962,7 +981,7 @@ extern "C" int lift_topk_bwd(
   const int feature_warps = (D + 127) / 128, score_warps = (C - D + 31) / 32;
   const int mode = (weighted ? kWeighted : 0) |
                    (use_variance ? kVariance : 0) | (add_minmax ? kMinMax : 0);
-  if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 1 ||
+  if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 2 ||
       feature_warps + score_warps > kMaxRunWarps || capacity < 0 ||
       (weighted != 0) != (C > D) || stats_row != stats_width(mode, D))
     return (int)cudaErrorInvalidValue;
@@ -1001,14 +1020,18 @@ extern "C" int lift_topk_bwd(
   scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, off, nbins, found_on_card);
   if ((code = (int)cudaGetLastError())) return code;
   const auto* dep = static_cast<const float*>(depth);
-  code = dtype == 0
-             ? launch_ranks_mode<float>(mode, stack, idx, pts, sel, dep,
-                                        g_stats, off, pos, df, rec, slot_bins,
-                                        wide, cnt + nbins, capacity, d, sms,
-                                        s)
-             : launch_ranks_mode<__nv_bfloat16>(
-                   mode, stack, idx, pts, sel, dep, g_stats, off, pos, df,
-                   rec, slot_bins, wide, cnt + nbins, capacity, d, sms, s);
+  if (dtype == 0)
+    code = launch_ranks_mode<float>(mode, stack, idx, pts, sel, dep, g_stats,
+                                    off, pos, df, rec, slot_bins, wide,
+                                    cnt + nbins, capacity, d, sms, s);
+  else if (dtype == 1)
+    code = launch_ranks_mode<__nv_bfloat16>(
+        mode, stack, idx, pts, sel, dep, g_stats, off, pos, df, rec,
+        slot_bins, wide, cnt + nbins, capacity, d, sms, s);
+  else
+    code = launch_ranks_mode<__half>(mode, stack, idx, pts, sel, dep,
+                                     g_stats, off, pos, df, rec, slot_bins,
+                                     wide, cnt + nbins, capacity, d, sms, s);
   if (code || capacity == 0) return code;
   // A block per kChunk slots of the capacity.
   const unsigned blocks = (unsigned)((capacity + kChunk - 1) / kChunk);

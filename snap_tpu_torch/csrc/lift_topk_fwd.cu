@@ -80,10 +80,13 @@
 //     from K3's).
 //   - Launch bounds keep f32 within 128 registers and bf16 within 80 (2 and
 //     3 blocks per SM): a build a few registers over lost a block per SM
-//     and a third of its speed on an H100.
+//     and a third of its speed on an H100. f16 has bf16's width and takes
+//     its bound; both accumulate in f32 and round the stats once, f16's
+//     past 65504 to inf.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <limits.h>
 #include <stdint.h>
 
@@ -99,7 +102,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;
 // Consecutive points per warp, and the blocks per SM that ptxas must fit
 // in registers, by dtype: a kernel a few registers over 128 (f32) or 80
-// (bf16) loses a block per SM, and a third of its speed with it.
+// (bf16, f16) loses a block per SM, and a third of its speed with it.
 constexpr int kPointsPerWarp = 16;
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 2 ? 3 : 2;
@@ -111,6 +114,12 @@ __device__ inline float to_float(__nv_bfloat16 x) {
 __device__ inline void from_float(float x, float* out) { *out = x; }
 __device__ inline void from_float(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16(x);
+}
+__device__ inline float to_float(__half x) { return __half2float(x); }
+// Round to nearest; a value past 65504 becomes inf, as a cast of the f32
+// sum to float16 does.
+__device__ inline void from_float(float x, __half* out) {
+  *out = __float2half_rn(x);
 }
 
 // 4 channels: loaded raw, converted later.
@@ -135,6 +144,18 @@ template <> struct Quad<__nv_bfloat16> {
   __device__ static void convert(const Raw& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
     const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  }
+};
+
+template <> struct Quad<__half> {
+  using Raw = uint2;
+  __device__ static Raw load(const __half* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static void convert(const Raw& v, float* out) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+    const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
     out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
   }
 };
@@ -690,7 +711,8 @@ int dispatch_mode(int mode, const void* stack, const int32_t* view_idx,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. weighted, use_variance and add_minmax
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (bf16's launch bounds and
+// register budget: the same width). weighted, use_variance and add_minmax
 // pick the statistics layout, stats_row wide (lift_stats.cuh); weighted iff
 // C > D. Needs D % 4 == 0, K <= 32, D <= 512 for the flagship's layout and
 // D <= 256, fewer than 2^31 pixels an example (R W) and points (B N) for
@@ -725,6 +747,9 @@ extern "C" int lift_topk_fwd(
   if (dtype == 1)
     return dispatch_mode<__nv_bfloat16>(mode, stack, idx, pts, sel, dep, stats,
                                         val, d, s);
+  if (dtype == 2)
+    return dispatch_mode<__half>(mode, stack, idx, pts, sel, dep, stats, val,
+                                 d, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-// K2: bilinear 2x2 patch sampler of a 2-D feature plane.
+// K2: bilinear 2x2 patch sampler of a 2-D feature plane, in f32, bf16 or
+// f16 (the sums in f32, rounded once to the plane's dtype).
 //
 // Replaces the patch gather of snap_tpu/ops/view_scan.py:interpolate_patch_2d
 // (_make_patch_gather via gather_bilinear_patches, i.e. the 2x2xC gather of
@@ -47,6 +48,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "launch_log.cuh"
@@ -63,6 +65,8 @@ __device__ inline void store(float* p, float x) { *p = x; }
 __device__ inline void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+__device__ inline float to_float(__half x) { return __half2float(x); }
+__device__ inline void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) pack_plane_kernel(
@@ -197,10 +201,10 @@ int launch(const void* padded, void* feats, uint8_t* valid_plane,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. feats [B, H+1, W+1, Dp] (Dp = D rounded
-// up to 16 bytes) and valid_plane [B, H+1, W+1] uint8 are scratch the
-// caller allocates; points must be 8-byte aligned and B * P * Dp * dtype
-// size / 16 below 2^31. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. feats [B, H+1, W+1, Dp] (Dp =
+// D rounded up to 16 bytes) and valid_plane [B, H+1, W+1] uint8 are scratch the
+// caller allocates; points must be 8-byte aligned and B * P * Dp * dtype size /
+// 16 below 2^31. Returns a cudaError_t (0 on success).
 extern "C" int patch_sample_2d(const void* padded, void* feats,
                                void* valid_plane, const void* points,
                                void* values, void* valid, int dtype, int B,
@@ -217,6 +221,9 @@ extern "C" int patch_sample_2d(const void* padded, void* feats,
   if (dtype == 1)
     return launch<__nv_bfloat16>(padded, feats, vplane, pts, values, val, B, P,
                                  H, W, C, D, Dp, has_valid, s);
+  if (dtype == 2)
+    return launch<__half>(padded, feats, vplane, pts, values, val, B, P, H, W,
+                          C, D, Dp, has_valid, s);
   return (int)cudaErrorInvalidValue;
 }
 

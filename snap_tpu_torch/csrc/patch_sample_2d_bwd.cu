@@ -1,4 +1,6 @@
-// K4: backward of the bilinear 2x2 patch sampler (K2).
+// K4: backward of the bilinear 2x2 patch sampler (K2), in f32, bf16 or f16
+// (the sums in f32, rounded once to g's dtype, f16 past 65504 to inf; a
+// non-finite g reaches the plane's gradient).
 //
 // Replaces X2: the custom VJP of snap_tpu/ops/view_scan.py:
 // gather_bilinear_patches (_make_patch_gather bwd, :334-347: the flat-row
@@ -67,6 +69,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "bin_sort.cuh"
@@ -173,7 +176,7 @@ __global__ void __launch_bounds__(kPointThreads) place_points_kernel(
       make_int4(__float_as_int(t.fi), __float_as_int(t.fj), p, t.bin);
 }
 
-// 16 bytes of g's channels: V = 4 (f32) or 8 (bf16), loaded raw.
+// 16 bytes of g's channels: V = 4 (f32) or 8 (bf16, f16), loaded raw.
 template <typename T> struct Chunk;
 
 template <> struct Chunk<float> {
@@ -199,6 +202,20 @@ template <> struct Chunk<__nv_bfloat16> {
   __device__ static float scalar(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
+};
+
+template <> struct Chunk<__half> {
+  static constexpr int V = 8;
+  __device__ static void convert(const uint4& v, float* out) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __half22float2(h[k]);
+      out[2 * k] = f.x;
+      out[2 * k + 1] = f.y;
+    }
+  }
+  __device__ static float scalar(const __half* p) { return __half2float(*p); }
 };
 
 // 4. Walker (thread / lanes) takes slots [walker * chunk, + chunk) of the
@@ -305,6 +322,9 @@ __device__ inline void store(float* p, float x) { *p = x; }
 __device__ inline void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+// Round to nearest; a sum past 65504 becomes inf, as a cast of the f32 sum
+// to float16 does.
+__device__ inline void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 // 5. d plane [cells, C] in the plane's dtype from the accumulator
 // [cells, Dp]; channels from D on (the validity channel) get 0.
@@ -395,28 +415,31 @@ int sort_and_sum(const void* g_values, const float2* points, float* acc,
                         kPointThreads, 0, s>>>(
       points, offsets, within, records, d);
   if ((code = (int)cudaGetLastError())) return code;
-  return dtype == 0
-             ? launch_runs(static_cast<const float*>(g_values), records, acc,
-                           d, sms, s)
-             : launch_runs(static_cast<const __nv_bfloat16*>(g_values),
-                           records, acc, d, sms, s);
+  if (dtype == 0)
+    return launch_runs(static_cast<const float*>(g_values), records, acc, d,
+                       sms, s);
+  if (dtype == 1)
+    return launch_runs(static_cast<const __nv_bfloat16*>(g_values), records,
+                       acc, d, sms, s);
+  return launch_runs(static_cast<const __half*>(g_values), records, acc, d,
+                     sms, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (g_values and grad). Scratch, allocated
-// by the caller: acc [B * (H+1) * (W+1) * Dp] f32 with Dp = D rounded up
-// to 4, counts [B * H * W] and offsets [B * H * W + 1] int32 (16-byte
-// aligned), within [B * P] int32, records [B * P] int4; acc (16-byte
-// aligned) and counts are zeroed here. points 8-byte aligned; B * P and
-// B * H * W in [1, 2^30). Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (g_values and grad). Scratch,
+// allocated by the caller: acc [B * (H+1) * (W+1) * Dp] f32 with Dp = D rounded
+// up to 4, counts [B * H * W] and offsets [B * H * W + 1] int32 (16-byte
+// aligned), within [B * P] int32, records [B * P] int4; acc (16-byte aligned)
+// and counts are zeroed here. points 8-byte aligned; B * P and B * H * W in [1,
+// 2^30). Returns a cudaError_t (0 on success).
 extern "C" int patch_sample_2d_bwd(const void* g_values, const void* points,
                                    void* grad, void* acc, void* counts,
                                    void* offsets, void* within, void* records,
                                    int dtype, int B, int P, int H, int W,
                                    int C, int D, void* stream) {
   launches.clear();
-  if (dtype < 0 || dtype > 1 || D <= 0 || D > C || H <= 0 || W <= 0 ||
+  if (dtype < 0 || dtype > 2 || D <= 0 || D > C || H <= 0 || W <= 0 ||
       B <= 0 || P <= 0 || reinterpret_cast<uintptr_t>(points) % 8)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -430,8 +453,9 @@ extern "C" int patch_sample_2d_bwd(const void* g_values, const void* points,
                         static_cast<int*>(within), static_cast<int4*>(records),
                         dtype, d, s);
   if (code) return code;
-  return dtype == 0 ? launch_cast<float>(sums, grad, d, s)
-                    : launch_cast<__nv_bfloat16>(sums, grad, d, s);
+  if (dtype == 0) return launch_cast<float>(sums, grad, d, s);
+  if (dtype == 1) return launch_cast<__nv_bfloat16>(sums, grad, d, s);
+  return launch_cast<__half>(sums, grad, d, s);
 }
 
 // The launches of the last call (launch_log.cuh). Returns their count, or

@@ -55,7 +55,15 @@ CITIES_SPLITS = configs.DATA_SPLITS_CITIES
 CONFIG_FILE = 'config.json'
 PARAMS_FILE = 'params.npz'
 CHECKPOINT_FILE = 'checkpoint.json'
-_DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
+
+
+def compute_dtype(dtype_str: str) -> torch.dtype:
+  """The torch dtype of a config's ``dtype_str``; raises on one the port
+  does not run."""
+  if dtype_str not in configs.DTYPE_STRS:
+    raise ValueError(f'dtype_str = {dtype_str!r}; the port runs '
+                     f'{list(configs.DTYPE_STRS)}')
+  return getattr(torch, dtype_str)
 
 
 def build_model(config: configs.Config, device: str = 'cuda',
@@ -68,7 +76,7 @@ def build_model(config: configs.Config, device: str = 'cuda',
   ``state_dict`` (a port checkpoint's)."""
   model = models.get_model(config.model_name)(
       config.model, loader.scene_meta_data(config.data),
-      _DTYPES[config.dtype_str])
+      compute_dtype(config.dtype_str))
   if params_npz is not None:
     with np.load(params_npz) as npz:
       state_dict = convert.params_from_flax(dict(npz), model)

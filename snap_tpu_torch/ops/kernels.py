@@ -42,7 +42,9 @@ LAUNCHES = {'lift_topk_fwd': 0, 'patch_sample_2d': 0, 'lift_topk_bwd': 0,
             'patch_sample_2d_bwd': 0, 'pose_scoring': 0,
             'pose_scoring_bwd': 0, 'slice_gather': 0, 'table_gather': 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The C entry points' dtype codes: K1-K4 have an instantiation of each (B4,
+# B7 take f32 alone, B5 bf16 alone).
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib: Optional[ctypes.CDLL] = None
 # K3's calls whose counts are still to be read: the count of selected ranks
 # each was given, the one its count stage found (an int32 that the card

@@ -5,7 +5,8 @@
 - ``params.pt``: the model's ``state_dict`` (parameter name -> tensor);
 - ``opt_state.pt``: the optimizer's ``count`` and its moments ``mu`` and
   ``nu``, each keyed by the name of its parameter;
-- ``meta.json``: ``global_step`` and the run's seed.
+- ``meta.json``: ``global_step``, the run's seed and, in fp16, the
+  dynamic loss scale's ``scale`` and ``fin_steps`` (``dynamic_scale``).
 
 A step is written into a temporary directory beside the others and renamed
 into place, so a run killed mid-write leaves no half-written step; the
@@ -22,6 +23,7 @@ start's hook).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -83,8 +85,10 @@ def save_checkpoint(workdir: PathLike, state, step: int,
   torch.save({'count': int(opt.count),
               'mu': _to_host(dict(zip(names, opt.mu))),
               'nu': _to_host(dict(zip(names, opt.nu)))}, tmp / OPT_STATE)
-  (tmp / META).write_text(json.dumps(
-      {'global_step': int(state.global_step), 'seed': int(state.seed)}))
+  meta = {'global_step': int(state.global_step), 'seed': int(state.seed)}
+  if state.dynamic_scale is not None:
+    meta['dynamic_scale'] = state.dynamic_scale.state()
+  (tmp / META).write_text(json.dumps(meta))
   nbytes = sum(p.stat().st_size for p in tmp.iterdir())
   final = root / str(step)
   if final.exists():
@@ -125,9 +129,17 @@ def _copy_into(live: Dict[str, torch.Tensor],
 def restore_checkpoint(workdir: PathLike, state,
                        step: Optional[int] = None) -> int:
   """Copy checkpoint ``step`` (the latest when None) into ``state``'s
-  model and optimizer tensors, and set its counters. Returns the step."""
+  model and optimizer tensors, and set its counters and its loss scale.
+  Returns the step. A checkpoint with a loss scale restores into an fp16
+  state alone, and one without into a bf16 or f32 state alone."""
   path = _step_dir(workdir, step)
   meta = json.loads((path / META).read_text())
+  saved_scale = meta.get('dynamic_scale')
+  if (saved_scale is None) != (state.dynamic_scale is None):
+    raise ValueError(
+        f'{path} holds {"no" if saved_scale is None else "a"} dynamic loss '
+        f'scale, and the run is {"fp16" if saved_scale is None else "not"}: '
+        f'fp16 trains with one, bf16 and f32 without')
   _copy_into(state.model.state_dict(), _load(path / PARAMS), 'params')
   saved = _load(path / OPT_STATE)
   names = _moment_names(state)
@@ -137,6 +149,10 @@ def restore_checkpoint(workdir: PathLike, state,
   opt.count = int(saved['count'])
   state.global_step = int(meta['global_step'])
   state.seed = int(meta['seed'])
+  if saved_scale is not None:
+    state.dynamic_scale = dataclasses.replace(
+        state.dynamic_scale, scale=float(saved_scale['scale']),
+        fin_steps=int(saved_scale['fin_steps']))
   return int(path.name)
 
 

@@ -15,9 +15,15 @@ mean loss over
 ``batch_mask``, backpropagates, clips and applies Adam. A step whose
 gradients are not all finite keeps the parameters and the optimizer
 state, while ``global_step`` still advances: the optimizer's count then
-lags, as optax's does. Metrics are reduced to
+lags, as optax's does. fp16 (``dtype_str='float16'``) trains with a
+dynamic loss scale (``train_lib/dynamic_scale.py``, flax's
+``DynamicScale(minimum_scale=256.0)``): the loss is scaled before the
+backward and the gradients unscaled in f32, the scale's step rule takes
+whether they are all finite, the step logs ``loss_scale`` and the
+checkpoints keep the scale; bf16 and f32 have none. Metrics are reduced to
 ``(sum, count)`` pairs, masked by ``batch_mask`` and finiteness. There is
-no autocast: the modules cast to their compute dtype themselves.
+no autocast, in any dtype: the modules cast to their compute dtype
+themselves.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import base
 from snap_tpu_torch.models import bev_mapper
 from snap_tpu_torch.train_lib import checkpoints
+from snap_tpu_torch.train_lib import dynamic_scale as dynamic_scale_lib
 from snap_tpu_torch.train_lib import optimizers
 from snap_tpu_torch.utils import geometry
 
@@ -54,6 +61,8 @@ class TrainState:
   global_step: int
   seed: int
   tx: Optional[optimizers.Adam] = None  # the transform of ``opt_state``
+  # fp16 only: the dynamic loss scale; None in bf16 and f32.
+  dynamic_scale: Optional[dynamic_scale_lib.DynamicScale] = None
 
 
 class StepOutput(NamedTuple):
@@ -66,11 +75,14 @@ class StepOutput(NamedTuple):
   pose_samples: Optional[geometry.Transform2D] = None
 
 
-def create_train_state(model: base.Model,
-                       optimizer: optimizers.Adam, seed: int) -> TrainState:
+def create_train_state(
+    model: base.Model, optimizer: optimizers.Adam, seed: int,
+    dynamic_scale: Optional[dynamic_scale_lib.DynamicScale] = None
+) -> TrainState:
   params = [p for _, p in model.named_parameters()]
   return TrainState(model=model, opt_state=optimizer.init(params),
-                    global_step=0, seed=seed, tx=optimizer)
+                    global_step=0, seed=seed, tx=optimizer,
+                    dynamic_scale=dynamic_scale)
 
 
 def fold_seed(seed: int, step: int, *salt: int) -> int:
@@ -157,17 +169,29 @@ def train_step(state: TrainState, batch: Dict[str, Any],
 
   ``draws`` and ``pose_samples`` (the RANSAC backend's ``[B, P]`` sampled
   poses, without the GT) inject the forward's random draws; by default
-  they come from the step's generator.
+  they come from the step's generator. With a dynamic loss scale (fp16)
+  the backward takes the loss times the scale, the gradients are cast to
+  f32 and divided by it, and the scale's step follows whether they are all
+  finite (``DynamicScale.value_and_grad``): the same check that skips the
+  update, on the same gradients (the reference folds the two, which agree).
+  ``loss_scale`` logs the new scale.
   """
   model = state.model
   names = [n for n, _ in model.named_parameters()]
   params = [p for _, p in model.named_parameters()]
   loss, losses, metrics, pred = loss_and_metrics(
       model, batch, True, step_generator(state), draws, pose_samples)
-  grads = torch.autograd.grad(loss, params, allow_unused=True)
+  scale = state.dynamic_scale
+  grads = torch.autograd.grad(loss if scale is None else loss * scale.scale,
+                              params, allow_unused=True)
   grads = [torch.zeros_like(p) if g is None else g
            for g, p in zip(grads, params)]
+  if scale is not None:
+    grads = [g.float() / scale.scale for g in grads]
   logs = apply_gradients(params, grads, state, optimizer)
+  if scale is not None:
+    state.dynamic_scale = scale.update(logs['is_finite'] == 1.0)
+    logs['loss_scale'] = state.dynamic_scale.scale
   for key, value in losses.items():
     metrics[f'loss/{key}'] = value
   samples = pred.get('map_t_query_samples')
@@ -396,7 +420,8 @@ def train(config: configs.Config, model: base.Model,
   workdir = pathlib.Path(workdir)
   workdir.mkdir(parents=True, exist_ok=True)
   optimizer = optimizers.get_optimizer(tc, model)
-  state = create_train_state(model, optimizer, seed)
+  state = create_train_state(model, optimizer, seed,
+                             dynamic_scale_lib.for_dtype(config.dtype_str))
   restore_seconds = None
   ckpt_step = checkpoints.latest_step(workdir) if tc.checkpoint else None
   if ckpt_step is not None:

@@ -28,10 +28,12 @@ from snap_tpu_torch.utils import grids
 
 torch.set_num_threads(2)
 
-# Kernel vs plain version: both accumulate in f32; bf16 outputs may differ
-# by one rounding (2^-8 relative), f32 ones by summation order.
+# Kernel vs plain version: both accumulate in f32; bf16 and f16 outputs
+# may differ by one rounding (an ulp: 2^-7 relative at most in bf16, 2^-10
+# in f16), f32 ones by summation order.
 TOLERANCES = {torch.float32: dict(atol=1e-5, rtol=1e-5),
-              torch.bfloat16: dict(atol=1e-3, rtol=2.0**-7)}
+              torch.bfloat16: dict(atol=1e-3, rtol=2.0**-7),
+              torch.float16: dict(atol=1e-3, rtol=2.0**-10)}
 # The backward kernels: each output is a sum of tap-weighted contributions
 # added with atomics (the plain version's index_add_ on the card too) in
 # orders that change from run to run. The test points spill one pixel past
@@ -40,7 +42,8 @@ TOLERANCES = {torch.float32: dict(atol=1e-5, rtol=1e-5),
 # ~1e-3 between two orders (a first run measured 7e-4): f32 outputs get
 # 2e-3 absolute.
 BWD_TOLERANCES = {torch.float32: dict(atol=2e-3, rtol=1e-5),
-                  torch.bfloat16: dict(atol=1e-3, rtol=2.0**-7)}
+                  torch.bfloat16: dict(atol=1e-3, rtol=2.0**-7),
+                  torch.float16: dict(atol=1e-3, rtol=2.0**-10)}
 
 
 @pytest.fixture
@@ -81,6 +84,7 @@ def _plane_inputs(device, dtype, seed=0):
     (torch.float32, 40, 32),  # one 16-byte chunk per lane
     (torch.bfloat16, 160, 128),  # the flagship stack
     (torch.float32, 320, 288),  # several chunks per lane
+    (torch.float16, 160, 128),  # the flagship stack in f16
 ])
 def test_lift_topk_fwd_matches_plain(cuda, dtype, channels, dim):
   args, kwargs = _lift_inputs(cuda, dtype, channels, dim)
@@ -94,7 +98,8 @@ def test_lift_topk_fwd_matches_plain(cuda, dtype, channels, dim):
                              **TOLERANCES[dtype])
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_patch_sample_2d_matches_plain(cuda, dtype):
   args, kwargs = _plane_inputs(cuda, dtype)
   before = kernels.LAUNCHES['patch_sample_2d']
@@ -182,6 +187,7 @@ def _raw_lift_bwd_inputs(device, dtype, channels, dim, k=4, seed=0):
     (torch.float32, 40, 32),  # the smoke stack
     (torch.bfloat16, 160, 128),  # the flagship stack
     (torch.float32, 256, 224),  # the widest stack K3 takes
+    (torch.float16, 160, 128),  # the flagship stack in f16
 ])
 def test_lift_topk_bwd_matches_plain(cuda, dtype, channels, dim):
   args, g_stats, kwargs = _raw_lift_bwd_inputs(cuda, dtype, channels, dim)
@@ -196,7 +202,8 @@ def test_lift_topk_bwd_matches_plain(cuda, dtype, channels, dim):
                              **BWD_TOLERANCES[dtype])
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_patch_sample_2d_bwd_matches_plain(cuda, dtype):
   args, kwargs = _plane_inputs(cuda, dtype)
   padded = args[0].clone().requires_grad_()
@@ -253,6 +260,7 @@ def _binned_lift_bwd_inputs(device, dtype, channels, dim, k, seed=3):
     (torch.bfloat16, 160, 128, 4),  # the flagship stack
     (torch.float32, 256, 224, 4),  # the widest stack K3 takes
     (torch.float32, 40, 32, 6),  # K > 4: pass 2 gathers again
+    (torch.float16, 160, 128, 4),  # the flagship stack in f16
 ])
 def test_lift_topk_bwd_bins_match_plain(cuda, dtype, channels, dim, k):
   """K3 where its sorting by lower-tap pixel matters: a pile-up on one
@@ -298,7 +306,8 @@ def _edge_plane_inputs(device, dtype, dim, has_valid, seed=4):
 
 @pytest.mark.parametrize('dim,has_valid', [(17, True), (32, True),
                                            (32, False)])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_patch_sample_2d_edges_match_plain(cuda, dtype, dim, has_valid):
   """K2's 16-byte chunks with a tail (D = 17) and without (D = 32)."""
   args, kwargs = _edge_plane_inputs(cuda, dtype, dim, has_valid)
@@ -393,7 +402,8 @@ SAMPLE_BWD_CASES = {'pileup': _pileup_sample_bwd_inputs,
 
 
 @pytest.mark.parametrize('dim', [17, 32])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize('case', sorted(SAMPLE_BWD_CASES))
 def test_patch_sample_2d_bwd_sorted_runs_match_plain(cuda, case, dtype, dim):
   """K4 where its sort by lower-tap cell matters: a pile-up on one cell
@@ -985,6 +995,31 @@ def test_lift_topk_fwd_b8_bf16_keeps_three_blocks_without_spills(cuda,
   """K1's bf16 instantiations of B8's layouts at phase 7j's widths (128
   features; 32 score bins when weighted): no local memory (spills or
   stack) within the bf16 launch bound, and 3 blocks of 256 threads an SM."""
+  _assert_three_blocks_without_spills(cuda, layout, torch.bfloat16)
+
+
+@pytest.mark.parametrize('layout', [(True, True, False), (True, True, True),
+                                    (True, False, True), (True, False, False),
+                                    (False, True, False), (False, True, True),
+                                    (False, False, True), (False, False, False)])
+def test_lift_topk_fwd_f16_takes_the_bf16_resources(cuda, layout):
+  """K1's f16 instantiations, the flagship's layout and B8's, under bf16's
+  launch bound (the same width): 3 blocks of 256 threads an SM, and no
+  more local memory (spills, stack) than the bf16 instantiation of the
+  layout (none in B8's layouts)."""
+  bf16 = _assert_three_blocks_without_spills(cuda, layout, torch.bfloat16,
+                                             spills=True)
+  f16 = _assert_three_blocks_without_spills(cuda, layout, torch.float16,
+                                            spills=True)
+  assert f16['local_bytes'] <= bf16['local_bytes'], (f16, bf16)
+  if layout != (True, True, False):
+    assert bf16['local_bytes'] == 0, bf16
+
+
+def _assert_three_blocks_without_spills(cuda, layout, dtype, spills=False):
+  """K1 in ``layout`` and ``dtype`` at phase 7j's widths against its plain
+  version; 3 blocks of 256 threads an SM, and no local memory unless
+  ``spills``. Returns the launch's resources."""
   weighted, use_variance, add_minmax = layout
   g = torch.Generator(device='cpu').manual_seed(13)
   b, v, h, w, n, k, dim = 2, 3, 7, 9, 500, 20, 128
@@ -994,19 +1029,20 @@ def test_lift_topk_fwd_b8_bf16_keeps_three_blocks_without_spills(cuda,
   p2d = torch.rand((b, n, k, 2), generator=g) * torch.tensor([h, w + 0.0])
   select = torch.rand((b, n, k), generator=g) < 0.2
   depth = torch.rand((b, n, k), generator=g) * 40
-  args = [t.to(cuda) for t in (stack.to(torch.bfloat16), view_idx, p2d,
-                               select, depth)]
+  args = [t.to(cuda) for t in (stack.to(dtype), view_idx, p2d, select,
+                               depth)]
   kwargs = dict(h=h, w=w, dim=dim, depth_min_max=(1.0, 32.0),
                 use_variance=use_variance, add_minmax=add_minmax)
   stats, valid = kernels.lift_topk_fwd(*args, **kwargs)
   launch, = kernels.occupancy('lift_topk_fwd')
-  assert launch['local_bytes'] == 0, launch
+  assert spills or launch['local_bytes'] == 0, launch
   assert launch['threads'] == 256 and launch['blocks_per_sm'] == 3, launch
   stats_p, valid_p = view_scan.lift_topk_plain(*args, **kwargs)
   torch.cuda.synchronize()
   assert torch.equal(valid, valid_p)
   torch.testing.assert_close(stats.float(), stats_p.float(),
-                             **TOLERANCES[torch.bfloat16])
+                             **TOLERANCES[dtype])
+  return launch
 
 
 def test_occupancy_reports_each_launch_of_the_last_call(cuda):
@@ -1178,7 +1214,8 @@ def _b8_inputs(device, dtype, weighted, k, case='mixed', seed=11):
 
 @pytest.mark.parametrize('case', ['mixed', 'sparse', 'dense'])
 @pytest.mark.parametrize('k', [4, 20])  # the stream's ranks, the scan's
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize('layout', B8_LAYOUTS)
 def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k, case):
   """B8: K1 and K3 through the autograd wrapper against their plain
@@ -1273,3 +1310,179 @@ def test_stats_width_is_the_plain_versions(layout):
     assert (mean[valid] <= f_max[valid] + 1e-6).all()
   with pytest.raises(ValueError, match='needs CUDA'):
     kernels.lift_topk_fwd(*args, **kwargs)
+
+
+def _near_tie_lift_inputs(device, dtype, k, seed=14):
+  """K3 inputs whose every selected rank reads a pixel centre of its own
+  (bilinear weights 1, 0, 0, 0; no two selected ranks share a pixel), at
+  depth_min 1 with a log range of 4 (the bins' abscissa the same on both
+  sides, as K1's bit-for-bit test has it), 3 selected ranks a point at
+  K = 4 and 6 at K = 20 (K3's wide stage). A point's second selected rank
+  reads the score bins of its first at a depth a few f32 ulps away, so
+  that their scores nearly tie. Returns (args, kwargs, bins read, hats)."""
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  b, v, h, w, n, dim, bins = 2, 20, 45, 60, 8000, 32, 8
+  lo, hi = 1.0, math.exp(4.0)
+  picked = 3 if k <= 4 else 6
+  stack = torch.randn((b, v * (h + 1), w + 1, dim + bins),
+                      generator=g).to(dtype)
+  # Distinct pixels (view, row, col) for the selected ranks of an example.
+  pixels = torch.stack([torch.randperm(v * h * w, generator=g)[:n * picked]
+                        for _ in range(b)]).reshape(b, n, picked)
+  order = torch.rand((b, n, k), generator=g).argsort(-1)[..., :picked]
+  view = torch.randint(0, v, (b, n, k), generator=g)
+  row = torch.randint(0, h, (b, n, k), generator=g)
+  col = torch.randint(0, w, (b, n, k), generator=g)
+  for t, part in ((view, pixels // (h * w)), (row, pixels // w % h),
+                  (col, pixels % w)):
+    t.scatter_(2, order, part)
+  select = torch.zeros((b, n, k), dtype=torch.bool)
+  select.scatter_(2, order, True)
+  depth = 0.5 + torch.rand((b, n, k), generator=g) * (hi + 5.0)
+  first, second = order[..., :1], order[..., 1:2]
+  near = torch.gather(depth, 2, first) * (1 + (torch.randint(
+      -4, 5, (b, n, 1), generator=g).float() * 2.0**-23))
+  depth.scatter_(2, second, near.clamp(1.0 + 2.0**-20, hi - 1e-3))
+  depth.scatter_(2, first, torch.gather(depth, 2, first).clamp(
+      1.0 + 2.0**-20, hi - 1e-3))
+  rows = view * (h + 1) + row
+  e = torch.arange(b)[:, None]
+  # In half the points the first rank's bins all hold one value: the two
+  # scores are then equal before rounding, and the roundings alone order
+  # them.
+  flat = stack[e, torch.gather(rows, 2, first)[..., 0],
+               torch.gather(col, 2, first)[..., 0], dim:]
+  flat[:, :n // 2] = flat[:, :n // 2, :1]
+  stack[e, torch.gather(rows, 2, first)[..., 0],
+        torch.gather(col, 2, first)[..., 0], dim:] = flat
+  stack[e, torch.gather(rows, 2, second)[..., 0],
+        torch.gather(col, 2, second)[..., 0], dim:] = stack[
+            e, torch.gather(rows, 2, first)[..., 0],
+            torch.gather(col, 2, first)[..., 0], dim:]
+  p2d = torch.stack([row, col], -1).float() + 0.5
+  args = [t.to(device) for t in (stack, view.int(), p2d, select, depth)]
+  kwargs = dict(h=h, w=w, dim=dim, depth_min_max=(lo, hi),
+                use_variance=True, add_minmax=False)
+  bins_read = stack[e[..., None], rows, col, dim:].float()
+  hat = view_fusion.depth_hat_weights(depth, bins, (lo, hi))
+  return args, kwargs, bins_read, hat
+
+
+def _fused_score_flips(args, bins_read, hat):
+  """Points whose score max would go to another rank if each score were
+  RN(a h0 + RN(b h1)), the first product fused into the sum, instead of
+  the plain version's RN(RN(a h0) + RN(b h1)) (a, b the bins around the
+  depth, h0, h1 their hats); and the points whose two largest scores are
+  within 4 f32 ulps and unequal."""
+  select = args[3].cpu()
+  s0 = (hat > 0).float().argmax(-1, keepdim=True)
+  s1 = (s0 + 1).clamp(max=hat.shape[-1] - 1)
+  at = lambda t, s: torch.gather(t, -1, s)[..., 0]
+  b_h1 = torch.where(s1[..., 0] > s0[..., 0],
+                     at(bins_read, s1) * at(hat, s1), 0.0)
+  plain = at(bins_read, s0) * at(hat, s0) + b_h1
+  fused = (at(bins_read, s0).double() * at(hat, s0).double()
+           + b_h1.double()).float()
+  plain = torch.where(select, plain, -torch.inf)
+  fused = torch.where(select, fused, -torch.inf)
+  top = plain.topk(2, -1).values
+  near = (top[..., 0] != top[..., 1]) & (
+      top[..., 0] - top[..., 1] <= 4 * torch.finfo(torch.float32).eps
+      * top[..., 0].abs())
+  return int((plain.argmax(-1) != fused.argmax(-1)).sum()), int(near.sum())
+
+
+@pytest.mark.parametrize('k', [4, 20])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_lift_topk_bwd_score_is_the_plain_versions_to_the_bit(cuda, dtype,
+                                                              k):
+  """K3 recomputes each rank's score to route the score max's cotangent:
+  RN(RN(a h0) + RN(b h1)), as K1 and the plain version round it (ROADMAP
+  C27). With only g_m non-zero and no two selected ranks on one pixel,
+  each entry of d stack is one rank's g_m h_s (or 0), so K3's d stack is
+  the plain version's bit for bit exactly where both give g_m to the same
+  rank; the inputs hold near ties that a product fused into the sum would
+  send to the other rank (counted on the host)."""
+  args, kwargs, bins_read, hat = _near_tie_lift_inputs('cpu', dtype, k)
+  flips, near = _fused_score_flips(args, bins_read, hat)
+  assert flips > 0 and near > 100, (flips, near)
+  args = [t.to(cuda) for t in args]
+  b, n = args[1].shape[:2]
+  g = torch.Generator(device='cpu').manual_seed(15)
+  g_stats = torch.zeros((b, n, 2 * kwargs['dim'] + 1))
+  g_stats[..., -1] = torch.randn((b, n), generator=g)
+  g_stats = g_stats.to(dtype).to(cuda)
+  got = kernels.lift_topk_bwd(*args, g_stats, **kwargs)
+  want = view_scan.lift_topk_bwd_plain(*args, g_stats, **kwargs)
+  torch.cuda.synchronize()
+  assert ('wide_ranks_kernel' in [
+      o['name'] for o in kernels.occupancy('lift_topk_bwd')]) == (k > 4)
+  assert want[..., kwargs['dim']:].abs().max() > 0.1
+  assert not want[..., :kwargs['dim']].any()
+  assert torch.equal(got, want)
+
+
+# Example 1's cotangent in the non-finite tests: a largest entry in
+# [2^14, 2^15), finite in f16, whose sums pass its 65504.
+LARGE = 2.0**14
+
+
+def _with_non_finite(g, at, bad=math.inf):
+  """``g`` (largest entry in [1, 2)) with ``bad`` at index ``at`` and its
+  example 1 times LARGE."""
+  g = g.clone()
+  g[1] *= LARGE
+  g[at] = bad
+  return g
+
+
+def _assert_same_non_finite(got, want, tol):
+  """The same entries non-finite (inf or NaN) on both sides, some of them
+  in each example; the finite ones within ``tol``, its atol times LARGE in
+  example 1 (sums in two orders of LARGE times the cotangents)."""
+  fin = torch.isfinite(want)
+  assert torch.equal(torch.isfinite(got), fin)
+  assert not fin[0].all() and not fin[1].all()
+  assert torch.isinf(want[1]).any()  # f16's overflow, in example 1
+  for e, atol in ((0, tol['atol']), (1, tol['atol'] * LARGE)):
+    torch.testing.assert_close(got[e][fin[e]].float(), want[e][fin[e]].float(),
+                               atol=atol, rtol=tol['rtol'])
+
+
+@pytest.mark.parametrize('bad', [math.inf, -math.inf, math.nan])
+def test_lift_topk_bwd_f16_non_finite_cotangent_reaches_the_gradient(cuda,
+                                                                     bad):
+  """A non-finite cotangent, and sums past f16's largest value, give K3's
+  d stack the plain version's non-finite entries: nothing clamps or masks
+  them, and the cast of the f32 sum rounds past 65504 to inf."""
+  args, g_stats, kwargs = _raw_lift_bwd_inputs(cuda, torch.float16, 160, 128)
+  assert args[3][0, 500].any()
+  (*_, g_stats), _ = chip_smoke.without_near_ties(
+      (*args, chip_smoke.unit_cotangent(g_stats)), kwargs)
+  g_stats = _with_non_finite(g_stats.float(), (0, 500, 3), bad).to(
+      torch.float16)
+  got = kernels.lift_topk_bwd(*args, g_stats, **kwargs)
+  want = view_scan.lift_topk_bwd_plain(*args, g_stats, **kwargs)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float16
+  _assert_same_non_finite(got, want, BWD_TOLERANCES[torch.float16])
+
+
+@pytest.mark.parametrize('bad', [math.inf, -math.inf, math.nan])
+def test_patch_sample_2d_bwd_f16_non_finite_cotangent_reaches_the_gradient(
+    cuda, bad):
+  """K4 as K3 above: a non-finite cotangent reaches its taps' entries (a
+  tap of weight 0 times inf gives NaN, as in the plain version), sums past
+  65504 round to inf."""
+  (padded, points), kwargs = _plane_inputs(cuda, torch.float16)
+  g = torch.randn((2, points.shape[1], kwargs['dim']), device=cuda)
+  g = _with_non_finite(chip_smoke.unit_cotangent(g), (0, 10, 3), bad).to(
+      torch.float16)
+  got = kernels.patch_sample_2d_bwd(g, points,
+                                    plane_shape=tuple(padded.shape))
+  want = view_scan.patch_sample_2d_bwd_plain(
+      g, points, plane_shape=tuple(padded.shape))
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float16
+  _assert_same_non_finite(got, want, BWD_TOLERANCES[torch.float16])

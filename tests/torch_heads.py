@@ -130,21 +130,29 @@ def port_model(config: configs.Config, params):
   return model
 
 
-def port_step(model, batch, train: bool, draws=None, relu_sides=None,
-              pose_samples=None):
-  """The port's masked-mean loss and its gradients by parameter name (0
-  where the loss does not reach a parameter); its relus take
-  ``relu_sides`` (JAX's, in call order), its other max sites their own
-  choices; ``pose_samples`` go to the RANSAC backend."""
+def relu_replay(model, batch, train: bool, relu_sides, **inject):
+  """The choices for ``chip_smoke.MaxChoices`` to replay: ``relu_sides``
+  (JAX's, in call order) at the port's relus, the port's own choices at
+  its other max sites (a forward without autograd records them)."""
   with torch.no_grad(), chip_smoke.MaxChoices(model) as own:
-    trainer.loss_and_metrics(model, batch, train, draws=draws,
-                             pose_samples=pose_samples)
+    trainer.loss_and_metrics(model, batch, train, **inject)
   sides = iter(relu_sides)
   replay = [next(sides) if site == 'F.relu' else call
             for site, call in zip(own.sites, own.calls)]
   assert next(sides, None) is None
   assert [tuple(c.shape) for c in own.calls] == [
       tuple(c.shape) for c in replay]
+  return replay
+
+
+def port_step(model, batch, train: bool, draws=None, relu_sides=None,
+              pose_samples=None):
+  """The port's masked-mean loss and its gradients by parameter name (0
+  where the loss does not reach a parameter); its relus take
+  ``relu_sides`` (JAX's, in call order), its other max sites their own
+  choices; ``pose_samples`` go to the RANSAC backend."""
+  replay = relu_replay(model, batch, train, relu_sides, draws=draws,
+                       pose_samples=pose_samples)
   with chip_smoke.MaxChoices(model, replay=replay):
     loss, losses, metrics, pred = trainer.loss_and_metrics(
         model, batch, train, draws=draws, pose_samples=pose_samples)

@@ -12,7 +12,9 @@ ms per launch stage (``torch.profiler``), the call's own peak memory, and
 the ranks stage's registers, spills and blocks per SM; per row the change's
 largest difference from the parent, its check against the plain version
 (``chip_smoke.check_lift_bwd``) and the host and device cost of the count of
-selected ranks that the autograd function keeps for K3. Card only:
+selected ranks that the autograd function keeps for K3; first, the SASS
+loops of both trees' ranks stage in bf16 (``chip_smoke.SASS_LOOPS``).
+Card only:
 
     python3 tests/torch_k3_ab.py --parent checkout_check/parent
 
@@ -194,6 +196,13 @@ def main() -> int:
   if started is None:
     return 1
   parent, emit = started
+  emit({'row': 'SASS loops of the ranks stage (instructions, of them '
+               'outside nested loops)', **{
+                   label: {'parent': chip_smoke.sass_loops(
+                       name, parent.library_path()),
+                           'change': chip_smoke.sass_loops(name)}
+                   for label, name in chip_smoke.SASS_LOOPS
+                   if 'ranks_kernel bf16' in label}})
   with torch.no_grad():
     for name, weighted, use_variance, add_minmax, ranks, n in (
         chip_smoke.B8_SEEDED):
