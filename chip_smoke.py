@@ -1,6 +1,6 @@
 """Drive the port's serving, training, RANSAC, held-out evaluation, bench,
-gather-bench, long-run trainer, head, mapper-option and fp16 paths on one
-NVIDIA GPU (H100).
+gather-bench, long-run trainer, head, mapper-option, fp16 and data-parallel
+paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -130,8 +130,15 @@ host generator's batch:
    last 2 checkpoints kept) stopped at step 2; the checkpoint restored into
    other weights equals the live state bit for bit (params, moments,
    count, step, seed), and one step from each on the resumed run's batch of
-   step 3 agrees under phase 5's tolerances, in phase 5's f32 with TF32 off
-   (the bf16 pair's run-to-run spread is logged); a new ``train`` call resumes to
+   step 3 agrees under phase 5's tolerances, in phase 5's f32 with TF32 off;
+   in bf16 with ``cudnn.deterministic`` on the two steps give equal losses,
+   logs and gradient leaves bit for bit (ROADMAP C20), the same pair with it
+   off is logged (entries that differ, the worst leaf, and if any differ
+   the step's device ms either way), and the pair again in a child process
+   under ``torch.use_deterministic_algorithms(True)``
+   (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts), which
+   raises on any op of the step torch knows to be nondeterministic, must
+   give equal bits; a new ``train`` call resumes to
    step 10 (the data-seed fold logged), traced over steps 6-10
    (``torch.profiler``, its device-busy and idle split printed), K1 >= 2,
    K2 >= 1, K3 >= 2, K4 >= 1 and finite losses and gradients each step,
@@ -189,6 +196,9 @@ host generator's batch:
    traced (device ms a step, idle share), its own peak memory; then
    ``evaluator.run`` of its workdir in f16 on 4 examples of zurich at
    batch 2 (the step read, finite errors, K1 and K2 each batch, in f16);
+   two steps from its last checkpoint on one batch with
+   ``cudnn.deterministic`` on: the entries whose bits differ and each
+   step's (is_finite, loss scale) logged, not held;
 7f. data on the card: the device generator (``data/device_synthetic.py``)
    makes the training batch (``train_full1chip_exhaustive``, batch 2) and
    the RANSAC eval batch (``eval_full1chip_ransac``, batch 4) on the card
@@ -211,9 +221,9 @@ host generator's batch:
    B4 and B7 on the RANSAC training run's own inputs (B7's cotangent
    scaled as the other backward kernels'), each with its bound, B7 bit for
    bit against its plain version (as captured and without the GT pose's
-   cotangent) and ten calls on each input to the same bits; K3's and K4's
-   outputs of two calls on each captured training input compared, the
-   entries whose bits differ logged (ROADMAP C20);
+   cotangent) and ten calls on each input to the same bits; K3 and K4
+   called ten times on each captured training input (the flagship's, 7j's
+   and 7k's), every call's bits the first's (ROADMAP C20);
    K1, K2, K3, K4, B4 and their library calls timed again with the
    launches queued behind a spin of the card (the card's time alone,
    without the host's launch overhead); K3's selected ranks and K4's points
@@ -232,7 +242,23 @@ host generator's batch:
    K1-K4 in f16 on phase 7k's inputs (K1 and K2 its evaluation's, K3 and
    K4 its steps'), checked on every captured input and timed beside their
    plain versions, bounds and (K2, K4) ``F.grid_sample`` and its input
-   gradient in f16.
+   gradient in f16;
+9. the mesh's data axis over processes (``snap_tpu_torch/parallel``):
+   (a) ``train_full1chip_exhaustive`` in f32 with TF32 off, global batch
+   2, DP_STEPS steps from the weights of seed 0, first in this process,
+   then on DP_RANKS ranks (child processes of this script with
+   ``torchrun``'s environment) that share the one card over gloo, each
+   building its block of 1 of every batch: each rank's losses against the
+   one process's to phase 5's tolerance, each parameter leaf within twice
+   the one-process steps' largest move of it, the ranks' parameters equal
+   bit for bit after each step; the gradient leaves' errors (logged, not
+   held: ``_child_dp_step`` says why), each rank's step ms, own peak memory
+   and the all-reduce's bytes and ms logged; (b) one rank
+   alone in an NCCL group: a flagship training step through ``train``
+   (its all-reduces called through the group, K1-K4 launch) and an
+   evaluation batch of ``eval_full1chip_exhaustive`` at batch 2 (its rows
+   gathered through the group), finite errors. Every child's failure fails
+   the run.
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -256,6 +282,7 @@ import functools
 import json
 import logging
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -285,6 +312,7 @@ from snap_tpu_torch.models import resnet
 from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
+from snap_tpu_torch.parallel import mesh as parallel_mesh
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
 from snap_tpu_torch.train_lib import checkpoints
@@ -307,15 +335,15 @@ def fresh_workdir(name: str) -> pathlib.Path:
   return path
 
 # Tolerances (atol, rtol), kernel against plain version: both accumulate in
-# f32 and differ by summation order (the backward kernels add with atomics,
-# in an order that changes from run to run), then by one rounding of the
-# output dtype. The backward kernels are linear in the cotangent and are
+# f32 and differ by summation order (the backward kernels sum in a fixed
+# order of their own, the plain versions with index_add_), then by one
+# rounding of the output dtype. The backward kernels are linear in the cotangent and are
 # checked on cotangents scaled to a largest entry in [1, 2) (see
 # unit_cotangent), so that atol stays far below the gradient it bounds.
 TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float16: (1e-3, 2.0**-10),
               torch.float32: (1e-4, 1e-5)}
 # Training reference, card against CPU in f32 with TF32 off: cuDNN, cuFFT
-# and the atomics sum in other orders than the CPU, and where two values
+# and the kernels sum in other orders than the CPU, and where two values
 # of a max pooling (vertical or over modalities) are closer than that
 # difference, the argmax, and with it the path of the gradient, flips. The
 # loss to 1e-4 relative; each gradient leaf's largest error to 1e-2 of its
@@ -342,9 +370,9 @@ TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float16: (1e-3, 2.0**-10),
 NEAR_TIE_RTOL = 1e-4
 # B8's backward in f32 (phase 3): a d stack entry sums ~300 tap-weighted
 # contributions of up to ~2 (the max's and min's cotangents go whole to one
-# rank, the mean's spread over the ranks), in orders that change from run
-# to run on both sides (the plain version's index_add_ is atomic on the
-# card too); two orders differ by up to ~2e-4 there. The tolerance of the
+# rank, the mean's spread over the ranks), in K3's fixed order and in the
+# plain version's index_add_ (atomic on the card, its order changing from
+# run to run); two orders differ by up to ~2e-4 there. The tolerance of the
 # backward kernels' f32 tests (tests/test_torch_kernels.py BWD_TOLERANCES,
 # measured 7e-4 on their inputs).
 B8_BWD_F32_TOL = (2e-3, 1e-5)
@@ -828,8 +856,12 @@ def kernel_stages_ms(fn, names, iters: int = 5):
 
 # K3's launch stages, as torch.profiler names them (the wide one first: the
 # narrow one's name is in its name).
-K3_STAGES = ('count_kernel', 'scan_kernel', 'wide_ranks_kernel',
-             'ranks_kernel', 'runs_kernel')
+K3_STAGES = ('count_kernel', 'scan_kernel', 'keys_kernel',
+             'order_bins_kernel', 'wide_ranks_kernel', 'ranks_kernel',
+             'runs_kernel', 'fold_kernel')
+K4_STAGES = ('bin_points_kernel', 'scan_kernel', 'keys_kernel',
+             'order_bins_kernel', 'place_points_kernel', 'sum_runs_kernel',
+             'fold_kernel')
 
 
 def lift_bwd_call(args, kwargs):
@@ -1836,15 +1868,23 @@ def check_pose_scoring_bwd_repeats(args, kwargs, calls: int = 10) -> int:
   return calls
 
 
-def repeat_differences(fn) -> tuple[int, int]:
-  """Two calls of ``fn`` (a kernel on one input): the entries whose bits
-  differ between their outputs, and the entries in all."""
+# Calls of K3 and K4 on each captured input that must give the same bits
+# (ROADMAP C20: both sum every entry in one order fixed by the inputs).
+REPEAT_CALLS = 10
+
+
+def check_repeats(fn, name: str, calls: int = REPEAT_CALLS) -> int:
+  """``calls`` calls of ``fn`` (a kernel on one input): raises unless every
+  output's bits are the first's. Returns the entries of the output."""
   first = fn()
-  second = fn()
-  torch.cuda.synchronize()
   bits = {2: torch.int16, 4: torch.int32}[first.element_size()]
-  return (int((first.view(bits) != second.view(bits)).sum()),
-          first.numel())
+  for i in range(1, calls):
+    differ = int((fn().view(bits) != first.view(bits)).sum())
+    if differ:
+      raise AssertionError(f'{name}: call {i + 1} of {calls} on one input '
+                           f'differs from the first in {differ} of '
+                           f'{first.numel()} entries')
+  return first.numel()
 
 
 def check_identical_run(args, kwargs) -> float:
@@ -2235,6 +2275,43 @@ def _steps_agree(live: trainer.StepOutput, restored: trainer.StepOutput,
   return loss, worst, worst_norm, worst_leaf
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+  """``t``'s bits as integers of its width (NaN equals itself, -0 is not
+  +0)."""
+  return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _steps_equal(name: str, a: trainer.StepOutput,
+                 b: trainer.StepOutput) -> None:
+  """Bit for bit: the loss's (sum, count), the logs and every gradient
+  leaf; raises naming the leaves that differ."""
+  loss = [tuple(float(t) for t in o.metrics['loss/total']) for o in (a, b)]
+  differ = [n for n, g in a.grads.items()
+            if not torch.equal(_bits(g), _bits(b.grads[n]))]
+  if loss[0] != loss[1] or a.logs != b.logs or differ:
+    raise AssertionError(f'{name}: losses {loss}, logs equal '
+                         f'{a.logs == b.logs}, {len(differ)} gradient '
+                         f'leaves differ ({differ[:5]})')
+
+
+def _step_differences(a: trainer.StepOutput, b: trainer.StepOutput) -> dict:
+  """The gradient entries whose bits differ between two steps, of all, and
+  the leaf whose largest difference is the largest share of its largest
+  entry."""
+  entries = total = 0
+  worst, worst_leaf = 0.0, None
+  for name, g in a.grads.items():
+    h = b.grads[name]
+    entries += int((_bits(g) != _bits(h)).sum())
+    total += g.numel()
+    scale = float(g.abs().max())
+    rel = float((g - h).abs().max()) / max(scale, 1e-30)
+    if rel > worst:
+      worst, worst_leaf = rel, name
+  return {'entries': entries, 'of': total, 'worst': worst,
+          'worst_leaf': worst_leaf}
+
+
 def _in_f32(config: configs.Config, state: trainer.TrainState
             ) -> trainer.TrainState:
   """``state`` (its weights, moments, counters and transform) on a model
@@ -2257,6 +2334,95 @@ def write_seeded_export(path: pathlib.Path, seed: int, step: int) -> None:
   np.savez(path / evaluator.PARAMS_FILE, **convert.flax_from_torch(
       dict(model.named_parameters()), model))
   (path / evaluator.CHECKPOINT_FILE).write_text(json.dumps({'step': step}))
+
+
+# Child processes of this script (``--child <mode> <args>``): each prints
+# its result as one JSON object on its last line of output.
+CHILD = '--child'
+CHILD_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+  import socket  # pylint: disable=g-import-not-at-top
+  with socket.socket() as sock:
+    sock.bind(('localhost', 0))
+    return sock.getsockname()[1]
+
+
+def run_children(mode: str, args, world: int = 0, env=None) -> list:
+  """``world`` ranks of ``mode`` (each with ``torchrun``'s environment: one
+  host, ``LOCAL_WORLD_SIZE`` = ``world``), or one process outside any
+  group (``world`` 0); ``env`` added to each. Raises unless every one
+  exits 0 within ``CHILD_TIMEOUT_S``; returns each one's JSON result in
+  rank order."""
+  port = free_port()
+  procs = []
+  for rank in range(max(world, 1)):
+    child_env = dict(os.environ, **(env or {}))
+    if world:
+      child_env.update(RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR='localhost', MASTER_PORT=str(port))
+    procs.append(subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), CHILD, mode,
+         *map(str, args)], env=child_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+  outputs, failed = [], []
+  deadline = time.monotonic() + CHILD_TIMEOUT_S
+  for rank, proc in enumerate(procs):
+    try:
+      text, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+      for other in procs:
+        other.kill()
+      text, _ = proc.communicate()
+      failed.append(f'rank {rank} timed out')
+    if proc.returncode:
+      failed.append(f'rank {rank} exited {proc.returncode}:\n'
+                    f'{text[-3000:]}')
+    outputs.append(text)
+  if failed:
+    for proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+    raise AssertionError(f'{mode}: ' + '\n'.join(failed))
+  return [json.loads(text.strip().splitlines()[-1]) for text in outputs]
+
+
+def deterministic_child(workdir: pathlib.Path) -> dict:
+  """Phase 7g's bf16 pair again, in a child process under
+  ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+  set before CUDA starts, as cuBLAS needs in that mode): torch raises on
+  any op of the step it knows to be nondeterministic."""
+  result, = run_children('deterministic_step', [workdir],
+                         env={'CUBLAS_WORKSPACE_CONFIG': ':4096:8'})
+  return result
+
+
+def _child_deterministic_step(workdir: str) -> dict:
+  torch.use_deterministic_algorithms(True)
+  torch.backends.cudnn.deterministic = True
+  config = _with_train(configs.train_full1chip_exhaustive(), **LOOP_CADENCE)
+  states = []
+  for seed in (0, 1):
+    model = evaluate.build_model(config, 'cuda', seed)
+    model.train()
+    state = trainer.create_train_state(
+        model, optimizers.get_optimizer(config.train, model), seed=seed)
+    checkpoints.restore_checkpoint(workdir, state, LOOP_FIRST_STOP)
+    states.append(state)
+  data = dataclasses.replace(config.data, shuffle_seed=prng.resume_shuffle_seed(
+      config.data.shuffle_seed, LOOP_FIRST_STOP))
+  with loader.get_dataset(data, config.batch_size, device='cuda',
+                          start_step=LOOP_FIRST_STOP) as dataset:
+    batch = next(dataset.train_iter)
+  batch.pop('_host')
+  kernels.reset_launch_counts()
+  a, b = [trainer.train_step(state, batch, state.tx) for state in states]
+  _steps_equal('step 3 under torch.use_deterministic_algorithms', a, b)
+  return {'deterministic_algorithms': torch.are_deterministic_algorithms_enabled(),
+          'loss': trainer.summarize([a.metrics])['loss/total'],
+          'equal_bits': True, 'launches': dict(kernels.LAUNCHES)}
 
 
 def trainer_loop_phase(smi: str) -> dict:
@@ -2302,10 +2468,7 @@ def trainer_loop_phase(smi: str) -> dict:
                           start_step=LOOP_FIRST_STOP) as dataset:
     batch = next(dataset.train_iter)
   batch.pop('_host')
-  # Phase 5's tolerances are f32's with TF32 off: in bf16 two steps from one
-  # state differ run to run by a few % of a leaf's largest entry (the
-  # atomics' order, amplified through 50 bf16 layers: ROADMAP C20), so
-  # the check runs both states' step in f32 and logs the bf16 pair's spread.
+  # Phase 5's tolerances, f32's with TF32 off, on both states' step in f32.
   tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
   torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = (
       False)
@@ -2314,20 +2477,40 @@ def trainer_loop_phase(smi: str) -> dict:
                        trainer.train_step(restored32, batch, restored.tx))
   del live32, restored32
   torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-  step3_bf16 = _steps_agree(trainer.train_step(live, batch, live.tx),
-                            trainer.train_step(restored, batch, restored.tx),
-                            check=False)
+  # ROADMAP C20: in bf16, with cuDNN's deterministic algorithms, the two
+  # steps give the same bits (K3, K4 and the FPN's upsampling sum in fixed
+  # orders); then the same pair with cuDNN free to choose, logged.
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  _steps_equal('step 3 in bf16, cudnn.deterministic on',
+               trainer.train_step(live, batch, live.tx),
+               trainer.train_step(restored, batch, restored.tx))
+  torch.backends.cudnn.deterministic = False
+  free = _step_differences(trainer.train_step(live, batch, live.tx),
+                           trainer.train_step(restored, batch, restored.tx))
+  step_ms = {}
+  if free['entries']:  # the step's device time either way
+    for setting in (True, False):
+      torch.backends.cudnn.deterministic = setting
+      step_ms[setting] = kernel_stages_ms(
+          lambda: trainer.train_step(live, batch, live.tx), (), iters=2)[
+              'other']
+  torch.backends.cudnn.deterministic = deterministic
   del model, live, restored, restored_model, first, batch, dataset
   torch.cuda.empty_cache()
+  out['deterministic_child'] = deterministic_child(workdir)
   log(f'trainer loop, first chunk (train_full1chip_exhaustive, batch 2, '
       f'bf16, steps 1-2): checkpoint 2 saved in {out["save"]["seconds"]:.2f} '
       f's, {out["save"]["bytes"]} bytes; restored into other weights in '
       f'{out["restore_seconds"]:.2f} s, equal bit for bit; step 3 from the '
       f'live and the restored state in f32 (TF32 off): losses {step3[0]}, '
       f'worst gradient leaf {step3[1]:.3g} of its largest entry '
-      f'({step3[3]}), {step3[2]:.3g} of its norm; the same in bf16 (not '
-      f'held to a tolerance): losses {step3_bf16[0]}, {step3_bf16[1]:.3g} '
-      f'({step3_bf16[3]}), {step3_bf16[2]:.3g}; {smi}')
+      f'({step3[3]}), {step3[2]:.3g} of its norm; in bf16 with '
+      f'cudnn.deterministic on: equal bits (C20); step 4 with it off: '
+      f'{free} (entries whose bits differ, of all, the worst leaf); step '
+      f'device ms with it on / off {step_ms or "(not timed: equal)"}; under '
+      f'torch.use_deterministic_algorithms in a child process: '
+      f'{out["deterministic_child"]}; {smi}')
 
   # 3. The second chunk, resumed in a new call: steps 3-10, traced.
   per_step = []
@@ -2385,7 +2568,7 @@ def trainer_loop_phase(smi: str) -> dict:
   footprint = peak - resident
   slack = (footprint - first_footprint) / 2**30
   ms = [1e3 * t for t in second['step_seconds']]
-  out.update(step3=step3, step3_bf16=step3_bf16, resumed_ms=ms, trace=trace,
+  out.update(step3=step3, cudnn_free=free, resumed_ms=ms, trace=trace,
              peak_gib=footprint / 2**30,
              checkpoints=second['checkpoints'],
              resumed_restore_seconds=second['restore_seconds'])
@@ -2750,6 +2933,35 @@ F16_FINITE_BY = 9
 F16_EVAL_EXAMPLES, F16_EVAL_BATCH = 4, 2
 
 
+def checkpoint_pair(config: configs.Config, workdir: pathlib.Path) -> dict:
+  """Two train steps, each from the latest checkpoint of ``workdir``
+  restored into a model of other seeded weights, on the resumed run's
+  first batch, with cuDNN's deterministic algorithms: the gradient entries
+  whose bits differ, and each step's (is_finite, loss scale)."""
+  states = []
+  for seed in (1, 2):
+    model = evaluate.build_model(config, 'cuda', seed)
+    model.train()
+    state = trainer.create_train_state(
+        model, optimizers.get_optimizer(config.train, model), seed=seed,
+        dynamic_scale=dynamic_scale.for_dtype(config.dtype_str))
+    step = checkpoints.restore_checkpoint(workdir, state)
+    states.append(state)
+  data = dataclasses.replace(config.data, shuffle_seed=prng.resume_shuffle_seed(
+      config.data.shuffle_seed, step))
+  with loader.get_dataset(data, config.batch_size, device='cuda',
+                          start_step=step) as dataset:
+    batch = next(dataset.train_iter)
+  batch.pop('_host')
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  a, b = [trainer.train_step(state, batch, state.tx) for state in states]
+  torch.backends.cudnn.deterministic = deterministic
+  return {'step': step, **_step_differences(a, b),
+          'scales': [(o.logs['is_finite'], o.logs.get('loss_scale'))
+                     for o in (a, b)]}
+
+
 def f16_main_path(smi: str):
   """Phase 7k: ``train_full1chip_exhaustive`` with ``dtype_str='float16'``
   (seeded weights, batch 2), F16_STEPS steps: the loss scale's sequence
@@ -2838,6 +3050,7 @@ def f16_main_path(smi: str):
   split = trainer.trace_split(workdir / 'traced.json', wall_ms)
   resumed_scales = [(l['is_finite'], l['loss_scale'])
                     for l in resumed['logs']]
+  pair = checkpoint_pair(config, workdir)
   ms = [1e3 * t for t in result['step_seconds']]
   log(f'f16 training main path ({name}, batch 2): (step, is_finite, loss '
       f'scale, loss, l2_grads, params moved) {steps}; the scale follows '
@@ -2846,7 +3059,9 @@ def f16_main_path(smi: str):
       f'{peak / 2**30:.2f} GiB; 2 resumed steps (is_finite, loss scale) '
       f'{resumed_scales}, traced: device ms a step {device_ms}, the '
       f'steps\' wall ms {split["steps_ms"]:.1f}, idle share '
-      f'{split["idle_share"]}; {smi}')
+      f'{split["idle_share"]}; C20 in f16, two steps from its last '
+      f'checkpoint on one batch with cudnn.deterministic on (logged, not '
+      f'held): {pair}; {smi}')
   ec = configs.eval_localization(evaluation_size=F16_EVAL_EXAMPLES,
                                  batch_size=F16_EVAL_BATCH)
   ec = dataclasses.replace(ec, workdir=str(workdir), dtype_str='float16',
@@ -3316,6 +3531,10 @@ def b8_rows(runs):
                 for c in lift.calls.values()),
             max(check_lift_bwd(*c, chunk=PLAIN_LIFT_CHUNK)
                 for c in lift_bwd.calls.values()))
+    repeats = [check_repeats(lift_bwd_call(*c), f'lift_topk_bwd ({form})')
+               for c in lift_bwd.calls.values()]
+    log(f'lift_topk_bwd ({form}): {REPEAT_CALLS} calls on each captured '
+        f'input give equal bits (entries of each output): {repeats}')
     args, kw = lift.largest()
     out = kernels.lift_topk_fwd(*args, **kw)
     log_occupancy('lift_topk_fwd', f'7j {form}')
@@ -3371,15 +3590,15 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       f'{list(lift_f32.calls)} f32, sample {list(sample.calls)}, lift_bwd '
       f'{list(lift_bwd.calls)}, sample_bwd {list(sample_bwd.calls)}): max '
       f'abs err {errs}')
-  # ROADMAP C20: how far K3's and K4's atomics make two calls differ.
+  # ROADMAP C20: ten calls on each captured training input, equal bits.
   repeats = {
-      'lift_topk_bwd': [repeat_differences(lift_bwd_call(*c))
+      'lift_topk_bwd': [check_repeats(lift_bwd_call(*c), 'lift_topk_bwd')
                         for c in lift_bwd.calls.values()],
-      'patch_sample_2d_bwd': [repeat_differences(
-          functools.partial(kernels.patch_sample_2d_bwd, *c[0], **c[1]))
-                              for c in sample_bwd.calls.values()]}
-  log(f'two calls on each captured training input (entries whose bits '
-      f'differ, entries in all): {repeats}')
+      'patch_sample_2d_bwd': [check_repeats(
+          functools.partial(kernels.patch_sample_2d_bwd, *c[0], **c[1]),
+          'patch_sample_2d_bwd') for c in sample_bwd.calls.values()]}
+  log(f'{REPEAT_CALLS} calls on each captured training input give equal '
+      f'bits (entries of each output): {repeats}')
 
   rows = []
   args, kw = lift.largest()
@@ -3463,9 +3682,7 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
       f'lower-tap cell), the largest {int(bins.max())}, median of the '
       f'non-empty {int(bins[bins > 0].median())}')
   stages = kernel_stages_ms(lambda: kernels.patch_sample_2d_bwd(*args, **kw),
-                            ('bin_points_kernel', 'scan_kernel',
-                             'place_points_kernel', 'sum_runs_kernel',
-                             'cast_grad_kernel'))
+                            K4_STAGES)
   log(f'patch_sample_2d_bwd stages at {tuple(args[1].shape)}, (device ms '
       f'per call, launches kept; the memset in other): {stages}')
   log(f'ms per call with the launches queued behind a spin of the card '
@@ -3502,6 +3719,13 @@ def f16_rows(train_launches, eval_launches, lift, sample, lift_bwd,
        sample_bwd_bound,
        lambda a, k: grid_sample_bwd_call(*a, k['plane_shape']))):
     err = max(check(*c) for c in calls.calls.values())
+    if kernel in ('lift_topk_bwd', 'patch_sample_2d_bwd'):
+      repeats = [check_repeats(
+          lift_bwd_call(*c) if kernel == 'lift_topk_bwd'
+          else functools.partial(kernels.patch_sample_2d_bwd, *c[0], **c[1]),
+          f'{kernel}/f16') for c in calls.calls.values()]
+      log(f'{kernel}/f16: {REPEAT_CALLS} calls on each captured input give '
+          f'equal bits (entries of each output): {repeats}')
     args, kw = calls.largest()
     if args[0].dtype != torch.float16:
       raise AssertionError(f'{kernel}: captured {args[0].dtype}')
@@ -3660,6 +3884,11 @@ def main() -> int:
     del f16_runs
   # Every K3 call of the run was given the count its count stage found.
   kernels.check_lift_counts(wait=True)
+  # 9. The mesh's data axis over processes on the card, the captured
+  # inputs let go first: its ranks share the card.
+  del lift, sample, lift_bwd, sample_bwd, lift_f32, scoring, scoring_train
+  del scoring_bwd, heldout_lift, heldout_sample, gather_bench
+  data_axis_phase(smi)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
@@ -3668,5 +3897,299 @@ def main() -> int:
   return 0
 
 
+# Phase 9: the mesh's data axis on the card. DP_RANKS gloo ranks share the
+# one card (batch 1 a rank of the flagship's 2), DP_STEPS steps in f32 with
+# TF32 off from one seeded state, against the one-process steps on the
+# same global batches; then one rank alone in an NCCL group.
+DP_RANKS, DP_STEPS = 2, 2
+
+
+def _f32_flagship() -> configs.Config:
+  return dataclasses.replace(configs.train_full1chip_exhaustive(),
+                             dtype_str='float32')
+
+
+def _flat_params(model) -> torch.Tensor:
+  return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _allreduce_ms(numel: int, device, iters: int = 5) -> float:
+  """ms of one all-reduce (sum) of ``numel`` f32 over the group, the
+  process group's own call, timed on the host around a synchronize."""
+  import torch.distributed as dist  # pylint: disable=g-import-not-at-top
+  buf = torch.ones(numel, device=device)
+  dist.all_reduce(buf)
+  torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  for _ in range(iters):
+    dist.all_reduce(buf)
+  torch.cuda.synchronize(device)
+  return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _blockwise_grads(model, config: configs.Config, state, device,
+                     world: int) -> torch.Tensor:
+  """The gradient of the first step's loss (flat, on the host) taken as
+  ``world`` ranks take it, in one process: each rank's block of the global
+  batch built as the rank builds it, its rows of the global draws, its
+  masked example losses summed over the global count, the blocks'
+  gradients summed in rank order. Its forward runs each block at the
+  ranks' batch size, so its cuDNN algorithms, and with them its near ties
+  (C11), are theirs."""
+  blocks = []
+  for index in range(world):
+    with loader.get_dataset(config.data, config.batch_size, device=device,
+                            num_processes=world,
+                            process_index=index) as dataset:
+      blocks.append(next(dataset.train_iter))
+    blocks[-1].pop('_host')
+  draws = model.sample_draws(config.batch_size,
+                             trainer.step_generator(state), device)
+  count = sum(block['batch_mask'].sum() for block in blocks)
+  params = list(model.parameters())
+  total = None
+  for index, block in enumerate(blocks):
+    rows = parallel_mesh.block(config.batch_size, world, index)
+    _, losses, _, _ = trainer.loss_and_metrics(
+        model, block, True, draws=trainer.local_draws(draws, rows))
+    loss = losses['total'][block['batch_mask'] > 0].sum() / count
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                      for g, p in zip(grads, params)])
+    total = flat if total is None else total + flat
+  return total.cpu()
+
+
+def _dp_steps(device, config: configs.Config, steps: int,
+              control_world: int = 0):
+  """``steps`` train steps of ``config`` from the weights of seed 0 on the
+  dataset's card-made batches (this rank's blocks under a process group):
+  per step the loss, the ms (host clock around a synchronize), the
+  gradients (the global batch's) and the parameters after it (flat, on the
+  host); the model's own peak memory; with ``control_world``, the first
+  step's gradient taken block by block as that many ranks take it
+  (``_blockwise_grads``)."""
+  model = evaluate.build_model(config, device, 0)
+  model.train()
+  adam = optimizers.get_optimizer(config.train, model)
+  state = trainer.create_train_state(model, adam, seed=0)
+  out = {'params': [_flat_params(model).cpu()], 'loss': [], 'ms': [],
+         'grads': []}
+  if control_world:
+    out['control'] = _blockwise_grads(model, config, state, device,
+                                      control_world)
+  torch.cuda.reset_peak_memory_stats(device)
+  with loader.get_dataset(config.data, config.batch_size,
+                          device=device) as dataset:
+    for _ in range(steps):
+      batch = next(dataset.train_iter)
+      batch.pop('_host')
+      torch.cuda.synchronize(device)
+      t0 = time.perf_counter()
+      step = trainer.train_step(state, batch, adam)
+      torch.cuda.synchronize(device)
+      out['ms'].append(1e3 * (time.perf_counter() - t0))
+      out['loss'].append(trainer.summarize([step.metrics])['loss/total'])
+      out['grads'].append(torch.cat([g.reshape(-1) for g in
+                                     step.grads.values()]).cpu())
+      out['params'].append(_flat_params(model).cpu())
+  out['peak_gib'] = torch.cuda.max_memory_allocated(device) / 2**30
+  out['names'] = [(n, p.numel()) for n, p in model.named_parameters()]
+  return out
+
+
+def _leaf_errors(got: torch.Tensor, want: torch.Tensor, names) -> dict:
+  """Flat gradients ``got`` against ``want``, leaf by leaf: the worst error
+  as a share of a leaf's norm and of its largest entry, and the leaves past
+  phase 5's shares (TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_RTOL) with the first
+  of them."""
+  out = {'norm_share': 0.0, 'max_share': 0.0, 'past': 0, 'first_past': None}
+  at = 0
+  for name, numel in names:
+    g, w = got[at:at + numel], want[at:at + numel]
+    at += numel
+    scale, norm = float(w.abs().max()), float(w.norm())
+    err, err_norm = float((g - w).abs().max()), float((g - w).norm())
+    out['max_share'] = max(out['max_share'], err / max(scale, 1e-30))
+    out['norm_share'] = max(out['norm_share'], err_norm / max(norm, 1e-30))
+    if (err > TRAIN_GRAD_RTOL * scale + 1e-7
+        or err_norm > TRAIN_GRAD_NORM_RTOL * norm + 1e-7):
+      out['past'] += 1
+      out['first_past'] = out['first_past'] or name
+  return out
+
+
+def _child_dp_step(reference: str) -> dict:
+  """A rank of phase 9 (a): its steps against the one-process ones in
+  ``reference``: the loss to phase 5's tolerance; each parameter leaf
+  within twice the largest move the one-process steps gave it (Adam moves
+  an entry by at most about the lr a step, and where a gradient entry is
+  near 0 rounding alone can turn its step around); its parameters against
+  rank 0's bit for bit; and its first step's gradient leaves against the
+  one process's taken block by block as the ranks take them
+  (``_blockwise_grads``), to phase 5's shares of each leaf's largest entry
+  and norm. Against the one-process step on the global batch the gradient
+  leaves' errors are logged, not held: a rank's batch of 1 runs other cuDNN
+  algorithms than the batch of 2, and with no ``MaxChoices`` replay
+  between the two a near tie at a max pooling or a relu flips (ROADMAP
+  C11) and moves some leaves by several % (a first run: 1.7% of a leaf's
+  norm, 22% of its largest entry); the one process's own batch of 2
+  against its blocks is logged beside it (``data_axis_phase``)."""
+  import torch.distributed as dist  # pylint: disable=g-import-not-at-top
+  process = parallel_mesh.init('cuda')
+  if process.backend != 'gloo' or process.world != DP_RANKS:
+    raise AssertionError(f'phase 9 (a): {process}')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    ref = torch.load(reference, weights_only=False)
+    got = _dp_steps(process.device, _f32_flagship(), DP_STEPS)
+    worst = 0.0
+    control = _leaf_errors(got['grads'][0], ref['control'], got['names'])
+    if control['past']:
+      raise AssertionError(f'step 0: gradients against the blockwise one: '
+                           f'{control}')
+    global_batch = [_leaf_errors(got['grads'][step], ref['grads'][step],
+                                 got['names']) for step in range(DP_STEPS)]
+    for step in range(DP_STEPS):
+      if not math.isclose(got['loss'][step], ref['loss'][step],
+                          rel_tol=TRAIN_LOSS_RTOL):
+        raise AssertionError(f'step {step}: loss {got["loss"][step]}, one '
+                             f'process {ref["loss"][step]}')
+      mine = got['params'][step + 1].to(process.device)
+      lead = mine.clone()
+      dist.broadcast(lead, 0)
+      if not torch.equal(_bits(mine), _bits(lead)):
+        raise AssertionError(f'step {step}: rank {process.rank}\'s '
+                             f'parameters differ from rank 0\'s')
+      at = 0
+      for name, numel in got['names']:
+        leaf = slice(at, at + numel)
+        want = ref['params'][step + 1][leaf]
+        move = float((want - ref['params'][0][leaf]).abs().max())
+        err = float((mine[leaf].cpu() - want).abs().max())
+        if err > 2 * move + 1e-7:
+          raise AssertionError(f'step {step}: {name} off by {err:.3g} (the '
+                               f'one-process steps moved it {move:.3g})')
+        worst = max(worst, err / max(move, 1e-30))
+        at += numel
+    numel = got['params'][0].numel()
+    return {'rank': process.rank, 'device': str(process.device),
+            'backend': process.backend, 'loss': got['loss'],
+            'step_ms': got['ms'], 'peak_gib': got['peak_gib'],
+            'worst_param_share_of_move': worst,
+            'grads_vs_blockwise': control,
+            'grads_vs_global_batch': global_batch,
+            'allreduce_bytes': 4 * numel,
+            'allreduce_ms': _allreduce_ms(numel, process.device)}
+  finally:
+    parallel_mesh.shutdown()
+
+
+def _child_nccl_rank(workdir: str) -> dict:
+  """Phase 9 (b): one rank alone in an NCCL group: a training step of the
+  flagship (its gradients and metrics all-reduced through NCCL) and an
+  evaluation batch of ``eval_full1chip_exhaustive`` (its rows gathered):
+  each must call the group's collectives, counted at ``torch.distributed``
+  (a group of one rank may run them without a kernel of NCCL's own)."""
+  import torch.distributed as dist  # pylint: disable=g-import-not-at-top
+  process = parallel_mesh.init('cuda')
+  if process.backend != 'nccl':
+    raise AssertionError(f'phase 9 (b): {process}')
+  try:
+    calls = {}
+    for name in ('all_reduce', 'all_gather_object', 'barrier'):
+      def counted(*args, _call=getattr(dist, name), _name=name, **kwargs):
+        calls[_name] = calls.get(_name, 0) + 1
+        return _call(*args, **kwargs)
+      setattr(dist, name, counted)
+    kernels.reset_launch_counts()
+    result = train.train('train_full1chip_exhaustive', 1, str(
+        process.device), workdir=workdir)
+    train_calls = dict(calls)
+    loss = result['logs'][0]
+    train_launches = dict(kernels.LAUNCHES)
+    if not (train_calls.get('all_reduce') and loss['is_finite']
+            and all(train_launches[k] for k in EXHAUSTIVE_KERNELS)):
+      raise AssertionError(f'phase 9 (b): collectives {train_calls}, logs '
+                           f'{loss}, launches {train_launches}')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    calls.clear()
+    served = evaluate.evaluate('eval_full1chip_exhaustive', num_queries=2,
+                               device=str(process.device), batch_size=2)
+    eval_calls = dict(calls)
+    errors = served['position_error_m']
+    if len(errors) != 2 or not all(math.isfinite(e) for e in errors) or (
+        not eval_calls.get('all_gather_object')):
+      raise AssertionError(f'phase 9 (b): eval errors {errors}, '
+                           f'collectives {eval_calls}')
+    numel = sum(p.numel() for p in result['state'].model.parameters())
+    return {'rank': process.rank, 'backend': process.backend,
+            'collectives': {'train': train_calls, 'eval': eval_calls},
+            'step_ms': result['step_seconds'][0] * 1e3,
+            'l2_grads': loss['l2_grads'],
+            'peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+            'eval_position_error_m': errors,
+            'eval_forward_ms': served['forward_ms'],
+            'allreduce_bytes': 4 * numel,
+            'allreduce_ms': _allreduce_ms(numel, process.device)}
+  finally:
+    parallel_mesh.shutdown()
+
+
+def data_axis_phase(smi: str) -> dict:
+  """Phase 9: (a) the one-process steps, then DP_RANKS gloo ranks on the
+  card against them; (b) one rank alone in an NCCL group."""
+  torch.cuda.empty_cache()
+  workdir = fresh_workdir('data_axis')
+  workdir.mkdir(parents=True)
+  tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = (
+      False)
+  t0 = time.perf_counter()
+  one = _dp_steps(torch.device('cuda'), _f32_flagship(), DP_STEPS,
+                  control_world=DP_RANKS)
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+  batch_shape = _leaf_errors(one['grads'][0], one['control'], one['names'])
+  reference = workdir / 'one_process.pt'
+  torch.save({'loss': one['loss'], 'params': one['params'],
+              'grads': one['grads'], 'control': one['control']}, reference)
+  del one['params'], one['grads'], one['control']
+  torch.cuda.empty_cache()
+  ranks = run_children('dp_step', [reference], world=DP_RANKS)
+  reference.unlink()
+  log(f'phase 9 (a), the data axis on the card (train_full1chip_exhaustive '
+      f'in f32, TF32 off, global batch 2, {DP_RANKS} gloo ranks sharing the '
+      f'card, {DP_STEPS} steps): the one process\'s losses {one["loss"]}, '
+      f'ms a step {one["ms"]}, own peak {one["peak_gib"]:.2f} GiB, its '
+      f'first step\'s gradient on the global batch against its blockwise '
+      f'one (the batch shape\'s own effect, C11) {batch_shape}; the ranks '
+      f'(losses, ms a step, own peak GiB, the first step\'s gradients '
+      f'against the blockwise ones (held), each step\'s against the one '
+      f'process\'s on the global batch (logged), the worst parameter error '
+      f'as a share of the one-process steps\' largest move of its leaf, '
+      f'the all-reduce\'s bytes and ms): '
+      f'{[(r["loss"], r["step_ms"], r["peak_gib"], r["grads_vs_blockwise"], r["grads_vs_global_batch"], r["worst_param_share_of_move"], r["allreduce_bytes"], r["allreduce_ms"]) for r in ranks]}; '
+      f'parameters equal on both ranks bit for bit after each step; {smi}')
+  nccl, = run_children('nccl_rank', [workdir / 'nccl'], world=1)
+  shutil.rmtree(workdir)
+  log(f'phase 9 (b), one rank in an NCCL group: {nccl}; '
+      f'{time.perf_counter() - t0:.1f} s for the phase; {smi}')
+  return {'one': one, 'ranks': ranks, 'nccl': nccl}
+
+
+def child_main(mode: str, args) -> int:
+  """A child process's work: one JSON object as the last line."""
+  logging.basicConfig(level=logging.WARNING)
+  result = {'deterministic_step': _child_deterministic_step,
+            'dp_step': _child_dp_step,
+            'nccl_rank': _child_nccl_rank}[mode](*args)
+  print(json.dumps(result), flush=True)
+  return 0
+
+
 if __name__ == '__main__':
+  if len(sys.argv) > 2 and sys.argv[1] == CHILD:
+    sys.exit(child_main(sys.argv[2], sys.argv[3:]))
   sys.exit(main())

@@ -379,9 +379,21 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+  """The mesh's axis sizes (the reference's ``mesh``, ``defaults.py:103``):
+  ``data`` ranks split each global batch (-1: every rank of the run,
+  ``parallel/mesh.py:make_mesh``); ``model`` (tensor parallelism) must be
+  1."""
+
+  data: int = -1
+  model: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
   """An experiment: ``model`` is the config of the registry's
-  ``model_name``."""
+  ``model_name``; ``batch_size`` is the global batch, split over the
+  ``mesh``'s ``data`` ranks."""
 
   model: ModelConfig
   data: DataConfig
@@ -389,6 +401,7 @@ class Config:
   batch_size: int = 1
   train: TrainConfig = TrainConfig()
   model_name: str = 'bev_localizer'
+  mesh: MeshConfig = MeshConfig()
 
 
 def bench_full(batch_size: int = 1) -> Config:
@@ -1048,7 +1061,7 @@ _CHECKED_KEYS = {
 }
 # Sections whose keys the reference reads with defaults (``.get``), so a
 # config may leave any of them out.
-_DEFAULTED = (BEVNetConfig,)
+_DEFAULTED = (BEVNetConfig, MeshConfig)
 # Top-level keys read and ignored: the JAX trainer's bookkeeping that the
 # port's has no use for (summary writers, debug flags, where its init runs,
 # the tensor-parallel threshold), the seed of its flax init (the port draws
@@ -1057,7 +1070,7 @@ _IGNORED_TOP = (
     'write_summary', 'debug_train', 'debug_eval', 'init_backend',
     'tp_min_dim', 'rng_seed', 'eval_checkpoint_step', 'data_generator_kind',
     'eval_seconds', 'build_ms', 'build_card_ms', 'cudnn_allow_tf32',
-    'matmul_allow_tf32')
+    'matmul_allow_tf32', 'num_processes')
 _TOP_KEYS = ('model', 'data', 'batch_size', 'dtype_str', 'shuffle_seed',
              'lr_configs', 'optimizer_configs', 'max_grad_norm',
              'num_training_steps')
@@ -1129,7 +1142,12 @@ def from_reference(d: Mapping[str, Any]) -> Config:
   """
   for key, want in _CHECKED_TOP.items():
     _check(key, d.get(key), want)
-  _check('mesh.model', d.get('mesh', {}).get('model', 1), 1)
+  mesh = dict(d.get('mesh', {}))
+  if mesh.get('model', 1) != 1:
+    raise ValueError(
+        f'from_reference: mesh.model = {mesh["model"]!r}; the port runs the '
+        f'data axis alone (tensor parallelism, the tensor-parallel part of '
+        f'ROADMAP A12, is not ported)')
   if d.get('dtype_str') not in DTYPE_STRS:
     raise ValueError(f'from_reference: dtype_str = {d.get("dtype_str")!r}; '
                      f'the port runs {list(DTYPE_STRS)}')
@@ -1156,7 +1174,7 @@ def from_reference(d: Mapping[str, Any]) -> Config:
       data=_from_dict(DataConfig, d['data'], 'data',
                       shuffle_seed=d['shuffle_seed']),
       dtype_str=d['dtype_str'], batch_size=d['batch_size'], train=train,
-      model_name=model_name)
+      model_name=model_name, mesh=_from_dict(MeshConfig, mesh, 'mesh'))
 
 
 def plain(value):
@@ -1190,6 +1208,7 @@ def to_reference(config: Config) -> Dict[str, Any]:
       'optimizer_configs': plain(train.optimizer_configs),
       'max_grad_norm': train.max_grad_norm,
       'num_training_steps': train.num_training_steps,
+      'mesh': plain(config.mesh),
       **trainer,
   }
 

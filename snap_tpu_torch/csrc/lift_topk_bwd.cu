@@ -42,19 +42,24 @@
 // (any K <= 32, D <= 256).
 //
 // Design: the selected ranks are sorted by the pixel of their lower tap, so
-// that the sum over a pixel's ranks is formed in registers and reaches the
-// global buffer as one vector add per tap and 4 channels, instead of one
+// that the sum over a pixel's ranks is formed in registers, not with one
 // scalar atomic per rank, tap and channel (~280 per address on the training
-// path). The scratch and the last stage's grid are sized by the count of
+// path). The scratch and the last stages' grids are sized by the count of
 // selected ranks (the caller's, `capacity`), not by every rank: the scan
 // form's 20 ranks a point select ~3.7. Launches from one call:
 //   1. count: one thread per rank; a selected rank's bin is (example, view,
 //      lower-tap pixel). Lanes of a warp with the same bin add their number
 //      to the bin's count with one atomic (__match_any_sync), and each rank
-//      keeps its place within the bin.
+//      keeps its place within the bin, in an order that changes from run to
+//      run.
 //   2. scan: one block turns the counts (108k bins on the training path)
 //      into each bin's first slot and the total.
-//   3. ranks: one warp per point. The point's selected ranks are compacted
+//   3. order: each selected rank writes its index (its key) into its slot,
+//      then a block per bin (bin_sort.cuh) replaces each rank's place by its
+//      rank in ascending index among the bin's (bins hold ~114 ranks on the
+//      training path, the largest ~1,500): from here on a bin's slots hold
+//      its ranks in ascending (point, rank) index.
+//   4. ranks: one warp per point. The point's selected ranks are compacted
 //      in rank order (a ballot; lane j takes the j-th), and the warp
 //      recomputes the forward exactly as K1 does, in that order (the
 //      variance's tie rule makes the rounding of E2 - mean^2 matter),
@@ -73,19 +78,34 @@
 //      differently (a loop bound known only at run time cost ~1 ms on the
 //      training path's input, and the chain state took the stage to 162
 //      registers and 3 blocks of 128 an SM). A point with more (a tie at
-//      the scan's threshold selects more than top_k) goes on a list that
-//   3b. wide ranks takes after: a warp a listed point, groups of 4 ranks
-//      gathered again in pass 2, and per channel the rank that last set
-//      the max (min) strictly and a bit for each tie after it noted in pass
-//      1, from which pass 2 forms the shares. One instantiation for every
+//      the scan's threshold selects more than top_k) goes on a list (its
+//      place there from an atomic: the list's order does not matter, as
+//      each listed point writes its own slots alone) that
+//   4b. wide ranks takes after: a warp a listed point, groups of 4 ranks
+//      gathered again in pass 2, and per channel the rank that last set the
+//      max (min) strictly and a bit for each tie after it noted in pass 1,
+//      from which pass 2 forms the shares. One instantiation for every
 //      layout (its mode read at run time); not launched where K <= 4.
-//   4. runs: one block per kChunk consecutive sorted ranks. Its feature
-//      warps give each lane 4 channels of d f, its score warps a depth bin
-//      each; a warp adds w_tap * [d f_k, d c_k] of consecutive ranks of one
-//      pixel into registers (4 taps x 4 channels) and, when the pixel
-//      changes, adds them to the zeroed global buffer with float4 atomics
-//      (red.global.add.v4.f32). An address receives one add per run of each
-//      of the 4 pixels whose taps reach it (and per block boundary).
+//   5. runs: one block per kChunk consecutive slots. Its feature warps give
+//      each lane 4 channels of d f, its score warps a depth bin each; a warp
+//      adds w_tap * [d f_k, d c_k] of consecutive ranks of one pixel into
+//      registers (4 taps x 4 channels), in slot order, and when the pixel
+//      changes writes the 4 tap sums to the pixel's piece: the bin's own
+//      [4, C] f32 row of `partial` where the bin starts in this block, else
+//      the block's row of `heads` (a bin longer than the rest of a block
+//      goes on in the next ones, a piece each).
+//   6. fold: every entry of d stack, in the stack's dtype, is +0.0 plus, in
+//      this order, the pieces of the bins whose taps reach it: tap (lower,
+//      lower) of the pixel at its own place (i, j), (lower, upper) of (i, j
+//      - 1), (upper, lower) of (i - 1, j), (upper, upper) of (i - 1, j - 1),
+//      each bin's pieces in block order; one f32 sum, rounded once.
+// The order of every sum is therefore fixed by the inputs alone: each piece
+// is the left fold from +0.0, in ascending (point, rank) index, of its
+// ranks' w_tap * [d f_k, d c_k] (each product and each d f_k formed as
+// above), and each entry the fold of its pieces just stated; no float
+// atomics, so two calls on the same inputs give the same bits. The plain
+// version (ops/view_scan.py:lift_topk_bwd_plain) sums with index_add_ in
+// another order and is not held to these bits.
 // No stage writes past the scratch: a slot at or past capacity is skipped.
 // The scan writes the count stage's total into a word of pinned host
 // memory, which the wrapper compares with capacity once the call has ended
@@ -100,12 +120,15 @@
 // operations per selected rank (7.84M at batch 2 on the training path) and
 // the inputs, g (2.3M x 257 x 2 B = 1.18 GB) and the output read or written
 // once: 0.49 ms. The design adds its own traffic: the stack's gathers
-// (L2-resident: the stack is 36 MB at batch 2), and the d f rows written
-// and read once (4.4 GB each way at batch 2, ~2.6 ms at 3.35 TB/s: the runs
-// stage reads them in ~1.6 ms unweighted). The f32 buffer is
-// 71.8 MB at batch 2, more than the 50 MB L2: the design before this one
-// (one warp per point, ~4 G scalar f32 atomics into that buffer) ran at 40x
-// the bound.
+// (L2-resident: the stack is 36 MB at batch 2), the d f rows written and
+// read once (4.4 GB each way at batch 2, ~2.6 ms at 3.35 TB/s: the runs
+// stage reads them in ~1.6 ms unweighted), and the fixed order's: the
+// pieces, written once and read once by the fold (75k non-empty bins x 4
+// taps x 160 channels x 4 B = 0.19 GB each way on the training path, ~0.11
+// ms), and the order stage's keys (4 B a rank each way) and comparisons
+// (bin_sort.cuh). The
+// design before the pixel runs (one warp per point, ~4 G scalar f32 atomics
+// into a 71.8 MB buffer, more than the 50 MB L2) ran at 40x the bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -176,11 +199,6 @@ __device__ inline float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
   return x;
-}
-
-// One vector reduction (red.global.add.v4.f32, sm_90) of 16 aligned bytes.
-__device__ inline void add_float4(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
 }
 
 __device__ inline float hat(float x, int s) {
@@ -268,6 +286,25 @@ __global__ void __launch_bounds__(kCountThreads) count_kernel(
       base = __shfl_sync(peers, base, leader);
       within[r] = base + __popc(peers & ((1u << lane) - 1u));
     }
+  }
+}
+
+// 3. Each selected rank's index into its slot (its bin's first slot plus
+// the place the count stage gave it), for the order stage.
+__global__ void __launch_bounds__(kCountThreads) keys_kernel(
+    const int32_t* __restrict__ view_idx, const float* __restrict__ p2d,
+    const uint8_t* __restrict__ selected, const int* __restrict__ offsets,
+    const int* __restrict__ within, int* __restrict__ keys, int capacity,
+    Dims d) {
+  const long long total = (long long)d.B * d.N * d.K;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       r < total; r += (long long)gridDim.x * blockDim.x) {
+    if (!selected[r]) continue;
+    const int bin = bin_of(d, (int)(r / ((long long)d.N * d.K)), view_idx[r],
+                           (int)floorf(clamped(p2d[2 * r], d.h)),
+                           (int)floorf(clamped(p2d[2 * r + 1], d.w)));
+    const int slot = offsets[bin] + within[r];
+    if (slot < capacity) keys[slot] = (int)r;
   }
 }
 
@@ -475,7 +512,7 @@ __device__ inline void write_records(const LaneRank& me, int lane, int n,
   }
 }
 
-// 3. Per point: the forward again, d f_k into the sorted slots, records.
+// 4. Per point: the forward again, d f_k into the sorted slots, records.
 // Lane l holds feature channels 4 (l + 32 q) .. + 3, q < CPL (D <= 128 CPL).
 // The point's n selected ranks are compacted in rank order (lane j takes
 // the j-th), the order of the online softmax and of every chain of maxima:
@@ -776,7 +813,7 @@ __device__ __forceinline__ void rank_point(
   stack, view_idx, p2d, selected, depth, g_stats, offsets, within, d_f,     \
       records, bins, wide_points, wide_count, capacity, d
 
-// 3, narrow: one warp per point of the [B, N] grid (kRankThreads / 32 a
+// 4, narrow: one warp per point of the [B, N] grid (kRankThreads / 32 a
 // block).
 template <typename T, int CPL, int kMode>
 __global__ void __launch_bounds__(kRankThreads)
@@ -787,7 +824,7 @@ __global__ void __launch_bounds__(kRankThreads)
   rank_point<T, CPL, false, kMode>(SNAP_RANK_ARGS, point, threadIdx.x & 31);
 }
 
-// 3, wide: the listed points, a warp each, over the grid in turn.
+// 4b, wide: the listed points, a warp each, over the grid in turn.
 template <typename T, int CPL>
 __global__ void __launch_bounds__(kRankThreads)
     wide_ranks_kernel(SNAP_RANK_PARAMS) {
@@ -798,14 +835,19 @@ __global__ void __launch_bounds__(kRankThreads)
                                  threadIdx.x & 31);
 }
 
-// 4. Per block of kChunk sorted ranks (of the first capacity): the first
-// feature_warps warps hold 4 channels of d f per lane, the others a depth
-// bin per lane; each warp sums a pixel's consecutive ranks in registers and
-// adds the sum at the pixel's 4 taps when the pixel changes.
+// 5. Per block of kChunk consecutive slots (of the first capacity, each
+// bin's in ascending rank index): the first feature_warps warps hold 4
+// channels of d f per lane, the others a depth bin per lane; each warp sums
+// a pixel's consecutive ranks in registers, in slot order,
+// and when the pixel changes writes the sum of each of its 4 taps (every
+// channel, zeros too) to the pixel's piece: partial[bin] where the bin
+// starts in this block, else heads[block] (the bin began in an earlier
+// block; a block has at most one such bin, its first).
 __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
     const float* __restrict__ d_f, const float4* __restrict__ records,
     const int* __restrict__ bins, const int* __restrict__ offsets,
-    float* __restrict__ grad, int nbins, int capacity, int feature_warps,
+    float* __restrict__ partial,
+    float* __restrict__ heads, int nbins, int capacity, int feature_warps,
     Dims d) {
   const int begin = blockIdx.x * kChunk;
   const int end = min(min(offsets[nbins], capacity), begin + kChunk);
@@ -820,22 +862,17 @@ __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
   float acc[4][4];  // taps x (4 channels, or the depth bin in [q][0])
   int cur = -1;
   auto flush = [&]() {
-    const int lj = cur % d.w, li = (cur / d.w) % d.h;
-    const int ev = cur / (d.w * d.h);  // example * V + view
-    float* tap = grad + (((long long)ev * (d.h + 1) + li) * d.W + lj) * C;
-    float* taps[4] = {tap, tap + C, tap + (long long)d.W * C,
-                      tap + (long long)d.W * C + C};
+    float* piece = offsets[cur] >= begin
+                       ? partial + (long long)cur * 4 * C
+                       : heads + (long long)blockIdx.x * 4 * C;
     if (active) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        if (feature) {
-          const float4 v = make_float4(acc[q][0], acc[q][1], acc[q][2],
-                                       acc[q][3]);
-          if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
-            add_float4(taps[q] + c0, v);
-        } else if (acc[q][0] != 0.f) {
-          atomicAdd(taps[q] + D + s, acc[q][0]);
-        }
+        if (feature)
+          *reinterpret_cast<float4*>(piece + q * C + c0) =
+              make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+        else
+          piece[q * C + D + s] = acc[q][0];
       }
     }
 #pragma unroll
@@ -849,8 +886,8 @@ __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
     for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
 
   for (int j0 = begin; j0 < end; j0 += kGroup) {
-    // Lane u holds rank j0 + u's record and bin; a feature lane has its
-    // channels of the group's d f rows in flight before the first add.
+    // Lane u holds the record and bin of slot j0 + u; a feature lane has
+    // its channels of the group's d f rows in flight before the first add.
     const int n = min(kGroup, end - j0);
     float4 rec = make_float4(0.f, 0.f, 0.f, 0.f);
     int bin = -1;
@@ -895,6 +932,57 @@ __global__ void __launch_bounds__(kMaxRunWarps * 32) runs_kernel(
     }
   }
   if (cur >= 0) flush();
+}
+
+__device__ inline void store(float* p, float x) { *p = x; }
+__device__ inline void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+// Round to nearest; a sum past 65504 becomes inf, as torch's cast of an f32
+// sum to float16 does.
+__device__ inline void store(__half* p, float x) { *p = __float2half_rn(x); }
+
+// 6. d stack [B, R, W, C] in the stack's dtype, every entry written: a
+// thread per 4 channels of a tap (example-view ev, row i in [0, h], column
+// j). From +0.0 it adds, in this order, the pieces of the bins whose taps
+// reach it: tap (lower, lower) of bin (i, j), (lower, upper) of (i, j - 1),
+// (upper, lower) of (i - 1, j), (upper, upper) of (i - 1, j - 1); each bin's
+// pieces in block order (partial[bin], then heads of the later blocks its
+// places reach). One f32 sum, rounded once.
+template <typename T>
+__global__ void __launch_bounds__(256) fold_kernel(
+    const float* __restrict__ partial, const float* __restrict__ heads,
+    const int* __restrict__ offsets, T* __restrict__ out, int capacity,
+    Dims d) {
+  const long long quads = (long long)d.B * d.R * d.W * (d.C / 4);
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= quads) return;
+  const int C = d.C;
+  const int c = (int)(t % (C / 4)) * 4;
+  const long long tap = t / (C / 4);
+  const int j = (int)(tap % d.W);
+  const long long row = tap / d.W;  // (example * V + view) * (h + 1) + i
+  const int i = (int)(row % (d.h + 1));
+  const long long ev = row / (d.h + 1);
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+  auto add = [&](const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    sum[0] += v.x; sum[1] += v.y; sum[2] += v.z; sum[3] += v.w;
+  };
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int bi = i - (q >> 1), bj = j - (q & 1);
+    if (bi < 0 || bi >= d.h || bj < 0 || bj >= d.w) continue;
+    const long long bin = (ev * d.h + bi) * d.w + bj;
+    const int first = offsets[bin];
+    const int last = min(offsets[bin + 1], capacity);
+    if (last <= first) continue;
+    add(partial + (bin * 4 + q) * C + c);
+    for (int k = first / kChunk + 1; k <= (last - 1) / kChunk; ++k)
+      add(heads + ((long long)k * 4 + q) * C + c);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) store(out + tap * C + c + e, sum[e]);
 }
 
 // The wide stage's blocks: enough to keep every SM busy over any list.
@@ -953,29 +1041,42 @@ int launch_ranks_mode(int mode, const void* stack, const int32_t* view_idx,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_fold(const float* partial, const float* heads, const int* offsets,
+                void* grad, int capacity, const Dims& d, cudaStream_t s) {
+  const long long quads = (long long)d.B * d.R * d.W * (d.C / 4);
+  launches.add(fold_kernel<T>, "fold_kernel", 256, 0);
+  fold_kernel<T><<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      partial, heads, offsets, static_cast<T*>(grad), capacity, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (stack and g_stats). weighted,
-// use_variance and add_minmax pick the statistics layout, stats_row wide
-// (lift_stats.cuh); weighted iff C > D. Scratch, allocated by the caller:
-// counts [bins + 1] int32 zeroed (the last, the wide list's length), offsets
-// [bins + 1] int32, within [B * N * K] int32, wide_points [B * N] int32, and
-// for capacity slots, the count of selected ranks: d_f [capacity, D] f32,
-// records [capacity, 4] f32 and bins_of_slots [capacity] int32; bins = B * V *
-// h * w and V = R / (h + 1). No stage writes a slot past capacity, whatever the
-// count stage finds; the count it found goes to found, one int32 of pinned host
-// memory, for the caller to compare with capacity once the launches have ended.
-// grad [B, R, W, C] f32 must be zeroed; C * dtype size a multiple of 16 bytes;
-// D % 4 == 0 and D <= 256; C <= 256; K <= 32. Returns a cudaError_t (0 on
-// success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (stack, g_stats and grad).
+// weighted, use_variance and add_minmax pick the statistics layout,
+// stats_row wide (lift_stats.cuh); weighted iff C > D. Scratch, allocated by
+// the caller: counts [bins + 1] int32 zeroed (the last, the wide list's
+// length), offsets [bins + 1] int32, within [B * N * K] int32, wide_points
+// [B * N] int32, partial [bins, 4, C] f32 and, for capacity slots, the count
+// of selected ranks: d_f [capacity, D] f32, records [capacity, 4] f32,
+// bins_of_slots and keys [capacity] int32, and heads [ceil(capacity / 512),
+// 4, C] f32; bins = B * V * h * w and V = R / (h + 1). No stage writes a
+// slot past capacity, whatever the count stage finds; the count it found goes
+// to found, one int32 of pinned host memory, for the caller to compare with
+// capacity once the launches have ended. grad [B, R, W, C] in the stack's
+// dtype, every entry written; C * dtype size a multiple of 16 bytes; D % 4 ==
+// 0 and D <= 256; C <= 256; K <= 32; B * N * K < 2^31. Returns a cudaError_t
+// (0 on success).
 extern "C" int lift_topk_bwd(
     const void* stack, const void* view_idx, const void* p2d,
     const void* selected, const void* depth, const void* g_stats, void* grad,
     void* counts, void* offsets, void* within, void* d_f, void* records,
-    void* bins_of_slots, void* wide_points, void* found, int dtype, int B,
-    int N, int K, int R, int W, int C, int D, int h, int w, int weighted,
-    int use_variance, int add_minmax, int stats_row, int capacity,
-    float depth_min, float depth_max, float log_range, void* stream) {
+    void* bins_of_slots, void* keys, void* partial, void* heads,
+    void* wide_points, void* found, int dtype, int B, int N, int K, int R,
+    int W, int C, int D, int h, int w, int weighted, int use_variance,
+    int add_minmax, int stats_row, int capacity, float depth_min,
+    float depth_max, float log_range, void* stream) {
   launches.clear();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int feature_warps = (D + 127) / 128, score_warps = (C - D + 31) / 32;
@@ -983,7 +1084,8 @@ extern "C" int lift_topk_bwd(
                    (use_variance ? kVariance : 0) | (add_minmax ? kMinMax : 0);
   if (K > 32 || (C & 3) || (D & 3) || dtype < 0 || dtype > 2 ||
       feature_warps + score_warps > kMaxRunWarps || capacity < 0 ||
-      (weighted != 0) != (C > D) || stats_row != stats_width(mode, D))
+      (weighted != 0) != (C > D) || stats_row != stats_width(mode, D) ||
+      (long long)B * N * K >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Dims d{B, N, K, R, W, C, D, h, w, R / (h + 1), depth_min, depth_max,
                log_range, mode};
@@ -997,6 +1099,9 @@ extern "C" int lift_topk_bwd(
   auto* df = static_cast<float*>(d_f);
   auto* rec = static_cast<float4*>(records);
   auto* slot_bins = static_cast<int*>(bins_of_slots);
+  auto* slot_keys = static_cast<int*>(keys);
+  auto* part = static_cast<float*>(partial);
+  auto* head = static_cast<float*>(heads);
   auto* wide = static_cast<int*>(wide_points);
 
   int* found_on_card = nullptr;
@@ -1019,6 +1124,17 @@ extern "C" int lift_topk_bwd(
   launches.add(scan_kernel, "scan_kernel", kScanThreads, 0);
   scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, off, nbins, found_on_card);
   if ((code = (int)cudaGetLastError())) return code;
+  if (capacity > 0) {
+    // Each bin's places in ascending rank index.
+    launches.add(keys_kernel, "keys_kernel", kCountThreads, 0);
+    keys_kernel<<<count_blocks, kCountThreads, 0, s>>>(idx, pts, sel, off, pos,
+                                                       slot_keys, capacity, d);
+    if ((code = (int)cudaGetLastError())) return code;
+    launches.add(order_bins_kernel, "order_bins_kernel", kOrderThreads, 0);
+    order_bins_kernel<<<16 * sms, kOrderThreads, 0, s>>>(slot_keys, off,
+                                                         nbins, capacity, pos);
+    if ((code = (int)cudaGetLastError())) return code;
+  }
   const auto* dep = static_cast<const float*>(depth);
   if (dtype == 0)
     code = launch_ranks_mode<float>(mode, stack, idx, pts, sel, dep, g_stats,
@@ -1032,15 +1148,22 @@ extern "C" int lift_topk_bwd(
     code = launch_ranks_mode<__half>(mode, stack, idx, pts, sel, dep,
                                      g_stats, off, pos, df, rec, slot_bins,
                                      wide, cnt + nbins, capacity, d, sms, s);
-  if (code || capacity == 0) return code;
-  // A block per kChunk slots of the capacity.
-  const unsigned blocks = (unsigned)((capacity + kChunk - 1) / kChunk);
-  const int run_threads = (feature_warps + score_warps) * 32;
-  launches.add(runs_kernel, "runs_kernel", run_threads, 0);
-  runs_kernel<<<blocks, run_threads, 0, s>>>(
-      df, rec, slot_bins, off, static_cast<float*>(grad), nbins, capacity,
-      feature_warps, d);
-  return (int)cudaGetLastError();
+  if (code) return code;
+  if (capacity > 0) {
+    // A block per kChunk slots of the capacity.
+    const unsigned blocks = (unsigned)((capacity + kChunk - 1) / kChunk);
+    const int run_threads = (feature_warps + score_warps) * 32;
+    launches.add(runs_kernel, "runs_kernel", run_threads, 0);
+    runs_kernel<<<blocks, run_threads, 0, s>>>(df, rec, slot_bins, off, part,
+                                               head, nbins, capacity,
+                                               feature_warps, d);
+    if ((code = (int)cudaGetLastError())) return code;
+  }
+  if (dtype == 0)
+    return launch_fold<float>(part, head, off, grad, capacity, d, s);
+  if (dtype == 1)
+    return launch_fold<__nv_bfloat16>(part, head, off, grad, capacity, d, s);
+  return launch_fold<__half>(part, head, off, grad, capacity, d, s);
 }
 
 // The launches of the last call (launch_log.cuh). Returns their count, or

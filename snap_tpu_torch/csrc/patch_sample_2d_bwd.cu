@@ -20,12 +20,11 @@
 // edge padding folds the pad row and column back onto the edge.
 //
 // Design: the points are sorted by the cell of their lower tap, so that
-// the sum over a cell's points is formed in registers and reaches memory
-// as one vector add per tap and 4 channels, instead of one scalar atomic
-// per point, tap and channel (157M at batch 2 on the training path onto
-// 627k addresses, ~250 each: the first design's limit, L2's atomic units,
-// at 0.44 ms). A point's bin is (example, lower-tap cell): B x H x W bins,
-// 19,200 at batch 2. A memset of the counts and five launches from one
+// the sum over a cell's points is formed in registers, not with one scalar
+// atomic per point, tap and channel (157M at batch 2 on the training path
+// onto 627k addresses, ~250 each: the first design's limit, L2's atomic
+// units, at 0.44 ms). A point's bin is (example, lower-tap cell): B x H x W
+// bins, 19,200 at batch 2. A memset of the counts and six launches from one
 // call:
 //   1. bin: a block takes a contiguous range of points and counts them per
 //      bin in shared memory (the bins of its examples, in windows of 12,288
@@ -37,35 +36,52 @@
 //      points lie off the plane and clamp onto border cells, up to ~1,000
 //      in a bin) and turns 1.2M scattered atomics (~25 us on the training
 //      path's input) into one per block and bin, on consecutive addresses.
-//      The blocks also zero the f32 accumulator.
+//      Both atomics make a point's slot change from run to run.
 //   2. scan: one block turns the counts into each bin's first slot.
-//   3. place: each point's record (its tap fractions, index and bin, 16
+//   3. order: each point writes its index (its key) into its slot, then a
+//      block per bin (bin_sort.cuh) replaces each point's place by its rank
+//      in ascending index among the bin's points: from here on a bin's
+//      slots hold its points in ascending index.
+//   4. place: each point's record (its tap fractions, index and bin, 16
 //      bytes) goes to its slot, its bin's first slot plus its place.
-//   4. runs: a walker of L lanes takes a chunk of consecutive slots, as
-//      many walkers as the card keeps resident (one wave); each lane holds
-//      16 bytes of g (8 bf16 or 4 f32 channels; a scalar load per channel
-//      where rows are not 16-byte aligned, as at D = 17) and sums
-//      w_tap * g of the consecutive points of one bin in registers (4 taps
-//      x its channels), the next group's records fetched while a group's
-//      channels are in flight. When the bin changes, or the chunk ends,
-//      the sums go to a zeroed f32 accumulator of D channels rounded up to
-//      4 with float4 atomics (red.global.add.v4.f32). An address receives
-//      one add per run of each of the 4 bins whose taps reach it, plus one
-//      per chunk boundary: ~4-6 instead of ~250. A bin longer than a chunk
-//      (the border's pile-ups) is split across walkers, each piece ending
-//      in one add. Where D exceeds 32 lanes' worth, grid.y takes slabs.
-//   5. cast: the accumulator to the plane's dtype, validity channel 0.
+//   5. runs: a walker of L lanes takes a chunk of consecutive slots, as
+//      many walkers as the card keeps resident (one wave, at most
+//      heads_capacity); each lane holds 16 bytes of g (8 bf16 or 4 f32
+//      channels; a scalar load per channel where rows are not 16-byte
+//      aligned, as at D = 17) and sums w_tap * g of the consecutive points
+//      of one bin in registers (4 taps x its channels), in slot order, the
+//      next group's records fetched while a group's channels are in flight.
+//      When the bin changes, or the chunk ends, the 4 tap sums go to the
+//      bin's piece: its own [4, Dp] f32 row of `partial` where the bin
+//      starts in this walker's chunk, else the walker's row of `heads` (a
+//      bin longer than a chunk, the border's pile-ups, is split across
+//      walkers, a piece each). Where D exceeds 32 lanes' worth, grid.y
+//      takes slabs.
+//   6. fold: every entry of d plane, in the plane's dtype, is +0.0 plus, in
+//      this order, the pieces of the bins whose taps reach its cell (i, j):
+//      tap (lower, lower) of bin (i, j), (lower, upper) of (i, j - 1),
+//      (upper, lower) of (i - 1, j), (upper, upper) of (i - 1, j - 1), each
+//      bin's pieces in chunk order; one f32 sum, rounded once; the validity
+//      channel 0.
+// The order of every sum is therefore fixed by the inputs alone: each piece
+// is the left fold from +0.0, in ascending point index, of its points'
+// w_tap * g, and each entry the fold of its pieces just stated; no float
+// atomics, so two calls on the same inputs give the same bits. The plain
+// version (ops/view_scan.py:patch_sample_2d_bwd_plain) sums with
+// index_add_ in another order and is not held to these bits.
 //
 // What bounds it on an H100: bytes. g (2D bytes a point), the points (8 B)
 // read once and d plane written once: 89.8 MB at batch 2 on the training
 // path (g 78.6 MB in bf16), 0.027 ms at 3.35 TB/s. The design's own
-// traffic: the points read three times (29 MB, mostly L2 hits after the
-// first), each point's place (4 B) and record (16 B) written and read
-// once (49 MB, mostly L2-resident: the L2 holds 50 MB), the accumulator
-// zeroed and read (2.5 MB). What holds it above the bound is not bytes but
-// scattered accesses: the place stage's 1.2M record stores to sorted slots
-// and the run stage's g rows, 64 bytes each (bf16, D = 32) read from
-// scattered places in sorted order.
+// traffic: the points read four times (39 MB, mostly L2 hits after the
+// first), each point's place (4 B), key (4 B) and record (16 B) written
+// and read once (59 MB, mostly L2-resident: the L2 holds 50 MB), the pieces
+// written and read once (19,200 bins x 4 taps x 32 channels x 4 B = 9.8 MB
+// each way), and the order stage's comparisons (bin_sort.cuh).
+// What holds it above the bound is not bytes but scattered accesses: the
+// place stage's 1.2M record stores to sorted slots and the run stage's g
+// rows, 64 bytes each (bf16, D = 32) read from scattered places in sorted
+// order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,7 +102,7 @@ constexpr int kPointThreads = 256;  // place and cast stages
 constexpr int kRunThreads = 128;
 constexpr int kGroup = 4;  // slots a walker of the run stage fetches together
 
-// Shapes shared by the stages; Dp = D rounded up to 4 (the accumulator).
+// Shapes shared by the stages; Dp = D rounded up to 4 (the pieces' rows).
 struct Dims {
   int B, P, H, W, C, D, Dp;
 };
@@ -117,13 +133,8 @@ __device__ inline Tap tap_of(const float2* points, int p, const Dims& d) {
 // bin; the points' places within the block are added to it.
 __global__ void __launch_bounds__(kBinThreads, 2) bin_points_kernel(
     const float2* __restrict__ points, int* __restrict__ counts,
-    int* __restrict__ within, float4* __restrict__ acc, Dims d) {
+    int* __restrict__ within, Dims d) {
   __shared__ int hist[kWindow];
-  // The run stage's accumulator, zeroed here: B (H+1) (W+1) Dp / 4 float4s.
-  const long long quads = (long long)d.B * (d.H + 1) * (d.W + 1) * d.Dp / 4;
-  for (long long i = (long long)blockIdx.x * kBinThreads + threadIdx.x;
-       i < quads; i += (long long)gridDim.x * kBinThreads)
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   const int n = d.B * d.P, cells = d.H * d.W;
   const int per_block = (n + gridDim.x - 1) / gridDim.x;
   const int p0 = blockIdx.x * per_block, p1 = min(n, p0 + per_block);
@@ -164,7 +175,17 @@ __global__ void __launch_bounds__(kBinThreads, 2) bin_points_kernel(
   }
 }
 
-// 3. Each point's record {fi, fj, point, bin} into its slot, its bin's
+// 3. Each point's index into its slot (its bin's first slot plus the place
+// the bin stage gave it), for the order stage.
+__global__ void __launch_bounds__(kPointThreads) keys_kernel(
+    const float2* __restrict__ points, const int* __restrict__ offsets,
+    const int* __restrict__ within, int* __restrict__ keys, Dims d) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= d.B * d.P) return;
+  keys[offsets[tap_of(points, p, d).bin] + within[p]] = p;
+}
+
+// 4. Each point's record {fi, fj, point, bin} into its slot, its bin's
 // first slot plus its place.
 __global__ void __launch_bounds__(kPointThreads) place_points_kernel(
     const float2* __restrict__ points, const int* __restrict__ offsets,
@@ -218,24 +239,24 @@ template <> struct Chunk<__half> {
   __device__ static float scalar(const __half* p) { return __half2float(*p); }
 };
 
-// 4. Walker (thread / lanes) takes slots [walker * chunk, + chunk) of the
+// 5. Walker (thread / lanes) takes slots [walker * chunk, + chunk) of the
 // sorted order (chunk a multiple of kGroup); lane `sub` of it holds
-// channels c0 .. c0 + V - 1 of the block's slab. kVec: g's rows are
-// 16-byte aligned (D * sizeof(T) % 16 == 0), one 16-byte load per point;
-// else a scalar load per channel.
+// channels c0 .. c0 + V - 1 of the block's slab.
+// kVec: g's rows are 16-byte aligned (D * sizeof(T) % 16 == 0), one 16-byte
+// load per point; else a scalar load per channel.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kRunThreads) sum_runs_kernel(
     const T* __restrict__ g_values, const int4* __restrict__ records,
-    float* __restrict__ acc, int lanes, int chunk, Dims d) {
+    const int* __restrict__ offsets, float* __restrict__ partial,
+    float* __restrict__ heads, int lanes, int chunk, Dims d) {
   constexpr int V = Chunk<T>::V;
   const int n = d.B * d.P;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int sub = t % lanes;
-  const long long begin = (long long)(t / lanes) * chunk;
+  const int sub = t % lanes, walker = t / lanes;
+  const long long begin = (long long)walker * chunk;
   const int c0 = (blockIdx.y * lanes + sub) * V;
   if (begin >= n || c0 >= d.D) return;
   const int end = (int)min((long long)n, begin + chunk);
-  const int Wp = d.W + 1;
 
   float sum[4][V];  // taps x channels
 #pragma unroll
@@ -244,23 +265,15 @@ __global__ void __launch_bounds__(kRunThreads) sum_runs_kernel(
     for (int e = 0; e < V; ++e) sum[q][e] = 0.f;
   int cur = -1;
   auto flush = [&]() {
-    const int lj = cur % d.W, rest = cur / d.W;
-    const int li = rest % d.H, b = rest / d.H;
-    float* tap = acc + (((long long)b * (d.H + 1) + li) * Wp + lj) * d.Dp + c0;
-    float* taps[4] = {tap, tap + d.Dp, tap + (long long)Wp * d.Dp,
-                      tap + (long long)Wp * d.Dp + d.Dp};
+    float* piece = offsets[cur] >= begin
+                       ? partial + (long long)cur * 4 * d.Dp
+                       : heads + (long long)walker * 4 * d.Dp;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
 #pragma unroll
-      for (int e = 0; e < V; e += 4) {
-        const float4 v = make_float4(sum[q][e], sum[q][e + 1], sum[q][e + 2],
-                                     sum[q][e + 3]);
-        // Whole float4s: Dp % 4 == 0 and c0 % 4 == 0.
-        if (c0 + e < d.D && (v.x != 0.f || v.y != 0.f || v.z != 0.f ||
-                             v.w != 0.f))
-          atomicAdd(reinterpret_cast<float4*>(taps[q] + e), v);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) sum[q][e + k] = 0.f;
+      for (int e = 0; e < V; ++e) {
+        if (c0 + e < d.D) piece[q * d.Dp + c0 + e] = sum[q][e];
+        sum[q][e] = 0.f;
       }
     }
   };
@@ -326,136 +339,201 @@ __device__ inline void store(__nv_bfloat16* p, float x) {
 // to float16 does.
 __device__ inline void store(__half* p, float x) { *p = __float2half_rn(x); }
 
-// 5. d plane [cells, C] in the plane's dtype from the accumulator
-// [cells, Dp]; channels from D on (the validity channel) get 0.
+// 6. d plane [B, H+1, W+1, C] in the plane's dtype, a thread an entry: from
+// +0.0, the pieces of the bins whose taps reach its cell (i, j), in tap
+// order (lower, lower) of bin (i, j), (lower, upper) of (i, j - 1), (upper,
+// lower) of (i - 1, j), (upper, upper) of (i - 1, j - 1), each bin's pieces
+// in chunk order; channels from D on (the validity channel) get 0.
 template <typename T>
-__global__ void __launch_bounds__(kPointThreads) cast_grad_kernel(
-    const float* __restrict__ acc, T* __restrict__ out, long long total,
-    Dims d) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long cell = i / d.C;
-  const int c = (int)(i - cell * d.C);
-  store(out + i, c < d.D ? acc[cell * d.Dp + c] : 0.f);
+__global__ void __launch_bounds__(kPointThreads) fold_kernel(
+    const float* __restrict__ partial, const float* __restrict__ heads,
+    const int* __restrict__ offsets, T* __restrict__ out, long long total,
+    int chunk, Dims d) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long cell = t / d.C;
+  const int c = (int)(t - cell * d.C);
+  float sum = 0.f;
+  if (c < d.D) {
+    const int j = (int)(cell % (d.W + 1));
+    const long long rest = cell / (d.W + 1);
+    const int i = (int)(rest % (d.H + 1));
+    const int b = (int)(rest / (d.H + 1));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int bi = i - (q >> 1), bj = j - (q & 1);
+      if (bi < 0 || bi >= d.H || bj < 0 || bj >= d.W) continue;
+      const long long bin = ((long long)b * d.H + bi) * d.W + bj;
+      const int first = offsets[bin], last = offsets[bin + 1];
+      if (last <= first) continue;
+      sum += partial[(bin * 4 + q) * d.Dp + c];
+      for (int k = first / chunk + 1; k <= (last - 1) / chunk; ++k)
+        sum += heads[((long long)k * 4 + q) * d.Dp + c];
+    }
+  }
+  store(out + t, sum);
 }
 
-// The run stage's grid: walkers of `lanes` lanes (a power of two covering
-// D in chunks of V channels, at most a warp; wider D goes in slabs along
-// grid.y), as many as the card keeps resident at once, each taking an equal
-// chunk of the sorted slots (a multiple of kGroup): one wave.
-template <typename T>
-int launch_runs(const T* g, const int4* records, float* acc, const Dims& d,
-                int sms, cudaStream_t stream) {
+// The run stage's plan: walkers of `lanes` lanes (a power of two covering D
+// in chunks of V channels, at most a warp; wider D goes in slabs along
+// grid.y), as many as the card keeps resident at once and at most
+// heads_capacity, each taking an equal chunk of the ordered places (a
+// multiple of kGroup): one wave.
+struct RunPlan {
+  int lanes, slabs, chunk;
+  long long walkers;
+};
+
+template <typename T, bool kVec>
+int plan_runs(const Dims& d, int sms, int heads_capacity, RunPlan* plan) {
   constexpr int V = Chunk<T>::V;
   const int need = (d.D + V - 1) / V;
   int lanes = 1;
   while (lanes < need && lanes < 32) lanes *= 2;
   const int slabs = (d.D + lanes * V - 1) / (lanes * V);
   const long long n = (long long)d.B * d.P;
-  const auto run = [&](auto kernel) {
-    int per_sm = 0;
-    int code = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kRunThreads, 0);
-    if (code) return code;
-    const long long resident =
-        (long long)(per_sm > 0 ? per_sm : 1) * sms * kRunThreads / lanes /
-        slabs;
-    long long chunk = (n + resident - 1) / resident;
-    chunk = (chunk + kGroup - 1) / kGroup * kGroup;
-    const long long walkers = (n + chunk - 1) / chunk;
-    const dim3 grid(
-        (unsigned)((walkers * lanes + kRunThreads - 1) / kRunThreads),
-        (unsigned)slabs);
-    launches.add(kernel, "sum_runs_kernel", kRunThreads, 0);
-    kernel<<<grid, kRunThreads, 0, stream>>>(g, records, acc, lanes,
-                                             (int)chunk, d);
-    return (int)cudaGetLastError();
-  };
-  const bool vec = (d.D * (int)sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  return vec ? run(sum_runs_kernel<T, true>) : run(sum_runs_kernel<T, false>);
+  int per_sm = 0;
+  const int code = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sum_runs_kernel<T, kVec>, kRunThreads, 0);
+  if (code) return code;
+  long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms *
+                       kRunThreads / lanes / slabs;
+  if (resident > heads_capacity) resident = heads_capacity;
+  if (resident < 1) resident = 1;
+  long long chunk = (n + resident - 1) / resident;
+  chunk = (chunk + kGroup - 1) / kGroup * kGroup;
+  *plan = {lanes, slabs, (int)chunk, (n + chunk - 1) / chunk};
+  return 0;
 }
 
-template <typename T>
-int launch_cast(const float* acc, void* out, const Dims& d,
-                cudaStream_t stream) {
-  const long long total = (long long)d.B * (d.H + 1) * (d.W + 1) * d.C;
-  launches.add(cast_grad_kernel<T>, "cast_grad_kernel", kPointThreads, 0);
-  cast_grad_kernel<T><<<(unsigned)((total + kPointThreads - 1) /
-                                   kPointThreads),
-                        kPointThreads, 0, stream>>>(
-      acc, static_cast<T*>(out), total, d);
+template <typename T, bool kVec>
+int launch_runs(const T* g, const int4* records, const int* offsets,
+                float* partial, float* heads, const RunPlan& plan,
+                const Dims& d, cudaStream_t stream) {
+  const dim3 grid(
+      (unsigned)((plan.walkers * plan.lanes + kRunThreads - 1) / kRunThreads),
+      (unsigned)plan.slabs);
+  launches.add(sum_runs_kernel<T, kVec>, "sum_runs_kernel", kRunThreads, 0);
+  sum_runs_kernel<T, kVec><<<grid, kRunThreads, 0, stream>>>(
+      g, records, offsets, partial, heads, plan.lanes, plan.chunk, d);
   return (int)cudaGetLastError();
 }
 
-// The sort and the runs (stages 1-4) into acc (zeroed by the bin stage);
-// counts zeroed.
-int sort_and_sum(const void* g_values, const float2* points, float* acc,
-                 int* counts, int* offsets, int* within, int4* records,
-                 int dtype, const Dims& d, cudaStream_t s) {
+template <typename T>
+int launch_fold(const float* partial, const float* heads, const int* offsets,
+                void* out, int chunk, const Dims& d, cudaStream_t stream) {
+  const long long total = (long long)d.B * (d.H + 1) * (d.W + 1) * d.C;
+  launches.add(fold_kernel<T>, "fold_kernel", kPointThreads, 0);
+  fold_kernel<T><<<(unsigned)((total + kPointThreads - 1) / kPointThreads),
+                   kPointThreads, 0, stream>>>(
+      partial, heads, offsets, static_cast<T*>(out), total, chunk, d);
+  return (int)cudaGetLastError();
+}
+
+// Stages 5 and 6 in g's dtype T.
+template <typename T>
+int runs_and_fold(const void* g_values, const int4* records,
+                  const int* offsets, float* partial, float* heads,
+                  void* grad, int heads_capacity, const Dims& d, int sms,
+                  cudaStream_t s) {
+  const auto* g = static_cast<const T*>(g_values);
+  const bool vec = (d.D * (int)sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  RunPlan plan;
+  int code = vec ? plan_runs<T, true>(d, sms, heads_capacity, &plan)
+                 : plan_runs<T, false>(d, sms, heads_capacity, &plan);
+  if (code) return code;
+  code = vec ? launch_runs<T, true>(g, records, offsets, partial, heads,
+                                    plan, d, s)
+             : launch_runs<T, false>(g, records, offsets, partial, heads,
+                                     plan, d, s);
+  if (code) return code;
+  return launch_fold<T>(partial, heads, offsets, grad, plan.chunk, d, s);
+}
+
+// Stages 1-4: the points' records in their slots, each bin's in ascending
+// point index; counts zeroed.
+int sort_points(const float2* points, int* counts, int* offsets, int* within,
+                int* keys, int4* records, const Dims& d, int sms,
+                cudaStream_t s) {
   const long long n = (long long)d.B * d.P;
   const int nbins = d.B * d.H * d.W;
-  int device = 0, sms = 0;
-  int code = (int)cudaGetDevice(&device);
-  if (!code)
-    code = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       device);
-  if (code) return code;
+  int code = 0;
   // The bin stage: two blocks a SM (one wave), each on a contiguous range
   // of points.
   launches.add(bin_points_kernel, "bin_points_kernel", kBinThreads, 0);
-  bin_points_kernel<<<2 * sms, kBinThreads, 0, s>>>(
-      points, counts, within, reinterpret_cast<float4*>(acc), d);
+  bin_points_kernel<<<2 * sms, kBinThreads, 0, s>>>(points, counts, within,
+                                                    d);
   if ((code = (int)cudaGetLastError())) return code;
   launches.add(scan_kernel, "scan_kernel", kScanThreads, 0);
   scan_kernel<<<1, kScanThreads, 0, s>>>(counts, offsets, nbins);
   if ((code = (int)cudaGetLastError())) return code;
-  launches.add(place_points_kernel, "place_points_kernel", kPointThreads, 0);
-  place_points_kernel<<<(unsigned)((n + kPointThreads - 1) / kPointThreads),
-                        kPointThreads, 0, s>>>(
-      points, offsets, within, records, d);
+  const unsigned blocks = (unsigned)((n + kPointThreads - 1) / kPointThreads);
+  launches.add(keys_kernel, "keys_kernel", kPointThreads, 0);
+  keys_kernel<<<blocks, kPointThreads, 0, s>>>(points, offsets, within, keys,
+                                               d);
   if ((code = (int)cudaGetLastError())) return code;
-  if (dtype == 0)
-    return launch_runs(static_cast<const float*>(g_values), records, acc, d,
-                       sms, s);
-  if (dtype == 1)
-    return launch_runs(static_cast<const __nv_bfloat16*>(g_values), records,
-                       acc, d, sms, s);
-  return launch_runs(static_cast<const __half*>(g_values), records, acc, d,
-                     sms, s);
+  // Each bin's places in ascending point index.
+  launches.add(order_bins_kernel, "order_bins_kernel", kOrderThreads, 0);
+  order_bins_kernel<<<16 * sms, kOrderThreads, 0, s>>>(keys, offsets, nbins,
+                                                       (int)n, within);
+  if ((code = (int)cudaGetLastError())) return code;
+  launches.add(place_points_kernel, "place_points_kernel", kPointThreads, 0);
+  place_points_kernel<<<blocks, kPointThreads, 0, s>>>(points, offsets,
+                                                       within, records, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (g_values and grad). Scratch,
-// allocated by the caller: acc [B * (H+1) * (W+1) * Dp] f32 with Dp = D rounded
-// up to 4, counts [B * H * W] and offsets [B * H * W + 1] int32 (16-byte
-// aligned), within [B * P] int32, records [B * P] int4; acc (16-byte aligned)
-// and counts are zeroed here. points 8-byte aligned; B * P and B * H * W in [1,
-// 2^30). Returns a cudaError_t (0 on success).
+// allocated by the caller, with Dp = D rounded up to 4: counts [B * H * W]
+// and offsets [B * H * W + 1] int32 (16-byte aligned), within and keys
+// [B * P] int32, records [B * P] int4, partial [B * H * W, 4, Dp] f32 and
+// heads [heads_capacity, 4, Dp] f32, heads_capacity >= 1 (the run stage takes
+// at most that many walkers); counts are zeroed here. points 8-byte aligned;
+// B * P and B * H * W in [1, 2^30). grad [B, H+1, W+1, C], every entry
+// written. Returns a cudaError_t (0 on success).
 extern "C" int patch_sample_2d_bwd(const void* g_values, const void* points,
-                                   void* grad, void* acc, void* counts,
-                                   void* offsets, void* within, void* records,
-                                   int dtype, int B, int P, int H, int W,
-                                   int C, int D, void* stream) {
+                                   void* grad, void* counts, void* offsets,
+                                   void* within, void* keys, void* records,
+                                   void* partial, void* heads,
+                                   int heads_capacity, int dtype, int B,
+                                   int P, int H, int W, int C, int D,
+                                   void* stream) {
   launches.clear();
   if (dtype < 0 || dtype > 2 || D <= 0 || D > C || H <= 0 || W <= 0 ||
-      B <= 0 || P <= 0 || reinterpret_cast<uintptr_t>(points) % 8)
+      B <= 0 || P <= 0 || heads_capacity < 1 ||
+      reinterpret_cast<uintptr_t>(points) % 8)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims d{B, P, H, W, C, D, (D + 3) & ~3};
-  auto* sums = static_cast<float*>(acc);
-  int code = (int)cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)B * H * W,
-                                  s);
+  int device = 0, sms = 0;
+  int code = (int)cudaGetDevice(&device);
   if (!code)
-    code = sort_and_sum(g_values, static_cast<const float2*>(points), sums,
-                        static_cast<int*>(counts), static_cast<int*>(offsets),
-                        static_cast<int*>(within), static_cast<int4*>(records),
-                        dtype, d, s);
+    code = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       device);
+  if (!code)
+    code = (int)cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)B * H * W,
+                                s);
+  auto* rec = static_cast<int4*>(records);
+  auto* off = static_cast<int*>(offsets);
+  auto* part = static_cast<float*>(partial);
+  auto* head = static_cast<float*>(heads);
+  if (!code)
+    code = sort_points(static_cast<const float2*>(points),
+                       static_cast<int*>(counts), off,
+                       static_cast<int*>(within), static_cast<int*>(keys),
+                       rec, d, sms, s);
   if (code) return code;
-  if (dtype == 0) return launch_cast<float>(sums, grad, d, s);
-  if (dtype == 1) return launch_cast<__nv_bfloat16>(sums, grad, d, s);
-  return launch_cast<__half>(sums, grad, d, s);
+  if (dtype == 0)
+    return runs_and_fold<float>(g_values, rec, off, part, head, grad,
+                                heads_capacity, d, sms, s);
+  if (dtype == 1)
+    return runs_and_fold<__nv_bfloat16>(g_values, rec, off, part, head,
+                                        grad, heads_capacity, d, sms, s);
+  return runs_and_fold<__half>(g_values, rec, off, part, head, grad,
+                               heads_capacity, d, sms, s);
 }
 
 // The launches of the last call (launch_log.cuh). Returns their count, or

@@ -29,9 +29,12 @@ does not wait for the build: it goes on to dispatch the step. With
 workers on a CUDA card, each builds on its own stream; the consumer's
 stream waits on the build's end event and every tensor of the batch is
 ``record_stream``-ed on it, so its memory is not reused while the
-consumer may still read it. The reference's multi-process and mesh
-branches are not ported; a resumed run's fold of the data seed is
-``train.py``'s (``utils/prng.resume_shuffle_seed``).
+consumer may still read it. Over the ranks of the mesh's data axis
+(``parallel/mesh.py``), each process builds only its contiguous block of
+every global batch, as the reference's do (``snap_tpu/data/loader.py:
+305-337``): the blocks stacked in rank order are the one-process batch. A
+resumed run's fold of the data seed is ``train.py``'s
+(``utils/prng.resume_shuffle_seed``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from snap_tpu_torch import configs
 from snap_tpu_torch.data import device_synthetic
 from snap_tpu_torch.data import synthetic
 from snap_tpu_torch.data import types
+from snap_tpu_torch.parallel import mesh
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
 
@@ -457,16 +461,28 @@ def _indices_and_mask(batch_size: int, num_examples: Optional[int],
 
 def get_dataset(data_config: configs.DataConfig, batch_size: int,
                 eval_batch_size: Optional[int] = None,
-                device: Device = 'cuda', start_step: int = 0) -> Dataset:
+                device: Device = 'cuda', start_step: int = 0,
+                num_processes: Optional[int] = None,
+                process_index: Optional[int] = None) -> Dataset:
   """Train and eval iterators of ``data_config`` on ``device``
-  (``snap_tpu/data/loader.py:get_dataset``, single process).
+  (``snap_tpu/data/loader.py:get_dataset``).
 
   Train batch ``s`` holds examples ``s * batch_size + k`` from
   ``start_step`` on; the eval split holds ``evaluation_size`` examples in
   ``ceil(evaluation_size / eval_batch_size)`` batches, the last one padded
-  (``batch_mask`` 0) and the iterator wrapping around after it.
+  (``batch_mask`` 0) and the iterator wrapping around after it. The batch
+  sizes are global: process ``process_index`` of ``num_processes`` (the
+  mesh's rank and world by default) builds rows ``[index * bs / num,
+  (index + 1) * bs / num)`` of each; sizes that do not divide raise.
   """
   eval_batch_size = eval_batch_size or batch_size
+  num_processes = mesh.world_size() if num_processes is None else (
+      num_processes)
+  process_index = mesh.rank() if process_index is None else process_index
+  if batch_size % num_processes or eval_batch_size % num_processes:
+    raise ValueError(
+        f'Global batch sizes ({batch_size}, {eval_batch_size}) must divide '
+        f'evenly over {num_processes} processes.')
   mode = types.DataMode(data_config.mode or 'pair_scene_view')
   device = torch.device(device)
   on_device = data_config.on_device_generation
@@ -478,8 +494,11 @@ def get_dataset(data_config: configs.DataConfig, batch_size: int,
     seed = split_seed(data_config, split)
     generator = None if on_device else split_generator(data_config, split)
 
+    rows = mesh.block(bs, num_processes, process_index)
+
     def make(batch_index: int) -> DataDict:
       indices, mask = _indices_and_mask(bs, num_examples, batch_index)
+      indices, mask = indices[rows], mask[rows]
       if generator is not None:
         batch = make_examples(generator, indices, data_config, mode)
         batch['batch_mask'] = mask

@@ -45,6 +45,14 @@ a semantic head's experiment on 'val-synthetic'). One JSON line per city
 gives the dump's summary (``evaluator.summarize_dump``), its data path, step, wall time,
 build ms and TF32 settings. An f32 eval config runs with TF32 off in
 cuDNN and in matmuls.
+
+Under ``torchrun`` (``parallel/mesh.py``) each process evaluates its block
+of every global batch (``--batch_size`` must divide over the ranks); the
+per-example metrics are gathered in example order on every rank, and rank
+0 alone writes the dumps and prints:
+
+    torchrun --nproc_per_node=2 -m snap_tpu_torch.evaluate \\
+        --eval_config=eval_localization --batch_size=4 --workdir=<experiment>
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from snap_tpu_torch import evaluator
 from snap_tpu_torch.evaluator import build_model
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import bev_localizer
+from snap_tpu_torch.parallel import mesh
 
 def on_device_flag(value: str) -> Optional[bool]:
   """The CLIs' ``--on_device_generation`` value as the config's field."""
@@ -157,15 +166,21 @@ def evaluate(config_name: str = 'bench_full', num_queries: int = 4,
     for key, value in values.items():
       recalls.setdefault(key, []).extend(
           value[mask > 0].float().cpu().tolist())
+  if mesh.active():  # every rank's examples
+    gathered = mesh.all_gather_objects(recalls)
+    recalls = {key: [v for of_rank in gathered for v in of_rank[key]]
+               for key in recalls}
   kind = dataset.meta_data['generator_kind']
   dump = None
   if workdir is not None:
     location = data.locations.evaluation or data.locations.training
     dump = pathlib.Path(workdir) / 'evaluation' / f'{location}{tag}'
-    evaluator.write_eval_dump(dump, results, {
-        'config_name': config_name, 'config': config, 'data': data,
-        'seed': seed, 'params_npz': params_npz,
-        'data_generator_kind': kind})
+    if mesh.is_lead():
+      evaluator.write_eval_dump(dump, results, {
+          'config_name': config_name, 'config': config, 'data': data,
+          'seed': seed, 'params_npz': params_npz,
+          'data_generator_kind': kind})
+    mesh.barrier()
   pos = results['error_max_meter']
   table = None
   if profile:
@@ -253,6 +268,14 @@ def main(argv=None) -> None:
   parser.add_argument('--profile', action='store_true',
                       help="print the last batch's per-op profile")
   args = parser.parse_args(argv)
+  process = mesh.init(args.device)
+  try:
+    _main(parser, args, str(process.device), process.rank == 0)
+  finally:
+    mesh.shutdown()
+
+
+def _main(parser, args, device: str, lead: bool) -> None:
   if args.eval_config is not None:
     if args.config is not None or args.workdir is None:
       parser.error('--eval_config takes --workdir and no --config')
@@ -262,15 +285,18 @@ def main(argv=None) -> None:
       torch.backends.cudnn.allow_tf32 = False
     logging.basicConfig(level=logging.INFO)
     for city, (results, record) in evaluator.run(
-        eval_config, device=args.device).items():
-      print(json.dumps(city_summary(city, results, record)), flush=True)
+        eval_config, device=device).items():
+      if lead:
+        print(json.dumps(city_summary(city, results, record)), flush=True)
     return
   result = evaluate(args.config or 'bench_full', args.num_queries,
-                    args.device, args.seed, args.batch_size or 1,
+                    device, args.seed, args.batch_size or 1,
                     args.params_npz, profile=args.profile,
                     on_device_generation=on_device_flag(
                         args.on_device_generation),
                     workdir=args.workdir, tag=args.tag)
+  if not lead:
+    return
   if result['profile'] is not None:
     print(result['profile'])
   for i, (dt, dr) in enumerate(zip(result['position_error_m'],

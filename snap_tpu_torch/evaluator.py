@@ -21,11 +21,18 @@ are packed by ``pack_localization_metrics``, the semantic head's by its
 own ``pack_evaluation_metrics``; the occupancy head has no packing, as in
 the reference (it is evaluated in the trainer's loop). ``compute_recall``
 gives the recall curve.
+
+Over the ranks of the mesh's data axis (``parallel/mesh.py``), each rank
+evaluates its block of each eval batch (``snap_tpu/evaluator.py:108-120``,
+``:183-192``), its padded rows masked as in one process; the per-example
+rows are gathered in global example order, so every rank holds the
+one-process results, and rank 0 alone writes the dump.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import logging
@@ -43,6 +50,7 @@ from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import base
 from snap_tpu_torch.models import bev_localizer
 from snap_tpu_torch.models import semantic_net
+from snap_tpu_torch.parallel import mesh
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.utils import geometry
 
@@ -163,11 +171,19 @@ def eval_on_dataset(model, dataset: loader.Dataset, batch_size: int,
   k + 1 has been dispatched. The forward of step k, and nothing else, runs
   inside ``step_context(k)`` (a caller's timer or profiler); the metrics
   follow it, and ``on_batch(k, batch, pred, metrics)`` then sees the
-  batch, predictions and ``loss_metrics_function``'s metrics.
+  batch, predictions and ``loss_metrics_function``'s metrics. Under a
+  process group ``batch_size`` is the global one: each rank runs its block, draws
+  (the RANSAC backend's pose samples) for the global batch and takes its
+  rows, and the rows of every rank are gathered, batch by batch in rank
+  order: the global example order.
   """
   num_examples = dataset.meta_data['num_eval_examples']
   num_steps = -(-num_examples // batch_size)
   rows = []
+  kwargs = {}
+  if mesh.active() and 'batch_rows' in inspect.signature(
+      model.forward).parameters:
+    kwargs['batch_rows'] = (mesh.block(batch_size).start, batch_size)
 
   def drain(metrics, host, done):
     if done is not None:
@@ -179,8 +195,8 @@ def eval_on_dataset(model, dataset: loader.Dataset, batch_size: int,
     if 'pair_id' in host:
       metrics['vehicle_query'] = host['query/vehicle_type']
       metrics['pair_id'] = host['pair_id']
-    rows.extend({k: v[i] for k, v in metrics.items()}
-                for i in np.flatnonzero(mask))
+    rows.append([{k: v[i] for k, v in metrics.items()}
+                 for i in np.flatnonzero(mask)])
 
   pending = None
   for step in range(num_steps):
@@ -188,7 +204,7 @@ def eval_on_dataset(model, dataset: loader.Dataset, batch_size: int,
     host = batch.pop('_host', {})
     with torch.inference_mode():
       with step_context(step):
-        pred = model(batch, generator=generator)
+        pred = model(batch, generator=generator, **kwargs)
       losses, metrics = model.loss_metrics_function(pred, batch)
       packed = pack_metrics(model, metrics, losses, batch, pred)
     fetched, done = _fetch({**packed, 'batch_mask': batch['batch_mask']})
@@ -199,6 +215,9 @@ def eval_on_dataset(model, dataset: loader.Dataset, batch_size: int,
     pending = (fetched, host, done)
   if pending is not None:
     drain(*pending)
+  ranks = mesh.all_gather_objects(rows)
+  rows = [row for step in range(num_steps) for of_rank in ranks
+          for row in of_rank[step]]
   return {k: np.stack([row[k] for row in rows]) for k in rows[0]}
 
 
@@ -336,8 +355,11 @@ def run_for_location(location: str, eval_config: configs.EvalConfig,
   record['matmul_allow_tf32'] = torch.backends.cuda.matmul.allow_tf32
   record['build_ms'] = [build.wall_ms for build in builds]
   record['build_card_ms'] = [build.card_ms for build in builds]
-  write_eval_dump(eval_path, results, record)
-  log.info('Evaluation results written to %s.', eval_path)
+  record['num_processes'] = mesh.world_size()
+  if mesh.is_lead():
+    write_eval_dump(eval_path, results, record)
+    log.info('Evaluation results written to %s.', eval_path)
+  mesh.barrier()
   return results, record
 
 

@@ -129,13 +129,17 @@ class BEVLocalizer(nn.Module):
   def forward(self, data: Dict[str, Any], train: bool = False,
               generator: Optional[torch.Generator] = None,
               draws: Optional[bev_mapper.TrainDraws] = None,
-              pose_samples: Optional[geometry.Transform2D] = None
+              pose_samples: Optional[geometry.Transform2D] = None,
+              batch_rows: Optional[Tuple[int, int]] = None
               ) -> Dict[str, Any]:
     """Localize the query in the map. With ``train``, the mapper's z jitter
     and modality dropout apply, from ``draws`` or else drawn on
     ``generator`` (a CPU ``torch.Generator``). The RANSAC backend draws its
     ``[B, num_pose_samples]`` pose hypotheses on ``generator`` too, unless
-    they are given as ``pose_samples``."""
+    they are given as ``pose_samples``; with ``batch_rows`` = (first, size)
+    the batch is rows ``first ..`` of a global batch of ``size`` (a rank's
+    block), and they are drawn for the global batch and these rows
+    taken."""
     query = data['query']
     batch = query['images'].shape[0]
     device = query['images'].device
@@ -160,7 +164,8 @@ class BEVLocalizer(nn.Module):
                                          conf_q))
       return pred
     pred.update(self._poses_sampled(plane_q, plane_map, q_xy_p, m_t_q_gt,
-                                    generator, pose_samples, conf_q))
+                                    generator, pose_samples, conf_q,
+                                    batch_rows))
     return pred
 
   def _point_scores(self, plane_q, plane_map, conf_q=None
@@ -193,7 +198,8 @@ class BEVLocalizer(nn.Module):
     return sim / num_valid, prob / num_valid, valid_points
 
   def _poses_sampled(self, plane_q, plane_map, q_xy_p, m_t_q_gt, generator,
-                     pose_samples, conf_q=None) -> Dict[str, Any]:
+                     pose_samples, conf_q=None, batch_rows=None
+                     ) -> Dict[str, Any]:
     """PDF-RANSAC hypotheses, B4 scoring, the best refined on a lattice."""
     out: Dict[str, Any] = {}
     b = plane_map.features.shape[0]
@@ -205,7 +211,8 @@ class BEVLocalizer(nn.Module):
                          'pose samples, or pose_samples')
       pose_samples = pose_estimation.sample_transforms_ransac(
           prob, q_xy_p, self.config.num_pose_samples,
-          self.config.num_pose_sampling_retries, self.grid_map, generator)
+          self.config.num_pose_sampling_retries, self.grid_map, generator,
+          batch_rows=batch_rows)
     del prob
     m_t_q = pose_samples
     if m_t_q_gt is not None:

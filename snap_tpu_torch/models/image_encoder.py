@@ -2,9 +2,14 @@
 
 Port of ``snap_tpu/models/image_encoder.py``. The input is padded up to the
 coarsest stride and every level is cropped back to ``ceil(input / stride)``.
-The x2 upsampling is ``F.interpolate(bilinear, align_corners=False)``, which
-equals ``jax.image.resize(..., 'bilinear')`` on octave steps, borders
-included (tests/test_torch_encoders.py holds the two against each other).
+The x2 upsampling is bilinear with half-pixel centres, as
+``jax.image.resize(..., 'bilinear')`` is on octave steps, borders included
+(tests/test_torch_encoders.py and tests/test_torch_upsample.py hold the two
+against each other). It is written from shifted slices, so that its
+backward is slicing and sums in a fixed order: ``F.interpolate``'s CUDA
+backward (``upsample_bilinear2d_backward``) adds with atomics, and
+``F.pad(mode='replicate')``'s too, so neither gives the same gradient on
+every run (ROADMAP C20).
 """
 
 from __future__ import annotations
@@ -29,11 +34,26 @@ def pad_to_multiple(images: Tensor, stride: int) -> Tensor:
   return F.pad(images, (0, 0, 0, pad_w, 0, pad_h))
 
 
+def _upsample_axis(x: Tensor, axis: int) -> Tensor:
+  """x2 along ``axis`` with half-pixel centres: output 2k is 0.75 x[k] +
+  0.25 x[k - 1], output 2k + 1 is 0.75 x[k] + 0.25 x[k + 1], the
+  neighbour clamped at the edges (where the two terms are the same row)."""
+  n = x.shape[axis]
+  before = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], axis)
+  after = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)],
+                    axis)
+  even = 0.75 * x + 0.25 * before
+  odd = 0.75 * x + 0.25 * after
+  return torch.stack([even, odd], axis + 1).flatten(axis, axis + 1)
+
+
 def upsample2x(coarse: Tensor) -> Tensor:
-  """Bilinear x2 upsampling of an NHWC tensor."""
-  y = F.interpolate(coarse.permute(0, 3, 1, 2), scale_factor=2,
-                    mode='bilinear', align_corners=False)
-  return y.permute(0, 2, 3, 1)
+  """Bilinear x2 upsampling of an NHWC tensor (half-pixel centres, edges
+  clamped), rows then columns in f32, rounded once to the input's dtype.
+  Its backward is the transposed stencil, formed by autograd from slices,
+  ``cat``, ``stack`` and sums: no atomics, the same bits on every run."""
+  x = coarse.float()
+  return _upsample_axis(_upsample_axis(x, 1), 2).to(coarse.dtype)
 
 
 class FPNDecoder(nn.Module):

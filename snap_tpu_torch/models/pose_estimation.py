@@ -68,7 +68,8 @@ def sample_sparse_query_points(
 
 
 def sample_categorical(probs: Tensor, num: int,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       batch_rows: Optional[Tuple[int, int]] = None
                        ) -> Tensor:
   """``num`` draws with replacement from each row of ``probs [B, M]``.
 
@@ -79,11 +80,14 @@ def sample_categorical(probs: Tensor, num: int,
   categories behind that point could not be drawn (ROADMAP C14).
   ``torch.multinomial`` refuses more than 2^24 categories. The uniforms
   are drawn on ``generator`` (CPU); the returned indices are int64 on
-  ``probs``' device.
+  ``probs``' device. ``batch_rows`` = (first, size): ``probs`` holds rows
+  ``first ..`` of a global batch of ``size`` (a rank's block), and the
+  uniforms are drawn for the global batch and these rows taken.
   """
   b, m = probs.shape
-  u = torch.rand((b, num), generator=generator, dtype=torch.float64)
-  u = u.to(probs.device)
+  first, size = (0, b) if batch_rows is None else batch_rows
+  u = torch.rand((size, num), generator=generator, dtype=torch.float64)
+  u = u[first:first + b].to(probs.device)
   out = []
   for row in range(b):  # one f64 prefix sum (M x 8 bytes) at a time
     cdf = torch.cumsum(probs[row].to(torch.float64), 0)
@@ -134,6 +138,7 @@ def sample_transforms_ransac(
     prob_points: Tensor, i_xy_p: Tensor, num_poses: int, num_retries: int,
     grid: grids.Grid2D, generator: Optional[torch.Generator] = None,
     indices: Optional[Tensor] = None,
+    batch_rows: Optional[Tuple[int, int]] = None,
 ) -> geometry.Transform2D:
   """Poses from 2-point correspondences drawn from the match PDF.
 
@@ -148,6 +153,8 @@ def sample_transforms_ransac(
       ``indices`` are given.
     indices: ``[B, P * R * 2]`` flat indices into ``[N, H, W]``, as
       ``jax.random.choice`` returns them.
+    batch_rows: (first, size) where the batch is a rank's block of a global
+      batch (``sample_categorical``).
 
   Returns:
     ``j_t_i`` poses with batch shape ``[B, P]``.
@@ -155,7 +162,8 @@ def sample_transforms_ransac(
   b, n, h, w = prob_points.shape
   if indices is None:
     indices = sample_categorical(prob_points.reshape(b, -1),
-                                 num_poses * num_retries * 2, generator)
+                                 num_poses * num_retries * 2, generator,
+                                 batch_rows)
   indices = indices.to(prob_points.device).long()
   point, cell = indices // (h * w), indices % (h * w)
   pool_shape = (b, num_poses, num_retries, 2, 2)

@@ -7,8 +7,8 @@ PyTorch's headers. The library lands in ``build/kernels/`` at the repo root
 (listed in ``.gitignore``), named by a hash of the sources, on first use.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty`` (``torch.zeros`` for K3's f32 accumulation
-buffer and counts; K4's C side zeroes its own), launches on the current
+outputs with ``torch.empty`` (``torch.zeros`` for K3's counts; K4's C side
+zeroes its own), launches on the current
 CUDA stream, raises on a non-zero ``cudaError_t``, and adds one to its
 count in ``LAUNCHES``.
 """
@@ -159,8 +159,8 @@ def load_library() -> ctypes.CDLL:
                        ctypes.c_float)
   lib.lift_topk_fwd.argtypes = [vp] * 7 + [i32] * 14 + [f32] * 3 + [vp]
   lib.patch_sample_2d.argtypes = [vp] * 6 + [i32] * 9 + [vp]
-  lib.lift_topk_bwd.argtypes = [vp] * 15 + [i32] * 15 + [f32] * 3 + [vp]
-  lib.patch_sample_2d_bwd.argtypes = [vp] * 8 + [i32] * 7 + [vp]
+  lib.lift_topk_bwd.argtypes = [vp] * 18 + [i32] * 15 + [f32] * 3 + [vp]
+  lib.patch_sample_2d_bwd.argtypes = [vp] * 10 + [i32] * 8 + [vp]
   lib.pose_scoring.argtypes = [vp] * 8 + [i32] * 5 + [f32] + [i32] * 3 + [vp]
   lib.pose_scoring_bwd.argtypes = [vp] * 8 + [i32] * 5 + [f32, i32, i32, vp]
   lib.slice_gather.argtypes = [vp] * 3 + [i64] + [i32] * 3 + [vp]
@@ -340,10 +340,14 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   """K3 on the card: ``d stack`` (stack dtype) from ``g_stats`` = d stats.
 
   Scratch allocated here for the kernel's stages: per bin (example, view,
-  lower-tap pixel) its count and first slot; per rank its place in its
-  bin; per point a place on the list of points with more than 4 selected
-  ranks; and per selected rank a record, its bin and its f32 ``d f`` row
-  (``selected * dim * 4`` bytes, 4.4 GB on the training path).
+  lower-tap pixel) its count, first slot and f32 piece of its 4 taps'
+  sums; per rank its place in its bin; per point a place on the list of
+  points with more than 4 selected ranks; per selected rank a record, its
+  bin, its key (which orders its bin's slots) and its f32 ``d f`` row
+  (``selected * dim * 4`` bytes, 4.4 GB on the training path); per block
+  of 512 of them a piece. Every entry of ``d stack`` is summed in one order
+  fixed by the inputs (``csrc/lift_topk_bwd.cu``): two calls give the same
+  bits.
 
   ``selected`` is the count of selected ranks, ``select.sum()``, which
   sizes that scratch; None counts them here (a wait for the card). No stage
@@ -378,9 +382,13 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   within = torch.empty((ranks,), dtype=torch.int32, device=dev)
   wide = torch.empty((b * n,), dtype=torch.int32, device=dev)
   slot_bins = torch.empty((selected,), dtype=torch.int32, device=dev)
+  keys = torch.empty((selected,), dtype=torch.int32, device=dev)
   records = torch.empty((selected, 4), dtype=torch.float32, device=dev)
   d_f = torch.empty((selected, dim), dtype=torch.float32, device=dev)
-  grad = torch.zeros((b, r, wp, c), dtype=torch.float32, device=dev)
+  partial = torch.empty((bins, 4, c), dtype=torch.float32, device=dev)
+  heads = torch.empty((-(-selected // LIFT_BWD_CHUNK), 4, c),
+                      dtype=torch.float32, device=dev)
+  grad = torch.empty((b, r, wp, c), dtype=stack.dtype, device=dev)
   found = torch.empty((1,), dtype=torch.int32, pin_memory=True)
   lo, hi = depth_min_max
   lib = load_library()
@@ -390,7 +398,8 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
       select.data_ptr(), depth.data_ptr(), g_stats.data_ptr(),
       grad.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
       within.data_ptr(), d_f.data_ptr(), records.data_ptr(),
-      slot_bins.data_ptr(), wide.data_ptr(), found.data_ptr(),
+      slot_bins.data_ptr(), keys.data_ptr(), partial.data_ptr(),
+      heads.data_ptr(), wide.data_ptr(), found.data_ptr(),
       _DTYPE_CODES[stack.dtype], b, n, k, r, wp, c, dim, h, w, int(c > dim),
       int(use_variance), int(add_minmax), width, selected, float(lo),
       float(hi), math.log(hi / lo), stream.cuda_stream)
@@ -399,7 +408,14 @@ def lift_topk_bwd(stack: Tensor, view_idx: Tensor, p2d: Tensor,
   done = torch.cuda.Event()
   done.record(stream)
   _LIFT_COUNTS.append((selected, found, done))
-  return grad.to(stack.dtype)
+  return grad
+
+
+# K3's run stage takes 512 ordered slots a block (csrc/lift_topk_bwd.cu:
+# kChunk), each block a piece of scratch; K4's run stage at most this many
+# walkers, each a piece (the card keeps ~67k resident at D = 32 in bf16).
+LIFT_BWD_CHUNK = 512
+K4_MAX_WALKERS = 1 << 17
 
 
 def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
@@ -408,9 +424,13 @@ def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
   zero on the validity channel, from ``g_values`` = d values.
 
   Scratch allocated here for the kernel's stages (it zeroes what it needs
-  zeroed): per bin (example, lower-tap cell) its count and first slot; per
-  point its place in its bin and its 16-byte record in the sorted order;
-  the f32 accumulator of the plane's D channels rounded up to 4.
+  zeroed): per bin (example, lower-tap cell) its count, first slot and f32
+  piece of its 4 taps' sums (D channels rounded up to 4); per point its
+  place in its bin, its key (which orders its bin's slots) and its 16-byte
+  record;
+  a piece per walker of the run stage (at most ``K4_MAX_WALKERS``). Every
+  entry is summed in one order fixed by the inputs
+  (``csrc/patch_sample_2d_bwd.cu``): two calls give the same bits.
   """
   if g_values.device.type != 'cuda':
     raise ValueError(
@@ -429,19 +449,25 @@ def patch_sample_2d_bwd(g_values: Tensor, points: Tensor, *,
   n, bins = b * p, b * (hp - 1) * (wp - 1)
   if not 0 < n < 2**30 or not 0 < bins < 2**30:
     raise ValueError(f'patch_sample_2d_bwd: {n} points, {bins} bins')
-  acc = torch.empty((b, hp, wp, -(-dim // 4) * 4), dtype=torch.float32,
-                    device=dev)
+  dim_padded = -(-dim // 4) * 4
+  walkers = min(K4_MAX_WALKERS, -(-n // 4))
   counts = torch.empty((bins,), dtype=torch.int32, device=dev)
   offsets = torch.empty((bins + 1,), dtype=torch.int32, device=dev)
   within = torch.empty((n,), dtype=torch.int32, device=dev)
+  keys = torch.empty((n,), dtype=torch.int32, device=dev)
   records = torch.empty((n, 4), dtype=torch.int32, device=dev)
+  partial = torch.empty((bins, 4, dim_padded), dtype=torch.float32,
+                        device=dev)
+  heads = torch.empty((walkers, 4, dim_padded), dtype=torch.float32,
+                      device=dev)
   grad = torch.empty(plane_shape, dtype=g_values.dtype, device=dev)
   lib = load_library()
   code = lib.patch_sample_2d_bwd(
       g_values.data_ptr(), points.data_ptr(), grad.data_ptr(),
-      acc.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-      within.data_ptr(), records.data_ptr(), _DTYPE_CODES[g_values.dtype], b,
-      p, hp - 1, wp - 1, c, dim, torch.cuda.current_stream(dev).cuda_stream)
+      counts.data_ptr(), offsets.data_ptr(), within.data_ptr(),
+      keys.data_ptr(), records.data_ptr(), partial.data_ptr(),
+      heads.data_ptr(), walkers, _DTYPE_CODES[g_values.dtype], b, p, hp - 1,
+      wp - 1, c, dim, torch.cuda.current_stream(dev).cuda_stream)
   _raise_on_error(code, 'patch_sample_2d_bwd')
   LAUNCHES['patch_sample_2d_bwd'] += 1
   return grad

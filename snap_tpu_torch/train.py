@@ -15,6 +15,8 @@ mapper, in resumable chunks.
         --workdir=workdirs/occupancy --stop_at_step=1000
     python -m snap_tpu_torch.train --config=smoke_semantics --num_steps=3 \\
         --device=cpu
+    torchrun --nproc_per_node=2 -m snap_tpu_torch.train \\
+        --config=train_full1chip_exhaustive:batch_size=4 --workdir=workdirs/dp
 
 ``train_full1chip_exhaustive`` is the flagship run (dense pose volume);
 ``train_full1chip_ransac`` is the reference's default backend, whose loss
@@ -56,6 +58,15 @@ seconds and the trace's split. Summaries and evals go to the log.
 ``--profile`` runs the last step under ``torch.profiler`` and prints its
 per-op table, sorted by device time. The default device is ``cuda``; there
 is no fallback to the CPU when no card is found.
+
+Under ``torchrun`` each process is a rank of the mesh's data axis
+(``parallel/mesh.py``: ``cuda:LOCAL_RANK`` and NCCL where each rank has a
+card, the cards shared and gloo where there are fewer, gloo on the CPU):
+each builds its block of every global batch (``batch_size`` is global and
+must divide over the ranks) and takes the step one process would take on
+the global batch; rank 0 alone writes ``config.json``, the checkpoints and
+summaries and prints the JSON lines. A resumed run folds its step into the
+data seed on every rank alike.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ from snap_tpu_torch import configs
 from snap_tpu_torch import evaluate
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import base
+from snap_tpu_torch.parallel import mesh
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import trainer
 from snap_tpu_torch.utils import prng
@@ -114,8 +126,11 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
     workdir = WORKDIRS / f'torch_{configs.parse_config_name(name)[0]}'
   workdir = pathlib.Path(workdir)
   workdir.mkdir(parents=True, exist_ok=True)
+  axes = mesh.make_mesh(dataclasses.asdict(config.mesh))
   record = configs.to_reference(config)
-  config_save(workdir, record)
+  lead = mesh.is_lead()
+  if lead:
+    config_save(workdir, record)
   data = dataclasses.replace(config.data,
                              on_device_generation=on_device_generation)
   start_step = (checkpoints.latest_step(workdir) if config.train.checkpoint
@@ -131,9 +146,11 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
   model.train()
   with loader.get_dataset(data, config.batch_size,
                           eval_batch_size=config.train.eval_batch_size,
-                          device=device, start_step=start_step) as dataset:
+                          device=device, start_step=start_step,
+                          num_processes=axes['data']) as dataset:
     record['data_generator_kind'] = dataset.meta_data['generator_kind']
-    config_save(workdir, record)
+    if lead:
+      config_save(workdir, record)
     result = trainer.train(config, model, dataset, workdir, seed=seed,
                            stop_at_step=stop_at_step, num_steps=num_steps,
                            on_step=on_step, profile=profile)
@@ -147,6 +164,7 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
       'build_ms': [build.wall_ms for build in builds],
       'build_card_ms': [build.card_ms for build in builds],
       'workdir': str(workdir),
+      'mesh': axes, 'rank': mesh.rank(),
   }
 
 
@@ -171,18 +189,32 @@ def main(argv=None) -> None:
                       help="print the last step's per-op profile")
   args = parser.parse_args(argv)
   logging.basicConfig(level=logging.INFO)
+  process = mesh.init(args.device)
+  try:
+    _main(args, process)
+  finally:
+    mesh.shutdown()
+
+
+def _main(args, process: mesh.Process) -> None:
+  lead = process.rank == 0
 
   def print_step(step: int, out: trainer.StepOutput) -> None:
+    if not lead:
+      return
     line = {'step': step, **out.logs,
             **{k: v for k, v in trainer.summarize([out.metrics]).items()
                if k.startswith('loss/')}}
     print(json.dumps(line), flush=True)
 
-  result = train(args.config, args.num_steps, args.device, args.seed,
-                 args.workdir, on_step=print_step, profile=args.profile,
+  result = train(args.config, args.num_steps, str(process.device),
+                 args.seed, args.workdir, on_step=print_step,
+                 profile=args.profile,
                  on_device_generation=evaluate.on_device_flag(
                      args.on_device_generation),
                  stop_at_step=args.stop_at_step)
+  if not lead:
+    return
   if result['profile'] is not None:
     print(result['profile'])
   print(json.dumps({
@@ -190,7 +222,7 @@ def main(argv=None) -> None:
           'config', 'device', 'generator_kind', 'start_step', 'stop_step',
           'shuffle_seed', 'step_seconds', 'wall_seconds', 'build_ms',
           'build_card_ms', 'train_summary', 'eval_summary', 'checkpoints',
-          'restore_seconds', 'trace', 'workdir')}))
+          'restore_seconds', 'trace', 'workdir', 'mesh')}))
 
 
 if __name__ == '__main__':

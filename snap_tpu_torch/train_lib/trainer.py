@@ -24,12 +24,32 @@ checkpoints keep the scale; bf16 and f32 have none. Metrics are reduced to
 ``(sum, count)`` pairs, masked by ``batch_mask`` and finiteness. There is
 no autocast, in any dtype: the modules cast to their compute dtype
 themselves.
+
+Over the ranks of the mesh's data axis (``parallel/mesh.py``), each rank
+holds its block of the global batch and computes the step one process
+computes on the global batch. The reference's loss is one masked mean over
+the global batch (``snap_tpu/train_lib/trainer.py:200``,
+``losses['total'].mean(where=batch['batch_mask'] > 0)``); here each rank's
+loss is the sum of its masked example losses over the count of masked
+examples of the whole batch (all-reduced), and the gradients are summed
+over the ranks (one all-reduce of a flat f32 buffer after the backward),
+so the sum is the gradient of that global mean whatever rows each rank's
+``batch_mask`` keeps (an average over the ranks, DDP's default, would
+weigh a rank's rows by its own count). The global norm, clipping, Adam,
+the finiteness verdict and the loss scale then see the same gradients on
+every rank, whose parameters stay equal. The training draws (z jitter,
+modality dropout, flips, the RANSAC backend's pose samples) are drawn for
+the global batch from the step's generator, and each rank takes its rows;
+the metrics' (sum, count) pairs are summed over the ranks. Rank 0 alone
+writes checkpoints, summaries, the progress note and the trace, and every
+rank waits for each checkpoint and meets the others at the end.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import logging
 import math
@@ -44,6 +64,7 @@ from snap_tpu_torch import configs
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import base
 from snap_tpu_torch.models import bev_mapper
+from snap_tpu_torch.parallel import mesh
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import dynamic_scale as dynamic_scale_lib
 from snap_tpu_torch.train_lib import optimizers
@@ -69,9 +90,9 @@ class StepOutput(NamedTuple):
   metrics: AggregatedMetrics
   logs: Dict[str, float]
   grads: Dict[str, Tensor]  # by parameter name, before clipping
-  draws: bev_mapper.TrainDraws
+  draws: bev_mapper.TrainDraws  # the global batch's
   # The RANSAC backend's sampled poses [B, num_pose_samples], without the
-  # GT pose; None on the exhaustive backend.
+  # GT pose (this rank's rows); None on the exhaustive backend.
   pose_samples: Optional[geometry.Transform2D] = None
 
 
@@ -103,12 +124,17 @@ def step_generator(state: TrainState) -> torch.Generator:
 
 def reduce_metrics(metrics: Dict[str, Tensor], mask: Tensor
                    ) -> AggregatedMetrics:
-  """Per-example metrics -> (sum, count), masked by ``mask`` & finiteness."""
+  """Per-example metrics -> (sum, count), masked by ``mask`` & finiteness,
+  summed over the ranks."""
   out = {}
   for key, value in metrics.items():
     value = value.detach().float()
     metric_mask = mask * torch.isfinite(value)
     out[key] = ((value * metric_mask).sum(), metric_mask.sum())
+  if mesh.active():
+    summed = iter(mesh.all_reduce_sum([t for pair in out.values()
+                                       for t in pair]))
+    out = {key: (next(summed), next(summed)) for key in out}
   return out
 
 
@@ -123,16 +149,52 @@ def summarize(accumulated: List[AggregatedMetrics]) -> Dict[str, float]:
 
 def loss_and_metrics(model: base.Model, batch: Dict[str, Any],
                      train: bool, generator=None, draws=None,
-                     pose_samples=None):
+                     pose_samples=None, batch_rows=None):
   """(masked-mean loss, per-example losses, metrics, predictions).
-  ``pose_samples`` goes to the localizer's RANSAC backend alone."""
+  ``pose_samples`` goes to the localizer's RANSAC backend alone, and so
+  does ``batch_rows`` (this rank's first row and the global batch size,
+  whose rows its pose samples are drawn for). Under a process group the loss
+  is this rank's share of the global batch's masked mean: its masked sum
+  over the global count."""
   kwargs = {} if pose_samples is None else {'pose_samples': pose_samples}
+  if batch_rows is not None:
+    kwargs['batch_rows'] = batch_rows
   pred = model(batch, train=train, generator=generator, draws=draws,
                **kwargs)
   losses, metrics = model.loss_metrics_function(pred, batch)
   mask = batch['batch_mask'] > 0
-  loss = losses['total'][mask].mean()
+  if not mesh.active():
+    loss = losses['total'][mask].mean()
+  else:
+    count, = mesh.all_reduce_sum([mask.sum().float()])
+    loss = losses['total'][mask].sum() / count
   return loss, losses, metrics, pred
+
+
+def _rows_of_batch(batch: Dict[str, Any]):
+  """This rank's rows of the global batch: (slice, global size), None
+  without a process group."""
+  if not mesh.active():
+    return None
+  world = mesh.world_size()
+  local = batch['batch_mask'].shape[0]
+  return mesh.block(local * world), local * world
+
+
+def _draw_rows(model: base.Model):
+  """Whether ``model``'s forward takes ``batch_rows`` (it draws per row)."""
+  return 'batch_rows' in inspect.signature(model.forward).parameters
+
+
+def local_draws(draws: bev_mapper.TrainDraws, rows: slice
+                ) -> bev_mapper.TrainDraws:
+  """A rank's rows of the global batch's draws (``modality_keep`` is
+  ``[M, B]``; the others lead with the batch)."""
+  take = lambda x, axis=0: None if x is None else x.narrow(
+      axis, rows.start, rows.stop - rows.start)
+  return bev_mapper.TrainDraws(z_jitter=take(draws.z_jitter),
+                               modality_keep=take(draws.modality_keep, 1),
+                               flips=take(draws.flips))
 
 
 def apply_gradients(params: List[Tensor], grads: List[Tensor],
@@ -168,8 +230,9 @@ def train_step(state: TrainState, batch: Dict[str, Any],
   """One step: forward (train), backward, clip, Adam; updates ``state``.
 
   ``draws`` and ``pose_samples`` (the RANSAC backend's ``[B, P]`` sampled
-  poses, without the GT) inject the forward's random draws; by default
-  they come from the step's generator. With a dynamic loss scale (fp16)
+  poses, without the GT) inject the forward's random draws, each the
+  global batch's (a rank takes its rows); by default they come from the
+  step's generator. With a dynamic loss scale (fp16)
   the backward takes the loss times the scale, the gradients are cast to
   f32 and divided by it, and the scale's step follows whether they are all
   finite (``DynamicScale.value_and_grad``): the same check that skips the
@@ -179,13 +242,26 @@ def train_step(state: TrainState, batch: Dict[str, Any],
   model = state.model
   names = [n for n, _ in model.named_parameters()]
   params = [p for _, p in model.named_parameters()]
+  generator = step_generator(state)
+  rows = _rows_of_batch(batch)
+  local, batch_rows = draws, None
+  if rows is not None:
+    if draws is None:
+      draws = model.sample_draws(rows[1], generator,
+                                 batch['batch_mask'].device)
+    local = local_draws(draws, rows[0])
+    if pose_samples is not None:
+      pose_samples = pose_samples[rows[0]]
+    if _draw_rows(model):
+      batch_rows = (rows[0].start, rows[1])
   loss, losses, metrics, pred = loss_and_metrics(
-      model, batch, True, step_generator(state), draws, pose_samples)
+      model, batch, True, generator, local, pose_samples, batch_rows)
   scale = state.dynamic_scale
   grads = torch.autograd.grad(loss if scale is None else loss * scale.scale,
                               params, allow_unused=True)
   grads = [torch.zeros_like(p) if g is None else g
            for g, p in zip(grads, params)]
+  grads = mesh.all_reduce_sum(grads)
   if scale is not None:
     grads = [g.float() / scale.scale for g in grads]
   logs = apply_gradients(params, grads, state, optimizer)
@@ -197,16 +273,22 @@ def train_step(state: TrainState, batch: Dict[str, Any],
   samples = pred.get('map_t_query_samples')
   return StepOutput(
       metrics=reduce_metrics(metrics, batch['batch_mask']), logs=logs,
-      grads=dict(zip(names, grads)), draws=pred['draws'],
+      grads=dict(zip(names, grads)),
+      draws=pred['draws'] if rows is None else draws,
       pose_samples=None if samples is None else samples[:, 1:])
 
 
 def eval_step(model: base.Model, batch: Dict[str, Any],
               generator: torch.Generator) -> AggregatedMetrics:
   """The forward at ``train=False`` and its metrics and losses
-  (``loss/<name>``) as (sum, count) pairs (``trainer.py:eval_step``)."""
+  (``loss/<name>``) as (sum, count) pairs (``trainer.py:eval_step``),
+  summed over the ranks."""
+  rows = _rows_of_batch(batch)
+  batch_rows = (rows[0].start, rows[1]) if rows and _draw_rows(model) else (
+      None)
   with torch.no_grad():
-    _, losses, metrics, _ = loss_and_metrics(model, batch, False, generator)
+    _, losses, metrics, _ = loss_and_metrics(model, batch, False, generator,
+                                             batch_rows=batch_rows)
   for key, value in losses.items():
     metrics[f'loss/{key}'] = value
   return reduce_metrics(metrics, batch['batch_mask'])
@@ -445,7 +527,8 @@ def train(config: configs.Config, model: base.Model,
       -dataset.meta_data['num_eval_examples'] // eval_batch_size)
   trace_first = start_step + TRACE_AFTER + 1
   trace_last = trace_first + NUM_TRACE_STEPS - 1
-  if not tc.xprof or trace_last > stop_step - int(profile):
+  lead = mesh.is_lead()
+  if not tc.xprof or trace_last > stop_step - int(profile) or not lead:
     trace_first = trace_last = -1
   activities = [torch.profiler.ProfilerActivity.CPU]
   if device.type == 'cuda':
@@ -486,7 +569,8 @@ def train(config: configs.Config, model: base.Model,
       on_step(step - 1, out)
     del out, batch
     if step == start_step + 1:
-      log.info('First step done: %.1f s elapsed.', chrono.active_walltime())
+      if lead:
+        log.info('First step done: %.1f s elapsed.', chrono.active_walltime())
       chrono.exclude_elapsed(step)
     if step == trace_last:
       _sync(device)
@@ -508,19 +592,20 @@ def train(config: configs.Config, model: base.Model,
       summary['steps_per_sec'] = steps_per_sec
       window = Window()
       result['summaries'][step] = result['train_summary'] = summary
-      log.info('[%d] %s', step, summary)
       total = tc.num_training_steps
       eta = (total - step) / max(steps_per_sec, 1e-9)
-      log.info('Progress: %.1f%% (step %d/%d), %.2f steps/s, ETA %dm.',
-               100 * step / total, step, total, steps_per_sec, eta / 60)
-      try:
-        (workdir / 'progress.json').write_text(json.dumps(dict(
-            step=step, total_steps=total,
-            percent=round(100 * step / total, 2),
-            steps_per_sec=round(steps_per_sec, 4),
-            eta_seconds=round(eta, 1))))
-      except OSError as e:
-        log.warning('Could not write progress note: %s', e)
+      if lead:
+        log.info('[%d] %s', step, summary)
+        log.info('Progress: %.1f%% (step %d/%d), %.2f steps/s, ETA %dm.',
+                 100 * step / total, step, total, steps_per_sec, eta / 60)
+        try:
+          (workdir / 'progress.json').write_text(json.dumps(dict(
+              step=step, total_steps=total,
+              percent=round(100 * step / total, 2),
+              steps_per_sec=round(steps_per_sec, 4),
+              eta_seconds=round(eta, 1))))
+        except OSError as e:
+          log.warning('Could not write progress note: %s', e)
       chrono.resume()
 
     if step % log_eval_steps == 0 or step == stop_step:
@@ -532,19 +617,24 @@ def train(config: configs.Config, model: base.Model,
         accumulated.append(eval_step(model, eval_batch,
                                      eval_generator(state.seed, i)))
       result['evals'][step] = result['eval_summary'] = summarize(accumulated)
-      log.info('[%d eval] %s', step, result['eval_summary'])
+      if lead:
+        log.info('[%d eval] %s', step, result['eval_summary'])
       chrono.resume()
 
     if tc.checkpoint and (step % checkpoint_steps == 0 or step == stop_step):
       chrono.pause()
       t0 = time.perf_counter()
-      nbytes = checkpoints.save_checkpoint(
-          workdir, state, step, max_to_keep=tc.max_checkpoints_to_keep)
+      nbytes = None
+      if lead:
+        nbytes = checkpoints.save_checkpoint(
+            workdir, state, step, max_to_keep=tc.max_checkpoints_to_keep)
+      mesh.barrier()  # the others resume from it only once it is written
       result['checkpoints'][step] = {
           'seconds': time.perf_counter() - t0, 'bytes': nbytes}
       chrono.resume()
   if tracer is not None:
     tracer.stop()
+  mesh.barrier()  # every rank meets the others at the end
   if prof is not None:
     result['profile'] = prof.key_averages().table(
         sort_by='cuda_time_total' if device.type == 'cuda'

@@ -1067,8 +1067,9 @@ def test_occupancy_reports_each_launch_of_the_last_call(cuda):
       cuda, torch.bfloat16, 32)
   kernels.patch_sample_2d_bwd(g_values, points, **kwargs)
   names = [o['name'] for o in kernels.occupancy('patch_sample_2d_bwd')]
-  assert names == ['bin_points_kernel', 'scan_kernel', 'place_points_kernel',
-                   'sum_runs_kernel', 'cast_grad_kernel']
+  assert names == ['bin_points_kernel', 'scan_kernel', 'keys_kernel',
+                   'order_bins_kernel', 'place_points_kernel',
+                   'sum_runs_kernel', 'fold_kernel']
   (g, angle, t, sim, xy, valid_points, valid_map), cell = (
       _scoring_bwd_inputs(cuda))
   kernels.pose_scoring_bwd(g, angle, t, xy, valid_points, valid_map,
@@ -1246,6 +1247,80 @@ def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k, case):
   want = view_scan.lift_topk_bwd_plain(*args, g, **kwargs)
   torch.cuda.synchronize()
   assert want.abs().max() > 0.1
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+REPEAT_CALLS = 10
+
+
+def _equal_bits_over_calls(call, calls: int = REPEAT_CALLS):
+  """``call()`` ``calls`` times: every output's bits must be the first's.
+  Returns the first output."""
+  first = call()
+  for i in range(1, calls):
+    again = call()
+    if not torch.equal(again.view(torch.uint8), first.view(torch.uint8)):
+      differ = int((again.float() != first.float()).sum())
+      raise AssertionError(f'call {i + 1} of {calls} differs from the first '
+                           f'in {differ} entries')
+  return first
+
+
+@pytest.mark.parametrize('k', [4, 20])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize('layout', LAYOUTS)
+def test_lift_topk_bwd_repeat_calls_give_equal_bits(cuda, layout, dtype, k):
+  """K3 sums every entry in one order fixed by its inputs (ROADMAP C20):
+  ten calls on one input give the same bits, in every statistics layout
+  and dtype, through the narrow stage and the wide one; and they agree
+  with the plain version as before."""
+  weighted, use_variance, add_minmax = layout
+  args, kwargs = _b8_inputs(cuda, dtype, weighted, k, 'mixed')
+  kwargs.update(use_variance=use_variance, add_minmax=add_minmax)
+  width = kernels.stats_width(32, *layout)
+  g = torch.randn((*args[1].shape[:2], width), device=cuda).to(dtype)
+  (*_, g), _ = chip_smoke.without_near_ties(
+      (*args, chip_smoke.unit_cotangent(g)), kwargs)
+  got = _equal_bits_over_calls(
+      lambda: kernels.lift_topk_bwd(*args, g, **kwargs))
+  want = view_scan.lift_topk_bwd_plain(*args, g, **kwargs)
+  torch.cuda.synchronize()
+  assert want.abs().max() > 0.1
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_lift_topk_bwd_pileup_repeat_calls_give_equal_bits(cuda, dtype):
+  """K3 on a pixel with 4,000 or more ranks, a bin longer than one block
+  of its run stage (its pieces folded in block order), tile and view
+  edges: ten calls give the same bits."""
+  args, g_stats, kwargs = _binned_lift_bwd_inputs(cuda, dtype, 160, 128, 4)
+  got = _equal_bits_over_calls(
+      lambda: kernels.lift_topk_bwd(*args, g_stats, **kwargs))
+  want = view_scan.lift_topk_bwd_plain(*args, g_stats, **kwargs)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got.float(), want.float(),
+                             **BWD_TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize('dim', [17, 32])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize('case', sorted(SAMPLE_BWD_CASES))
+def test_patch_sample_2d_bwd_repeat_calls_give_equal_bits(cuda, case, dtype,
+                                                          dim):
+  """K4 sums every entry in one order fixed by its inputs (ROADMAP C20):
+  ten calls give the same bits at a pile-up of 8,000 points on one cell
+  (split across walkers), the clamped corners and the templates' border."""
+  args, kwargs = SAMPLE_BWD_CASES[case](cuda, dtype, dim)
+  got = _equal_bits_over_calls(
+      lambda: kernels.patch_sample_2d_bwd(*args, **kwargs))
+  want = view_scan.patch_sample_2d_bwd_plain(*args, **kwargs)
+  torch.cuda.synchronize()
   torch.testing.assert_close(got.float(), want.float(),
                              **BWD_TOLERANCES[dtype])
 

@@ -46,8 +46,8 @@ from snap_tpu_torch import train  # noqa: E402
 from snap_tpu_torch.ops import kernels  # noqa: E402
 from snap_tpu_torch.ops import view_scan  # noqa: E402
 
-STAGES = ('count_kernel', 'scan_kernel', 'wide_ranks_kernel', 'ranks_kernel',
-          'runs_kernel')
+# Both trees' stages: the parent's lack those it did not launch.
+STAGES = chip_smoke.K3_STAGES
 ROWS = {
     'flagship': None,
     'stream_minmax': 'stream, [mean, var, max, min, score_max]',
