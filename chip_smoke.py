@@ -1,6 +1,6 @@
 """Drive the port's serving, training, RANSAC, held-out evaluation, bench,
-gather-bench, long-run trainer, head, mapper-option, fp16 and data-parallel
-paths on one NVIDIA GPU (H100).
+gather-bench, long-run trainer, head, mapper-option, fp16, data-parallel
+and tensor-parallel paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -39,8 +39,8 @@ host generator's batch:
    variance, and the scan form's 20 ranks) forward and backward in f32,
    bf16 and f16 (the resources of each bf16 and f16 instantiation), on
    inputs of the same kinds (single-view points, points with no
-   selected rank, repeated ranks for exact ties of every channel), the
-   cotangents of the maxima zeroed at near ties (NEAR_TIE_RTOL); K3 timed
+   selected rank, repeated ranks for exact ties of every channel), every
+   cotangent entry held, near ties too (ROADMAP C10); K3 timed
    on the flagship's seeded input and B8's in bf16, with its device ms by
    launch stage (``torch.profiler``);
 4. serving reference: the tiny ``smoke_exhaustive`` localizer on the card
@@ -258,7 +258,25 @@ host generator's batch:
    (its all-reduces called through the group, K1-K4 launch) and an
    evaluation batch of ``eval_full1chip_exhaustive`` at batch 2 (its rows
    gathered through the group), finite errors. Every child's failure fails
-   the run.
+   the run;
+10. the mesh's model axis (``parallel/tensor.py``): the f32 flagship (TF32
+   off, batch 2), TP_STEPS steps from the weights of seed 0 in this
+   process, its first step's gradient also taken slice by slice (each
+   convolution and dense layer the rule shards computed as its TP_RANKS
+   ranks compute it, no collective: ``_slice_by_slice_grads``); then
+   TP_RANKS gloo ranks sharing the card under ``{data: 1, model:
+   TP_RANKS}`` (child processes), the 225 leaves the rule shards at
+   ``tp_min_dim`` 256 split: their first step's gradient, gathered whole,
+   against the slice-by-slice one to phase 5's shares, each step's against
+   the one process's to ``TP_PLAIN_NORM_RTOL`` of each leaf's norm, the
+   loss to phase 5's tolerance, each parameter within twice the
+   one-process steps' largest move of its leaf, the replicated leaves
+   equal on both ranks bit for bit, K1-K4 launching each step; rank 0's
+   checkpoint (full leaves) restored into one process equals the ranks'
+   parameters bit for bit; then one bf16 step on the ranks (finite, K1-K4).
+   Logged: the sharded leaves and bytes a rank, each rank's step ms (host)
+   and device ms (``torch.profiler``), own peak memory, and the
+   collectives' calls and bytes a step.
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -306,6 +324,8 @@ from snap_tpu_torch.data import loader
 from snap_tpu_torch.data import types as data_types
 from snap_tpu_torch.models import bev_localizer
 from snap_tpu_torch.models import bev_mapper
+from snap_tpu_torch.models import image_encoder
+from snap_tpu_torch.models import layers
 from snap_tpu_torch.models import pose_estimation
 from snap_tpu_torch.models import pose_exhaustive_voting as pev
 from snap_tpu_torch.models import resnet
@@ -313,6 +333,7 @@ from snap_tpu_torch.ops import gathers
 from snap_tpu_torch.ops import kernels
 from snap_tpu_torch.ops import view_scan
 from snap_tpu_torch.parallel import mesh as parallel_mesh
+from snap_tpu_torch.parallel import tensor as tensor_parallel
 from snap_tpu_torch.utils import geometry
 from snap_tpu_torch.utils import grids
 from snap_tpu_torch.train_lib import checkpoints
@@ -352,22 +373,16 @@ TOLERANCES = {torch.bfloat16: (1e-3, 2.0**-7), torch.float16: (1e-3, 2.0**-10),
 # tests/test_torch_train.py), and its error's norm to 1e-2 of its norm, so
 # that entries well below the largest (such as the score channels) are
 # held too.
-# The score max's gradient jumps where two selected ranks' scores meet: K3
-# and its plain version round each score differently (~1e-7 relative), so
-# where the two largest scores differ by less than that they can disagree
-# on which is larger and pass g_m to different ranks (a first run at batch
-# 2 met 41 such values in 2.3M points, all score channels; JAX's function
-# has the same jump). The check zeroes g_m at points whose two largest
-# selected scores differ by a non-zero amount within NEAR_TIE_RTOL of their
-# size; exact ties (the seeded inputs repeat a rank) keep theirs.
-# B8's max and min of each channel jump alike, and at 2.3M points x 128
-# channels two ranks that read different taps also tie exactly by
-# coincidence in f32 on one side and not on the other (a first run met 56
-# of 18M d stack values off by up to 0.141 on the seeded inputs): their
-# cotangent is zeroed where a selected rank that reads other taps than the
-# extreme's lies within NEAR_TIE_RTOL of it, equal or not; repeated ranks'
-# exact ties keep theirs.
-NEAR_TIE_RTOL = 1e-4
+# The score max's gradient, and with the max and min (B8) each channel's,
+# go whole to the rank that holds the extreme (half to each side of an
+# exact tie). K1, K3 and their plain versions form the channels that route
+# (the score bins; the features where the max and min are pooled) in one
+# stated order (csrc/lift_stats.cuh:tap_add, view_scan._lift_ranks), the
+# depth hats' abscissa alike and the score alike (C27), so near ties route
+# the same on every side and no cotangent is zeroed (ROADMAP C10; with the
+# taps' products fused into the sums and the plain abscissa divided by a
+# scalar's reciprocal, 28 of the 114,654 near-tie entries of phase 7j's
+# stream input went to different ranks: tests/torch_c10_ties.py).
 # B8's backward in f32 (phase 3): a d stack entry sums ~300 tap-weighted
 # contributions of up to ~2 (the max's and min's cotangents go whole to one
 # rank, the mean's spread over the ranks), in K3's fixed order and in the
@@ -539,72 +554,13 @@ def lift_layout(stack: torch.Tensor, kwargs) -> str:
   return f'[{", ".join(names)}]'
 
 
-def without_near_ties(args, kwargs, chunk: int = 131_072):
-  """``args`` with the cotangents of the lift's maxima zeroed where K3 and
-  its plain version may route them to different ranks (see NEAR_TIE_RTOL),
-  and the count of entries zeroed: g_m at points whose two largest
-  selected scores differ by a non-zero amount within NEAR_TIE_RTOL of
-  their size (weighted layouts); with ``add_minmax``, g_max (g_min) of a
-  channel whose largest (smallest) selected value has another selected
-  value of a rank that reads other taps within NEAR_TIE_RTOL of it, equal
-  or not. Exact ties of repeated ranks keep theirs. The ranks are formed
-  ``chunk`` points at a time."""
-  stack, view_idx, p2d, select, depth, g_stats = args
-  dim = kwargs['dim']
-  weighted = stack.shape[-1] > dim
-  add_minmax = kwargs.get('add_minmax', False)
-  if not add_minmax and not (weighted and view_idx.shape[-1] >= 2):
-    return args, 0
-  lift_kw = {k: kwargs[k] for k in ('h', 'w', 'dim', 'depth_min_max')}
-  at_max = dim * (1 + kwargs.get('use_variance', True))
-  last = torch.tensor([kwargs['h'] - 1, kwargs['w'] - 1], dtype=p2d.dtype,
-                      device=p2d.device)
-  g_stats, zeroed = g_stats.clone(), 0
-  for lo in range(0, view_idx.shape[1], chunk):
-    part = slice(lo, lo + chunk)
-    ranks = view_scan._lift_ranks(stack, view_idx[:, part], p2d[:, part],
-                                  select[:, part], depth[:, part], **lift_kw)
-    if weighted and len(ranks) >= 2:
-      top = torch.stack([r.score for r in ranks], -1).topk(2, -1).values
-      gap = top[..., 0] - top[..., 1]
-      near = ((top[..., 1] > view_scan.NEG_INF / 2) & (gap > 0)
-              & (gap <= NEAR_TIE_RTOL * top[..., 0].abs().clamp(min=1.0)))
-      g_stats[:, part, -1] = torch.where(near, 0.0, g_stats[:, part, -1])
-      zeroed += int(near.sum())
-    if add_minmax:
-      sel = select[:, part, :, None]
-      f = torch.stack([r.f[..., :dim] for r in ranks], 2)  # [B, n, K, D]
-      del ranks
-      vi = view_idx[:, part]
-      pts = torch.minimum(torch.clamp(p2d[:, part] - 0.5, min=0), last)
-      # [B, n, K, K]: two ranks read the same taps with the same weights.
-      same = (vi[..., :, None] == vi[..., None, :]) & (
-          pts[..., :, None, :] == pts[..., None, :, :]).all(-1)
-      for at, sign in ((at_max, 1.0), (at_max + dim, -1.0)):
-        v = torch.where(sel, sign * f, -torch.inf)
-        top, first = v.max(2)  # [B, n, D]: the extreme and a rank of it
-        same_taps = torch.gather(
-            same, 3, first[:, :, None, :].expand(-1, -1, v.shape[2], -1))
-        near = ((top[:, :, None] - v <= NEAR_TIE_RTOL * top.abs().clamp(
-            min=1.0)[:, :, None]) & ~same_taps).any(2)
-        g = g_stats[:, part, at:at + dim]
-        g_stats[:, part, at:at + dim] = torch.where(near, 0.0, g)
-        zeroed += int(near.sum())
-  return (*args[:-1], g_stats), zeroed
-
-
 def check_lift_bwd(args, kwargs, chunk: int = None, tol=None) -> float:
   """K3 against its plain version; ``args`` end with ``g_stats``, which is
-  scaled by ``unit_cotangent`` and freed of near ties first."""
+  scaled by ``unit_cotangent`` first (no entry zeroed: ROADMAP C10)."""
   args = (*args[:-1], unit_cotangent(args[-1]))
-  args, near = without_near_ties(args, kwargs)
   got = kernels.lift_topk_bwd(*args, **kwargs)
   want = plain_lift_bwd(args, kwargs, chunk)
   torch.cuda.synchronize()
-  log(f'lift_topk_bwd at {tuple(args[0].shape)} '
-      f'{lift_layout(args[0], kwargs)}: '
-      f'{near} cotangent entries of maxima zeroed (near ties) of '
-      f'{args[1].shape[0] * args[1].shape[1]} points')
   return assert_close_bwd('lift_topk_bwd d_stack', got, want, tol)
 
 
@@ -631,7 +587,7 @@ def check_non_finite(lift_bwd, sample_bwd) -> dict:
   g = unit_cotangent(args[-1])
   point = int(args[3][0].any(-1).nonzero()[0])
   g[0, point, 3] = math.inf
-  args, _ = without_near_ties((*args[:-1], g), kw)
+  args = (*args[:-1], g)
   got = kernels.lift_topk_bwd(*args, **kw)
   want = plain_lift_bwd(args, kw)
   (g_values, points), skw = sample_bwd
@@ -3889,6 +3845,8 @@ def main() -> int:
   del lift, sample, lift_bwd, sample_bwd, lift_f32, scoring, scoring_train
   del scoring_bwd, heldout_lift, heldout_sample, gather_bench
   data_axis_phase(smi)
+  # 10. The mesh's model axis on the card.
+  model_axis_phase(smi)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
@@ -3960,24 +3918,22 @@ def _blockwise_grads(model, config: configs.Config, state, device,
   return total.cpu()
 
 
-def _dp_steps(device, config: configs.Config, steps: int,
-              control_world: int = 0):
+def _dp_steps(device, config: configs.Config, steps: int, control=None):
   """``steps`` train steps of ``config`` from the weights of seed 0 on the
   dataset's card-made batches (this rank's blocks under a process group):
   per step the loss, the ms (host clock around a synchronize), the
   gradients (the global batch's) and the parameters after it (flat, on the
-  host); the model's own peak memory; with ``control_world``, the first
-  step's gradient taken block by block as that many ranks take it
-  (``_blockwise_grads``)."""
+  host); the model's own peak memory; with ``control(model, config,
+  state, device)``, its gradient of the first step (``_blockwise_grads``,
+  ``_slice_by_slice_grads``)."""
   model = evaluate.build_model(config, device, 0)
   model.train()
   adam = optimizers.get_optimizer(config.train, model)
   state = trainer.create_train_state(model, adam, seed=0)
   out = {'params': [_flat_params(model).cpu()], 'loss': [], 'ms': [],
          'grads': []}
-  if control_world:
-    out['control'] = _blockwise_grads(model, config, state, device,
-                                      control_world)
+  if control is not None:
+    out['control'] = control(model, config, state, device)
   torch.cuda.reset_peak_memory_stats(device)
   with loader.get_dataset(config.data, config.batch_size,
                           device=device) as dataset:
@@ -4149,7 +4105,8 @@ def data_axis_phase(smi: str) -> dict:
       False)
   t0 = time.perf_counter()
   one = _dp_steps(torch.device('cuda'), _f32_flagship(), DP_STEPS,
-                  control_world=DP_RANKS)
+                  control=functools.partial(_blockwise_grads,
+                                            world=DP_RANKS))
   torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
   batch_shape = _leaf_errors(one['grads'][0], one['control'], one['names'])
   reference = workdir / 'one_process.pt'
@@ -4179,12 +4136,321 @@ def data_axis_phase(smi: str) -> dict:
   return {'one': one, 'ranks': ranks, 'nccl': nccl}
 
 
+# Phase 10: the mesh's model axis on the card. TP_RANKS gloo ranks share
+# the one card under {data: 1, model: TP_RANKS}: each takes the whole
+# batch of 2 and holds its slices of the leaves the rule shards at the
+# config's tp_min_dim (256); TP_STEPS steps of the flagship in f32 with
+# TF32 off from one seeded state against one process, then one bf16 step.
+TP_RANKS, TP_STEPS = 2, 2
+# The ranks' gradients against the one-process step on the global batch:
+# each leaf's error norm as a share of its norm. A rank's convolutions of
+# half the output channels run other cuDNN algorithms than the whole
+# ones, and a near tie at a max pooling or a relu may flip between the two
+# (ROADMAP C11), as phase 9's batch shape does (it logged up to 1.7% of a
+# leaf's norm and 22% of its largest entry). Against the slice-by-slice
+# control (``_slice_by_slice_grads``: the ranks' shapes, no collective),
+# phase 5's shares of each leaf's largest entry and norm.
+TP_PLAIN_NORM_RTOL = 5e-2
+
+
+def _tp_flagship(dtype_str: str = 'float32') -> configs.Config:
+  return dataclasses.replace(
+      configs.train_full1chip_exhaustive(), dtype_str=dtype_str,
+      mesh=configs.MeshConfig(data=1, model=TP_RANKS))
+
+
+def _by_slices(module, x: torch.Tensor) -> torch.Tensor:
+  """A layer the rule shards, computed as its TP_RANKS ranks compute it:
+  each block of its output channels a convolution (product) of its own,
+  concatenated, a dense layer's bias added after."""
+  parts = module.weight.chunk(TP_RANKS, 0)
+  dtype = module.dtype
+  if isinstance(module, resnet.StdConv):
+    y = [resnet.conv_nhwc(x.to(dtype), resnet.standardize(
+        w, (1, 2, 3), eps=1e-10).to(dtype), module.stride, module.padding)
+         for w in parts]
+  elif isinstance(module, image_encoder.SkipConv):
+    y = [resnet.conv_nhwc(x, w.to(dtype)) for w in parts]
+  elif isinstance(module, layers.Dense):
+    y = torch.cat([F.linear(x.to(dtype), w.to(dtype)) for w in parts], -1)
+    return y if module.bias is None else y + module.bias.to(dtype)
+  else:
+    raise NotImplementedError(type(module).__name__)
+  return torch.cat(y, -1)
+
+
+def _slice_by_slice_grads(model, config: configs.Config, state,
+                          device) -> torch.Tensor:
+  """The first step's gradient (flat, on the host) in one process, each
+  convolution and dense layer whose kernel the rule shards over TP_RANKS
+  computed slice by slice (``_by_slices``) and no collective, so that
+  cuDNN sees the ranks' shapes (a GroupNorm's parameters, which the ranks
+  gather whole, as they are)."""
+  dims = parallel_mesh.infer_param_shardings(model, config.tp_min_dim,
+                                             TP_RANKS)
+  modules = dict(model.named_modules())
+  owners = [modules[n.rpartition('.')[0]] for n in dims]
+  owners = [m for m in owners if not isinstance(m, resnet.GroupNorm)]
+  for module in owners:
+    module.forward = functools.partial(_by_slices, module)
+  try:
+    with loader.get_dataset(config.data, config.batch_size,
+                            device=device) as dataset:
+      batch = next(dataset.train_iter)
+    batch.pop('_host')
+    loss, *_ = trainer.loss_and_metrics(
+        model, batch, True, generator=trainer.step_generator(state))
+    params = list(model.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+  finally:
+    for module in owners:
+      module.__dict__.pop('forward', None)
+  return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                    for g, p in zip(grads, params)]).cpu()
+
+
+class _Collectives(contextlib.AbstractContextManager):
+  """Counts the calls of ``dist.all_gather`` and ``dist.all_reduce`` and
+  the bytes each rank gives them (its own tensor's), by name."""
+
+  NAMES = ('all_gather', 'all_reduce')
+
+  def __init__(self):
+    import torch.distributed as dist  # pylint: disable=g-import-not-at-top
+    self.dist, self.calls, self.bytes = dist, {}, {}
+
+  def __enter__(self):
+    self.saved = {name: getattr(self.dist, name) for name in self.NAMES}
+    for name in self.NAMES:
+      def counted(*args, _call=self.saved[name], _name=name, **kwargs):
+        t = args[1] if _name == 'all_gather' else args[0]
+        self.calls[_name] = self.calls.get(_name, 0) + 1
+        self.bytes[_name] = (self.bytes.get(_name, 0)
+                             + t.numel() * t.element_size())
+        return _call(*args, **kwargs)
+      setattr(self.dist, name, counted)
+    return self
+
+  def __exit__(self, *exc):
+    for name, call in self.saved.items():
+      setattr(self.dist, name, call)
+
+
+def _full_flat(named, dims) -> torch.Tensor:
+  """Tensors by parameter name as one flat host vector of full leaves (a
+  sharded one gathered over the model group: a collective)."""
+  return torch.cat([(tensor_parallel.full(t, dims[n]) if n in dims
+                     else t.detach()).reshape(-1) for n, t in named.items()
+                    ]).cpu()
+
+
+def _child_tp_step(reference: str, workdir: str) -> dict:
+  """A rank of phase 10 under ``{data: 1, model: TP_RANKS}`` over gloo on
+  the shared card: TP_STEPS f32 steps of the sharded flagship against the
+  one-process ones in ``reference``: the first step's gradient leaves
+  (gathered whole) to phase 5's shares against the slice-by-slice control
+  and each step's to TP_PLAIN_NORM_RTOL of each leaf's norm against the
+  one process's on the global batch; the loss to phase 5's tolerance; each
+  parameter leaf within twice the one-process steps' largest move of it
+  (phase 9's rule); every replicated leaf equal to rank 0's bit for bit
+  after each step. Rank 0 then writes a checkpoint (full leaves) and the
+  ranks' parameters, and both take one bf16 step of the sharded flagship.
+  K1-K4 launch in every step."""
+  import torch.distributed as dist  # pylint: disable=g-import-not-at-top
+  process = parallel_mesh.init('cuda')
+  if process.backend != 'gloo' or process.world != TP_RANKS:
+    raise AssertionError(f'phase 10: {process}')
+  config = _tp_flagship()
+  parallel_mesh.setup(parallel_mesh.make_mesh(dataclasses.asdict(
+      config.mesh)))
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  device = process.device
+  try:
+    ref = torch.load(reference, weights_only=False)
+    model = evaluate.build_model(config, device, 0)
+    dims = tensor_parallel.shard_model(model, config.tp_min_dim)
+    model.train()
+    adam = optimizers.get_optimizer(config.train, model)
+    state = trainer.create_train_state(model, adam, seed=0)
+    names = [(n, p.numel()) for n, p in model.named_parameters()]
+    names = [(n, k * (TP_RANKS if n in dims else 1)) for n, k in names]
+    local = dict(model.named_parameters())
+    shard = {'leaves': len(dims), 'bytes': sum(
+        local[n].numel() * local[n].element_size() for n in dims)}
+    got = {'loss': [], 'ms': [], 'grads': [],
+           'params': [_full_flat(local, dims)]}
+    collectives = []
+    torch.cuda.reset_peak_memory_stats(device)
+    with loader.get_dataset(config.data, config.batch_size,
+                            device=device) as dataset:
+      for step in range(TP_STEPS):
+        batch = next(dataset.train_iter)
+        batch.pop('_host')
+        kernels.reset_launch_counts()
+        last = step == TP_STEPS - 1
+        with contextlib.ExitStack() as stack:
+          tracer = stack.enter_context(torch.profiler.profile(activities=[
+              torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA])) if last else None
+          counted = stack.enter_context(_Collectives())
+          torch.cuda.synchronize(device)
+          t0 = time.perf_counter()
+          with torch.profiler.record_function(trainer.STEP_SPAN):
+            out = trainer.train_step(state, batch, adam)
+            torch.cuda.synchronize(device)
+          got['ms'].append(1e3 * (time.perf_counter() - t0))
+        collectives.append({'calls': counted.calls, 'bytes': counted.bytes})
+        if not all(kernels.LAUNCHES[k] for k in EXHAUSTIVE_KERNELS):
+          raise AssertionError(f'phase 10 step {step}: launches '
+                               f'{dict(kernels.LAUNCHES)}')
+        if tracer is not None:
+          trace = pathlib.Path(workdir) / f'trace-rank{process.rank}.json'
+          tracer.export_chrome_trace(str(trace))
+          device_ms = trainer.step_device_ms(trace)
+        got['loss'].append(trainer.summarize([out.metrics])['loss/total'])
+        got['grads'].append(_full_flat(out.grads, dims))
+        got['params'].append(_full_flat(local, dims))
+        del out
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    control = _leaf_errors(got['grads'][0], ref['control'], names)
+    if control['past']:
+      raise AssertionError(f'phase 10 step 0: gradients against the '
+                           f'slice-by-slice one: {control}')
+    plain = []
+    worst = 0.0
+    replicated = [n for n in local if n not in dims]
+    for step in range(TP_STEPS):
+      plain.append(_leaf_errors(got['grads'][step], ref['grads'][step],
+                                names))
+      if plain[-1]['norm_share'] > TP_PLAIN_NORM_RTOL:
+        raise AssertionError(f'phase 10 step {step}: gradients against the '
+                             f'one process\'s: {plain[-1]}')
+      if not math.isclose(got['loss'][step], ref['loss'][step],
+                          rel_tol=TRAIN_LOSS_RTOL):
+        raise AssertionError(f'phase 10 step {step}: loss '
+                             f'{got["loss"][step]}, one process '
+                             f'{ref["loss"][step]}')
+      at = 0
+      for name, numel in names:
+        leaf = slice(at, at + numel)
+        want = ref['params'][step + 1][leaf]
+        move = float((want - ref['params'][0][leaf]).abs().max())
+        err = float((got['params'][step + 1][leaf] - want).abs().max())
+        if err > 2 * move + 1e-7:
+          raise AssertionError(f'phase 10 step {step}: {name} off by '
+                               f'{err:.3g} (the one-process steps moved '
+                               f'it {move:.3g})')
+        worst = max(worst, err / max(move, 1e-30))
+        at += numel
+    mine = torch.cat([local[n].detach().reshape(-1) for n in replicated])
+    lead = mine.clone()
+    dist.broadcast(lead, 0)
+    if not torch.equal(_bits(mine), _bits(lead)):
+      raise AssertionError(f'phase 10: rank {process.rank}\'s replicated '
+                           f'leaves differ from rank 0\'s')
+    host = checkpoints.host_state(state)
+    if process.rank == 0:
+      checkpoints.save_checkpoint(workdir, state, state.global_step,
+                                  host=host)
+      torch.save(got['params'][-1], pathlib.Path(workdir) / 'tp_params.pt')
+    del host, state, model, adam, local
+    torch.cuda.empty_cache()
+    # One bf16 step of the sharded flagship from the same seeded weights.
+    bf16 = _tp_flagship('bfloat16')
+    model = evaluate.build_model(bf16, device, 0)
+    tensor_parallel.shard_model(model, bf16.tp_min_dim)
+    model.train()
+    adam = optimizers.get_optimizer(bf16.train, model)
+    state = trainer.create_train_state(model, adam, seed=0)
+    kernels.reset_launch_counts()
+    with loader.get_dataset(bf16.data, bf16.batch_size,
+                            device=device) as dataset:
+      batch = next(dataset.train_iter)
+    batch.pop('_host')
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = trainer.train_step(state, batch, adam)
+    torch.cuda.synchronize(device)
+    bf16_ms = 1e3 * (time.perf_counter() - t0)
+    bf16_loss = trainer.summarize([out.metrics])['loss/total']
+    if not (math.isfinite(bf16_loss) and out.logs['is_finite']
+            and all(kernels.LAUNCHES[k] for k in EXHAUSTIVE_KERNELS)):
+      raise AssertionError(f'phase 10, bf16: loss {bf16_loss}, logs '
+                           f'{out.logs}, launches {dict(kernels.LAUNCHES)}')
+    parallel_mesh.barrier()
+    return {'rank': process.rank, 'place': parallel_mesh.place(
+        process.rank, TP_RANKS), 'backend': process.backend,
+            'sharded': shard, 'loss': got['loss'], 'step_ms': got['ms'],
+            'step_device_ms': device_ms, 'peak_gib': peak_gib,
+            'collectives': collectives,
+            'grads_vs_slice_by_slice': control,
+            'grads_vs_one_process': plain,
+            'worst_param_share_of_move': worst,
+            'bf16': {'loss': bf16_loss, 'step_ms': bf16_ms,
+                     'l2_grads': out.logs['l2_grads']}}
+  finally:
+    parallel_mesh.shutdown()
+
+
+def model_axis_phase(smi: str) -> dict:
+  """Phase 10: the one-process steps (and the slice-by-slice control of
+  the first), then TP_RANKS gloo ranks under ``{data: 1, model:
+  TP_RANKS}`` on the card against them; then their checkpoint restored
+  into one process, bit for bit."""
+  torch.cuda.empty_cache()
+  workdir = fresh_workdir('model_axis')
+  workdir.mkdir(parents=True)
+  tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = (
+      False)
+  t0 = time.perf_counter()
+  config = _tp_flagship()
+  device = torch.device('cuda')
+  one = _dp_steps(device, config, TP_STEPS, control=_slice_by_slice_grads)
+  slice_effect = _leaf_errors(one['grads'][0], one['control'], one['names'])
+  reference = workdir / 'one_process.pt'
+  torch.save({'loss': one['loss'], 'params': one['params'],
+              'grads': one['grads'], 'control': one['control']}, reference)
+  del one['params'], one['grads'], one['control']
+  torch.cuda.empty_cache()
+  ranks = run_children('tp_step', [reference, workdir], world=TP_RANKS)
+  reference.unlink()
+  # The ranks' checkpoint (full leaves) restored into one process: its
+  # parameters are the ranks' bit for bit.
+  model = evaluate.build_model(config, device, 1)
+  adam = optimizers.get_optimizer(config.train, model)
+  state = trainer.create_train_state(model, adam, seed=1)
+  step = checkpoints.restore_checkpoint(workdir, state)
+  theirs = torch.load(workdir / 'tp_params.pt', weights_only=True)
+  if step != TP_STEPS or not torch.equal(_bits(_flat_params(model).cpu()),
+                                         _bits(theirs)):
+    raise AssertionError(f'phase 10: the ranks\' checkpoint (step {step}) '
+                         f'restored into one process is not their state')
+  del model, adam, state, theirs
+  torch.cuda.empty_cache()
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+  shutil.rmtree(workdir)
+  log(f'phase 10, the model axis on the card (train_full1chip_exhaustive in '
+      f'f32, TF32 off, batch 2, {TP_RANKS} gloo ranks sharing the card '
+      f'under {{data: 1, model: {TP_RANKS}}}, tp_min_dim '
+      f'{config.tp_min_dim}, {TP_STEPS} steps, then one bf16 step): the '
+      f'one process\'s losses {one["loss"]}, ms a step {one["ms"]}, own '
+      f'peak {one["peak_gib"]:.2f} GiB, its first step\'s gradient against '
+      f'the slice-by-slice one (the ranks\' shapes\' own effect, C11) '
+      f'{slice_effect}; per rank: {ranks}; the ranks\' replicated leaves '
+      f'equal bit for bit, their checkpoint restored into one process bit '
+      f'for bit; {time.perf_counter() - t0:.1f} s for the phase; {smi}')
+  return {'one': one, 'ranks': ranks}
+
+
 def child_main(mode: str, args) -> int:
   """A child process's work: one JSON object as the last line."""
   logging.basicConfig(level=logging.WARNING)
   result = {'deterministic_step': _child_deterministic_step,
             'dp_step': _child_dp_step,
-            'nccl_rank': _child_nccl_rank}[mode](*args)
+            'nccl_rank': _child_nccl_rank,
+            'tp_step': _child_tp_step}[mode](*args)
   print(json.dumps(result), flush=True)
   return 0
 

@@ -381,9 +381,11 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
   """The mesh's axis sizes (the reference's ``mesh``, ``defaults.py:103``):
-  ``data`` ranks split each global batch (-1: every rank of the run,
-  ``parallel/mesh.py:make_mesh``); ``model`` (tensor parallelism) must be
-  1."""
+  ``data`` ranks split each global batch, ``model`` ranks split each wide
+  parameter (tensor parallelism, ``parallel/tensor.py``, by the rule of
+  ``parallel/mesh.py:infer_param_shardings`` over ``Config.tp_min_dim``);
+  -1 takes the ranks the other axis leaves (``parallel/mesh.py:
+  make_mesh``). Rank r sits at (r // model, r % model)."""
 
   data: int = -1
   model: int = 1
@@ -393,7 +395,8 @@ class MeshConfig:
 class Config:
   """An experiment: ``model`` is the config of the registry's
   ``model_name``; ``batch_size`` is the global batch, split over the
-  ``mesh``'s ``data`` ranks."""
+  ``mesh``'s ``data`` ranks; ``tp_min_dim`` is the smallest last dim (flax
+  layout) of a leaf the ``model`` axis shards (``defaults.py:105``)."""
 
   model: ModelConfig
   data: DataConfig
@@ -402,6 +405,7 @@ class Config:
   train: TrainConfig = TrainConfig()
   model_name: str = 'bev_localizer'
   mesh: MeshConfig = MeshConfig()
+  tp_min_dim: int = 256
 
 
 def bench_full(batch_size: int = 1) -> Config:
@@ -1063,12 +1067,12 @@ _CHECKED_KEYS = {
 # config may leave any of them out.
 _DEFAULTED = (BEVNetConfig, MeshConfig)
 # Top-level keys read and ignored: the JAX trainer's bookkeeping that the
-# port's has no use for (summary writers, debug flags, where its init runs,
-# the tensor-parallel threshold), the seed of its flax init (the port draws
-# its own weights) and the records an evaluation adds to its dump.
+# port's has no use for (summary writers, debug flags, where its init
+# runs), the seed of its flax init (the port draws its own weights) and
+# the records an evaluation adds to its dump.
 _IGNORED_TOP = (
     'write_summary', 'debug_train', 'debug_eval', 'init_backend',
-    'tp_min_dim', 'rng_seed', 'eval_checkpoint_step', 'data_generator_kind',
+    'rng_seed', 'eval_checkpoint_step', 'data_generator_kind',
     'eval_seconds', 'build_ms', 'build_card_ms', 'cudnn_allow_tf32',
     'matmul_allow_tf32', 'num_processes')
 _TOP_KEYS = ('model', 'data', 'batch_size', 'dtype_str', 'shuffle_seed',
@@ -1143,11 +1147,10 @@ def from_reference(d: Mapping[str, Any]) -> Config:
   for key, want in _CHECKED_TOP.items():
     _check(key, d.get(key), want)
   mesh = dict(d.get('mesh', {}))
-  if mesh.get('model', 1) != 1:
-    raise ValueError(
-        f'from_reference: mesh.model = {mesh["model"]!r}; the port runs the '
-        f'data axis alone (tensor parallelism, the tensor-parallel part of '
-        f'ROADMAP A12, is not ported)')
+  for axis, size in mesh.items():
+    if not isinstance(size, int) or not (size == -1 or size >= 1):
+      raise ValueError(f'from_reference: mesh.{axis} = {size!r}; an axis '
+                       f'size is a positive int, or -1 (the ranks left)')
   if d.get('dtype_str') not in DTYPE_STRS:
     raise ValueError(f'from_reference: dtype_str = {d.get("dtype_str")!r}; '
                      f'the port runs {list(DTYPE_STRS)}')
@@ -1156,7 +1159,7 @@ def from_reference(d: Mapping[str, Any]) -> Config:
     raise ValueError(f'from_reference: model_name = {model_name!r}; the '
                      f'port runs {sorted(MODEL_CONFIGS)}')
   known = {*_TOP_KEYS, *_TRAINER_TOP, *_IGNORED_TOP, *_CHECKED_TOP, 'mesh',
-           'model_name'}
+           'model_name', 'tp_min_dim'}
   unknown = sorted(set(d) - known)
   missing = sorted(set(_TOP_KEYS) - set(d))
   if unknown or missing:
@@ -1174,7 +1177,8 @@ def from_reference(d: Mapping[str, Any]) -> Config:
       data=_from_dict(DataConfig, d['data'], 'data',
                       shuffle_seed=d['shuffle_seed']),
       dtype_str=d['dtype_str'], batch_size=d['batch_size'], train=train,
-      model_name=model_name, mesh=_from_dict(MeshConfig, mesh, 'mesh'))
+      model_name=model_name, mesh=_from_dict(MeshConfig, mesh, 'mesh'),
+      tp_min_dim=int(d.get('tp_min_dim') or 256))
 
 
 def plain(value):
@@ -1208,7 +1212,7 @@ def to_reference(config: Config) -> Dict[str, Any]:
       'optimizer_configs': plain(train.optimizer_configs),
       'max_grad_norm': train.max_grad_norm,
       'num_training_steps': train.num_training_steps,
-      'mesh': plain(config.mesh),
+      'mesh': plain(config.mesh), 'tp_min_dim': config.tp_min_dim,
       **trainer,
   }
 
@@ -1244,8 +1248,17 @@ def parse_config_name(spec: str) -> Tuple[str, Dict[str, Any]]:
 
 def get_config(name: str, **kwargs) -> Config:
   """The named config; ``name`` may carry arguments, as in
-  ``'train_full1chip_exhaustive:continue_step=12500,pretrained_mapper=D'``."""
+  ``'train_full1chip_exhaustive:continue_step=12500,pretrained_mapper=D'``.
+  Every config also takes ``mesh_data``, ``mesh_model`` (the mesh's axis
+  sizes) and ``tp_min_dim``, e.g.
+  ``'smoke_train_exhaustive:batch_size=4,mesh_model=2,tp_min_dim=16'``."""
   name, args = parse_config_name(name)
   if name not in CONFIGS:
     raise ValueError(f'Unknown config {name!r}; choose from {sorted(CONFIGS)}')
-  return CONFIGS[name](**args, **kwargs)
+  args.update(kwargs)
+  axes = {axis: args.pop(f'mesh_{axis}') for axis in ('data', 'model')
+          if f'mesh_{axis}' in args}
+  top = {'tp_min_dim': args.pop('tp_min_dim')} if 'tp_min_dim' in args else {}
+  config = CONFIGS[name](**args)
+  return dataclasses.replace(
+      config, mesh=dataclasses.replace(config.mesh, **axes), **top)

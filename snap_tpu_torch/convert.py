@@ -95,6 +95,31 @@ def flax_path(name: str) -> str:
   return '/'.join(owner.split('.') + [leaf]) if owner else leaf
 
 
+def flax_leaf(name: str, shape, modules: Mapping[str, nn.Module]):
+  """The flax path of the port's parameter ``name`` of ``shape`` and the
+  permutation of its dims that gives the flax layout (None: the same
+  layout, or a reshape to ``[1, 1, 1, C]`` for a GroupNorm parameter, whose
+  flax shape is the third value). ``modules`` is the model's
+  ``dict(named_modules())``."""
+  owner, _, leaf = name.rpartition('.')
+  ndim, perm, flax_shape = len(shape), None, tuple(shape)
+  if leaf == 'weight' and isinstance(modules[owner], nn.Embedding):
+    leaf = 'embedding'
+  elif leaf == 'weight' and ndim == 4:
+    leaf, perm = 'kernel', (2, 3, 1, 0)
+  elif leaf == 'weight' and ndim == 2:
+    leaf, perm = 'kernel', (1, 0)
+  elif leaf in ('scale', 'bias') and isinstance(modules[owner],
+                                                resnet.GroupNorm):
+    flax_shape = (1, 1, 1, *shape)
+  elif leaf == 'weight':
+    raise ValueError(f'{name}: unexpected weight shape {tuple(shape)}')
+  if perm is not None:
+    flax_shape = tuple(shape[i] for i in perm)
+  path = '/'.join(owner.split('.') + [leaf]) if owner else leaf
+  return path, perm, flax_shape
+
+
 def flax_from_torch(named: Mapping[str, torch.Tensor], module: nn.Module
                     ) -> Dict[str, np.ndarray]:
   """Tensors named like ``module``'s parameters (its weights, or their
@@ -103,19 +128,9 @@ def flax_from_torch(named: Mapping[str, torch.Tensor], module: nn.Module
   flat = {}
   for name, tensor in named.items():
     value = tensor.detach().float().cpu().numpy()
-    owner, _, leaf = name.rpartition('.')
-    if leaf == 'weight' and isinstance(modules[owner], nn.Embedding):
-      leaf = 'embedding'
-    elif leaf == 'weight' and value.ndim == 4:
-      leaf, value = 'kernel', value.transpose(2, 3, 1, 0)
-    elif leaf == 'weight' and value.ndim == 2:
-      leaf, value = 'kernel', value.T
-    elif leaf in ('scale', 'bias') and isinstance(modules[owner],
-                                                  resnet.GroupNorm):
-      value = value.reshape(1, 1, 1, -1)
-    elif leaf == 'weight':
-      raise ValueError(f'{name}: unexpected weight shape {value.shape}')
-    flat['/'.join(owner.split('.') + [leaf]) if owner else leaf] = value
+    path, perm, flax_shape = flax_leaf(name, value.shape, modules)
+    flat[path] = (value.transpose(perm) if perm is not None
+                  else value.reshape(flax_shape))
   return flat
 
 

@@ -615,8 +615,8 @@ __device__ __forceinline__ void rank_point(
     float fa = 0.f, fb = 0.f;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      fa += tw[t] * to_float(taps[t][D + s0]);
-      fb += tw[t] * to_float(taps[t][D + s1]);
+      fa = tap_add(fa, tw[t], to_float(taps[t][D + s0]), t);
+      fb = tap_add(fb, tw[t], to_float(taps[t][D + s1]), t);
     }
     // Both products rounded before the sum, as K1 and the plain version
     // round them (a product fused into the sum is an ulp off at times, and
@@ -663,7 +663,9 @@ __device__ __forceinline__ void rank_point(
           float v[4];
           Quad<T>::convert(raw[u][q][t], v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) f[u][q][e] += tw[u][t] * v[e];
+          for (int e = 0; e < 4; ++e)
+            f[u][q][e] = feature_tap_add(minmax, f[u][q][e], tw[u][t], v[e],
+                                         t);
         }
       }
   };

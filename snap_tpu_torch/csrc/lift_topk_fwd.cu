@@ -10,6 +10,10 @@
 //   pts   = clamp(p2d - 0.5, 0, (h, w) - 1); lower = floor(pts); frac = pts - lower
 //   f     = sum over the 2x2 taps at (view*(h+1) + lower_i + a, lower_j + c)
 //           of w_i[a] * w_j[c] * stack[...]                (all C channels, f32)
+//           (the score bins, and the features of the layouts with the
+//           max and min, in tap_add's order, lift_stats.cuh: taps (0,0),
+//           (0,1), (1,0), (1,1), each product rounded, added left to
+//           right; the other layouts' features with fused products)
 //   score = sum_s f[D + s] * max(0, 1 - |x(depth) - s|)   (S log-depth bins)
 //   online softmax over the selected ranks: m, l, S1 = sum w f, S2 = sum w f^2
 // Epilogue: stats = [S1/l, max(S2/l - mean^2, 0), m] (zeros where no rank is
@@ -337,7 +341,8 @@ __device__ inline void lift_point(const T* __restrict__ stack,
           float v[4];
           Quad<T>::convert(raw[u][q][t], v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) f[u][q][e] += tw[u][t] * v[e];
+          for (int e = 0; e < 4; ++e)
+            f[u][q][e] = feature_tap_add(false, f[u][q][e], tw[u][t], v[e], t);
         }
       }
   };
@@ -361,8 +366,8 @@ __device__ inline void lift_point(const T* __restrict__ stack,
       float fa = 0.f, fb = 0.f;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        fa += tw[t] * za[t];
-        fb += tw[t] * zb[t];
+        fa = tap_add(fa, tw[t], za[t], t);
+        fb = tap_add(fb, tw[t], zb[t], t);
       }
       // Both products rounded before the sum, as the plain version and K3
       // round them (a product fused into the sum is an ulp off at times).
@@ -426,6 +431,7 @@ __device__ inline void lift_point_compact(const T* __restrict__ stack,
   // of it in bf16.
   constexpr int KF = sizeof(T) == 2 ? KG / 2 : KG;
   constexpr bool kW = (kMode & kWeighted) != 0;
+  constexpr bool kMM = (kMode & kMinMax) != 0;
   using Raw = typename Quad<T>::Raw;
   const int C = d.C, D = d.D, S = C - D, W = d.W;
   const int b = (int)point / d.N;  // B N < 2^31
@@ -472,8 +478,8 @@ __device__ inline void lift_point_compact(const T* __restrict__ stack,
       float fa = 0.f, fb = 0.f;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        fa += tw[t] * za[t];
-        fb += tw[t] * zb[t];
+        fa = tap_add(fa, tw[t], za[t], t);
+        fb = tap_add(fb, tw[t], zb[t], t);
       }
       // Both products rounded before the sum, as lift_point and K3 round
       // them (a product fused into the sum is an ulp off at times).
@@ -535,7 +541,8 @@ __device__ inline void lift_point_compact(const T* __restrict__ stack,
           float v[4];
           Quad<T>::convert(raw[u][q][t], v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) f[q][e] += tw[t] * v[e];
+          for (int e = 0; e < 4; ++e)
+            f[q][e] = feature_tap_add(kMM, f[q][e], tw[t], v[e], t);
         }
       }
       // Online-softmax update of a selected rank (reference: rank_step).

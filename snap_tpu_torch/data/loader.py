@@ -32,7 +32,8 @@ stream waits on the build's end event and every tensor of the batch is
 consumer may still read it. Over the ranks of the mesh's data axis
 (``parallel/mesh.py``), each process builds only its contiguous block of
 every global batch, as the reference's do (``snap_tpu/data/loader.py:
-305-337``): the blocks stacked in rank order are the one-process batch. A
+305-337``): the blocks stacked in data-index order are the one-process
+batch, and the ranks of one model group build the same block. A
 resumed run's fold of the data seed is ``train.py``'s
 (``utils/prng.resume_shuffle_seed``).
 """
@@ -472,13 +473,14 @@ def get_dataset(data_config: configs.DataConfig, batch_size: int,
   ``ceil(evaluation_size / eval_batch_size)`` batches, the last one padded
   (``batch_mask`` 0) and the iterator wrapping around after it. The batch
   sizes are global: process ``process_index`` of ``num_processes`` (the
-  mesh's rank and world by default) builds rows ``[index * bs / num,
+  rank's data index and the data axis's size by default) builds rows ``[index * bs / num,
   (index + 1) * bs / num)`` of each; sizes that do not divide raise.
   """
   eval_batch_size = eval_batch_size or batch_size
-  num_processes = mesh.world_size() if num_processes is None else (
+  num_processes = mesh.data_size() if num_processes is None else (
       num_processes)
-  process_index = mesh.rank() if process_index is None else process_index
+  process_index = (mesh.data_index() if process_index is None
+                   else process_index)
   if batch_size % num_processes or eval_batch_size % num_processes:
     raise ValueError(
         f'Global batch sizes ({batch_size}, {eval_batch_size}) must divide '

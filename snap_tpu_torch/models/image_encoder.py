@@ -56,6 +56,19 @@ def upsample2x(coarse: Tensor) -> Tensor:
   return _upsample_axis(_upsample_axis(x, 1), 2).to(coarse.dtype)
 
 
+class SkipConv(nn.Module):
+  """A lateral head's bias-free 1x1 convolution (the kernel as it is, not
+  standardized)."""
+
+  def __init__(self, nin: int, nout: int, dtype: torch.dtype):
+    super().__init__()
+    self.dtype = dtype
+    self.weight = nn.Parameter(torch.empty(nout, nin, 1, 1))
+
+  def forward(self, x: Tensor) -> Tensor:
+    return resnet.conv_nhwc(x, self.weight.to(self.dtype))
+
+
 class FPNDecoder(nn.Module):
   """Lateral heads (relu -> GroupNorm -> 1x1 conv), then a top-down sum."""
 
@@ -66,16 +79,13 @@ class FPNDecoder(nn.Module):
     self.num_levels = len(in_channels)
     for i, c in enumerate(in_channels):
       self.add_module(f'{i}_skip_norm', resnet.GroupNorm(c, dtype))
-      conv = nn.Module()
-      conv.weight = nn.Parameter(torch.empty(output_dim, c, 1, 1))
-      self.add_module(f'{i}_skip_conv', conv)
+      self.add_module(f'{i}_skip_conv', SkipConv(c, output_dim, dtype))
 
   def forward(self, trunk_features: List[Tensor]) -> List[Tensor]:
     pyramid: List[Tensor] = []
     for i, f in enumerate(trunk_features):
       f = getattr(self, f'{i}_skip_norm')(F.relu(f))
-      w = getattr(self, f'{i}_skip_conv').weight.to(self.dtype)
-      lateral = resnet.conv_nhwc(f, w)
+      lateral = getattr(self, f'{i}_skip_conv')(f)
       if pyramid:
         if lateral.shape[1:3] != tuple(2 * s for s in pyramid[-1].shape[1:3]):
           raise ValueError('Pyramid levels must be octaves: '

@@ -55,6 +55,13 @@ class Dense(nn.Module):
     return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+class Embed(nn.Embedding):
+  """``flax.linen.Embed``: an f32 table, looked up in ``dtype``."""
+
+  def forward(self, ids: Tensor, dtype: torch.dtype) -> Tensor:
+    return F.embedding(ids, self.weight.to(dtype))
+
+
 class MLP(nn.Module):
   """Config-driven MLP; layers are named ``Dense_{i}`` as in flax."""
 

@@ -42,6 +42,16 @@ def conv_nhwc(x: Tensor, weight: Tensor, stride: int = 1,
   return y.permute(0, 2, 3, 1)
 
 
+def group_norm(x: Tensor, ngroups: int, scale: Tensor, bias: Tensor,
+               dtype: torch.dtype) -> Tensor:
+  """``x`` standardized over (spatial, in-group channels), then scaled."""
+  c = x.shape[-1]
+  y = x.reshape(*x.shape[:-1], ngroups, c // ngroups)
+  dims = tuple(range(1, y.ndim - 2)) + (y.ndim - 1,)
+  y = standardize(y, dims, eps=1e-5).reshape(x.shape)
+  return y * scale.to(dtype) + bias.to(dtype)
+
+
 class GroupNorm(nn.Module):
   """Group normalization with BiT-compatible variance (biased, f32)."""
 
@@ -54,11 +64,7 @@ class GroupNorm(nn.Module):
     self.bias = nn.Parameter(torch.zeros(num_channels))
 
   def forward(self, x: Tensor) -> Tensor:
-    c = x.shape[-1]
-    y = x.reshape(*x.shape[:-1], self.ngroups, c // self.ngroups)
-    dims = tuple(range(1, y.ndim - 2)) + (y.ndim - 1,)
-    y = standardize(y, dims, eps=1e-5).reshape(x.shape)
-    return y * self.scale.to(self.dtype) + self.bias.to(self.dtype)
+    return group_norm(x, self.ngroups, self.scale, self.bias, self.dtype)
 
 
 class StdConv(nn.Module):

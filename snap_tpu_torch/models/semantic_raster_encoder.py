@@ -14,11 +14,11 @@ from typing import Sequence
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from snap_tpu_torch import configs
 from snap_tpu_torch.data import types as data_types
 from snap_tpu_torch.models import image_encoder
+from snap_tpu_torch.models import layers
 from snap_tpu_torch.models import types
 
 Tensor = torch.Tensor
@@ -41,9 +41,9 @@ class SemanticRasterEncoder(nn.Module):
         if c not in data_types.SURFEL_ROAD_CLASSES]
     dim = config.embedding_dim
     # flax ``nn.Embed``: f32 tables, looked up in the compute dtype.
-    self.embeddings_surfel_road = nn.Embedding(
+    self.embeddings_surfel_road = layers.Embed(
         max(len(self.indices_surfel_road), 1), dim)
-    self.embeddings_other_classes = nn.Embedding(
+    self.embeddings_other_classes = layers.Embed(
         max(len(self.indices_other_classes), 1) * 2, dim)
     in_channels = dim * (bool(self.indices_surfel_road)
                          + len(self.indices_other_classes))
@@ -60,13 +60,11 @@ class SemanticRasterEncoder(nn.Module):
       # The first class present (0 where none is): torch.argmax takes no
       # bool and returns the first of tied maxima.
       label = torch.argmax(road.to(torch.uint8), -1)
-      parts.append(F.embedding(
-          label, self.embeddings_surfel_road.weight.to(self.dtype)))
+      parts.append(self.embeddings_surfel_road(label, self.dtype))
     if self.indices_other_classes:
       others = rasters[..., self.indices_other_classes].long()
       n = others.shape[-1]
       labels = torch.arange(n, device=others.device) * 2 + others
-      f_others = F.embedding(
-          labels, self.embeddings_other_classes.weight.to(self.dtype))
+      f_others = self.embeddings_other_classes(labels, self.dtype)
       parts.append(f_others.reshape(*f_others.shape[:-2], -1))
     return self.encoder(torch.cat(parts, -1))

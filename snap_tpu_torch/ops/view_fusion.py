@@ -133,9 +133,17 @@ def depth_hat_weights(depth: Tensor, num_bins: int,
                       dtype: torch.dtype = torch.float32) -> Tensor:
   """Hat-function interpolation weights ``[..., S]`` over S log-spaced depth
   bins, the bins' abscissa computed in ``depth``'s dtype and the hats in
-  ``dtype``."""
+  ``dtype``.
+
+  The abscissa is ``log(d / lo) / log(hi / lo) * (S - 1)``, each division a
+  true one by a tensor on ``depth``'s device, as K1 and K3 form it: a
+  division by a Python scalar is a product with its reciprocal on the card,
+  which moves the abscissa, and with it a score and the rank its max picks,
+  by an ulp (ROADMAP C10)."""
   lo, hi = depth_min_max
-  x = torch.log(depth.clamp(lo, hi) / lo) / math.log(hi / lo) * (num_bins - 1)
+  as_tensor = lambda v: torch.tensor(v, dtype=depth.dtype, device=depth.device)
+  x = torch.log(depth.clamp(lo, hi) / as_tensor(lo)) / as_tensor(
+      math.log(hi / lo)) * (num_bins - 1)
   x = x.clamp(0, num_bins - 1)
   bins = torch.arange(num_bins, dtype=dtype, device=depth.device)
   return torch.clamp(1 - torch.abs(x[..., None].to(dtype) - bins), min=0)

@@ -54,14 +54,19 @@ def gather_bilinear_patches(images: Tensor, row0: Tensor, col0: Tensor
   patch_gather_pallas``); the caller guarantees ``row0 <= R - 2`` and
   ``col0 <= W - 2``.
   """
+  taps = list(_taps(images, row0, col0))
+  return torch.stack([torch.stack(taps[:2], 2), torch.stack(taps[2:], 2)], 2)
+
+
+def _taps(images: Tensor, row0: Tensor, col0: Tensor):
+  """The 2x2 patch's taps ``[B, N, C]`` one at a time, in the order (di,
+  dj) = (0,0), (0,1), (1,0), (1,1)."""
   b, _, w, c = images.shape
   flat = images.reshape(b, -1, c)
   bidx = torch.arange(b, device=images.device)[:, None]
-  rows = []
   for di in (0, 1):
-    taps = [flat[bidx, ((row0 + di) * w + col0 + dj).long()] for dj in (0, 1)]
-    rows.append(torch.stack(taps, 2))
-  return torch.stack(rows, 2)
+    for dj in (0, 1):
+      yield flat[bidx, ((row0 + di) * w + col0 + dj).long()]
 
 
 class _Rank(NamedTuple):
@@ -90,15 +95,33 @@ def _lift_ranks(stack: Tensor, view_idx: Tensor, p2d: Tensor, select: Tensor,
                 depth_min_max: Tuple[float, float]) -> List[_Rank]:
   """Gather, combine and score each rank of each point (f32 inside). The
   stack's channels past ``dim`` are the score bins; without any (the
-  unweighted lift) every selected rank scores 0."""
+  unweighted lift) every selected rank scores 0.
+
+  A rank's combined ``f`` is formed in one stated order
+  (``csrc/lift_stats.cuh:tap_add``): the taps t = 0..3 = (di, dj) =
+  (0,0), (0,1), (1,0), (1,1), each product ``w_t * v_t`` rounded on its
+  own, added left to right from the first, ``((p0 + p1) + p2) + p3``. K1
+  and K3 form the score bins so in every layout, and the features so in
+  the layouts with the max and min: the channels whose values route a
+  cotangent (the score max's, the max's, the min's) then have the same
+  bits on every side, and a near tie goes to the same rank (ROADMAP C10).
+  In the other layouts, the flagship's among them, K1 and K3 fuse each
+  feature product into the sum (an FMA; the stated order cost the
+  flagship's K1 5.4% and K3 4.4% on an H100), so there their features,
+  which route nothing, are within rounding of these, not equal."""
   size = torch.tensor([h, w], dtype=torch.float32, device=stack.device)
   bins = stack.shape[-1] - dim
   ranks = []
   for r in range(view_idx.shape[-1]):
     lower, weights = _bilinear_taps(p2d[:, :, r], size)
     row0 = view_idx[:, :, r] * (h + 1) + lower[..., 0]
-    patches = gather_bilinear_patches(stack, row0, lower[..., 1])
-    f = (weights[..., None] * patches.float()).sum((2, 3))
+    # The left fold of the tap products, a tap at a time (no [B, N, 2, 2,
+    # C] patch held at once: the plain version runs at full width on the
+    # card too).
+    f = None
+    for t, tap in enumerate(_taps(stack, row0, lower[..., 1])):
+      term = weights[..., t // 2, t % 2, None] * tap.float()
+      f = term if f is None else f + term
     if bins:
       hat = view_fusion.depth_hat_weights(depth[:, :, r], bins, depth_min_max)
       score = (f[..., dim:] * hat).sum(-1)

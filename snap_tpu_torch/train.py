@@ -59,14 +59,21 @@ seconds and the trace's split. Summaries and evals go to the log.
 per-op table, sorted by device time. The default device is ``cuda``; there
 is no fallback to the CPU when no card is found.
 
-Under ``torchrun`` each process is a rank of the mesh's data axis
+Under ``torchrun`` each process is a rank of the config's mesh
 (``parallel/mesh.py``: ``cuda:LOCAL_RANK`` and NCCL where each rank has a
-card, the cards shared and gloo where there are fewer, gloo on the CPU):
-each builds its block of every global batch (``batch_size`` is global and
-must divide over the ranks) and takes the step one process would take on
-the global batch; rank 0 alone writes ``config.json``, the checkpoints and
+card, the cards shared and gloo where there are fewer, gloo on the CPU),
+``{data: D, model: M}`` with rank r at (r // M, r % M): each data rank
+builds its block of every global batch (``batch_size`` is global and must
+divide over the data ranks), the model axis splits the leaves that
+``Config.tp_min_dim`` makes wide (``parallel/tensor.py:shard_model``), and
+every rank takes the step one process would take on the global batch;
+rank 0 alone writes ``config.json``, the checkpoints (full leaves) and
 summaries and prints the JSON lines. A resumed run folds its step into the
-data seed on every rank alike.
+data seed on every rank alike. For example, on the CPU,
+
+    torchrun --nproc_per_node=2 -m snap_tpu_torch.train \
+      --config=smoke_train_exhaustive:batch_size=4,mesh_data=1,mesh_model=2,tp_min_dim=16 \
+      --device=cpu --workdir=/tmp/tp --stop_at_step=2
 """
 
 from __future__ import annotations
@@ -83,6 +90,7 @@ from snap_tpu_torch import evaluate
 from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import base
 from snap_tpu_torch.parallel import mesh
+from snap_tpu_torch.parallel import tensor
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import trainer
 from snap_tpu_torch.utils import prng
@@ -127,6 +135,8 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
   workdir = pathlib.Path(workdir)
   workdir.mkdir(parents=True, exist_ok=True)
   axes = mesh.make_mesh(dataclasses.asdict(config.mesh))
+  if mesh.active():
+    mesh.setup(axes)
   record = configs.to_reference(config)
   lead = mesh.is_lead()
   if lead:
@@ -143,6 +153,12 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
         data.shuffle_seed, start_step))
   if model is None:
     model = evaluate.build_model(config, device, seed)
+  sharded = tensor.shard_model(model, config.tp_min_dim)
+  if sharded and lead:
+    log.info('Sharded %d leaves (%d parameters a rank) over the model '
+             'axis of %d ranks.', len(sharded), sum(
+                 p.numel() for n, p in model.named_parameters()
+                 if n in sharded), axes['model'])
   model.train()
   with loader.get_dataset(data, config.batch_size,
                           eval_batch_size=config.train.eval_batch_size,
@@ -164,7 +180,7 @@ def train(config: Union[str, configs.Config] = 'train_full1chip_exhaustive',
       'build_ms': [build.wall_ms for build in builds],
       'build_card_ms': [build.card_ms for build in builds],
       'workdir': str(workdir),
-      'mesh': axes, 'rank': mesh.rank(),
+      'mesh': axes, 'rank': mesh.rank(), 'sharded': sharded,
   }
 
 

@@ -12,13 +12,18 @@ A step is written into a temporary directory beside the others and renamed
 into place, so a run killed mid-write leaves no half-written step; the
 step names (digits only) that hold ``meta.json`` are the checkpoints, and
 the last ``max_to_keep`` stay. Tensors go to the host one at a time and are
-read back with ``torch.load(..., weights_only=True)``. ``restore_checkpoint``
-copies a step into the live model's and optimizer's tensors, so the device
-holds one copy of the state; ``restore_params`` gives a step's parameters
-alone (a warm start, an evaluation); ``experiment_params`` those of an
-experiment workdir, its latest checkpoint or a JAX export's flat
-``params.npz``, and ``load_subtree`` a module's subtree of them (a warm
-start's hook).
+read back with ``torch.load(..., weights_only=True)``. A checkpoint holds
+full leaves: a leaf sharded over the mesh's model axis
+(``parallel/tensor.py``) is gathered over the model group before rank 0
+writes it (``host_state``, a collective every rank takes part in), and a
+restore takes the rank's slice, so a checkpoint resumes under any
+``{data, model}`` layout, as the reference's global arrays do.
+``restore_checkpoint`` copies a step into the live model's and optimizer's
+tensors, so the device holds one copy of the state; ``restore_params``
+gives a step's parameters alone (a warm start, an evaluation);
+``experiment_params`` those of an experiment workdir, its latest
+checkpoint or a JAX export's flat ``params.npz``, and ``load_subtree`` a
+module's subtree of them (a warm start's hook).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from snap_tpu_torch import convert
+from snap_tpu_torch.parallel import tensor
 
 PathLike = Union[str, pathlib.Path]
 PARAMS, OPT_STATE, META = 'params.pt', 'opt_state.pt', 'meta.json'
@@ -65,26 +71,42 @@ def _moment_names(state) -> List[str]:
   return [names[i] for i in state.tx.moment_index(len(names))]
 
 
-def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-  return {k: v.detach().to('cpu', copy=True) for k, v in tensors.items()}
+def _to_host(tensors: Dict[str, torch.Tensor],
+             dims: Dict[str, int]) -> Dict[str, torch.Tensor]:
+  """Each tensor on the host, a sharded one (``dims``) gathered whole."""
+  return {k: (tensor.full(v, dims[k]) if k in dims else v.detach()).to(
+      'cpu', copy=True) for k, v in tensors.items()}
+
+
+def host_state(state) -> Dict[str, Any]:
+  """``state``'s parameters and moments as full leaves on the host: every
+  rank of a model group must call it together (it gathers the sharded
+  leaves over the group)."""
+  dims = tensor.shard_dims(state.model)
+  opt = state.opt_state
+  names = _moment_names(state)
+  return {'params': _to_host(state.model.state_dict(), dims),
+          'count': int(opt.count),
+          'mu': _to_host(dict(zip(names, opt.mu)), dims),
+          'nu': _to_host(dict(zip(names, opt.nu)), dims)}
 
 
 def save_checkpoint(workdir: PathLike, state, step: int,
-                    max_to_keep: int = 10) -> int:
+                    max_to_keep: int = 10,
+                    host: Optional[Dict[str, Any]] = None) -> int:
   """Write ``state`` (a ``trainer.TrainState``) as checkpoint ``step``;
-  keep the last ``max_to_keep``. Returns the bytes written."""
+  keep the last ``max_to_keep``. ``host`` is its ``host_state`` where the
+  caller has gathered it already. Returns the bytes written."""
+  host = host_state(state) if host is None else host
   root = checkpoint_dir(workdir)
   root.mkdir(parents=True, exist_ok=True)
   tmp = root / f'{_TMP}{step}-{os.getpid()}'
   if tmp.exists():
     shutil.rmtree(tmp)
   tmp.mkdir()
-  torch.save(_to_host(state.model.state_dict()), tmp / PARAMS)
-  opt = state.opt_state
-  names = _moment_names(state)
-  torch.save({'count': int(opt.count),
-              'mu': _to_host(dict(zip(names, opt.mu))),
-              'nu': _to_host(dict(zip(names, opt.nu)))}, tmp / OPT_STATE)
+  torch.save(host['params'], tmp / PARAMS)
+  torch.save({key: host[key] for key in ('count', 'mu', 'nu')},
+             tmp / OPT_STATE)
   meta = {'global_step': int(state.global_step), 'seed': int(state.seed)}
   if state.dynamic_scale is not None:
     meta['dynamic_scale'] = state.dynamic_scale.state()
@@ -113,17 +135,22 @@ def _load(path: pathlib.Path) -> Any:
 
 
 def _copy_into(live: Dict[str, torch.Tensor],
-               saved: Dict[str, torch.Tensor], what: str) -> None:
+               saved: Dict[str, torch.Tensor], what: str,
+               dims: Optional[Dict[str, int]] = None) -> None:
+  """Copies each saved full leaf into the live tensor of its name (this
+  rank's slice of it where ``dims`` names the tensor sharded)."""
+  saved = {k: tensor.local(v, dims[k]) if dims and k in dims else v
+           for k, v in saved.items()}
   if set(live) != set(saved):
     raise ValueError(
         f'{what}: the checkpoint holds {sorted(set(saved) - set(live))} '
         f'beyond the live state and lacks {sorted(set(live) - set(saved))}')
   with torch.no_grad():
-    for name, tensor in live.items():
-      if tensor.shape != saved[name].shape:
+    for name, value in live.items():
+      if value.shape != saved[name].shape:
         raise ValueError(f'{what} {name}: shape {tuple(saved[name].shape)} '
-                         f'in the checkpoint, {tuple(tensor.shape)} live')
-      tensor.copy_(saved.pop(name))
+                         f'in the checkpoint, {tuple(value.shape)} live')
+      value.copy_(saved.pop(name))
 
 
 def restore_checkpoint(workdir: PathLike, state,
@@ -140,12 +167,13 @@ def restore_checkpoint(workdir: PathLike, state,
         f'{path} holds {"no" if saved_scale is None else "a"} dynamic loss '
         f'scale, and the run is {"fp16" if saved_scale is None else "not"}: '
         f'fp16 trains with one, bf16 and f32 without')
-  _copy_into(state.model.state_dict(), _load(path / PARAMS), 'params')
+  dims = tensor.shard_dims(state.model)
+  _copy_into(state.model.state_dict(), _load(path / PARAMS), 'params', dims)
   saved = _load(path / OPT_STATE)
   names = _moment_names(state)
   opt = state.opt_state
   for key in ('mu', 'nu'):
-    _copy_into(dict(zip(names, getattr(opt, key))), saved[key], key)
+    _copy_into(dict(zip(names, getattr(opt, key))), saved[key], key, dims)
   opt.count = int(saved['count'])
   state.global_step = int(meta['global_step'])
   state.seed = int(meta['seed'])

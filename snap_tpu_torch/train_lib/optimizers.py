@@ -32,6 +32,8 @@ import torch
 
 from snap_tpu_torch import configs
 from snap_tpu_torch import convert
+from snap_tpu_torch.parallel import mesh
+from snap_tpu_torch.parallel import tensor
 from snap_tpu_torch.train_lib import lr_schedules
 
 Tensor = torch.Tensor
@@ -54,15 +56,29 @@ class AdamState:
   nu: List[Tensor]
 
 
-def global_norm(tensors: Sequence[Tensor]) -> Tensor:
-  """``sqrt(sum of squares)`` over every leaf, in f32 (``optax.global_norm``)."""
-  return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+def global_norm(tensors: Sequence[Tensor],
+                sharded: Optional[Sequence[bool]] = None) -> Tensor:
+  """``sqrt(sum of squares)`` over every leaf, in f32 (``optax.global_norm``).
+
+  A leaf that ``sharded`` marks is this rank's slice of a leaf split over
+  the mesh's model axis: its sum of squares is the left fold, in model
+  order, of the ranks' sums (one all-gather of every such leaf's sum); the
+  replicated leaves count once. The leaves' sums are then added in order,
+  so every rank gets the same bits."""
+  squares = [(t.float() ** 2).sum() for t in tensors]
+  if sharded is not None and mesh.model_size() > 1 and any(sharded):
+    at = [i for i, s in enumerate(sharded) if s]
+    total = mesh.model_sum(torch.stack([squares[i] for i in at]))
+    for j, i in enumerate(at):
+      squares[i] = total[j]
+  return torch.sqrt(sum(squares))
 
 
-def clip_by_global_norm(grads: Sequence[Tensor], max_norm: float
+def clip_by_global_norm(grads: Sequence[Tensor], max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None
                         ) -> List[Tensor]:
   """optax's rule: unchanged below ``max_norm``, else scaled onto it."""
-  norm = global_norm(grads)
+  norm = global_norm(grads, sharded)
   return [torch.where(norm < max_norm, g, g / norm.to(g.dtype) * max_norm)
           for g in grads]
 
@@ -116,7 +132,9 @@ class Adam:
     index = self.moment_index(len(params))
     sub_grads = [grads[i].float() for i in index]
     if self.max_grad_norm is not None:
-      sub_grads = clip_by_global_norm(sub_grads, self.max_grad_norm)
+      sub_grads = clip_by_global_norm(
+          sub_grads, self.max_grad_norm,
+          [tensor.is_sharded(params[i]) for i in index])
     count = state.count + 1
     lr = self.lr_fn(state.count)
     if self.sgd:

@@ -43,6 +43,15 @@ the global batch from the step's generator, and each rank takes its rows;
 the metrics' (sum, count) pairs are summed over the ranks. Rank 0 alone
 writes checkpoints, summaries, the progress note and the trace, and every
 rank waits for each checkpoint and meets the others at the end.
+
+On a mesh with a model axis (``parallel/tensor.py``), "the ranks" above
+are the data axis's: the ranks of a model group hold the same rows, and
+each holds its slices of the sharded leaves. The global norm (the clip,
+``l2_*``) adds each sharded leaf's sum of squares over the model group
+(``optimizers.global_norm``); the replicated leaves' gradients are the
+group's first rank's; the finiteness verdict is agreed over every rank,
+so all ranks skip a step (and back off the loss scale) together; Adam's
+moments are sharded as their leaves; a checkpoint holds full leaves.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from snap_tpu_torch.data import loader
 from snap_tpu_torch.models import base
 from snap_tpu_torch.models import bev_mapper
 from snap_tpu_torch.parallel import mesh
+from snap_tpu_torch.parallel import tensor
 from snap_tpu_torch.train_lib import checkpoints
 from snap_tpu_torch.train_lib import dynamic_scale as dynamic_scale_lib
 from snap_tpu_torch.train_lib import optimizers
@@ -125,7 +135,7 @@ def step_generator(state: TrainState) -> torch.Generator:
 def reduce_metrics(metrics: Dict[str, Tensor], mask: Tensor
                    ) -> AggregatedMetrics:
   """Per-example metrics -> (sum, count), masked by ``mask`` & finiteness,
-  summed over the ranks."""
+  summed over the data axis."""
   out = {}
   for key, value in metrics.items():
     value = value.detach().float()
@@ -155,7 +165,7 @@ def loss_and_metrics(model: base.Model, batch: Dict[str, Any],
   does ``batch_rows`` (this rank's first row and the global batch size,
   whose rows its pose samples are drawn for). Under a process group the loss
   is this rank's share of the global batch's masked mean: its masked sum
-  over the global count."""
+  over the global count (summed over the data axis)."""
   kwargs = {} if pose_samples is None else {'pose_samples': pose_samples}
   if batch_rows is not None:
     kwargs['batch_rows'] = batch_rows
@@ -173,12 +183,12 @@ def loss_and_metrics(model: base.Model, batch: Dict[str, Any],
 
 def _rows_of_batch(batch: Dict[str, Any]):
   """This rank's rows of the global batch: (slice, global size), None
-  without a process group."""
+  without a process group. The rows go by the rank's data index over the
+  data axis: the ranks of a model group hold the same rows."""
   if not mesh.active():
     return None
-  world = mesh.world_size()
-  local = batch['batch_mask'].shape[0]
-  return mesh.block(local * world), local * world
+  size = batch['batch_mask'].shape[0] * mesh.data_size()
+  return mesh.block(size), size
 
 
 def _draw_rows(model: base.Model):
@@ -204,20 +214,24 @@ def apply_gradients(params: List[Tensor], grads: List[Tensor],
   (then params and optimizer state stay); advances ``global_step`` either
   way. Returns the step's logs."""
   updates, new_opt_state = optimizer.update(grads, state.opt_state, params)
+  sharded = [tensor.is_sharded(p) for p in params]
   logs = {
-      'l2_grads': optimizers.global_norm(grads),
-      'l2_updates': optimizers.global_norm(updates),
+      'l2_grads': optimizers.global_norm(grads, sharded),
+      'l2_updates': optimizers.global_norm(updates, sharded),
       'learning_rate': optimizer.lr_fn(state.global_step),
   }
   is_finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]
                                ).all())
+  if mesh.model_size() > 1:  # the ranks hold different slices: agree
+    is_finite = not mesh.any_true(not is_finite)
   if is_finite:
     with torch.no_grad():
       for p, u in zip(params, updates):
         p.add_(u.to(p.dtype))
     state.opt_state = new_opt_state
   logs['is_finite'] = is_finite
-  logs['l2_params'] = optimizers.global_norm([p.detach() for p in params])
+  logs['l2_params'] = optimizers.global_norm([p.detach() for p in params],
+                                             sharded)
   state.global_step += 1
   return {k: float(v) for k, v in logs.items()}
 
@@ -262,6 +276,15 @@ def train_step(state: TrainState, batch: Dict[str, Any],
   grads = [torch.zeros_like(p) if g is None else g
            for g, p in zip(grads, params)]
   grads = mesh.all_reduce_sum(grads)
+  if mesh.model_size() > 1:
+    # Each rank of a model group computes the replicated leaves' gradients
+    # on its own, and cuDNN may take other algorithms in each (the
+    # workspace each finds, nondeterministic ones in f32): the group takes
+    # its first rank's, so that every rank applies the same update.
+    replicated = [i for i, p in enumerate(params) if not tensor.is_sharded(p)]
+    for i, g in zip(replicated, mesh.model_broadcast(
+        [grads[i] for i in replicated])):
+      grads[i] = g
   if scale is not None:
     grads = [g.float() / scale.scale for g in grads]
   logs = apply_gradients(params, grads, state, optimizer)
@@ -412,13 +435,17 @@ def update_pretrained_variables(model: torch.nn.Module) -> int:
       raise ValueError(
           'Could not load any pre-trained weight, all were left unused.')
   log.info('Updating %d variable(s) from pretrained weights.', len(update))
+  dims = tensor.shard_dims(model)
   with torch.no_grad():
     for name in update:
-      if live[name].shape != pretrained[name].shape:
+      value = pretrained[name]
+      if name in dims:  # the full leaf, then this rank's slice of it
+        value = tensor.local(value, dims[name])
+      if live[name].shape != value.shape:
         raise ValueError(f'pretrained {name}: shape '
                          f'{tuple(pretrained[name].shape)}, the model\'s '
                          f'{tuple(live[name].shape)}')
-      live[name].copy_(pretrained[name])
+      live[name].copy_(value)
   return len(update)
 
 
@@ -625,9 +652,12 @@ def train(config: configs.Config, model: base.Model,
       chrono.pause()
       t0 = time.perf_counter()
       nbytes = None
+      host = checkpoints.host_state(state)  # gathered on every rank
       if lead:
         nbytes = checkpoints.save_checkpoint(
-            workdir, state, step, max_to_keep=tc.max_checkpoints_to_keep)
+            workdir, state, step, max_to_keep=tc.max_checkpoints_to_keep,
+            host=host)
+      del host
       mesh.barrier()  # the others resume from it only once it is written
       result['checkpoints'][step] = {
           'seconds': time.perf_counter() - t0, 'bytes': nbytes}

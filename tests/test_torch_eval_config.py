@@ -157,7 +157,7 @@ def test_heads_follow_a_pretrained_mapper(tmp_path):
     (('model', 'bev_mapper', 'streetview_encoder', 'color'), 1,
      'unknown key model.bev_mapper.streetview_encoder.color'),
     (('model_name',), 'depth_net', 'model_name'),
-    (('mesh', 'model'), 2, 'mesh.model'),
+    (('mesh', 'model'), 0, 'mesh.model'),
     (('data', 'name'), 'tfds', 'data.name'),
 ])
 def test_from_reference_raises_naming_the_key(path, value, match):

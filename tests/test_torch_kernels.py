@@ -1237,9 +1237,8 @@ def test_lift_b8_layouts_match_plain(cuda, layout, dtype, k, case):
   assert not valid[:, :200].any() and not stats[:, :200].any()
   torch.testing.assert_close(stats.float(), stats_p.float(),
                              **TOLERANCES[dtype])
-  g = torch.randn(stats.shape, device=cuda).to(dtype)
-  (*_, g), _ = chip_smoke.without_near_ties(
-      (*args, chip_smoke.unit_cotangent(g)), kwargs)
+  g = chip_smoke.unit_cotangent(
+      torch.randn(stats.shape, device=cuda).to(dtype))
   (got,) = torch.autograd.grad(stats, stack, g)
   assert kernels.LAUNCHES['lift_topk_bwd'] == before['lift_topk_bwd'] + 1
   stages = [o['name'] for o in kernels.occupancy('lift_topk_bwd')]
@@ -1280,9 +1279,8 @@ def test_lift_topk_bwd_repeat_calls_give_equal_bits(cuda, layout, dtype, k):
   args, kwargs = _b8_inputs(cuda, dtype, weighted, k, 'mixed')
   kwargs.update(use_variance=use_variance, add_minmax=add_minmax)
   width = kernels.stats_width(32, *layout)
-  g = torch.randn((*args[1].shape[:2], width), device=cuda).to(dtype)
-  (*_, g), _ = chip_smoke.without_near_ties(
-      (*args, chip_smoke.unit_cotangent(g)), kwargs)
+  g = chip_smoke.unit_cotangent(
+      torch.randn((*args[1].shape[:2], width), device=cuda).to(dtype))
   got = _equal_bits_over_calls(
       lambda: kernels.lift_topk_bwd(*args, g, **kwargs))
   want = view_scan.lift_topk_bwd_plain(*args, g, **kwargs)
@@ -1533,8 +1531,7 @@ def test_lift_topk_bwd_f16_non_finite_cotangent_reaches_the_gradient(cuda,
   them, and the cast of the f32 sum rounds past 65504 to inf."""
   args, g_stats, kwargs = _raw_lift_bwd_inputs(cuda, torch.float16, 160, 128)
   assert args[3][0, 500].any()
-  (*_, g_stats), _ = chip_smoke.without_near_ties(
-      (*args, chip_smoke.unit_cotangent(g_stats)), kwargs)
+  g_stats = chip_smoke.unit_cotangent(g_stats)
   g_stats = _with_non_finite(g_stats.float(), (0, 500, 3), bad).to(
       torch.float16)
   got = kernels.lift_topk_bwd(*args, g_stats, **kwargs)

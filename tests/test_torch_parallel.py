@@ -91,18 +91,28 @@ def test_make_mesh_rules():
   assert mesh.make_mesh({'data': 3}, 3) == {'data': 3, 'model': 1}
   with pytest.raises(ValueError, match='does not match 4 devices'):
     mesh.make_mesh({'data': 3}, 4)
-  with pytest.raises(ValueError, match='tensor-parallel part of ROADMAP A12'):
-    mesh.make_mesh({'data': 1, 'model': 2}, 2)
-  with pytest.raises(ValueError, match='tensor-parallel part of ROADMAP A12'):
-    mesh.make_mesh({'data': -1, 'model': 2}, 4)
+  # The model axis (tensor parallelism): -1 takes what the other leaves.
+  assert mesh.make_mesh({'data': 1, 'model': 2}, 2) == {'data': 1,
+                                                        'model': 2}
+  assert mesh.make_mesh({'data': -1, 'model': 2}, 4) == {'data': 2,
+                                                         'model': 2}
+  # Rank r at (r // model, r % model), the reference's row-major reshape.
+  assert [mesh.place(r, 2) for r in range(4)] == [(0, 0), (0, 1), (1, 0),
+                                                  (1, 1)]
+  with pytest.raises(ValueError, match='does not match 4 devices'):
+    mesh.make_mesh({'data': 3, 'model': 2}, 4)
   with pytest.raises(ValueError, match='mesh has'):
     mesh.make_mesh({'pipeline': 2}, 2)
   assert mesh.block(8, 2, 1) == slice(4, 8)
   with pytest.raises(ValueError, match='must divide evenly over 3'):
     mesh.block(8, 3, 0)
-  # Without torchrun's environment: one rank, no process group.
+  # Without torchrun's environment: one rank, no process group, the mesh
+  # {data: 1, model: 1} with this rank at (0, 0).
   assert mesh.world_size() == 1 and mesh.rank() == 0 and mesh.is_lead()
+  assert (mesh.data_size(), mesh.model_size(), mesh.data_index(),
+          mesh.model_index()) == (1, 1, 0, 0)
   assert mesh.all_reduce_sum([torch.ones(2)])[0].tolist() == [1.0, 1.0]
+  assert mesh.model_sum(torch.ones(2)).tolist() == [1.0, 1.0]
 
 
 def test_from_reference_reads_the_mesh():
@@ -110,7 +120,14 @@ def test_from_reference_reads_the_mesh():
   assert d['mesh'] == {'data': -1, 'model': 1}
   d['mesh'] = {'data': 2}
   assert configs.from_reference(d).mesh == configs.MeshConfig(data=2)
-  d['mesh'] = {'data': 1, 'model': 2}
+  d['mesh'], d['tp_min_dim'] = {'data': 1, 'model': 2}, 16
+  config = configs.from_reference(d)
+  assert config.mesh == configs.MeshConfig(data=1, model=2)
+  assert config.tp_min_dim == 16
+  assert configs.to_reference(config)['tp_min_dim'] == 16
+  del d['tp_min_dim']  # the reference's default
+  assert configs.from_reference(d).tp_min_dim == mesh.TP_MIN_DIM == 256
+  d['mesh'] = {'data': 1, 'model': 0}
   with pytest.raises(ValueError, match='mesh.model'):
     configs.from_reference(d)
 

@@ -207,3 +207,52 @@ def test_wrappers_refuse_other_devices():
   with pytest.raises(ValueError, match='no kernel'):
     view_scan.patch_sample_2d(stack, torch.empty((1, 5, 2), device='meta'),
                               dim=7, has_valid=True)
+
+
+def test_lift_ranks_sum_the_taps_in_the_stated_order():
+  """Each rank's ``f`` is the left fold of the four tap products, each
+  rounded on its own, taps (0,0), (0,1), (1,0), (1,1) (ROADMAP C10),
+  formed here step by step in numpy f32 and held bit for bit; the inputs
+  are such that a sum with the products fused into it (an FMA each, formed
+  exactly in f64 and rounded once) differs at many entries, and so does
+  the fold in another order."""
+  rng = np.random.default_rng(7)
+  b, v, h, w, c, n, k = 2, 3, 6, 7, 24, 64, 2
+  stack = rng.standard_normal((b, v * (h + 1), w + 1, c)).astype(np.float32)
+  view_idx = rng.integers(0, v, (b, n, k)).astype(np.int32)
+  p2d = (rng.random((b, n, k, 2)) * [h + 1, w + 1] - 0.5).astype(np.float32)
+  select = np.ones((b, n, k), bool)
+  depth = np.ones((b, n, k), np.float32)
+  ranks = view_scan._lift_ranks(
+      torch.as_tensor(stack), torch.as_tensor(view_idx),
+      torch.as_tensor(p2d), torch.as_tensor(select), torch.as_tensor(depth),
+      h=h, w=w, dim=c, depth_min_max=(1.0, 32.0))
+  flat = stack.reshape(b, -1, c)
+  one = np.float32(1)
+  fused_differs = reordered_differs = 0
+  for r, rank in enumerate(ranks):
+    pts = np.minimum(np.maximum(p2d[:, :, r] - np.float32(0.5), 0),
+                     np.array([h - 1, w - 1], np.float32))
+    lower = np.floor(pts)
+    fi, fj = (pts - lower)[..., 0], (pts - lower)[..., 1]
+    tw = [(one - fi) * (one - fj), (one - fi) * fj, fi * (one - fj), fi * fj]
+    row0 = view_idx[:, :, r] * (h + 1) + lower[..., 0].astype(np.int32)
+    col0 = lower[..., 1].astype(np.int32)
+    taps = [flat[np.arange(b)[:, None], (row0 + di) * (w + 1) + col0 + dj]
+            for di in (0, 1) for dj in (0, 1)]
+    products = [(tw[t][..., None] * taps[t]).astype(np.float32)
+                for t in range(4)]
+    want = products[0]
+    for t in range(1, 4):
+      want = (want + products[t]).astype(np.float32)
+    np.testing.assert_array_equal(rank.f.numpy().view(np.int32),
+                                  want.view(np.int32))
+    fused = np.zeros_like(want)
+    for t in range(4):
+      fused = (tw[t][..., None].astype(np.float64) * taps[t]
+               + fused).astype(np.float32)
+    reordered = ((products[3] + products[2]) + products[1]) + products[0]
+    fused_differs += int((fused != want).sum())
+    reordered_differs += int((reordered != want).sum())
+  assert fused_differs > 100 and reordered_differs > 100, (
+      fused_differs, reordered_differs)
