@@ -1,6 +1,7 @@
 """Drive the port's serving, training, RANSAC, held-out evaluation, bench,
-gather-bench, long-run trainer, head, mapper-option, fp16, data-parallel
-and tensor-parallel paths on one NVIDIA GPU (H100).
+gather-bench, long-run trainer, head, mapper-option, fp16, data-parallel,
+tensor-parallel and other-trunk and other-scale paths on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py
 
@@ -277,6 +278,21 @@ host generator's batch:
    Logged: the sharded leaves and bytes a rank, each rank's step ms (host)
    and device ms (``torch.profiler``), own peak memory, and the
    collectives' calls and bytes a step.
+11. the reference's trunks and scales (``configs.train_localization``,
+   bf16, seeded weights, batches made on the card): (a)
+   ``image_encoder=R152x2`` at ``scale=full1chip`` (the exhaustive backend,
+   batch 2, the trunk through its third stage rematerialized), 3 steps
+   with phase 7's checks and launches, 2 more traced for their device ms,
+   its parameters and own peak, ``evaluator.run`` of its workdir (2
+   batches of zurich, f32, K1 and K2 each batch), then one step from its
+   checkpoint with remat on and one with it off (``cudnn.deterministic``):
+   equal loss, logs and gradient leaves bit for bit, each step's own peak
+   logged; (b) ``scale=small`` (10 views of 90x120, 0.4 m, batch 8) the
+   same, served likewise; K1-K4 of both held against their plain versions
+   on every input the steps and the evaluation gave them (K3 and K4 ten
+   calls to equal bits), then timed on the largest (rows ``/r152x2``,
+   ``/small``); (c) one step each of ``image_encoder=R101`` and ``R26`` at
+   ``scale=full1chip``: a finite loss, K1-K4 launched, the peak logged.
 
 The line before the last is a JSON object with one entry per kernel (K1
 and K2 launches from the serving run, K3 and K4 from the training run, B4
@@ -288,7 +304,9 @@ B8's K1 and K3 at phase 7j's inputs (``/stream_minmax``,
 ``/scan_unweighted``, launches from those runs; K1's rows also give its
 ``registers``, ``local_bytes`` and ``blocks_per_sm``), and K1-K4 in f16
 (``/f16``: K1 and K2 launches from phase 7k's evaluation, K3 and K4 from
-its steps; each also gives ``spin_ms``); the last line is
+its steps; each also gives ``spin_ms``), and K1-K4 on phase 11's paths
+(``/r152x2``, ``/small``: K1 and K2 launches from the steps, the
+evaluation's checked too); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1557,6 +1575,17 @@ TRAIN_PATHS = {
         {'patch_sample_2d': 1, 'patch_sample_2d_bwd': 1},
         ('lift_topk_fwd', 'lift_topk_bwd'), ()),
 }
+# Phase 11: the reference's trunks and scales, each with phase 7's checks
+# and every input of K1-K4 captured.
+R152X2_PATH = ('train_localization:scale=full1chip,pose_backend=exhaustive,'
+               'image_encoder=R152x2')
+SMALL_PATH = 'train_localization:scale=small,pose_backend=exhaustive'
+for _path in (R152X2_PATH, SMALL_PATH):
+  TRAIN_PATHS[_path] = (
+      {'lift_topk_fwd': 2, 'patch_sample_2d': 1, 'lift_topk_bwd': 2,
+       'patch_sample_2d_bwd': 1}, (),
+      ('lift_topk_fwd', 'patch_sample_2d', 'lift_topk_bwd',
+       'patch_sample_2d_bwd'))
 
 
 def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive',
@@ -1578,6 +1607,9 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive',
   # The street-view trunk is the query's own mapper's where it has one.
   street = ('bev_mapper_query.' if config.model.bev_mapper_query is not None
             else 'bev_mapper.')
+  counts = (sum(p.numel() for p in params.values()),
+            sum(p.numel() for n, p in params.items() if n.startswith(
+                street + 'streetview_encoder.image_encoder.encoder.')))
   weighted = (config.model.bev_mapper_query or config.model.bev_mapper
               ).streetview_encoder.do_weighted_fusion
   street_leaves = [street + leaf[len('bev_mapper.'):]
@@ -1676,8 +1708,9 @@ def training_main_path(smi: str, name: str = 'train_full1chip_exhaustive',
   if result['generator_kind'] != 'device-torch':
     raise AssertionError(f'training data from {result["generator_kind"]}')
   ms = [1e3 * s for s in result['step_seconds']]
-  log(f'training main path ({name}, batch 2, bf16): '
-      f'launches {launches}; ms per step {ms} (steps 2-3: '
+  log(f'training main path ({name}, batch {config.batch_size}, '
+      f'{config.dtype_str}; {counts[0]:,} parameters, {counts[1]:,} of them '
+      f'the street-view trunk): launches {launches}; ms per step {ms} (steps 2-3: '
       f'{sum(ms[1:]) / len(ms[1:]):.1f} ms), with the wait for its batch '
       f'{[1e3 * s for s in result["wall_seconds"]]}, data '
       f'{result["generator_kind"]}, build ms per step (host) '
@@ -3652,56 +3685,250 @@ def kernel_rows(serve_launches, train_launches, lift, sample, lift_bwd,
   return rows
 
 
-def f16_rows(train_launches, eval_launches, lift, sample, lift_bwd,
-             sample_bwd):
-  """Phase 8 in f16: K1 and K2 on phase 7k's evaluation inputs, K3 and K4
-  on its training steps' (each checked on every captured input, then
-  timed on the largest beside its plain version, its bound and
-  ``F.grid_sample`` and its input gradient in f16 for K2 and K4): one JSON
-  row each, named ``<kernel>/f16``."""
+# K1-K4 as ``captured_rows`` checks and times them: each kernel's check,
+# plain version, bound of (args, kwargs, output) and library call (None:
+# none).
+K1_K4_ROWS = (
+    ('lift_topk_fwd', check_lift,
+     lambda a, k: view_scan.lift_topk_plain(*a, **k),
+     lambda a, k, out: lift_bound(a, k, *out), None),
+    ('patch_sample_2d', check_sample,
+     lambda a, k: view_scan.patch_sample_2d_plain(*a, **k),
+     lambda a, k, out: sample_bound(a, k, *out),
+     lambda a, k: grid_sample_call(*a)),
+    ('lift_topk_bwd', check_lift_bwd, lambda a, k: plain_lift_bwd(a, k),
+     lift_bwd_bound, None),
+    ('patch_sample_2d_bwd', check_sample_bwd,
+     lambda a, k: view_scan.patch_sample_2d_bwd_plain(*a, **k),
+     sample_bwd_bound,
+     lambda a, k: grid_sample_bwd_call(*a, k['plane_shape'])))
+
+
+def captured_rows(tag: str, launches, captures, checked=None, dtype=None):
+  """K1-K4 on a path's captured inputs (``captures``: a ``Capture`` per
+  kernel, in K1_K4_ROWS' order; ``launches``: per kernel, the run's): each
+  checked on every input it was given (and on those of ``checked``'s
+  ``Capture`` of the same kernel, when given), K3 and K4 ten calls to
+  equal bits, then each timed on its largest input beside its plain
+  version, its bound and (K2, K4) ``F.grid_sample`` and its input
+  gradient, queued behind a spin too (``spin_ms``). One JSON row each,
+  named ``<kernel>/<tag>``; with ``dtype``, every timed input must be in
+  it."""
   rows = []
-  for kernel, calls, launches, check, plain, bound, library in (
-      ('lift_topk_fwd', lift, eval_launches, check_lift,
-       lambda a, k: view_scan.lift_topk_plain(*a, **k),
-       lambda a, k, out: lift_bound(a, k, *out), None),
-      ('patch_sample_2d', sample, eval_launches, check_sample,
-       lambda a, k: view_scan.patch_sample_2d_plain(*a, **k),
-       lambda a, k, out: sample_bound(a, k, *out),
-       lambda a, k: grid_sample_call(*a)),
-      ('lift_topk_bwd', lift_bwd, train_launches, check_lift_bwd,
-       lambda a, k: plain_lift_bwd(a, k), lift_bwd_bound, None),
-      ('patch_sample_2d_bwd', sample_bwd, train_launches, check_sample_bwd,
-       lambda a, k: view_scan.patch_sample_2d_bwd_plain(*a, **k),
-       sample_bwd_bound,
-       lambda a, k: grid_sample_bwd_call(*a, k['plane_shape']))):
-    err = max(check(*c) for c in calls.calls.values())
+  checked = checked or {}
+  for (kernel, check, plain, bound, library), calls in zip(K1_K4_ROWS,
+                                                          captures):
+    inputs = list(calls.calls.values())
+    if kernel in checked:
+      inputs += list(checked[kernel].calls.values())
+    err = max(check(*c) for c in inputs)
     if kernel in ('lift_topk_bwd', 'patch_sample_2d_bwd'):
       repeats = [check_repeats(
           lift_bwd_call(*c) if kernel == 'lift_topk_bwd'
           else functools.partial(kernels.patch_sample_2d_bwd, *c[0], **c[1]),
-          f'{kernel}/f16') for c in calls.calls.values()]
-      log(f'{kernel}/f16: {REPEAT_CALLS} calls on each captured input give '
-          f'equal bits (entries of each output): {repeats}')
+          f'{kernel}/{tag}') for c in calls.calls.values()]
+      log(f'{kernel}/{tag}: {REPEAT_CALLS} calls on each captured input '
+          f'give equal bits (entries of each output): {repeats}')
     args, kw = calls.largest()
-    if args[0].dtype != torch.float16:
+    if dtype is not None and args[0].dtype != dtype:
       raise AssertionError(f'{kernel}: captured {args[0].dtype}')
     call = (lift_bwd_call(args, kw) if kernel == 'lift_topk_bwd'
             else functools.partial(getattr(kernels, kernel), *args, **kw))
     out = call()
-    log_occupancy(kernel, 'phase 7k\'s f16 input')
-    row = report(f'{kernel}/f16', f'snap_tpu_torch/csrc/{kernel}.cu',
+    log_occupancy(kernel, f'the /{tag} input')
+    row = report(f'{kernel}/{tag}', f'snap_tpu_torch/csrc/{kernel}.cu',
                  launches[kernel], err, time_ms(call),
                  time_ms(lambda: plain(args, kw), iters=3),
                  bound(args, kw, out),
                  None if library is None else time_ms(library(args, kw)))
     row['spin_ms'] = time_ms(call, spin=True)
+    also = list(checked[kernel].calls) if kernel in checked else []
     log(f'{row["name"]} at {tuple(args[0].shape)} (inputs '
-        f'{list(calls.calls)}): {row["ms"]:.4f} ms, spin '
-        f'{row["spin_ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, bound '
-        f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, library '
+        f'{list(calls.calls)}, also checked {also}): {row["ms"]:.4f} ms, '
+        f'spin {row["spin_ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, '
+        f'bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, library '
         f'{row["library_ms"]}), max abs err {err:.3g}')
     rows.append(row)
     del out
+  return rows
+
+
+def f16_rows(train_launches, eval_launches, lift, sample, lift_bwd,
+             sample_bwd):
+  """Phase 8 in f16: K1 and K2 on phase 7k's evaluation inputs, K3 and K4
+  on its training steps' (``captured_rows``), named ``<kernel>/f16``."""
+  launches = {**train_launches, 'lift_topk_fwd': eval_launches[
+      'lift_topk_fwd'], 'patch_sample_2d': eval_launches['patch_sample_2d']}
+  return captured_rows('f16', launches, (lift, sample, lift_bwd, sample_bwd),
+                       dtype=torch.float16)
+
+
+# Phase 11: the reference's trunks and scales. Each path serves this many
+# evaluation batches of its workdir; R101 and R26 take one step each.
+PHASE11_EVAL_BATCHES = 2
+TRUNK_STEP_PATHS = tuple(
+    'train_localization:scale=full1chip,pose_backend=exhaustive,'
+    f'image_encoder={trunk}' for trunk in ('R101', 'R26'))
+
+
+def _without_remat(config: configs.Config) -> configs.Config:
+  """``config`` with its street-view trunk not rematerialized."""
+  trunk = config.model.bev_mapper.streetview_encoder.image_encoder.encoder
+  return configs.merge(config, {'model': {'bev_mapper': {
+      'streetview_encoder': {'image_encoder': {'encoder': dataclasses.replace(
+          trunk, checkpoint_blocks=False, checkpoint_units=False)}}}}})
+
+
+def remat_pair(config: configs.Config, workdir: pathlib.Path) -> dict:
+  """One train step from the latest checkpoint of ``workdir`` with the
+  config's remat, and one with the trunk's remat off, each on a model of
+  its own restored from it, on the resumed run's first batch, with
+  cuDNN's deterministic algorithms: the two must be equal bit for bit
+  (loss, logs, every gradient leaf). Returns each step's own peak memory
+  (its peak less what was allocated before it) and ms."""
+  data = None
+  outs, peaks, ms = [], [], []
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    for cfg in (config, _without_remat(config)):
+      model = evaluate.build_model(cfg, 'cuda', 1)
+      model.train()
+      state = trainer.create_train_state(
+          model, optimizers.get_optimizer(cfg.train, model), seed=1,
+          dynamic_scale=dynamic_scale.for_dtype(cfg.dtype_str))
+      step = checkpoints.restore_checkpoint(workdir, state)
+      if data is None:
+        data = dataclasses.replace(
+            cfg.data, shuffle_seed=prng.resume_shuffle_seed(
+                cfg.data.shuffle_seed, step))
+        with loader.get_dataset(data, cfg.batch_size, device='cuda',
+                                start_step=step) as dataset:
+          batch = next(dataset.train_iter)
+        batch.pop('_host')
+      torch.cuda.synchronize()
+      held = torch.cuda.memory_allocated()
+      torch.cuda.reset_peak_memory_stats()
+      t0 = time.perf_counter()
+      out = trainer.train_step(state, batch, state.tx)
+      torch.cuda.synchronize()
+      ms.append(1e3 * (time.perf_counter() - t0))
+      peaks.append(torch.cuda.max_memory_allocated() - held)
+      outs.append(out._replace(grads={
+          k: g.detach().clone() for k, g in out.grads.items()}))
+      del model, state, out
+      torch.cuda.empty_cache()
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  _steps_equal('remat on against off', *outs)
+  return {'step': step, 'peak_gib': [p / 2**30 for p in peaks], 'ms': ms,
+          'loss': [float(o.metrics['loss/total'][0]) for o in outs]}
+
+
+def phase11_path(smi: str, name: str):
+  """Phase 11 (a) or (b): ``name``'s 3 steps with phase 7's checks, 2 more
+  traced, its parameters, ``evaluator.run`` of its workdir
+  (PHASE11_EVAL_BATCHES batches of zurich, f32, K1 and K2 each batch) and
+  ``remat_pair`` where its trunk rematerializes. Returns the steps'
+  launches, the evaluation's captures of K1 and K2 and the steps'
+  captures of K1-K4."""
+  config = configs.get_config(name)
+  encoder = config.model.bev_mapper.streetview_encoder.image_encoder.encoder
+  served = {}
+
+  def after(workdir: pathlib.Path) -> None:
+    size = config.batch_size * PHASE11_EVAL_BATCHES
+    ec = configs.eval_localization(evaluation_size=size,
+                                   batch_size=config.batch_size)
+    ec = dataclasses.replace(ec, workdir=str(workdir), data=dataclasses.replace(
+        ec.data, split='zurich'))
+    with contextlib.ExitStack() as stack:
+      served['captures'] = [stack.enter_context(Capture(kernels, kernel, 0))
+                            for kernel in ('lift_topk_fwd', 'patch_sample_2d')]
+      kernels.reset_launch_counts()
+      t0 = time.perf_counter()
+      (city, (results, record)), = evaluator.run(ec, device='cuda').items()
+      seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if (launches['lift_topk_fwd'] < PHASE11_EVAL_BATCHES
+        or launches['patch_sample_2d'] < PHASE11_EVAL_BATCHES):
+      raise AssertionError(f'{name} eval launched {launches}')
+    for key in ('error_max_meter', 'error_max_deg'):
+      if results[key].shape != (size,) or not np.isfinite(results[key]).all():
+        raise AssertionError(f'{name} eval: {key} {results[key]}')
+    print(json.dumps(evaluate.city_summary(city, results, record)),
+          flush=True)
+    log(f'{name}: evaluator.run of its workdir on {city} ({size} examples '
+        f'at batch {config.batch_size}, f32) of step '
+        f'{record["eval_checkpoint_step"]}: {seconds:.2f} s, launches '
+        f'{launches}; {smi}')
+    if encoder.checkpoint_units or encoder.checkpoint_blocks:
+      served['remat'] = remat_pair(config, workdir)
+      log(f'{name}: a step from its checkpoint with the trunk\'s remat on, '
+          f'then off (cudnn.deterministic): equal bit for bit; {served["remat"]}'
+          f'; {smi}')
+
+  log(f'phase 11 {name}: the street-view trunk {encoder}; data '
+      f'{config.data.num_views} views of {config.data.image_size} at '
+      f'{config.data.voxel_size} m, batch {config.batch_size}')
+  launches, *captures = training_main_path(smi, name, config, after=after,
+                                           traced_steps=2)
+  return launches, served['captures'], captures
+
+
+def trunk_step(smi: str, name: str) -> dict:
+  """Phase 11 (c): one step of ``name`` from seeded weights on a batch the
+  card makes: a finite loss and K1-K4 launched; its own peak memory."""
+  config = configs.get_config(name)
+  model = evaluate.build_model(config, 'cuda', 0)
+  model.train()
+  state = trainer.create_train_state(
+      model, optimizers.get_optimizer(config.train, model), seed=0,
+      dynamic_scale=dynamic_scale.for_dtype(config.dtype_str))
+  with loader.get_dataset(config.data, config.batch_size,
+                          device='cuda') as dataset:
+    batch = next(dataset.train_iter)
+  batch.pop('_host')
+  torch.cuda.synchronize()
+  held = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launch_counts()
+  t0 = time.perf_counter()
+  out = trainer.train_step(state, batch, state.tx)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = dict(kernels.LAUNCHES)
+  loss = trainer.summarize([out.metrics])['loss/total']
+  if not (math.isfinite(loss) and out.logs['is_finite'] == 1.0):
+    raise AssertionError(f'{name}: loss {loss}, logs {out.logs}')
+  for kernel in EXHAUSTIVE_KERNELS:
+    if not launches[kernel]:
+      raise AssertionError(f'{name}: {kernel} not launched: {launches}')
+  got = {'loss': loss, 'l2_grads': out.logs['l2_grads'],
+         'parameters': sum(p.numel() for p in model.parameters()),
+         'own_peak_gib': (torch.cuda.max_memory_allocated() - held) / 2**30,
+         'first_step_s': seconds, 'launches': launches}
+  log(f'phase 11 (c) {name}, batch {config.batch_size}: {got}; {smi}')
+  del model, state, out
+  torch.cuda.empty_cache()
+  return got
+
+
+def trunks_and_scales_phase(smi: str) -> list:
+  """Phase 11: (a) R152x2 and (b) ``scale=small`` trained, served and their
+  kernels checked and timed; (c) a step each of R101 and R26."""
+  t0 = time.perf_counter()
+  rows = []
+  for tag, name in (('r152x2', R152X2_PATH), ('small', SMALL_PATH)):
+    launches, served, captures = phase11_path(smi, name)
+    with torch.no_grad():
+      rows += captured_rows(tag, launches, captures, dict(zip(
+          ('lift_topk_fwd', 'patch_sample_2d'), served)))
+    del served, captures
+    torch.cuda.empty_cache()
+  for name in TRUNK_STEP_PATHS:
+    trunk_step(smi, name)
+  log(f'phase 11: {time.perf_counter() - t0:.1f} s for the phase; {smi}')
   return rows
 
 
@@ -3847,6 +4074,10 @@ def main() -> int:
   data_axis_phase(smi)
   # 10. The mesh's model axis on the card.
   model_axis_phase(smi)
+  # 11. The reference's trunks and scales: R152x2 and scale=small trained,
+  # served and their kernels checked; a step each of R101 and R26.
+  rows += trunks_and_scales_phase(smi)
+  kernels.check_lift_counts(wait=True)
   print(smi, flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

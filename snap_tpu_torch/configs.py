@@ -95,12 +95,40 @@ def _warm_start_field():
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
+  """``defaults.resnet()``. ``checkpoint_units`` rematerializes each
+  residual unit in the backward, ``checkpoint_blocks`` the root block and
+  each stage whose units are not (``models/resnet.py``): less memory for
+  a second forward, the same numbers."""
+
   width: int = 1
   depth: Union[int, Tuple[int, ...]] = 50
   limit_num_blocks: Optional[int] = 4
   skip_root_block: bool = False
+  checkpoint_blocks: bool = False
+  checkpoint_units: bool = False
   # A big_vision BiT ``.npz`` (``models/resnet.py:load_pretrained_variables``).
   pretrained_path: Optional[str] = _warm_start_field()
+
+
+# ``defaults.py:166-193``: the named trunks. R152x2 stops after its third
+# stage (1,024 x 2 channels at stride 16) and, like R101, rematerializes.
+RESNETS = {
+    'R50': ResNetConfig(),
+    'R152x2': ResNetConfig(width=2, depth=152, limit_num_blocks=3,
+                           checkpoint_blocks=True, checkpoint_units=True),
+    'R101': ResNetConfig(depth=101, checkpoint_blocks=True,
+                         checkpoint_units=True),
+    'R26': ResNetConfig(depth=26),
+    # Small config for tests and CPU smoke runs.
+    'tiny': ResNetConfig(depth=(1, 1), limit_num_blocks=2),
+}
+
+
+def resnet(name: str = 'R50') -> ResNetConfig:
+  """The trunk ``defaults.resnet(name)`` names."""
+  if name not in RESNETS:
+    raise ValueError(f'Unknown ResNet name: {name}')
+  return RESNETS[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,8 +208,9 @@ class BEVNetConfig:
   bev_net=1``): ``num_units`` bottleneck units of ``nmid`` (else a quarter
   of the plane's width) mid channels. ``checkpoint_units`` is a memory
   device of the XLA program (rematerialized units), numerically neutral:
-  read, and without effect in the port. The reference reads each key with
-  a default, so a config may leave any out."""
+  read, and without effect in the port (its two units are small beside
+  the trunk's). The reference reads each key with a default, so a config
+  may leave any out."""
 
   num_units: int = 2
   nmid: Optional[int] = None
@@ -425,8 +454,7 @@ def bench_full(batch_size: int = 1) -> Config:
 
 
 def _tiny_resnet(skip_root_block: bool = False) -> ResNetConfig:
-  return ResNetConfig(depth=(1, 1), limit_num_blocks=2,
-                      skip_root_block=skip_root_block)
+  return dataclasses.replace(resnet('tiny'), skip_root_block=skip_root_block)
 
 
 def smoke_exhaustive(batch_size: int = 2) -> Config:
@@ -480,10 +508,14 @@ def export_steps(workdir: str) -> Tuple[int, ...]:
   return ()
 
 
-def _check_continuation(continue_step: int, pretrained_mapper: str) -> None:
+def _check_continuation(continue_step: int, pretrained_mapper: str,
+                        scale: str) -> None:
   """Raise where ``train_localization.py:61-87`` raises."""
   if not pretrained_mapper:
     raise ValueError('continue_step requires pretrained_mapper=<export>')
+  if scale != 'full1chip':
+    raise ValueError('continue_step is only defined for scale=full1chip, '
+                     f'got scale={scale}')
   if not 0 < continue_step < FULL1CHIP_STEPS:
     raise ValueError(f'continue_step must be in (0, {FULL1CHIP_STEPS}), '
                      f'got {continue_step}')
@@ -570,13 +602,132 @@ def with_bev_net(config: Config, bev_net: int) -> Config:
       config.model, bev_mapper=mapper))
 
 
+# ``train_localization.py``'s scales: the paper's recipe (``full``: batch
+# 32, 400k steps), its per-chip shard (``full1chip``: batch 2, the 20k
+# recipe) and the from-scratch recipe at a smaller scene scale (``small``:
+# 0.4 m voxels, 10 views of 90x120, batch 8).
+SCALES = ('full', 'full1chip', 'small')
+POSE_BACKENDS = ('ransac', 'exhaustive')
+
+
+def _localization_schedule(scale: str, image_encoder: str,
+                           continue_step: int) -> TrainConfig:
+  """``train_localization.py:160-232``: the schedule and cadence of
+  ``scale``. ``small`` and ``full1chip`` warm up for 1,000 steps, then
+  decay by a cosine from step 4,000 to 20,000 (lr 5e-4 and 2e-4), clipped
+  at a gradient norm of 1; ``full`` is lr 5e-5 under a cosine from half
+  its 400k steps (200k for R152x2) on, unclipped. A ``continue_step``
+  (``full1chip`` only) runs the 20k recipe's tail from that step: a
+  100-step re-warmup, then the same cosine."""
+  if scale == 'full':
+    steps, checkpoint, summary, every = (
+        (200_000, 2_000, 500, 4_000) if image_encoder == 'R152x2'
+        else (400_000, 10_000, 1_000, 5_000))
+    lr = LrConfig(factors='constant * cosine_decay', base_learning_rate=5e-5,
+                  start_decay_step=steps // 2,
+                  steps_per_cycle=steps - steps // 2)
+    return TrainConfig(lr_configs=lr, num_training_steps=steps,
+                       checkpoint_steps=checkpoint, log_summary_steps=summary,
+                       log_eval_steps=every)
+  small = scale == 'small'
+  lr = LrConfig(factors='constant * linear_warmup * cosine_decay',
+                base_learning_rate=5e-4 if small else 2e-4,
+                warmup_steps=1_000, start_decay_step=4_000,
+                steps_per_cycle=16_000)
+  train = TrainConfig(lr_configs=lr, max_grad_norm=1.0,
+                      num_training_steps=FULL1CHIP_STEPS,
+                      checkpoint_steps=1_000 if small else 500,
+                      log_summary_steps=100, log_eval_steps=2_000,
+                      steps_per_eval=8)
+  if continue_step:
+    train = dataclasses.replace(
+        train, num_training_steps=FULL1CHIP_STEPS - continue_step,
+        lr_configs=dataclasses.replace(
+            lr, warmup_steps=100, start_decay_step=4_000 - continue_step))
+  return train
+
+
+def train_localization(image_encoder: str = 'R50',
+                       modalities: str = 'streetview+aerial',
+                       pose_backend: str = 'ransac', scale: str = 'full',
+                       pretrained_resnet: str = '', bev_net: int = 0,
+                       point_tile: int = 0, pretrained_mapper: str = '',
+                       continue_step: int = 0, batch_size: int = 0
+                       ) -> Config:
+  """``configs/train_localization.py`` with its arguments.
+
+  ``image_encoder`` names the street-view trunk (``resnet``: R50, R152x2
+  through its third stage, R101, R26 or tiny; the query's own mapper has
+  it when the map has no street views); the aerial trunk is R50 whatever
+  it names. ``pose_backend`` 'exhaustive' scores the full query grid with
+  unclipped scores, 'ransac' samples 10,000 poses x 8 retries over the
+  in-FoV query points. ``scale`` (``SCALES``): 'full' the paper's recipe,
+  batch 32 over 20 views of 180x240 at 0.2 m, 8,192 eval examples;
+  'full1chip' the same scene at batch 2 with the 20k recipe; 'small' 10
+  views of 90x120 at 0.4 m (a 60x80x30 grid), batch 8, 64 eval examples.
+  ``modalities``, ``bev_net``, ``pretrained_mapper``, ``pretrained_resnet``
+  and ``continue_step`` as ``train_full1chip_exhaustive`` has them; a
+  ``continue_step`` needs ``scale='full1chip'``. ``batch_size`` > 0
+  replaces the scale's (a global batch over the mesh's data ranks).
+
+  ``point_tile`` is read and has no effect: the reference's tile of the
+  lift's points in training, a memory device of the XLA program
+  (rematerialized tiles), numerically neutral, that the port's lift
+  backward does without.
+  """
+  del point_tile
+  if scale not in SCALES:
+    raise ValueError(f'scale={scale!r}; choose from {SCALES}')
+  if pose_backend not in POSE_BACKENDS:
+    raise ValueError(f'pose_backend={pose_backend!r}; choose from '
+                     f'{POSE_BACKENDS}')
+  cs = int(continue_step)
+  if cs:
+    _check_continuation(cs, pretrained_mapper, scale)
+  encoder = resnet(image_encoder)
+  if pretrained_resnet:
+    encoder = dataclasses.replace(encoder,
+                                  pretrained_path=str(pretrained_resnet))
+  mapper = BEVMapperConfig()
+  mapper = dataclasses.replace(
+      mapper, streetview_encoder=merge(
+          mapper.streetview_encoder, {'image_encoder': {'encoder': encoder}}),
+      pretrained_path=str(pretrained_mapper) if pretrained_mapper else None)
+  exhaustive = pose_backend == 'exhaustive'
+  # Dense voting needs the full query grid and linear (unclipped) scores.
+  model = BEVLocalizerConfig(
+      bev_mapper=mapper, pose_backend=pose_backend,
+      filter_points_in_fov=not exhaustive,
+      clip_negative_scores=not exhaustive, num_pose_samples=10_000,
+      num_pose_sampling_retries=8)
+  small = scale == 'small'
+  data = DataConfig(
+      num_views=10 if small else 20,
+      image_size=(90, 120) if small else (180, 240),
+      voxel_size=0.4 if small else 0.2, mode='pair_scene_view',
+      evaluation_size={'small': 64, 'full1chip': 32, 'full': 8_192}[scale],
+      num_workers=8 if small else 2,
+      locations=LocationsConfig(training=TRAIN_LOCATIONS),
+      shuffle_seed=SHUFFLE_SEED + cs)
+  config = Config(
+      model=model, data=data, dtype_str='bfloat16',
+      batch_size=int(batch_size) or {'small': 8, 'full1chip': 2,
+                                     'full': 32}[scale],
+      train=_localization_schedule(scale, image_encoder, cs))
+  return with_bev_net(with_modalities(
+      config, modalities, SemanticRasterEncoderConfig()), bev_net)
+
+
 def train_full1chip_exhaustive(batch_size: int = 2,
                                pretrained_mapper: str = '',
                                pretrained_resnet: str = '',
                                continue_step: int = 0,
                                modalities: str = 'streetview+aerial',
                                bev_net: int = 0) -> Config:
-  """``train_localization.py:scale=full1chip,pose_backend=exhaustive``.
+  """``train_localization.py:scale=full1chip,pose_backend=exhaustive``:
+  ``bench_full``'s model at the same widths, trained at batch 2 with z
+  jitter on the query, modality dropout, Adam and a warmup + cosine
+  schedule; no grid refinement.
 
   ``modalities`` (``'streetview+aerial[+semantic]'``, ``'aerial[+semantic]'``)
   picks the map encoders at full width; the semantic one is an R26 x2 over
@@ -590,52 +741,12 @@ def train_full1chip_exhaustive(batch_size: int = 2,
   ``pretrained_mapper`` (``:173-186``): a 100-step re-warmup, then the
   recipe's cosine tail, over the ``20000 - continue_step`` steps left, on
   a data seed moved by the step.
-
-  The JAX config also sets ``point_tile=288_000``: a memory device of the
-  XLA program (rematerialized point tiles), numerically neutral, that the
-  port's lift backward does without.
   """
-  cs = int(continue_step)
-  if cs:
-    _check_continuation(cs, pretrained_mapper)
-  serve = bench_full(batch_size)
-  lr = LrConfig(factors='constant * linear_warmup * cosine_decay',
-                base_learning_rate=2e-4, warmup_steps=1_000,
-                start_decay_step=4_000, steps_per_cycle=16_000)
-  train = TrainConfig(lr_configs=lr, max_grad_norm=1.0,
-                      num_training_steps=FULL1CHIP_STEPS,
-                      checkpoint_steps=500, log_summary_steps=100,
-                      log_eval_steps=2_000, steps_per_eval=8)
-  shuffle_seed = SHUFFLE_SEED
-  if cs:
-    train = dataclasses.replace(
-        train, num_training_steps=FULL1CHIP_STEPS - cs,
-        lr_configs=dataclasses.replace(lr, warmup_steps=100,
-                                       start_decay_step=4_000 - cs,
-                                       steps_per_cycle=16_000))
-    shuffle_seed = SHUFFLE_SEED + cs
-  data = dataclasses.replace(
-      serve.data, shuffle_seed=shuffle_seed, evaluation_size=32,
-      locations=LocationsConfig(training=TRAIN_LOCATIONS))
-  mapper = serve.model.bev_mapper
-  if pretrained_resnet:
-    streetview = mapper.streetview_encoder
-    encoder = dataclasses.replace(streetview.image_encoder.encoder,
-                                  pretrained_path=str(pretrained_resnet))
-    mapper = dataclasses.replace(mapper, streetview_encoder=merge(
-        streetview, {'image_encoder': {'encoder': encoder}}))
-  if pretrained_mapper:
-    mapper = dataclasses.replace(mapper,
-                                 pretrained_path=str(pretrained_mapper))
-  flagship = dataclasses.replace(
-      serve,
-      model=dataclasses.replace(serve.model, do_grid_refinement=False,
-                                num_pose_samples=10_000,
-                                num_pose_sampling_retries=8,
-                                bev_mapper=mapper),
-      data=data, train=train)
-  return with_bev_net(with_modalities(
-      flagship, modalities, SemanticRasterEncoderConfig()), bev_net)
+  return train_localization(
+      modalities=modalities, pose_backend='exhaustive', scale='full1chip',
+      pretrained_resnet=pretrained_resnet, bev_net=bev_net,
+      pretrained_mapper=pretrained_mapper, continue_step=continue_step,
+      batch_size=batch_size)
 
 
 def _tiny_semantic_encoder(dim: int = 32) -> SemanticRasterEncoderConfig:
@@ -671,18 +782,13 @@ def train_full1chip_ransac(batch_size: int = 2, pretrained_mapper: str = '',
                            bev_net: int = 0) -> Config:
   """``train_localization.py:scale=full1chip``, whose backend defaults to
   RANSAC: ``train_full1chip_exhaustive`` (its warm starts and continuation
-  included) with the model settings that ``:94-97`` overrides only for the
-  exhaustive backend left at the reference's defaults (the in-FoV query
-  points, clipped scores); 10,000 pose samples x 8 retries, no grid
-  refinement. The JAX config's ``point_tile=288_000`` is ignored, as in
-  ``train_full1chip_exhaustive``; ``modalities`` and ``bev_net`` as there.
-  """
-  flagship = train_full1chip_exhaustive(batch_size, pretrained_mapper,
-                                        pretrained_resnet, continue_step,
-                                        modalities, bev_net)
-  return dataclasses.replace(flagship, model=dataclasses.replace(
-      flagship.model, pose_backend='ransac', filter_points_in_fov=True,
-      clip_negative_scores=True))
+  included) with the in-FoV query points, clipped scores and 10,000 pose
+  samples x 8 retries; ``modalities`` and ``bev_net`` as there."""
+  return train_localization(
+      modalities=modalities, pose_backend='ransac', scale='full1chip',
+      pretrained_resnet=pretrained_resnet, bev_net=bev_net,
+      pretrained_mapper=pretrained_mapper, continue_step=continue_step,
+      batch_size=batch_size)
 
 
 def smoke_train_ransac(batch_size: int = 2,
@@ -1046,9 +1152,6 @@ def merge_eval_config(eval_config: EvalConfig, experiment: Config,
 
 # Keys the port reads and ignores, by the dataclass of their section.
 _IGNORED_KEYS = {
-    # Rematerialized blocks and units: memory devices of the XLA program,
-    # numerically neutral.
-    ResNetConfig: ('checkpoint_blocks', 'checkpoint_units'),
     # The lift's point tiles in training and at eval: memory devices of
     # the XLA program (rematerialized tiles), numerically neutral.
     StreetViewEncoderConfig: ('point_tile', 'point_tile_eval'),
@@ -1222,6 +1325,7 @@ CONFIGS = {
     'train_full1chip_exhaustive': train_full1chip_exhaustive,
     'smoke_train_exhaustive': smoke_train_exhaustive,
     'train_full1chip_ransac': train_full1chip_ransac,
+    'train_localization': train_localization,
     'smoke_train_ransac': smoke_train_ransac,
     'smoke_eval_ransac': smoke_eval_ransac,
     'eval_full1chip_ransac': eval_full1chip_ransac,

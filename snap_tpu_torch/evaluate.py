@@ -6,6 +6,9 @@ experiment over held-out cities.
         --workdir=weights/loc_full1chip_r5 --split=zurich,oslo
     python -m snap_tpu_torch.evaluate --eval_config=smoke_eval_localization \
         --workdir=<experiment> --split=smokeville --device=cpu
+    python -m snap_tpu_torch.evaluate \
+        --eval_config=eval_localization:evaluation_size=256,batch_size=8 \
+        --workdir=workdirs/run_small --split=zurich
     python -m snap_tpu_torch.evaluate --eval_config=eval_semantics \
         --evaluation_size=64 --workdir=<semantic head experiment>
     python -m snap_tpu_torch.evaluate --config=bench_full --num_queries=4
@@ -38,7 +41,10 @@ With ``--eval_config`` (the reference's mode, ``snap_tpu/evaluate.py``)
 the experiment in ``--workdir`` (its ``config.json`` in the reference's
 keys, ``params.npz`` and ``checkpoint.json``; ``tests/test_torch_recall.py
 --export`` writes one from a JAX export) is evaluated under the named eval
-config on each city of ``--split`` (``evaluator.run``): the dump of each
+config (its arguments after a colon, as the reference's ``--config``
+takes them) on each city of ``--split`` (``evaluator.run``), at the
+experiment's scene scale and trunk (a ``train_localization:scale=small``
+run's 10 views of 90x120 at 0.4 m, an R152x2 run's trunk): the dump of each
 lands in ``<workdir>/evaluation/<location><tag>/``, or an earlier dump of
 the same protocol is read back (``--eval_config=eval_semantics`` evaluates
 a semantic head's experiment on 'val-synthetic'). One JSON line per city
@@ -209,8 +215,14 @@ def evaluate(config_name: str = 'bench_full', num_queries: int = 4,
 
 
 def eval_config_from_args(args) -> configs.EvalConfig:
-  """The named eval config with the CLI's overrides."""
-  eval_config = configs.EVAL_CONFIGS[args.eval_config]()
+  """The named eval config (its arguments after a colon, as in
+  ``eval_localization:evaluation_size=256,batch_size=8``) with the CLI's
+  overrides."""
+  name, kwargs = configs.parse_config_name(args.eval_config)
+  if name not in configs.EVAL_CONFIGS:
+    raise ValueError(f'Unknown eval config {name!r}; choose from '
+                     f'{sorted(configs.EVAL_CONFIGS)}')
+  eval_config = configs.EVAL_CONFIGS[name](**kwargs)
   loader_config = dataclasses.replace(
       eval_config.data.loader,
       on_device_generation=on_device_flag(args.on_device_generation))
@@ -238,12 +250,13 @@ def city_summary(city: str, results, record) -> Dict[str, Any]:
 def main(argv=None) -> None:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--config', default=None,
-                      choices=sorted(configs.CONFIGS),
-                      help='localize queries of this config (default '
-                      'bench_full)')
+                      help='localize queries of this config of '
+                      'snap_tpu_torch.configs.CONFIGS, with its arguments '
+                      'after a colon (default bench_full)')
   parser.add_argument('--eval_config', default=None,
-                      choices=sorted(configs.EVAL_CONFIGS),
-                      help='evaluate the experiment in --workdir')
+                      help='evaluate the experiment in --workdir under this '
+                      'config of snap_tpu_torch.configs.EVAL_CONFIGS, with '
+                      'its arguments after a colon')
   parser.add_argument('--num_queries', type=int, default=4)
   parser.add_argument('--batch_size', type=int, default=None,
                       help='default 1, or the eval config\'s')

@@ -11,6 +11,13 @@ to change layouts. Numerics kept from the reference:
   3x3 convs and the 3x3-s2 max pool (padded with -inf), none for 1x1 convs;
 - inputs are rescaled from [0, 1] to [-1, 1] (embedded rasters too, as the
   reference rescales every input).
+
+Rematerialization follows the reference's ``nn.remat`` rule
+(``ResNetConfig.checkpoint_units`` / ``checkpoint_blocks``): a
+rematerialized module keeps only its input for the backward and runs its
+forward again there (``torch.utils.checkpoint``, non-reentrant), while
+autograd records. The second forward computes the same bits as the
+first, so the gradients are those of the plain trunk.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from snap_tpu_torch import configs
 
@@ -97,6 +105,16 @@ class RootBlock(nn.Module):
     return y.permute(0, 2, 3, 1)
 
 
+def remat(module: nn.Module, x: Tensor) -> Tensor:
+  """``module(x)``; while autograd records, its activations are dropped
+  and recomputed in the backward (``nn.remat``). The trunk draws no random
+  numbers, so no generator state is kept for the second forward."""
+  if not torch.is_grad_enabled():
+    return module(x)
+  return checkpoint.checkpoint(module, x, use_reentrant=False,
+                               preserve_rng_state=False)
+
+
 class ResidualUnit(nn.Module):
   """Pre-activation bottleneck unit."""
 
@@ -126,12 +144,14 @@ class ResidualUnit(nn.Module):
 
 
 class ResNetStage(nn.Module):
-  """A sequence of same-resolution bottleneck units ``unit01``, ``unit02``..."""
+  """A sequence of same-resolution bottleneck units ``unit01``, ``unit02``...,
+  each rematerialized with ``checkpoint_units``."""
 
   def __init__(self, block_size: int, nin: int, nmid: int, dtype: torch.dtype,
-               first_stride: int = 1):
+               first_stride: int = 1, checkpoint_units: bool = False):
     super().__init__()
     self.num_units = block_size
+    self.checkpoint_units = checkpoint_units
     for i in range(block_size):
       self.add_module(f'unit{i + 1:02d}', ResidualUnit(
           nin if i == 0 else nmid * 4, nmid, dtype,
@@ -139,7 +159,8 @@ class ResNetStage(nn.Module):
 
   def forward(self, x: Tensor) -> Tensor:
     for i in range(self.num_units):
-      x = getattr(self, f'unit{i + 1:02d}')(x)
+      unit = getattr(self, f'unit{i + 1:02d}')
+      x = remat(unit, x) if self.checkpoint_units else unit(x)
     return x
 
 
@@ -157,7 +178,10 @@ def get_block_desc(depth) -> List[int]:
 
 class ResNetV2(nn.Module):
   """BiT-variant ResNet returning each stage's last unit output, over
-  ``in_channels`` input channels (an image's 3, or embedded rasters')."""
+  ``in_channels`` input channels (an image's 3, or embedded rasters').
+  ``checkpoint_blocks`` rematerializes the root block, and each stage
+  whole where its units are not (``snap_tpu/models/resnet.py:180-187``);
+  a stride-1 stem (``skip_root_block``) is not rematerialized."""
 
   def __init__(self, config: configs.ResNetConfig, dtype: torch.dtype,
                in_channels: int = 3):
@@ -170,6 +194,9 @@ class ResNetV2(nn.Module):
     self.pretrained_path = config.pretrained_path
     self.level_names = [f'stage{i + 1}' for i in range(len(blocks))]
     self.skip_root_block = config.skip_root_block
+    self.checkpoint_blocks = config.checkpoint_blocks
+    self.checkpoint_stages = (config.checkpoint_blocks
+                              and not config.checkpoint_units)
     width = int(64 * config.width)
     if config.skip_root_block:
       # Stride-1 stem for BEV-aligned rasters (aerial, semantic).
@@ -181,16 +208,23 @@ class ResNetV2(nn.Module):
     for i, block_size in enumerate(blocks):
       nmid = width * 2**i
       self.add_module(f'block{i + 1}', ResNetStage(
-          block_size, nin, nmid, dtype, first_stride=1 if i == 0 else 2))
+          block_size, nin, nmid, dtype, first_stride=1 if i == 0 else 2,
+          checkpoint_units=config.checkpoint_units))
       nin = nmid * 4
       self.out_channels.append(nin)
 
   def forward(self, image: Tensor) -> Dict[str, Tensor]:
     x = image.to(self.dtype) * 2 - 1
-    x = self.conv_root(x) if self.skip_root_block else self.root_block(x)
+    if self.skip_root_block:
+      x = self.conv_root(x)
+    elif self.checkpoint_blocks:
+      x = remat(self.root_block, x)
+    else:
+      x = self.root_block(x)
     out = {}
     for i, name in enumerate(self.level_names):
-      x = out[name] = getattr(self, f'block{i + 1}')(x)
+      stage = getattr(self, f'block{i + 1}')
+      x = out[name] = remat(stage, x) if self.checkpoint_stages else stage(x)
     return out
 
   def load_pretrained_variables(self) -> Optional[Dict[str, Tensor]]:

@@ -11,6 +11,15 @@ mapper, in resumable chunks.
     python -m snap_tpu_torch.train --config=smoke_train_exhaustive \\
         --workdir=/tmp/smoke --stop_at_step=2 --device=cpu
     python -m snap_tpu_torch.train \\
+        --config=train_localization:scale=small,pose_backend=exhaustive \\
+        --workdir=workdirs/run_small --stop_at_step=2000
+    python -m snap_tpu_torch.train \\
+        --config=train_localization:scale=full1chip,pose_backend=exhaustive,image_encoder=R152x2 \\
+        --num_steps=3
+    python -m snap_tpu_torch.train \\
+        --config=train_localization:scale=small,pose_backend=exhaustive,image_encoder=tiny,batch_size=1 \\
+        --workdir=/tmp/small --stop_at_step=2 --device=cpu
+    python -m snap_tpu_torch.train \\
         --config=train_occupancy:scale=small,pretrained_mapper=weights/loc_full1chip_r5 \\
         --workdir=workdirs/occupancy --stop_at_step=1000
     python -m snap_tpu_torch.train --config=smoke_semantics --num_steps=3 \\
@@ -18,7 +27,18 @@ mapper, in resumable chunks.
     torchrun --nproc_per_node=2 -m snap_tpu_torch.train \\
         --config=train_full1chip_exhaustive:batch_size=4 --workdir=workdirs/dp
 
-``train_full1chip_exhaustive`` is the flagship run (dense pose volume);
+``train_localization`` is the reference's ``train_localization.py`` with
+its arguments: ``image_encoder`` (the street-view trunk: ``R50``,
+``R152x2`` through its third stage, ``R101``, ``R26`` or ``tiny``; R152x2 and
+R101 rematerialize their units), ``scale`` (``full``: the paper's batch 32
+and 400k steps, 200k for R152x2; ``full1chip``: batch 2 and the 20k
+recipe; ``small``: the from-scratch recipe, 10 views of 90x120 at 0.4 m,
+batch 8, 20k steps at lr 5e-4), ``pose_backend`` (``ransac``, its default,
+or ``exhaustive``), ``modalities``, ``bev_net``, ``pretrained_resnet``,
+``pretrained_mapper``, ``continue_step`` (``full1chip`` only),
+``point_tile`` (read, no effect) and ``batch_size``.
+``train_full1chip_exhaustive`` is the flagship run (dense pose volume),
+``train_localization`` at ``scale=full1chip,pose_backend=exhaustive``;
 ``train_full1chip_ransac`` is the reference's default backend, whose loss
 scores the step's sampled poses (B4) and backpropagates through their
 scores (B7); ``smoke_train_exhaustive`` and ``smoke_train_ransac`` are

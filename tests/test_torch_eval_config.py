@@ -181,7 +181,6 @@ def test_from_reference_ignores_memory_devices():
   d = _export_dict()
   sv = d['model']['bev_mapper']['streetview_encoder']
   sv['point_tile'], sv['point_tile_eval'] = 1000, 2000
-  sv['image_encoder']['encoder']['checkpoint_blocks'] = True
   assert configs.from_reference(d) == configs.from_reference(_export_dict())
 
 
